@@ -9,22 +9,34 @@ Phases, each printed on its own flushed line with the seconds since start:
              unigeo_tpu_torch/_build/
   kernel     the packed flash-attention kernel against its plain version at
              the five main-path shapes (batch 2), with kernel / plain /
-             scaled_dot_product_attention times and the bound
+             scaled_dot_product_attention times and the bound; then the
+             forward-with-logsumexp and the two backward kernels (dq, dk/dv)
+             at the three UNet training shapes in bf16 and one ragged f32
+             shape, the same numbers for each
   reference  the tiny pipeline in f32 on the card (kernel path) against the
-             same weights on the CPU (plain path)
+             same weights on the CPU (plain path); then one step of the tiny
+             trainer the same way: loss, every gradient, and the AdamW step
   main path  DepthCrafter.forward at SVD-XT width, 25 x 384 x 512, 5 Euler
              steps, bf16, random weights made on the card; the kernel's
              launch count against the count the configuration predicts;
              depth and normal metrics against an analytic tilted plane
+  profile    one more forward under torch.profiler
+  train      the port's trainer (unigeo_tpu_torch.train.main) at SVD-XT
+             width on synthetic 384 x 512 clips, bf16: one warm-up step and
+             three measured steps; losses, step seconds, peak memory, each
+             kernel's launches per step against the configuration's count,
+             and a gradient on every spatial to_q
 
 It exits non-zero, and prints no result, when there is no CUDA device or
 when any phase fails.  The second-last line is one JSON object with the
-kernel's numbers; the last is the run's summary for the device.
+kernels' numbers; the last is the run's summary for the device.
 """
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -35,11 +47,29 @@ T0 = time.perf_counter()
 # bf16 kernel vs plain version: the elementwise limit of
 # unigeo_tpu_torch.ops.attention.bf16_error_limit, 1.0625 * (2^-7 |ref| +
 # 2^-8 P|V|), from the two roundings in which the versions differ (P to bf16
-# before P.V, the output to bf16); a miss at any element fails the phase
+# before P.V, the output to bf16); a miss at any element fails the phase.
+# The backward: the elementwise limits of grad_error_limits (see there), in
+# bf16 1.0625 * (2^-7 |ref| + 2^-8 T + F), in f32 1.0625 * (2 n 2^-24 T + F).
+# f32 forward output: 1e-5 absolute (f32 in both, sums in another order).
+F32_OUT_TOL = 1e-5
+# the logsumexp, both dtypes: 1e-4 absolute (f32 in both from the same
+# inputs; sums in another order and exp2/log2, under 1e-6 relative on
+# values of order 10)
+LSE_TOL = 1e-4
 # the tiny pipeline in f32 on the card against the CPU: only the order of
 # sums differs, amplified by the 5-step loop from sigma_max = 700
 REFERENCE_TOL_REL = 1e-3
+# one step of the tiny trainer in f32, card (kernels, TF32 off) against CPU
+# (plain versions): the loss within 1e-4 relative; each gradient within
+# 1e-3 of its own largest magnitude plus 1e-5 of the model's largest
+# gradient (10x the CPU-vs-JAX bound of tests/test_torch_training.py, for
+# cuDNN's choice of convolution algorithms; the floor covers gradients that
+# are round-off in exact arithmetic, a bias before a group norm); the AdamW
+# step, both sides given the card's gradients, within 2^-22 + 1e-6 lr
+TRAIN_LOSS_TOL_REL = 1e-4
+TRAIN_GRAD_TOL, TRAIN_GRAD_FLOOR = 1e-3, 1e-5
 H100_BF16_FLOPS = 989e12
+H100_F32_FLOPS = 67e12  # CUDA cores (the f32 kernels use no tensor core)
 H100_BYTES_PER_S = 3.35e12
 
 
@@ -123,6 +153,145 @@ def phase_kernel(dev):
     return rows
 
 
+# training shapes of the forward-with-lse and backward kernels: (name, dtype,
+# Sq, Sk, H, D); the UNet's three spatial stages at batch 2 (the main path
+# runs batch 25) and one ragged f32 shape
+TRAIN_SHAPES = [
+    ("unet_stage0", torch.bfloat16, 3072, 3072, 5, 64),
+    ("unet_stage1", torch.bfloat16, 768, 768, 10, 64),
+    ("unet_stage2", torch.bfloat16, 192, 192, 20, 64),
+    ("ragged_f32", torch.float32, 257, 100, 4, 64),
+]
+
+
+def train_bounds(dtype, b, sq, sk, h, d):
+    """Least times (ms, bound_by) of the three functions on the card: fwd_lse
+    (q k^T and P v, q, k, v read, out and lse written), dq (S, dP, dS k;
+    q, k, v, dO, lse, delta read, dq written), dk/dv (S, dP, P^T dO,
+    dS^T q; the same read, dk and dv written), and the whole backward
+    (5 products, 10 B H Sq Sk D)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    mnk = float(b * h * sq * sk * d)
+    q_bytes, k_bytes, row_bytes = es * b * sq * h * d, es * b * sk * h * d, 4.0 * b * h * sq
+
+    def bound(flops, nbytes):
+        t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+    read = 2 * q_bytes + 2 * k_bytes + 2 * row_bytes  # q, dO, k, v, lse, delta
+    return {
+        "fwd_lse": bound(4 * mnk, q_bytes + 2 * k_bytes + q_bytes + row_bytes),
+        "bwd_dq": bound(6 * mnk, read + q_bytes),
+        "bwd_dkv": bound(8 * mnk, read + 2 * k_bytes),
+        "bwd": bound(10 * mnk, read + q_bytes + 2 * k_bytes),
+    }
+
+
+def phase_kernel_train(dev):
+    """The forward-with-lse and the dq, dk/dv kernels against their plain
+    versions at TRAIN_SHAPES, with kernel / plain / library times and the
+    bounds.  The backward's inputs (out, lse) are the fwd_lse kernel's,
+    the same for kernel and plain version."""
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.ops.attention import (
+        _bwd_plain,
+        _delta,
+        attention_bwd_reference,
+        attention_fwd_lse_reference,
+        bf16_error_limit,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd_lse,
+        grad_error_limits,
+    )
+    import torch.nn.functional as F
+
+    set_exact_f32()  # the f32 plain versions in full f32
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {"fwd_lse": [], "bwd_dq": [], "bwd_dkv": []}
+    b = KERNEL_BATCH
+    for name, dtype, sq, sk, h, d in TRAIN_SHAPES:
+        mk = lambda s_: torch.randn((b, s_, h * d), generator=gen, device=dev, dtype=dtype)
+        q, k, v, dout = mk(sq), mk(sk), mk(sk), mk(sq)
+        # forward with lse
+        out, lse = flash_attention_fwd_lse(q, k, v, h)
+        torch.cuda.synchronize()
+        ref, ref_lse = attention_fwd_lse_reference(q, k, v, h)
+        diff = (out.float() - ref.float()).abs()
+        if dtype == torch.bfloat16:
+            ratio = (diff / bf16_error_limit(q, k, v, h, ref)).max().item()
+        else:
+            ratio = diff.max().item() / F32_OUT_TOL
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not (ratio <= 1.0 and lse_err <= LSE_TOL):
+            raise AssertionError(f"fwd_lse {name}: max err/limit {ratio}, lse err {lse_err}")
+        big = sq * sk * h * d >= 1e9
+        iters = 5 if big else 20
+        split = lambda x, s_: x.view(b, s_, h, d).transpose(1, 2)
+        bounds = train_bounds(dtype, b, sq, sk, h, d)
+        fwd = dict(shape=name, dtype=str(dtype).split(".")[-1], b=b, sq=sq, sk=sk, h=h, d=d,
+                   max_abs_err=diff.max().item(), max_err_over_limit=ratio, lse_max_abs_err=lse_err,
+                   ms=time_ms(lambda: flash_attention_fwd_lse(q, k, v, h), iters),
+                   plain_ms=time_ms(lambda: attention_fwd_lse_reference(q, k, v, h), iters),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       split(q, sq), split(k, sk), split(v, sk)), iters),
+                   bound_ms=bounds["fwd_lse"][0], bound_by=bounds["fwd_lse"][1])
+        rows["fwd_lse"].append(fwd)
+
+        # backward, from the kernel's out and lse
+        grads = flash_attention_bwd(q, k, v, out, lse, dout, h)
+        torch.cuda.synchronize()
+        refs = attention_bwd_reference(q, k, v, out, lse, dout, h)
+        limits = grad_error_limits(q, k, v, out, lse, dout, h, refs)
+        errs = [(g.float() - r.float()).abs() for g, r in zip(grads, refs)]
+        ratios = [(e / lim).max().item() for e, lim in zip(errs, limits)]
+        if not max(ratios) <= 1.0:
+            raise AssertionError(f"bwd {name}: max err/limit dq, dk, dv {ratios}")
+        delta = _delta(out, dout, h)
+        scale = d**-0.5
+        qs, ks, vs = (split(x, s_).detach().requires_grad_()
+                      for x, s_ in ((q, sq), (k, sk), (v, sk)))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
+        g_sdpa = split(dout, sq)
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qs, ks, vs), g_sdpa, retain_graph=True), iters)
+        whole_plain_ms = time_ms(lambda: attention_bwd_reference(q, k, v, out, lse, dout, h), iters)
+        for kernel, wrapper, parts, err, ratio_k in (
+            ("bwd_dq", lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta, h), ("dq",),
+             errs[0].max().item(), ratios[0]),
+            ("bwd_dkv", lambda: flash_attention_bwd_dkv(q, k, v, dout, lse, delta, h),
+             ("dk", "dv"), max(errs[1].max().item(), errs[2].max().item()), max(ratios[1:])),
+        ):
+            rows[kernel].append(dict(
+                shape=name, dtype=fwd["dtype"], b=b, sq=sq, sk=sk, h=h, d=d,
+                max_abs_err=err, max_err_over_limit=ratio_k,
+                ms=time_ms(wrapper, iters),
+                plain_ms=time_ms(lambda: _bwd_plain(q, k, v, dout, lse, delta, h, scale, parts),
+                                 iters),
+                # one PyTorch call computing dq, dk and dv together
+                library_ms=lib_bwd_ms,
+                bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1],
+                whole_bwd_plain_ms=whole_plain_ms, whole_bwd_bound_ms=bounds["bwd"][0],
+            ))
+        dq_row, dkv_row = rows["bwd_dq"][-1], rows["bwd_dkv"][-1]
+        log("kernel", f"{name} [B={b},Sq={sq},Sk={sk},H={h},D={d},{fwd['dtype']}] fwd_lse: "
+            f"max_err/limit={fwd['max_err_over_limit']:.3f} lse_err={lse_err:.2e} "
+            f"ms={fwd['ms']:.4f} plain_ms={fwd['plain_ms']:.4f} "
+            f"library_ms={fwd['library_ms']:.4f} bound_ms={fwd['bound_ms']:.5f}")
+        log("kernel", f"{name} bwd: max_err/limit dq={ratios[0]:.3f} dk={ratios[1]:.3f} "
+            f"dv={ratios[2]:.3f} dq_ms={dq_row['ms']:.4f} dkv_ms={dkv_row['ms']:.4f} "
+            f"plain_ms dq={dq_row['plain_ms']:.4f} dkv={dkv_row['plain_ms']:.4f} "
+            f"whole={whole_plain_ms:.4f} library_bwd_ms={lib_bwd_ms:.4f} bound_ms "
+            f"dq={dq_row['bound_ms']:.5f} dkv={dkv_row['bound_ms']:.5f} "
+            f"whole={bounds['bwd'][0]:.5f} ({bounds['bwd'][1]})")
+        del q, k, v, dout, out, lse, ref, grads, refs, limits, errs, sdpa_out, qs, ks, vs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_reference(dev):
     """Tiny pipeline: card (kernel at 256 latent tokens, d = 16 and 32) vs CPU."""
     from unigeo_tpu_torch.device import set_exact_f32
@@ -154,26 +323,126 @@ def phase_reference(dev):
     torch.cuda.empty_cache()
 
 
-def predicted_launches(unet_cfg, clip_cfg, h, w, steps):
-    """Packed-kernel launches of one forward, from the configuration: every
-    attention whose query sequence has at least 128 tokens."""
+def kernel_wrappers():
+    """name -> the wrapper whose ``launches`` counts that kernel."""
+    from unigeo_tpu_torch.ops import attention as att
+
+    return {
+        "flash_attention_packed": att.flash_attention_packed,
+        "flash_attention_fwd_lse": att.flash_attention_fwd_lse,
+        "flash_attention_bwd_dq": att.flash_attention_bwd_dq,
+        "flash_attention_bwd_dkv": att.flash_attention_bwd_dkv,
+    }
+
+
+def reset_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def phase_reference_train(dev):
+    """One step of the tiny trainer in f32: card (kernels at 256 latent
+    tokens, d = 16; TF32 off) against the same weights, batch and draws on
+    the CPU (plain versions).  Loss and every gradient; then the CPU's AdamW
+    is given the card's gradients and both parameter sets are compared."""
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.models.depthcrafter.pipeline import init_random_
+    from unigeo_tpu_torch.models.depthcrafter.unet import UNetSpatioTemporal, tiny_unet_config
+    from unigeo_tpu_torch.parallel.trainer import DiffusionTrainer
+
+    set_exact_f32()
+    cfg = tiny_unet_config()
+    b, t, hl, wl, lr = 1, 2, 16, 16, 1e-3
+    gpu_unet = init_random_(UNetSpatioTemporal(**cfg).to(dev),
+                            torch.Generator(device=dev).manual_seed(4))
+    cpu_unet = UNetSpatioTemporal(**cfg)
+    cpu_unet.load_state_dict({k: v.cpu() for k, v in gpu_unet.state_dict().items()})
+    rng = np.random.default_rng(6)
+    batch = {
+        "latents": rng.standard_normal((b, t, hl, wl, 4)).astype(np.float32),
+        "cond_latents": rng.standard_normal((b, t, hl, wl, 4)).astype(np.float32),
+        "context": rng.standard_normal((b, t, 1, cfg["cross_attention_dim"])).astype(np.float32),
+    }
+    n = rng.standard_normal((b, 1, 1, 1, 1)).astype(np.float32)
+    noise = rng.standard_normal((b, t, hl, wl, 4)).astype(np.float32)
+    gpu_tr = DiffusionTrainer(gpu_unet, learning_rate=lr)
+    cpu_tr = DiffusionTrainer(cpu_unet, learning_rate=lr)
+
+    before = read_counts()
+    loss_gpu = float(gpu_tr.train_step(batch, n, noise))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in read_counts().items()}
+    loss_cpu = cpu_tr.loss(batch, n, noise)
+    loss_cpu.backward()
+    loss_rel = abs(loss_gpu - loss_cpu.item()) / abs(loss_cpu.item())
+
+    gpu_params = dict(gpu_unet.named_parameters())
+    g_all = max(p.grad.abs().max().item() for p in cpu_tr.params if p.grad is not None)
+    grad_ratio = 0.0
+    for name, p in cpu_unet.named_parameters():
+        g_card = gpu_params[name].grad.cpu()
+        g_ref = torch.zeros_like(p) if p.grad is None else p.grad
+        limit = TRAIN_GRAD_TOL * g_ref.abs().max().item() + TRAIN_GRAD_FLOOR * g_all
+        grad_ratio = max(grad_ratio, (g_card - g_ref).abs().max().item() / limit)
+        p.grad = g_card
+    cpu_tr.optimizer.step()
+    step_tol = 2.0**-22 + 1e-6 * lr
+    step_err = max((gpu_params[name].detach().cpu() - p.detach()).abs().max().item()
+                   for name, p in cpu_unet.named_parameters())
+    kernels = ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    if not (loss_rel <= TRAIN_LOSS_TOL_REL and grad_ratio <= 1.0 and step_err <= step_tol
+            and all(launched[k] > 0 for k in kernels)):
+        raise AssertionError(f"tiny trainer card vs CPU: loss rel {loss_rel}, grad err/limit "
+                             f"{grad_ratio}, step err {step_err}, launches {launched}")
+    log("reference", f"tiny trainer step 1x2x16x16 latents f32 card vs CPU: loss "
+        f"{loss_gpu:.6f} rel dev {loss_rel:.3e} (tol {TRAIN_LOSS_TOL_REL}), max grad "
+        f"err/limit {grad_ratio:.3e}, AdamW step max dev {step_err:.3e} (tol {step_tol:.3e}), "
+        f"kernel launches {json.dumps(launched)}")
+    del gpu_unet, gpu_tr
+    torch.cuda.empty_cache()
+
+
+def unet_kernel_attentions(unet_cfg, h, w):
+    """Spatial attentions of one UNet evaluation with at least 128 query
+    tokens (the kernel path), from the configuration."""
     from unigeo_tpu_torch.ops.attention import MIN_KERNEL_SEQ
 
     n = len(unet_cfg["block_out_channels"])
     layers = unet_cfg["layers_per_block"]
     hl, wl = h // 8, w // 8
-    per_unet = 0
+    count = 0
     for stage in range(n - 1):  # the last stage has no attention in the down/up path
-        tokens = (hl >> stage) * (wl >> stage)
-        if tokens >= MIN_KERNEL_SEQ:
-            per_unet += layers + (layers + 1)  # down + up transformers
+        if (hl >> stage) * (wl >> stage) >= MIN_KERNEL_SEQ:
+            count += layers + (layers + 1)  # down + up transformers
     if (hl >> (n - 1)) * (wl >> (n - 1)) >= MIN_KERNEL_SEQ:
-        per_unet += 1  # mid block
+        count += 1  # mid block
+    return count
+
+
+def clip_kernel_attentions(clip_cfg):
+    from unigeo_tpu_torch.ops.attention import MIN_KERNEL_SEQ
+
     grid = clip_cfg["image_size"] // clip_cfg["patch_size"]
-    clip = clip_cfg["depth"] if grid * grid + 1 >= MIN_KERNEL_SEQ else 0
-    vae_tokens = (h // 8) * (w // 8)
-    vae = 2 if vae_tokens >= MIN_KERNEL_SEQ else 0  # encoder + decoder mid blocks
-    return steps * per_unet + clip + vae
+    return clip_cfg["depth"] if grid * grid + 1 >= MIN_KERNEL_SEQ else 0
+
+
+def vae_mid_attentions(h, w):
+    """1 if the VAE's mid-block attention (at 1/8 resolution) takes the kernel."""
+    from unigeo_tpu_torch.ops.attention import MIN_KERNEL_SEQ
+
+    return 1 if (h // 8) * (w // 8) >= MIN_KERNEL_SEQ else 0
+
+
+def predicted_launches(unet_cfg, clip_cfg, h, w, steps):
+    """Packed-kernel launches of one forward, from the configuration: every
+    attention whose query sequence has at least 128 tokens (steps UNet
+    evaluations, CLIP, the VAE's encoder and decoder mid blocks)."""
+    return (steps * unet_kernel_attentions(unet_cfg, h, w) + clip_kernel_attentions(clip_cfg)
+            + 2 * vae_mid_attentions(h, w))
 
 
 def tilted_plane_clip(t, h, w):
@@ -212,20 +481,22 @@ def tilted_plane_clip(t, h, w):
     }
 
 
+SVD_XT_UNET = dict(block_out_channels=(320, 640, 1280, 1280), layers_per_block=2,
+                   num_attention_heads=(5, 10, 20, 20), cross_attention_dim=1024,
+                   addition_time_embed_dim=256, head_dim=64)
+SVD_XT_CLIP = dict(width=1280, depth=32, num_heads=16, patch_size=14,
+                   projection_dim=1024, image_size=224)
+
+
 def phase_main(dev):
     from unigeo_tpu_torch.data.sample import prepare_gt_label
     from unigeo_tpu_torch.metrics.depth import depth_evaluation
     from unigeo_tpu_torch.metrics.normal import normal_evaluation
     from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
     from unigeo_tpu_torch.models.depthcrafter.pipeline import DepthCrafterPipeline
-    from unigeo_tpu_torch.ops.attention import flash_attention_packed
 
     t, h, w, steps = 25, 384, 512, 5
-    unet_cfg = dict(block_out_channels=(320, 640, 1280, 1280), layers_per_block=2,
-                    num_attention_heads=(5, 10, 20, 20), cross_attention_dim=1024,
-                    addition_time_embed_dim=256, head_dim=64)
-    clip_cfg = dict(width=1280, depth=32, num_heads=16, patch_size=14,
-                    projection_dim=1024, image_size=224)
+    unet_cfg, clip_cfg = SVD_XT_UNET, SVD_XT_CLIP
     t_init = time.perf_counter()
     pipe = DepthCrafterPipeline(unet_config=unet_cfg, clip_config=clip_cfg,
                                 dtype=torch.bfloat16, device=dev)
@@ -245,20 +516,23 @@ def phase_main(dev):
     log("main", f"first forward {time.perf_counter() - t_first:.2f}s")
 
     torch.cuda.reset_peak_memory_stats(dev)
-    flash_attention_packed.launches = 0
+    reset_counts()
     t_run = time.perf_counter()
     out = model.forward(data, time_stages=True)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
-    launches = flash_attention_packed.launches
+    counts = read_counts()
+    launches = counts["flash_attention_packed"]
     predicted = predicted_launches(unet_cfg, clip_cfg, h, w, steps)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     stage_ms = model.last_stage_ms
     log("main", f"stage_ms {json.dumps({k: round(v, 2) for k, v in stage_ms.items()})} "
         f"forward_s {run_s:.3f} frames_per_s {t / run_s:.3f} peak_mem_gib {peak_gib:.2f}")
-    log("main", f"kernel launches {launches}, predicted {predicted}")
+    log("main", f"kernel launches {json.dumps(counts)}, packed predicted {predicted}")
     if launches != predicted:
         raise AssertionError(f"kernel launches {launches} != predicted {predicted}")
+    if any(n for name, n in counts.items() if name != "flash_attention_packed"):
+        raise AssertionError(f"the forward launched a training kernel: {counts}")
 
     depths, normals = out["pred_depths"], out["pred_normals"]
     if depths.shape != (t, h, w) or normals.shape != (t, h, w, 3):
@@ -277,41 +551,172 @@ def phase_main(dev):
     if not all(np.isfinite(v) for v in scores.values()):
         raise AssertionError(f"non-finite metrics {scores}")
     log("main", f"metrics (random weights) {json.dumps(scores)}")
-    profile_forward(model, data)
+    profile_device("profile", lambda: model.forward(data), {"flash_kernel": "flash_packed"})
     return launches, stage_ms
 
 
-def profile_forward(model, data):
-    """One more forward under torch.profiler: device time by kernel, the
-    packed kernel's share of it, the device's busy share of the wall, and
-    the operators that launch the most device time, by input shape."""
+def profile_device(phase, run, groups):
+    """``run()`` once more under torch.profiler: device time by kernel, the
+    device ms and share of each group of kernels (``groups``: label -> a
+    substring of the kernel names), the device's busy share of the wall, the
+    device time of annotated ranges such as the optimizer step, and the
+    operators that launch the most device time, by input shape."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         t0 = time.perf_counter()
-        model.forward(data)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    kernels.sort(key=lambda r: -r[1])
+    # user-annotated ranges (the optimizer's step) carry the device time of
+    # the kernels inside them, which are listed too: kept apart, not summed
+    device = [(e.key, e.self_device_time_total / 1e3, e.count,
+               bool(getattr(e, "is_user_annotation", False)))
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = sorted((r[:3] for r in device if not r[3]), key=lambda r: -r[1])
+    ranges = sorted((r[:3] for r in device if r[3]), key=lambda r: -r[1])
     device_ms = sum(r[1] for r in kernels)
-    flash_ms = sum(r[1] for r in kernels if "flash_packed" in r[0])
     ops = [(e.key, str(e.input_shapes)[:120], e.device_time_total / 1e3, e.count)
            for e in prof.key_averages(group_by_input_shape=True)
            if e.device_type == DeviceType.CPU and e.key.startswith("aten::")
            and e.key not in ("aten::copy_", "aten::to", "aten::_to_copy")]
     ops.sort(key=lambda r: -r[2])
-    log("profile", json.dumps({
-        "wall_ms": round(wall_ms, 2), "device_ms": round(device_ms, 2),
-        "device_busy_share": round(device_ms / wall_ms, 4),
-        "flash_kernel_ms": round(flash_ms, 2),
-        "flash_kernel_share_of_device": round(flash_ms / max(device_ms, 1e-9), 4),
-        "top_kernels": [[name[:90], round(ms, 2), n] for name, ms, n in kernels[:12]],
-        "top_ops": [[name, shapes, round(ms, 2), n] for name, shapes, ms, n in ops[:12]],
-    }))
+    summary = {"wall_ms": round(wall_ms, 2), "device_ms": round(device_ms, 2),
+               "device_busy_share": round(device_ms / wall_ms, 4)}
+    for label, key in groups.items():
+        ms = sum(r[1] for r in kernels if key in r[0])
+        summary[f"{label}_ms"] = round(ms, 2)
+        summary[f"{label}_share_of_device"] = round(ms / max(device_ms, 1e-9), 4)
+    summary["top_kernels"] = [[name[:90], round(ms, 2), n] for name, ms, n in kernels[:12]]
+    summary["annotated_ranges"] = [[name[:90], round(ms, 2), n] for name, ms, n in ranges[:4]]
+    summary["top_ops"] = [[name, shapes, round(ms, 2), n] for name, shapes, ms, n in ops[:12]]
+    log(phase, json.dumps(summary))
+    return summary
+
+
+# the training phase: frames per clip, resolution, measured steps after one
+# warm-up step
+TRAIN_FRAMES, TRAIN_H, TRAIN_W, TRAIN_STEPS = 25, 384, 512, 3
+
+
+def phase_train(dev):
+    """The port's train.main at SVD-XT width, bf16, random weights made on the
+    card, on synthetic box clips rendered at the training resolution (no
+    resize, so no PIL).  Counts are set to 0 after the warm-up step and read
+    after the last; per step they must equal the configuration's count."""
+    from unigeo_tpu_torch import train
+
+    config = dict(
+        dataset="SyntheticBoxDataset", root=None, h=TRAIN_H, w=TRAIN_W,
+        clip_length=TRAIN_FRAMES, clip_overlap=0, split="test", model_name="DepthCrafter",
+        dataset_params=dict(render_size=[TRAIN_H, TRAIN_W], num_scenes=1,
+                            frames_per_scene=TRAIN_FRAMES),
+        model_params=dict(unet_config=SVD_XT_UNET, clip_config=SVD_XT_CLIP),
+    )
+    steps = []
+
+    def on_step(step, loss, seconds):
+        steps.append(dict(step=step, loss=loss, seconds=seconds))
+        log("train", f"step {step}{' (warm-up)' if step == 0 else ''}: loss {loss:.6f} "
+            f"step_s {seconds:.3f}")
+        if step == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+
+    log_dir = tempfile.mkdtemp(prefix="unigeo_train_logs_")
+    t0 = time.perf_counter()
+    try:
+        out = train.main(["--steps", str(1 + TRAIN_STEPS), "--log-dir", log_dir],
+                         config=config, on_step=on_step)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+
+    unet = out["trainer"].unet
+    n_params = sum(p.numel() for p in unet.parameters())
+    # the self-attention query projections, spatial (the kernel path at
+    # stages 0-2, the plain one in the 48-token mid block) and temporal
+    to_q = {name: p.grad for name, p in unet.named_parameters()
+            if name.endswith("transformer_blocks.0.attn1.to_q.weight")}
+    spatial = [name for name in to_q if ".transformer_blocks.0." in "." + name]
+    no_grad = [name for name, g in to_q.items() if g is None or not torch.any(g != 0)]
+    per_step = {
+        "flash_attention_fwd_lse": unet_kernel_attentions(SVD_XT_UNET, TRAIN_H, TRAIN_W),
+        "flash_attention_bwd_dq": unet_kernel_attentions(SVD_XT_UNET, TRAIN_H, TRAIN_W),
+        "flash_attention_bwd_dkv": unet_kernel_attentions(SVD_XT_UNET, TRAIN_H, TRAIN_W),
+        # batch building: CLIP, and the VAE encoder's mid block for the RGB
+        # conditioning and the depth target
+        "flash_attention_packed": clip_kernel_attentions(SVD_XT_CLIP)
+        + 2 * vae_mid_attentions(TRAIN_H, TRAIN_W),
+    }
+    predicted = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    measured = steps[1:]
+    losses = [r["loss"] for r in measured]
+    step_s = [r["seconds"] for r in measured]
+    log("train", f"{TRAIN_STEPS} steps after warm-up: losses {losses} step_s {step_s} "
+        f"mean_step_s {sum(step_s) / len(step_s):.3f} frames {TRAIN_FRAMES} "
+        f"{TRAIN_H}x{TRAIN_W}, UNet params {n_params / 1e9:.3f} B, peak_mem_gib "
+        f"{peak_gib:.2f} of {card_gib:.2f}, whole phase {total_s:.1f}s")
+    log("train", f"kernel launches over {TRAIN_STEPS} steps {json.dumps(counts)}, "
+        f"predicted {json.dumps(predicted)}")
+    log("train", f"self-attention to_q with a non-zero gradient: spatial "
+        f"{len([n for n in spatial if n not in no_grad])} of {len(spatial)}, temporal "
+        f"{len([n for n in to_q if n not in spatial and n not in no_grad])} of "
+        f"{len(to_q) - len(spatial)}")
+    if not all(np.isfinite(x) for x in [r["loss"] for r in steps]):
+        raise AssertionError(f"non-finite training loss: {steps}")
+    if counts != predicted:
+        raise AssertionError(f"training launches {counts} != predicted {predicted}")
+    if no_grad or not spatial:
+        raise AssertionError(f"self-attention to_q without a gradient: {no_grad}")
+    if peak_gib > 0.9 * card_gib:
+        raise AssertionError(f"peak {peak_gib:.2f} GiB leaves less than 10% of {card_gib:.2f}")
+    result = dict(losses=losses, step_s=step_s, peak_mem_gib=peak_gib, frames=TRAIN_FRAMES,
+                  launches=counts, launches_per_step=per_step)
+    del to_q
+    batch = train.build_batch_diffusion([out["dataset"][0]], out["pipe"])
+    prof = profile_device("profile", lambda: out["trainer"].train_step(batch),
+                          {"flash_fwd_lse": "flash_fwd_lse", "flash_bwd_dq": "bwd_dq",
+                           "flash_bwd_dkv": "bwd_dkv"})
+    # the profiler stretches the step's wall; the device time against the
+    # unprofiled steps' mean is the busy share of a step as it runs
+    log("profile", f"training step: device_ms {prof['device_ms']} over the unprofiled mean "
+        f"step {1e3 * sum(step_s) / len(step_s):.1f} ms: busy share "
+        f"{prof['device_ms'] / (1e3 * sum(step_s) / len(step_s)):.3f}")
+    del out, unet, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def summarize(name, source, replaces, rows, launches, extra=None):
+    """One entry of the kernels line: sums over the shapes, each shape below."""
+    sums = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    entry = {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_err_over_limit": max(r["max_err_over_limit"] for r in rows),
+        # sums over the shapes at batch 2; per shape below
+        "ms": sums["ms"],
+        "plain_ms": sums["plain_ms"],
+        "bound_ms": sums["bound_ms"],
+        "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": sums["library_ms"],
+    }
+    entry.update(extra or {})
+    entry["shapes"] = rows
+    return entry
 
 
 def main():
@@ -335,28 +740,42 @@ def main():
     log("build", f"{built} -> {_build.library_path()}")
 
     rows = phase_kernel(dev)
+    train_rows = phase_kernel_train(dev)
     torch.cuda.synchronize()
     phase_reference(dev)
+    phase_reference_train(dev)
     torch.cuda.synchronize()
     launches, _ = phase_main(dev)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    trained = phase_train(dev)
+    torch.cuda.synchronize()
 
-    sums = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    kernels = [{
-        "name": "flash_attention_packed",
-        "route": "cuda",
-        "source": "unigeo_tpu_torch/csrc/flash_attention_packed.cu",
-        "replaces": "unigeo_tpu/ops/attention.py:298",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # sums over the five main-path shapes at batch 2; per shape below
-        "ms": sums["ms"],
-        "plain_ms": sums["plain_ms"],
-        "bound_ms": sums["bound_ms"],
-        "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-        "library_ms": sums["library_ms"],
-        "shapes": rows,
-    }]
+    src = "unigeo_tpu_torch/csrc/"
+    per_step = trained["launches_per_step"]
+    kernels = [
+        summarize("flash_attention_packed", src + "flash_attention_packed.cu",
+                  "unigeo_tpu/ops/attention.py:298", rows, launches,
+                  {"launches_train": trained["launches"]["flash_attention_packed"],
+                   "launches_train_per_step": per_step["flash_attention_packed"]}),
+        summarize("flash_attention_fwd_lse", src + "flash_attention_packed.cu",
+                  "unigeo_tpu/ops/attention.py:529", train_rows["fwd_lse"],
+                  trained["launches"]["flash_attention_fwd_lse"],
+                  {"launches_per_step": per_step["flash_attention_fwd_lse"]}),
+        summarize("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
+                  "unigeo_tpu/ops/attention.py:582", train_rows["bwd_dq"],
+                  trained["launches"]["flash_attention_bwd_dq"],
+                  {"launches_per_step": per_step["flash_attention_bwd_dq"],
+                   "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)"}),
+        summarize("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
+                  "unigeo_tpu/ops/attention.py:582", train_rows["bwd_dkv"],
+                  trained["launches"]["flash_attention_bwd_dkv"],
+                  {"launches_per_step": per_step["flash_attention_bwd_dkv"],
+                   "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)"}),
+    ]
+    for k in kernels:
+        if not k["launches"] > 0:
+            raise AssertionError(f"{k['name']} was not launched on its main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,19 +1,33 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  They import
 no JAX, so they run on a machine that has only PyTorch:
 
     python -m pytest -o addopts="" --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: f32 inputs (the CUDA-core path), f32 arithmetic in both
-versions, only the order of the sums differs: 1e-5 absolute on outputs of
-order 1.  bf16 inputs (the tensor-core path): the elementwise limit of
-``bf16_error_limit``, 1.0625 * (2^-7 |ref| + 2^-8 P|V|), from the two
-roundings in which the versions differ (P to bf16 before P.V, the output to
-bf16), each at most bf16's unit roundoff 2^-8; at least 3.3e-3 for these
-N(0,1) inputs (P|V| is about 0.8).  The planted-fault test shows
-that the limit fails a kernel that drops one key tile or the ragged-edge
-mask at the main-path shapes.
+Tolerances, forward (the packed kernel and the lse kernel's output): f32
+inputs (the CUDA-core path), f32 arithmetic in both versions, only the order
+of the sums differs: 1e-5 absolute on outputs of order 1.  bf16 inputs (the
+tensor-core path): the elementwise limit of ``bf16_error_limit``,
+1.0625 * (2^-7 |ref| + 2^-8 P|V|), from the two roundings in which the
+versions differ (P to bf16 before P.V, the output to bf16), each at most
+bf16's unit roundoff 2^-8; at least 3.3e-3 for these N(0,1) inputs (P|V| is
+about 0.8).  The logsumexp: 1e-4 absolute in both dtypes (f32 in both
+versions from the same inputs, sums in another order and exp2/log2 for
+exp/log, each under 1e-6 relative on values of order 10).
+
+Backward (dq, dk, dv): the elementwise limits of ``grad_error_limits``; in
+bf16 1.0625 * (2^-7 |ref| + 2^-8 T + F), T being P^T|dO| for dv, |dS||k| for
+dq and |dS|^T|q| for dk, from the three roundings in which the versions
+differ (P before dv, dS before dq and dk, each gradient once); in f32
+1.0625 * (2 max(Sq, Sk) 2^-24 T + F), the first-order bound of the last
+product's sums taken in another order.  F carries the f32 error of S and dP
+(D 2^-24 of their magnitude sums) through P and dS; it holds the S_k = 1
+cases, where dP - delta cancels and dS is zero in exact arithmetic.
+
+The planted-fault tests show that the limits fail a kernel that drops one
+key tile or the ragged-edge mask (forward), or skips one query tile of
+dk/dv or the ragged-column mask of dq (backward).
 """
 
 import os
@@ -26,9 +40,18 @@ from unigeo_tpu_torch import _build
 from unigeo_tpu_torch.device import set_exact_f32
 from unigeo_tpu_torch.ops import attention
 from unigeo_tpu_torch.ops.attention import (
+    FlashAttentionPacked,
+    _delta,
+    attention_bwd_reference,
+    attention_fwd_lse_reference,
     attention_packed_reference,
     bf16_error_limit,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_fwd_lse,
     flash_attention_packed,
+    grad_error_limits,
 )
 
 pytestmark = pytest.mark.cuda
@@ -112,43 +135,62 @@ def test_kernel_matches_plain_bf16_main_path_shapes(cuda, b, s, h, d):
     assert ratio <= 1.0, ratio
 
 
-# textual faults planted in a copy of the kernel source: (anchor, replacement)
+# textual faults planted in a copy of a kernel source: (file, anchor, replacement)
 PLANTED_FAULTS = {
-    # the tensor-core loop skips its eighth key tile
+    # the forward's tensor-core loop skips its eighth key tile
     "drop_key_tile": (
+        "flash_attention_packed.cu",
         "  for (int k0 = 0; k0 < Sk; k0 += BK) {\n    __syncthreads();\n    load_tile<",
         "  for (int k0 = 0; k0 < Sk; k0 += BK) {\n    if (k0 == 7 * BK) continue;\n"
         "    __syncthreads();\n    load_tile<",
     ),
-    # keys past Sk (zero-filled) keep their score instead of -inf
+    # forward: keys past Sk (zero-filled) keep their score instead of -inf
     "no_ragged_mask": (
+        "flash_attention_packed.cu",
         "s[j][e] = key < Sk ? s[j][e] * scale_log2 : -INFINITY;",
         "s[j][e] = s[j][e] * scale_log2;",
+    ),
+    # backward: the tensor-core dk/dv kernel skips its eighth query tile
+    "skip_query_tile": (
+        "flash_attention_bwd.cu",
+        "  for (int q0 = 0; q0 < Sq; q0 += kMmaTile) {  // query tiles (tensor cores)\n"
+        "    __syncthreads();",
+        "  for (int q0 = 0; q0 < Sq; q0 += kMmaTile) {  // query tiles (tensor cores)\n"
+        "    if (q0 == 7 * kMmaTile) continue;\n    __syncthreads();",
+    ),
+    # backward: the tensor-core dq kernel lets the clamped rows past Sk into P
+    "dq_no_ragged_mask": (
+        "flash_attention_bwd.cu",
+        "const float p = key < Sk ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;",
+        "const float p = exp2f(s[j][e] * scale_log2 - lse2[e >> 1]);",
     ),
 }
 
 
 @pytest.fixture(scope="module")
 def faulty_libraries(tmp_path_factory):
-    """One library per planted fault, built from a mutated copy of the
-    source in a temporary directory; the nvcc runs go in parallel."""
+    """One library per planted fault, built from a copy of every kernel
+    source with one of them mutated, in a temporary directory; the nvcc runs
+    go in parallel."""
+    import shutil
     from concurrent.futures import ThreadPoolExecutor
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
-    src = os.path.join(_build.CSRC_DIR, "flash_attention_packed.cu")
-    with open(src) as f:
-        text = f.read()
     root = tmp_path_factory.mktemp("planted")
     jobs = {}
-    for name, (anchor, faulty) in PLANTED_FAULTS.items():
+    for name, (fname, anchor, faulty) in PLANTED_FAULTS.items():
+        src = os.path.join(_build.CSRC_DIR, fname)
+        with open(src) as f:
+            text = f.read()
         assert text.count(anchor) == 1, f"{name}: anchor not found once in {src}"
-        path = root / name / "flash_attention_packed.cu"
-        path.parent.mkdir()
-        path.write_text(text.replace(anchor, faulty))
-        jobs[name] = (str(path), str(root / name / "libfaulty.so"))
+        work = root / name
+        shutil.copytree(_build.CSRC_DIR, work)
+        (work / fname).write_text(text.replace(anchor, faulty))
+        cu = sorted(str(p) for p in work.glob("*.cu"))
+        jobs[name] = (cu, str(work / "libfaulty.so"))
     with ThreadPoolExecutor(len(jobs)) as pool:
-        list(pool.map(lambda j: _build.compile_library([j[0]], j[1]), jobs.values()))
+        list(pool.map(lambda j: _build.compile_library(*j), jobs.values()))
     return {name: _build.open_library(out) for name, (_, out) in jobs.items()}
 
 
@@ -158,15 +200,27 @@ def faulty_libraries(tmp_path_factory):
         ("drop_key_tile", 2, 3072, 5, 64),
         ("drop_key_tile", 1, 3072, 1, 512),
         ("no_ragged_mask", 2, 257, 16, 80),
+        ("skip_query_tile", 2, 3072, 5, 64),
+        ("dq_no_ragged_mask", 2, 257, 4, 64),
     ],
 )
 def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
-    """At the main-path shapes, the kernel passes the bf16 limit and a copy
-    of it with a planted fault fails it."""
+    """At the main-path (or ragged) shapes, the kernel passes its bf16 limit
+    and a copy of it with a planted fault fails it."""
     q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, cuda, seed=5)
-    good = _err_over_limit(flash_attention_packed(q, k, v, h), q, k, v, h)
-    bad_out = attention._launch(faulty_libraries[fault], q, k, v, h, d**-0.5)
-    bad = _err_over_limit(bad_out, q, k, v, h)
+    lib = faulty_libraries[fault]
+    if PLANTED_FAULTS[fault][0] == "flash_attention_packed.cu":
+        good = _err_over_limit(flash_attention_packed(q, k, v, h), q, k, v, h)
+        bad_out = attention._launch(lib, q, k, v, h, d**-0.5)
+        bad = _err_over_limit(bad_out, q, k, v, h)
+    else:
+        out, lse, dout = _fwd_and_dout(q, k, v, h, seed=6)
+        delta = _delta(out, dout, h)
+        good = max(_grad_ratios(flash_attention_bwd(q, k, v, out, lse, dout, h),
+                                q, k, v, out, lse, dout, h))
+        bad_dq = attention._launch_bwd_dq(lib, q, k, v, dout, lse, delta, h, d**-0.5)
+        bad_dk, bad_dv = attention._launch_bwd_dkv(lib, q, k, v, dout, lse, delta, h, d**-0.5)
+        bad = max(_grad_ratios((bad_dq, bad_dk, bad_dv), q, k, v, out, lse, dout, h))
     print(f"planted {fault} [B={b},S={s},H={h},D={d}]: max err/limit "
           f"kernel {good:.3f}, faulty copy {bad:.3f}", flush=True)
     assert good <= 1.0 < bad, (good, bad)
@@ -193,3 +247,135 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     assert qs.is_contiguous() and qs.data_ptr() % 16 != 0
     with pytest.raises(ValueError):
         flash_attention_packed(qs, ks, vs, h)
+
+
+# --- forward with logsumexp, and the backward ---------------------------------
+
+
+def _fwd_and_dout(q, k, v, h, seed):
+    """The plain forward's (out, lse) and a N(0,1) dO: the backward's inputs,
+    the same for kernel and plain version."""
+    out, lse = attention_fwd_lse_reference(q, k, v, h)
+    rng = np.random.default_rng(seed)
+    dout = torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(np.float32))
+    return out, lse, dout.to(device=q.device, dtype=q.dtype)
+
+
+def _grad_ratios(grads, q, k, v, out, lse, dout, h):
+    """max over elements of |kernel - plain| / limit, for dq, dk, dv."""
+    refs = attention_bwd_reference(q, k, v, out, lse, dout, h)
+    limits = grad_error_limits(q, k, v, out, lse, dout, h, refs)
+    return [((g.float() - r.float()).abs() / lim).max().item()
+            for g, r, lim in zip(grads, refs, limits)]
+
+
+FWD_LSE_CASES = [
+    (torch.float32, 2, 70, 100, 3, 8),
+    (torch.float32, 2, 257, 100, 4, 64),
+    (torch.float32, 1, 96, 77, 1, 512),
+    (torch.bfloat16, 2, 70, 100, 3, 16),
+    (torch.bfloat16, 2, 130, 61, 2, 64),
+    (torch.bfloat16, 2, 257, 257, 4, 80),
+    (torch.bfloat16, 1, 96, 77, 1, 512),
+]
+
+
+@pytest.mark.parametrize("dtype,b,sq,sk,h,d", FWD_LSE_CASES)
+def test_fwd_lse_kernel_matches_plain(cuda, dtype, b, sq, sk, h, d):
+    q, k, v = _qkv(b, sq, sk, h, d, dtype, cuda, seed=7)
+    before = flash_attention_fwd_lse.launches
+    out, lse = flash_attention_fwd_lse(q, k, v, h)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd_lse.launches == before + 1
+    ref, ref_lse = attention_fwd_lse_reference(q, k, v, h)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert (lse - ref_lse).abs().max().item() < 1e-4
+    if dtype == torch.float32:
+        assert (out - ref).abs().max().item() < 1e-5
+    else:
+        assert _err_over_limit(out, q, k, v, h) <= 1.0
+    # the packed forward is the same function
+    torch.testing.assert_close(flash_attention_packed(q, k, v, h), out, atol=0, rtol=0)
+
+
+BWD_CASES = [
+    (torch.float32, 2, 64, 64, 2, 8),
+    (torch.float32, 2, 70, 100, 3, 16),
+    (torch.float32, 2, 257, 100, 4, 64),
+    (torch.float32, 1, 100, 1, 2, 64),
+    (torch.float32, 1, 200, 150, 1, 128),
+    (torch.bfloat16, 2, 70, 100, 3, 16),
+    (torch.bfloat16, 1, 200, 150, 1, 64),
+    (torch.bfloat16, 2, 130, 61, 2, 64),
+    (torch.bfloat16, 1, 100, 1, 2, 64),
+]
+
+
+@pytest.mark.parametrize("dtype,b,sq,sk,h,d", BWD_CASES)
+def test_bwd_kernels_match_plain(cuda, dtype, b, sq, sk, h, d):
+    q, k, v = _qkv(b, sq, sk, h, d, dtype, cuda, seed=8)
+    out, lse, dout = _fwd_and_dout(q, k, v, h, seed=9)
+    n_dq, n_dkv = flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, h)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dq.launches == n_dq + 1
+    assert flash_attention_bwd_dkv.launches == n_dkv + 1
+    for g, x in zip(grads, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+    ratios = _grad_ratios(grads, q, k, v, out, lse, dout, h)
+    assert max(ratios) <= 1.0, ratios
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 3072, 5, 64), (2, 768, 10, 64), (2, 192, 20, 64)])
+def test_bwd_kernels_match_plain_bf16_main_path_shapes(cuda, b, s, h, d):
+    q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, cuda, seed=10)
+    out, lse = flash_attention_fwd_lse(q, k, v, h)
+    rng = np.random.default_rng(11)
+    dout = torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    grads = flash_attention_bwd(q, k, v, out, lse, dout, h)
+    torch.cuda.synchronize()
+    ratios = _grad_ratios(grads, q, k, v, out, lse, dout, h)
+    assert max(ratios) <= 1.0, ratios
+
+
+def test_autograd_function_matches_autograd_through_plain(cuda):
+    """FlashAttentionPacked's gradients (f32 kernels) against autograd
+    through the plain forward, under the f32 limits."""
+    b, sq, sk, h, d = 2, 150, 130, 2, 32
+    q, k, v = (x.requires_grad_() for x in _qkv(b, sq, sk, h, d, torch.float32, cuda, seed=12))
+    rng = np.random.default_rng(13)
+    g = torch.from_numpy(rng.standard_normal((b, sq, h * d)).astype(np.float32)).to(cuda)
+    out = FlashAttentionPacked.apply(q, k, v, h, d**-0.5)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    refs = torch.autograd.grad(attention_packed_reference(q, k, v, h), (q, k, v), g)
+    with torch.no_grad():
+        o, lse = attention_fwd_lse_reference(q, k, v, h)
+        limits = grad_error_limits(q, k, v, o, lse, g, h, refs)
+    for x, r, lim in zip(grads, refs, limits):
+        assert ((x - r).abs() / lim).max().item() <= 1.0
+
+
+def test_bwd_kernels_reject_what_they_do_not_take(cuda):
+    def args(b, s, h, d, dtype):
+        q, k, v = _qkv(b, s, s, h, d, dtype, cuda)
+        out, lse, dout = _fwd_and_dout(q, k, v, h, seed=1)
+        return q, k, v, out, lse, dout
+
+    with pytest.raises(ValueError):  # bf16 only at d = 16 and 64
+        flash_attention_bwd(*args(1, 128, 2, 80, torch.bfloat16), 2)
+    with pytest.raises(ValueError):  # f32 up to d = 128
+        flash_attention_bwd(*args(1, 128, 1, 256, torch.float32), 1)
+    with pytest.raises(ValueError):  # float16
+        flash_attention_bwd(*args(1, 128, 2, 64, torch.float16), 2)
+    q, k, v, out, lse, dout = args(1, 128, 2, 64, torch.float32)
+    with pytest.raises(ValueError):  # lse in the wrong dtype
+        flash_attention_bwd(q, k, v, out, lse.double(), dout, 2)
+    wide = torch.cat([dout, dout], dim=2)
+    with pytest.raises(ValueError):  # non-contiguous dO
+        flash_attention_bwd(q, k, v, out, lse, wide[:, :, : dout.shape[2]], 2)
+    b, s, h, d = 1, 150, 2, 64
+    q, k, v, out, lse, dout = args(b, s, h, d, torch.bfloat16)
+    shift = lambda x: torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(b, s, h * d)
+    with pytest.raises(ValueError):  # rows not aligned to 16 bytes
+        flash_attention_bwd(shift(q), shift(k), shift(v), shift(out), lse, shift(dout), h)

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels into one shared library and load it.
 
-``nvcc`` compiles every ``csrc/*.cu`` into ``_build/libunigeo_kernels_<hash>.so``
-on first use; the hash covers the sources and the flags, so an edited source
-builds anew and an unchanged one loads the library already there.  The
+One ``nvcc`` call compiles every ``csrc/*.cu`` into
+``_build/libunigeo_kernels_<hash>.so`` on first use; the hash covers the
+sources (headers included) and the flags, so an edited source builds anew
+and an unchanged one loads the library already there.  The
 library has a plain C interface and is loaded with ``ctypes`` (no PyTorch
 headers are compiled, so a build takes seconds).  The compile runs under a
 time limit and writes to a temporary name that is renamed into place, so a
@@ -105,9 +106,17 @@ def open_library(path: str) -> ctypes.CDLL:
     """Load a kernel library and set every argtype."""
     lib = ctypes.CDLL(path)
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    fn = lib.unigeo_flash_attention_packed
-    fn.argtypes = [p, p, p, p] + [i64] * 8 + [i32] * 5 + [ctypes.c_float, i32, p]
-    fn.restype = i32
+    f32 = ctypes.c_float
+    signatures = {
+        "unigeo_flash_attention_packed": [p] * 4 + [i64] * 8 + [i32] * 5 + [f32, i32, p],
+        "unigeo_flash_attention_fwd_lse": [p] * 5 + [i64] * 8 + [i32] * 5 + [f32, i32, p],
+        "unigeo_flash_attention_bwd_dq": [p] * 7 + [i32] * 5 + [f32, i32, p],
+        "unigeo_flash_attention_bwd_dkv": [p] * 8 + [i32] * 5 + [f32, i32, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i32
     lib.unigeo_cuda_error_string.argtypes = [i32]
     lib.unigeo_cuda_error_string.restype = ctypes.c_char_p
     return lib

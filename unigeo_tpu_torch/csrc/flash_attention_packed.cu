@@ -1,7 +1,16 @@
-// Packed flash-attention forward for Hopper (sm_90a).
+// Packed flash-attention forward for Hopper (sm_90a), with or without the
+// row logsumexp.
 //
 // Replaces: unigeo_tpu/ops/attention.py::flash_attention_tpu_packed
-// (Pallas kernel _flash_packed_kernel).  It computes, for every batch b and
+// (Pallas kernel _flash_packed_kernel) through unigeo_flash_attention_packed,
+// and unigeo_tpu/ops/attention.py::flash_attention_tpu_fwd_lse (Pallas
+// kernel _flash_fwd_lse_kernel, the forward of the differentiable attention)
+// through unigeo_flash_attention_fwd_lse.  The two entry points share one
+// kernel body, instantiated as two kernels with their own names
+// (flash_packed_*, flash_fwd_lse_*); the second also writes lse = m + log(l)
+// per query row, f32,
+// into a contiguous [B, H, Sq] tensor (no padded rows), the residual the
+// backward kernels in flash_attention_bwd.cu recompute P from.  It computes, for every batch b and
 // head h, softmax(q_h k_h^T * scale) v_h, where head h is the column slice
 // [h*D, (h+1)*D) of a packed [B, S, H*D] row.  No transpose happens on either
 // side: a block reads its head at column offset h*D of the packed rows and
@@ -24,7 +33,7 @@
 //
 // One block layout per dtype:
 //
-// * bf16 (flash_packed_mma_kernel), D in {16, 64, 80, 512} (the UNet's 64,
+// * bf16 (flash_packed_mma_kernel, flash_fwd_lse_mma_kernel), D in {16, 64, 80, 512} (the UNet's 64,
 //   CLIP's 80, the VAE's 512, and 16 for small checks) with 16-byte-aligned
 //   rows; anything else is refused with cudaErrorInvalidValue.  Warps of 16
 //   query rows each; q, k, v tiles in shared memory; scores and P.V through
@@ -32,7 +41,7 @@
 //   over 4 warps per row group, each keeping a 16 x 128 f32 accumulator in
 //   registers and recomputing the 16 x 32 score tile; its tiles take
 //   ~100 KB of dynamic shared memory.  d = 80 (CLIP) is five 16-wide k-steps.
-// * f32 (flash_packed_kernel), any D up to 512: CUDA-core FMAs, the
+// * f32 (flash_packed_kernel, flash_fwd_lse_kernel), any D up to 512: CUDA-core FMAs, the
 //   reference numerics for f32 checks on the card.  256 threads own BQ query
 //   rows; TPR = 256 / BQ lanes of a warp share a row, each holding BK / TPR
 //   scores and NCOL accumulator columns; row max and sum are butterfly
@@ -42,7 +51,9 @@
 //     D <= 512: BQ = 16, BK = 32, NCOL = 32 (~166 KB of shared memory)
 //
 // Both: keys past Sk (the ragged edge, e.g. 257 CLIP tokens) get zero
-// weight; query rows past Sq are computed on zeros and not stored.  Shared
+// weight; query rows past Sq are computed on zeros and not stored (nor is
+// their lse).  The lse costs 4 bytes per row against 2*D*(2 + 2*Sk/Sq) of
+// q, k, v and o: it moves neither bound.  Shared
 // memory above 48 KB is granted with cudaFuncSetAttribute before each launch,
 // and a refused launch is returned as its error code.
 
@@ -50,6 +61,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -79,13 +92,17 @@ size_t smem_bytes(int D) {
           (size_t)BQ * (BK + 1));
 }
 
-template <int BQ, int BK, int NCOL>
-__global__ void __launch_bounds__(kThreads)
-flash_packed_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
-                    int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
-                    int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
-                    int Sq, int Sk, int D, float scale) {
+#define UNIGEO_F32_PARAMS                                                          \
+  const float* __restrict__ q, const float* __restrict__ k,                        \
+      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, \
+      int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss, int64_t v_sb,         \
+      int64_t v_ss, int64_t o_sb, int64_t o_ss, int Sq, int Sk, int D, float scale
+#define UNIGEO_F32_ARGS \
+  q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, Sq, Sk, D, scale
+
+// the body of both f32 kernels; kLse: write the row logsumexp
+template <int BQ, int BK, int NCOL, bool kLse>
+__device__ __forceinline__ void flash_f32_block(UNIGEO_F32_PARAMS) {
   constexpr int TPR = kThreads / BQ;  // lanes per query row
   constexpr int KPT = BK / TPR;       // scores per lane per key tile
   static_assert(TPR <= 32 && (TPR & (TPR - 1)) == 0, "row group within a warp");
@@ -180,7 +197,10 @@ flash_packed_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int s = q0 + row;
   if (s < Sq) {
-    const float inv = 1.f / fmaxf(l_run, 1e-30f);
+    const float l_safe = fmaxf(l_run, 1e-30f);
+    const float inv = 1.f / l_safe;
+    if (kLse && lane == 0)
+      lse[((int64_t)b * gridDim.y + h) * Sq + s] = m_run + logf(l_safe);
     float* orow = o + b * o_sb + s * o_ss + (int64_t)h * D;
 #pragma unroll
     for (int j = 0; j < NCOL; ++j) {
@@ -190,13 +210,25 @@ flash_packed_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// one kernel per entry point, so a profile tells them apart by name
 template <int BQ, int BK, int NCOL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+__global__ void __launch_bounds__(kThreads) flash_packed_kernel(UNIGEO_F32_PARAMS) {
+  flash_f32_block<BQ, BK, NCOL, false>(UNIGEO_F32_ARGS);
+}
+
+template <int BQ, int BK, int NCOL>
+__global__ void __launch_bounds__(kThreads) flash_fwd_lse_kernel(UNIGEO_F32_PARAMS) {
+  flash_f32_block<BQ, BK, NCOL, true>(UNIGEO_F32_ARGS);
+}
+
+template <int BQ, int BK, int NCOL>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                    int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                    int B, int Sq, int Sk, int H, int D, float scale,
                    cudaStream_t stream) {
-  auto kern = flash_packed_kernel<BQ, BK, NCOL>;
+  auto kern = lse != nullptr ? flash_fwd_lse_kernel<BQ, BK, NCOL>
+                             : flash_packed_kernel<BQ, BK, NCOL>;
   const size_t smem = smem_bytes<BQ, BK>(D);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -204,23 +236,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), q_sb, q_ss, k_sb, k_ss,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, q_sb, q_ss, k_sb, k_ss,
       v_sb, v_ss, o_sb, o_ss, Sq, Sk, D, scale);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
                      int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                      int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                      int B, int Sq, int Sk, int H, int D, float scale,
                      cudaStream_t stream) {
   if (D <= 64)
-    return launch<64, 64, 16>(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+    return launch<64, 64, 16>(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                               o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
   if (D <= 128)
-    return launch<64, 64, 32>(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+    return launch<64, 64, 32>(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                               o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
-  return launch<16, 32, 32>(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+  return launch<16, 32, 32>(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                             o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
 }
 
@@ -233,24 +265,6 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
 // kernel does.  Tiles are staged in shared memory with 16-byte loads; rows
 // are padded by 8 elements so the fragment loads of a warp hit 32 banks.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // rows [s0, s0+rows) of a packed head into shared memory (pitch P), zeros
 // past S; every row is D contiguous bf16 at 16-byte-aligned addresses
@@ -271,15 +285,18 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * (size_t)(WQ * 16 + 2 * BK) * (D + 8);
 }
 
-template <int D, int WQ, int WD, int BK>
-__global__ void __launch_bounds__(WQ * WD * 32)
-flash_packed_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ o,
-                        int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
-                        int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
-                        int Sq, int Sk, float scale_log2) {
+#define UNIGEO_MMA_PARAMS                                                              \
+  const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,            \
+      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,              \
+      float* __restrict__ lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss, \
+      int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss, int Sq, int Sk,           \
+      float scale_log2
+#define UNIGEO_MMA_ARGS \
+  q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, Sq, Sk, scale_log2
+
+// the body of both bf16 kernels; kLse: write the row logsumexp
+template <int D, int WQ, int WD, int BK, bool kLse>
+__device__ __forceinline__ void flash_mma_block(UNIGEO_MMA_PARAMS) {
   constexpr int NT = WQ * WD * 32;
   constexpr int BQ = WQ * 16;
   constexpr int P = D + 8;    // shared-memory pitch in elements
@@ -387,12 +404,16 @@ flash_packed_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] = 1.f / fmaxf(l[i], 1e-30f);
+    l[i] = fmaxf(l[i], 1e-30f);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int s = q0 + r0 + g + 8 * i;
     if (s >= Sq) continue;
+    // m is in log2 units (scores scaled by scale * log2(e))
+    if (kLse && tg == 0 && wd == 0)
+      lse[((int64_t)b * gridDim.y + h) * Sq + s] = (m[i] + log2f(l[i])) * 0.6931471805599453f;
+    l[i] = 1.f / l[i];
     __nv_bfloat16* orow = o + b * o_sb + s * o_ss + (int64_t)h * D + wd * DW + tg * 2;
 #pragma unroll
     for (int t = 0; t < NO; ++t)
@@ -402,11 +423,22 @@ flash_packed_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D, int WQ, int WD, int BK>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+__global__ void __launch_bounds__(WQ * WD * 32) flash_packed_mma_kernel(UNIGEO_MMA_PARAMS) {
+  flash_mma_block<D, WQ, WD, BK, false>(UNIGEO_MMA_ARGS);
+}
+
+template <int D, int WQ, int WD, int BK>
+__global__ void __launch_bounds__(WQ * WD * 32) flash_fwd_lse_mma_kernel(UNIGEO_MMA_PARAMS) {
+  flash_mma_block<D, WQ, WD, BK, true>(UNIGEO_MMA_ARGS);
+}
+
+template <int D, int WQ, int WD, int BK>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
                        int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                        int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                        int B, int Sq, int Sk, int H, float scale, cudaStream_t stream) {
-  auto kern = flash_packed_mma_kernel<D, WQ, WD, BK>;
+  auto kern = lse != nullptr ? flash_fwd_lse_mma_kernel<D, WQ, WD, BK>
+                             : flash_packed_mma_kernel<D, WQ, WD, BK>;
   constexpr size_t smem = mma_smem_bytes<D, WQ, WD, BK>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -414,7 +446,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + WQ * 16 - 1) / (WQ * 16), H, B);
   kern<<<grid, WQ * WD * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
       q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, Sq, Sk,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
@@ -430,7 +462,7 @@ bool aligned16(const void* q, const void* k, const void* v, const void* o,
   return (ptrs % 16) == 0 && (strides % 8) == 0;
 }
 
-cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
+cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
                           int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                           int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                           int B, int Sq, int Sk, int H, int D, float scale,
@@ -439,7 +471,7 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
     return cudaErrorInvalidValue;
 #define UNIGEO_MMA(DD, WQ, WD, BK)                                                   \
   case DD:                                                                           \
-    return launch_mma<DD, WQ, WD, BK>(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, \
+    return launch_mma<DD, WQ, WD, BK>(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, \
                                       o_sb, o_ss, B, Sq, Sk, H, scale, stream);
   switch (D) {
     UNIGEO_MMA(16, 4, 1, 64)
@@ -454,6 +486,28 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+namespace {
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+                     int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                     int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
+                     int B, int Sq, int Sk, int H, int D, float scale, int dtype,
+                     void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || D > 512 || H > 65535 ||
+      B > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_f32(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                        o_sb, o_ss, B, Sq, Sk, H, D, scale, st);
+  if (dtype == 1)
+    return dispatch_bf16(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
+                         o_ss, B, Sq, Sk, H, D, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements: *_sb between
 // batch entries, *_ss between sequence positions; the packed row is
 // contiguous.  Returns the launch's cudaError_t (0 on success).
@@ -463,17 +517,20 @@ extern "C" int unigeo_flash_attention_packed(
     int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
     int B, int Sq, int Sk, int H, int D, float scale, int dtype,
     void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || D > 512 || H > 65535 ||
-      B > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_f32(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-                             o_sb, o_ss, B, Sq, Sk, H, D, scale, st);
-  if (dtype == 1)
-    return (int)dispatch_bf16(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
-                              o_ss, B, Sq, Sk, H, D, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch(q, k, v, o, nullptr, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                       o_sb, o_ss, B, Sq, Sk, H, D, scale, dtype, stream);
+}
+
+// The same, and lse [B, H, Sq] f32 (contiguous) of the natural-log row sums.
+extern "C" int unigeo_flash_attention_fwd_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+    int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
+    int B, int Sq, int Sk, int H, int D, float scale, int dtype,
+    void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                       o_sb, o_ss, B, Sq, Sk, H, D, scale, dtype, stream);
 }
 
 extern "C" const char* unigeo_cuda_error_string(int err) {

@@ -4,6 +4,9 @@ Port of ``unigeo_tpu/models/depthcrafter/scheduler.py``: the sigma and
 timestep tables are the same numpy code (Karras ramp, rho 7, between the
 config's sigma_max 700 and sigma_min 0.002, terminated by 0; continuous
 c_noise = 0.25 ln sigma); the per-step arithmetic works on tensors or floats.
+
+The training side (``add_noise``, ``v_target``, ``train_timesteps``) serves
+``parallel/trainer.py``: sigma is a tensor there, one per clip.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import math
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,13 +90,13 @@ class EulerDiscreteScheduler:
         ).astype(np.float32)
 
     @staticmethod
-    def scale_model_input(sample, sigma: float):
-        return sample / math.sqrt(sigma**2 + 1.0)
+    def scale_model_input(sample, sigma):
+        return sample / _sqrt(sigma**2 + 1.0)
 
     @staticmethod
-    def denoised_from_v(sample, v_pred, sigma: float):
+    def denoised_from_v(sample, v_pred, sigma):
         """EDM v-prediction preconditioning: c_out*v + c_skip*x."""
-        c_out = -sigma / math.sqrt(sigma**2 + 1.0)
+        c_out = -sigma / _sqrt(sigma**2 + 1.0)
         c_skip = 1.0 / (sigma**2 + 1.0)
         return v_pred * c_out + sample * c_skip
 
@@ -100,3 +104,49 @@ class EulerDiscreteScheduler:
     def euler_step(sample, denoised, sigma: float, sigma_next: float):
         derivative = (sample - denoised) / sigma
         return sample + derivative * (sigma_next - sigma)
+
+    # ------------------------------------------------------------------
+    # training side (scheduler.py:163-174 of the JAX package)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def add_noise(clean, noise, sigma):
+        """EDM forward process: x = clean + sigma * noise."""
+        return clean + sigma * noise
+
+    @staticmethod
+    def v_target(clean, noise, sigma):
+        """The v-prediction target consistent with ``denoised_from_v``:
+        v = (clean - c_skip x) / c_out with x = clean + sigma * noise."""
+        x = clean + sigma * noise
+        c_out = -sigma / _sqrt(sigma**2 + 1.0)
+        c_skip = 1.0 / (sigma**2 + 1.0)
+        return (clean - c_skip * x) / c_out
+
+    def train_timesteps(self, sigma: torch.Tensor) -> torch.Tensor:
+        """The UNet conditioning value of per-clip training sigmas [B], f32
+        (trainer.py:94-104): "continuous" c_noise = 0.25 ln sigma; "discrete"
+        ln sigma interpolated over ln(train_sigmas) onto 0..T-1, clamped at
+        both ends as ``jnp.interp`` is."""
+        log_sigma = torch.log(sigma.float())
+        if self.config.timestep_type == "continuous":
+            return 0.25 * log_sigma
+        xp = torch.log(torch.as_tensor(self.train_sigmas, dtype=torch.float32,
+                                       device=sigma.device))
+        fp = torch.arange(self.config.num_train_timesteps, dtype=torch.float32,
+                          device=sigma.device)
+        return _interp(log_sigma, xp, fp)
+
+
+def _sqrt(x):
+    """sqrt of a float (math.sqrt, the inference loop's) or of a tensor."""
+    return torch.sqrt(x) if isinstance(x, torch.Tensor) else math.sqrt(x)
+
+
+def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """``np.interp`` for increasing ``xp``: piecewise linear, constant past the ends."""
+    x = x.clamp(xp[0], xp[-1])
+    idx = torch.searchsorted(xp, x, right=True).clamp(1, xp.numel() - 1)
+    x0, x1 = xp[idx - 1], xp[idx]
+    f0, f1 = fp[idx - 1], fp[idx]
+    return f0 + (x - x0) / (x1 - x0) * (f1 - f0)

@@ -8,8 +8,9 @@ tree (``encoder.down_blocks.0.resnets.0.conv1``, ``decoder.mid_block...``):
 * ``TemporalDecoder``: spatio-temporal resnets blended with a switched
   AlphaBlender (merge factor 0.0), mid attention, and a final frame-axis
   ``time_conv_out``.
-* ``AutoencoderKLTemporal.encode`` returns the latent mode UNSCALED;
-  ``decode`` divides by the 0.18215 scaling first.
+* ``AutoencoderKLTemporal.encode`` returns the latent mode UNSCALED,
+  ``encode_scaled`` the mode times the 0.18215 scaling (the training
+  targets); ``decode`` divides by the scaling first.
 """
 
 from __future__ import annotations
@@ -227,6 +228,11 @@ class AutoencoderKLTemporal(nn.Module):
     def encode(self, frames):
         """[N, 3, H, W] in [-1, 1] -> latent mode [N, 4, H/8, W/8], unscaled."""
         return self.quant_conv(self.encoder(frames))[:, : self.latent_channels]
+
+    def encode_scaled(self, frames):
+        """Latent mode times ``scaling_factor``: the denoised and training
+        latent space (vae.py:193-195 of the JAX package)."""
+        return self.encode(frames) * self.scaling_factor
 
     def decode(self, latents, num_frames: int):
         """Scaled latents [N, 4, h, w] -> frames [N, 3, H, W] (about [-1, 1])."""

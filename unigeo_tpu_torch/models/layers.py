@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from unigeo_tpu_torch.ops.attention import (
     MIN_KERNEL_SEQ,
+    FlashAttentionPacked,
     attention_packed_reference,
     flash_attention_packed,
 )
@@ -72,10 +73,18 @@ class GroupNorm(nn.GroupNorm):
 
 def attend(q, k, v, num_heads: int, head_dim: int):
     """Packed attention dispatch, as ``layers.py::Attention`` does it: query
-    sequences of at least 128 tokens go to the flash kernel, shorter ones
-    (the 25-frame temporal attention) to the plain version in their dtype."""
+    sequences of at least 128 tokens go to the flash kernels, shorter ones
+    (the 25-frame temporal attention) to the plain version in their dtype,
+    differentiated by autograd.
+
+    Under autograd (grad mode on and q, k or v requiring grad) the kernels
+    are ``FlashAttentionPacked``: the forward with logsumexp, then the dq and
+    dk/dv kernels, as the JAX package's ``attention_packed`` custom_vjp.
+    Otherwise the forward kernel alone, which leaves no graph."""
     scale = head_dim**-0.5
     if q.shape[1] >= MIN_KERNEL_SEQ:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return FlashAttentionPacked.apply(q, k, v, num_heads, scale)
         return flash_attention_packed(q, k, v, num_heads, scale)
     return attention_packed_reference(q, k, v, num_heads, scale, upcast=False)
 

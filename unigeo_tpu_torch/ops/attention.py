@@ -1,21 +1,35 @@
-"""Packed multi-head attention: the hand-written CUDA kernel and its plain version.
+"""Packed multi-head attention: the hand-written CUDA kernels and their plain versions.
 
-Port of ``unigeo_tpu/ops/attention.py::flash_attention_tpu_packed``.  q, k and
-v stay in the ``[B, S, H*D]`` layout that the projections emit; head h is the
-column slice ``[h*D, (h+1)*D)``.
+q, k and v stay in the ``[B, S, H*D]`` layout that the projections emit; head
+h is the column slice ``[h*D, (h+1)*D)``.  Three kernels, each behind a
+wrapper that launches it on a CUDA tensor (built on first use, see
+``_build.py``) or raises, runs its plain version on a CPU tensor, and adds
+one to its ``launches`` count per launch:
 
-* ``flash_attention_packed`` is the wrapper.  On a CUDA tensor it launches
-  ``csrc/flash_attention_packed.cu`` (built on first use, see ``_build.py``)
-  or raises; on a CPU tensor it runs ``attention_packed_reference``.  Each
-  launch adds one to ``flash_attention_packed.launches``.
-* ``attention_packed_reference`` is the plain version: per-head softmax
-  attention, in f32 by default (the numerics the kernel is held to; the
-  wrapper's CPU path and the checks), or in the input dtype with
-  ``upcast=False`` (the layers' path below the kernel's 128-token threshold,
-  the 25-token temporal attention, as the JAX package keeps those on its jnp
-  ``attention_reference``).
-* ``bf16_error_limit`` is the elementwise limit on kernel vs plain version
-  for bf16 inputs.
+* ``flash_attention_packed``: the forward (port of
+  ``unigeo_tpu/ops/attention.py::flash_attention_tpu_packed``), kernel
+  ``csrc/flash_attention_packed.cu``; plain version
+  ``attention_packed_reference``.
+* ``flash_attention_fwd_lse``: the same forward that also returns the row
+  logsumexp ``lse [B, H, Sq]`` f32 (port of ``flash_attention_tpu_fwd_lse``),
+  the lse kernels of the same source (one kernel body, instantiated
+  with and without the lse write); plain version
+  ``attention_fwd_lse_reference``.
+* ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``: the backward
+  (port of ``flash_attention_tpu_bwd``), kernels
+  ``csrc/flash_attention_bwd.cu``; ``flash_attention_bwd`` computes
+  delta = rowsum(dO * O) in plain torch and launches both.  Plain version
+  ``attention_bwd_reference``.
+
+``FlashAttentionPacked`` is the differentiable attention (the JAX package's
+``attention_packed`` custom_vjp): its forward is ``flash_attention_fwd_lse``,
+its backward ``flash_attention_bwd``.
+
+``attention_packed_reference`` also serves, with ``upcast=False``, as the
+layers' path below the kernels' 128-token threshold (the 25-token temporal
+attention, as the JAX package keeps those on its jnp
+``attention_reference``).  ``bf16_error_limit`` and ``grad_error_limits``
+are the elementwise limits on kernel vs plain version.
 """
 
 from __future__ import annotations
@@ -26,29 +40,35 @@ import torch
 
 _DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
 MIN_KERNEL_SEQ = 128  # same threshold as unigeo_tpu's use_packed_attention
-# head widths of the bf16 tensor-core kernel: UNet 64, CLIP 80, VAE 512, and
+# head widths of the bf16 tensor-core forward: UNet 64, CLIP 80, VAE 512, and
 # 16 for small checks; f32 takes any width up to 512 (CUDA cores)
 BF16_HEAD_WIDTHS = (16, 64, 80, 512)
+# the backward kernels: bf16 at the UNet's 64 (and 16 for small checks),
+# f32 at any width up to 128
+BWD_BF16_HEAD_WIDTHS = (16, 64)
+BWD_F32_MAX_HEAD_WIDTH = 128
+
+
+def _heads(x, num_heads: int, upcast: bool = True):
+    """[B, S, H*D] -> [B, S, H, D], in f32 unless ``upcast`` is false."""
+    b, s, hd = x.shape
+    return (x.float() if upcast else x).reshape(b, s, num_heads, hd // num_heads)
 
 
 def attention_packed_reference(
     q, k, v, num_heads: int, scale: Optional[float] = None, upcast: bool = True
 ):
-    """softmax(q_h k_h^T * scale) v_h per head, in f32 (or, with
-    ``upcast=False``, in the input dtype); returns q's dtype."""
+    """softmax(q_h k_h^T * scale) v_h per head, in f32 (the output of
+    ``attention_fwd_lse_reference``) or, with ``upcast=False``, in the input
+    dtype; returns q's dtype."""
+    if upcast:
+        return attention_fwd_lse_reference(q, k, v, num_heads, scale)[0]
     b, sq, hd = q.shape
-    sk = k.shape[1]
-    d = hd // num_heads
     if scale is None:
-        scale = d**-0.5
-    cast = (lambda x: x.float()) if upcast else (lambda x: x)
-    qh = cast(q).reshape(b, sq, num_heads, d)
-    kh = cast(k).reshape(b, sk, num_heads, d)
-    vh = cast(v).reshape(b, sk, num_heads, d)
-    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, vh)
-    return out.reshape(b, sq, hd).to(q.dtype)
+        scale = (hd // num_heads) ** -0.5
+    qh, kh, vh = (_heads(x, num_heads, upcast=False) for x in (q, k, v))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vh).reshape(b, sq, hd)
 
 
 def bf16_error_limit(q, k, v, num_heads: int, ref, scale: Optional[float] = None):
@@ -103,22 +123,27 @@ def _check_kernel_input(q, k, v, d: int):
             raise ValueError("bf16 kernel takes rows aligned to 16 bytes")
 
 
-def _launch(lib, q, k, v, num_heads: int, scale: float):
-    """One launch of the kernel in ``lib`` (a library from ``_build``)."""
+def _launch(lib, q, k, v, num_heads: int, scale: float, lse=None):
+    """One launch of the forward kernel in ``lib`` (a library from
+    ``_build``); with ``lse`` (f32 [B, H, Sq]) through the lse entry point."""
+    from unigeo_tpu_torch import _build
+
     b, sq, hd = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.unigeo_flash_attention_packed(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        args = (
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             b, sq, k.shape[1], num_heads, hd // num_heads, float(scale),
             _DTYPE_TAGS[q.dtype], stream,
         )
-    from unigeo_tpu_torch import _build
-
-    _build.check(lib, err, "flash_attention_packed launch")
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        if lse is None:
+            err = lib.unigeo_flash_attention_packed(*ptrs, *args)
+        else:
+            err = lib.unigeo_flash_attention_fwd_lse(*ptrs, lse.data_ptr(), *args)
+    _build.check(lib, err, "flash attention forward launch")
     return out
 
 
@@ -140,3 +165,293 @@ def flash_attention_packed(q, k, v, num_heads: int, scale: Optional[float] = Non
 
 
 flash_attention_packed.launches = 0
+
+
+# --- forward with logsumexp, and the backward ---------------------------------
+
+
+def attention_fwd_lse_reference(q, k, v, num_heads: int, scale: Optional[float] = None):
+    """(out, lse): softmax(q_h k_h^T * scale) v_h per head in f32, returned in
+    q's dtype, and the logsumexp of each row of scaled scores, f32 [B, H, Sq]."""
+    b, sq, hd = q.shape
+    if scale is None:
+        scale = (hd // num_heads) ** -0.5
+    qh, kh, vh = (_heads(x, num_heads) for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vh)
+    return out.reshape(b, sq, hd).to(q.dtype), lse
+
+
+def _delta(out, dout, num_heads: int):
+    """delta = rowsum(dO * O) per head, f32 [B, H, Sq] (computed outside the
+    backward kernels, as attention.py:615 of the JAX package does)."""
+    return (_heads(dout, num_heads) * _heads(out, num_heads)).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_dense(q, k, v, dout, lse, delta, num_heads: int, scale: float):
+    """The backward's dense f32 intermediates: heads of q, k, dO, and P, dS
+    [B, H, Sq, Sk] with P = exp(S - lse), dS = P * (dO v^T - delta) * scale."""
+    qh, kh, vh, doh = (_heads(x, num_heads) for x in (q, k, v, dout))
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", doh, vh)
+    ds = p * (dp - delta.float()[..., None]) * scale
+    return qh, kh, doh, p, ds
+
+
+def _bwd_plain(q, k, v, dout, lse, delta, num_heads: int, scale: float,
+               parts=("dq", "dk", "dv")):
+    """The plain backward's gradients named in ``parts``, each in its input's
+    dtype: the dq kernel's plain version is ``parts=("dq",)``, the dk/dv
+    kernel's ``("dk", "dv")``."""
+    qh, kh, doh, p, ds = _bwd_dense(q, k, v, dout, lse, delta, num_heads, scale)
+    make = {
+        "dq": lambda: torch.einsum("bhqk,bkhd->bqhd", ds, kh).reshape(q.shape).to(q.dtype),
+        "dk": lambda: torch.einsum("bhqk,bqhd->bkhd", ds, qh).reshape(k.shape).to(k.dtype),
+        "dv": lambda: torch.einsum("bhqk,bqhd->bkhd", p, doh).reshape(v.shape).to(v.dtype),
+    }
+    return tuple(make[name]() for name in parts)
+
+
+def attention_bwd_reference(q, k, v, out, lse, dout, num_heads: int,
+                            scale: Optional[float] = None):
+    """(dq, dk, dv) of packed attention from the forward's out and lse, in f32
+    without autograd: P = exp(S - lse), dP = dO v^T, delta = rowsum(dO * O),
+    dS = P * (dP - delta) * scale; dq = dS k, dk = dS^T q, dv = P^T dO.  Each
+    gradient is returned in its input's dtype."""
+    if scale is None:
+        scale = (q.shape[2] // num_heads) ** -0.5
+    return _bwd_plain(q, k, v, dout, lse, _delta(out, dout, num_heads), num_heads, scale)
+
+
+def grad_error_limits(q, k, v, out, lse, dout, num_heads: int, grads,
+                      scale: Optional[float] = None):
+    """Elementwise limits on |kernel - plain version| for ``grads`` = the plain
+    version's (dq, dk, dv), both versions given the same q, k, v, out, lse
+    and dO (delta = rowsum(dO * O) is the same torch code in both).
+
+    With T the magnitude sums of each gradient's last product, T_dq =
+    |dS||k|, T_dk = |dS|^T|q|, T_dv = P^T|dO|:
+
+    * bf16 inputs: three roundings differ between the versions, each at most
+      bf16's unit roundoff 2^-8 of what it rounds: the kernel rounds P to
+      bf16 before dv = P^T dO (2^-8 T_dv), and dS before dq = dS k and
+      dk = dS^T q (2^-8 T_dq, 2^-8 T_dk); each version rounds its f32
+      gradient to bf16 once (together 2^-8 (|x_kernel| + |x_plain|), about
+      2^-7 |ref|).
+    * f32 inputs: no rounding differs, but each version sums the last
+      product in its own order: at most n 2^-24 T each, n = max(Sq, Sk).
+
+    Both dtypes add F, the f32 error of S and dP (sums of D products, at
+    most D 2^-24 of the sums of their magnitudes in each version) carried
+    through P = exp(S - lse) and dS = P (dP - delta) scale into the
+    gradients.  F matters where dP - delta cancels (S_k = 1 makes dS zero in
+    exact arithmetic), elsewhere it is far below the other terms.  The limit
+    is the sum, widened by 1/16 for the second-order terms and the kernel's
+    exp2 (under 1e-4 relative).
+    """
+    if scale is None:
+        scale = (q.shape[2] // num_heads) ** -0.5
+    d = q.shape[2] // num_heads
+    delta = _delta(out, dout, num_heads)
+    qh, kh, doh, p, ds = _bwd_dense(q, k, v, dout, lse, delta, num_heads, scale)
+    qa, ka, doa = qh.abs(), kh.abs(), doh.abs()
+    va = _heads(v, num_heads).abs()
+    ads = ds.abs()
+    # T: magnitude sums of the last products
+    t_dq = torch.einsum("bhqk,bkhd->bqhd", ads, ka)
+    t_dk = torch.einsum("bhqk,bqhd->bkhd", ads, qa)
+    t_dv = torch.einsum("bhqk,bqhd->bkhd", p, doa)
+    # F: errors of the scaled S and of dP in each of the two versions
+    gamma_d = d * 2.0**-24
+    s_err = scale * gamma_d * torch.einsum("bqhd,bkhd->bhqk", qa, ka)
+    dp_err = gamma_d * torch.einsum("bqhd,bkhd->bhqk", doa, va)
+    e_p = 2.0 * p * s_err
+    e_ds = 2.0 * (p * dp_err * scale + ads * s_err)
+    f_dq = torch.einsum("bhqk,bkhd->bqhd", e_ds, ka)
+    f_dk = torch.einsum("bhqk,bqhd->bkhd", e_ds, qa)
+    f_dv = torch.einsum("bhqk,bqhd->bkhd", e_p, doa)
+    limits = []
+    for g, t, f in zip(grads, (t_dq, t_dk, t_dv), (f_dq, f_dk, f_dv)):
+        t, f = t.reshape(g.shape), f.reshape(g.shape)
+        if q.dtype == torch.bfloat16:
+            lim = 2.0**-7 * g.float().abs() + 2.0**-8 * t + f
+        else:
+            lim = 2.0 * max(q.shape[1], k.shape[1]) * 2.0**-24 * t + f
+        limits.append(1.0625 * lim)
+    return tuple(limits)
+
+
+def _check_lse(lse, q, num_heads: int, name: str = "lse"):
+    b, sq, _ = q.shape
+    if tuple(lse.shape) != (b, num_heads, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"{name} must be f32 [B, H, Sq] = {(b, num_heads, sq)}, "
+                         f"not {lse.dtype} {tuple(lse.shape)}")
+    if lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"{name} must be contiguous, on q's device")
+
+
+def _check_bwd_kernel_input(q, k, v, dout, d: int):
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if q.dtype not in _DTYPE_TAGS:
+        raise ValueError(f"kernel takes float32 or bfloat16, not {q.dtype}")
+    if q.dtype == torch.bfloat16 and d not in BWD_BF16_HEAD_WIDTHS:
+        raise ValueError(f"bf16 backward kernel takes head widths {BWD_BF16_HEAD_WIDTHS}, not {d}")
+    if q.dtype == torch.float32 and d > BWD_F32_MAX_HEAD_WIDTH:
+        raise ValueError(f"f32 backward kernel takes head widths up to "
+                         f"{BWD_F32_MAX_HEAD_WIDTH}, not {d}")
+    tensors = (q, k, v, dout)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("backward kernel takes contiguous q, k, v, dO")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("bf16 backward kernel takes rows aligned to 16 bytes")
+
+
+def _bwd_args(q, k, num_heads: int, scale: float):
+    b, sq, hd = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return (b, sq, k.shape[1], num_heads, hd // num_heads, float(scale),
+            _DTYPE_TAGS[q.dtype], stream)
+
+
+def _launch_bwd_dq(lib, q, k, v, dout, lse, delta, num_heads: int, scale: float):
+    """One launch of the dq kernel in ``lib``."""
+    from unigeo_tpu_torch import _build
+
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.unigeo_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), *_bwd_args(q, k, num_heads, scale),
+        )
+    _build.check(lib, err, "flash attention backward dq launch")
+    return dq
+
+
+def _launch_bwd_dkv(lib, q, k, v, dout, lse, delta, num_heads: int, scale: float):
+    """One launch of the dk/dv kernel in ``lib``."""
+    from unigeo_tpu_torch import _build
+
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.unigeo_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_bwd_args(q, k, num_heads, scale),
+        )
+    _build.check(lib, err, "flash attention backward dk/dv launch")
+    return dk, dv
+
+
+def flash_attention_fwd_lse(q, k, v, num_heads: int, scale: Optional[float] = None):
+    """Forward with logsumexp: -> (out [B,Sq,H*D], lse [B,H,Sq] f32)."""
+    _check(q, k, v, num_heads)
+    d = q.shape[2] // num_heads
+    if scale is None:
+        scale = d**-0.5
+    if q.device.type == "cpu":
+        return attention_fwd_lse_reference(q, k, v, num_heads, scale)
+    _check_kernel_input(q, k, v, d)
+
+    from unigeo_tpu_torch import _build
+
+    lse = torch.empty((q.shape[0], num_heads, q.shape[1]), dtype=torch.float32,
+                      device=q.device)
+    out = _launch(_build.load_library(), q, k, v, num_heads, scale, lse=lse)
+    flash_attention_fwd_lse.launches += 1
+    return out, lse
+
+
+flash_attention_fwd_lse.launches = 0
+
+
+def _check_bwd(q, k, v, dout, lse, delta, num_heads: int):
+    """Shapes, dtypes and devices of a backward's inputs (``delta`` may be
+    None); returns (default scale, head width)."""
+    _check(q, k, v, num_heads)
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
+        raise ValueError(f"dO must match q: {dout.dtype} {tuple(dout.shape)}")
+    _check_lse(lse, q, num_heads)
+    if delta is not None:
+        _check_lse(delta, q, num_heads, "delta")
+    d = q.shape[2] // num_heads
+    return d**-0.5, d
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, num_heads: int,
+                           scale: Optional[float] = None):
+    """dq from q, k, v, dO, the forward's lse and delta (both f32 [B,H,Sq])."""
+    default_scale, d = _check_bwd(q, k, v, dout, lse, delta, num_heads)
+    scale = default_scale if scale is None else scale
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, dout, lse, delta, num_heads, scale, ("dq",))[0]
+    _check_bwd_kernel_input(q, k, v, dout, d)
+
+    from unigeo_tpu_torch import _build
+
+    dq = _launch_bwd_dq(_build.load_library(), q, k, v, dout, lse, delta, num_heads, scale)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads: int,
+                            scale: Optional[float] = None):
+    """(dk, dv) from q, k, v, dO, the forward's lse and delta."""
+    default_scale, d = _check_bwd(q, k, v, dout, lse, delta, num_heads)
+    scale = default_scale if scale is None else scale
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, dout, lse, delta, num_heads, scale, ("dk", "dv"))
+    _check_bwd_kernel_input(q, k, v, dout, d)
+
+    from unigeo_tpu_torch import _build
+
+    dk, dv = _launch_bwd_dkv(_build.load_library(), q, k, v, dout, lse, delta,
+                             num_heads, scale)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, num_heads: int,
+                        scale: Optional[float] = None):
+    """Packed flash backward: (dq, dk, dv) in the packed layout.  delta =
+    rowsum(dO * O) is plain torch in f32; then the dq and the dk/dv kernels."""
+    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
+        raise ValueError(f"out must match q: {out.dtype} {tuple(out.shape)}")
+    _check_bwd(q, k, v, dout, lse, None, num_heads)
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, out, lse, dout, num_heads, scale)
+    delta = _delta(out, dout, num_heads)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, num_heads, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, num_heads, scale)
+    return dq, dk, dv
+
+
+class FlashAttentionPacked(torch.autograd.Function):
+    """Differentiable packed attention, the port of the JAX package's
+    ``attention_packed`` custom_vjp: the forward is ``flash_attention_fwd_lse``
+    (q, k, v, out and lse saved), the backward ``flash_attention_bwd``.
+
+    ``FlashAttentionPacked.apply(q, k, v, num_heads, scale)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, scale: float):
+        out, lse = flash_attention_fwd_lse(q, k, v, num_heads, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                         ctx.num_heads, ctx.scale)
+        return dq, dk, dv, None, None

@@ -1,0 +1,42 @@
+"""Explicit name -> class registry, a copy of ``unigeo_tpu/registry.py``'s
+``register`` and ``get``.
+
+Only the dataset side exists so far: the port's dataset modules register
+themselves when ``unigeo_tpu_torch.data`` is imported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+
+class Registry:
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._entries: Dict[str, type] = {}
+
+    def register(self, name: Optional[str] = None) -> Callable[[type], type]:
+        def deco(cls: type) -> type:
+            key = name or cls.__name__
+            if key in self._entries and self._entries[key] is not cls:
+                raise ValueError(f"duplicate {self.kind} registration: {key}")
+            self._entries[key] = cls
+            return cls
+
+        return deco
+
+    def get(self, name: str) -> type:
+        try:
+            return self._entries[name]
+        except KeyError:
+            avail = ", ".join(sorted(self._entries)) or "<none>"
+            raise KeyError(f"unknown {self.kind} {name!r}; registered: {avail}") from None
+
+
+DATASETS = Registry("dataset")
+
+
+def get_dataset_cls(name: str) -> type:
+    import unigeo_tpu_torch.data  # noqa: F401  (self-registering modules)
+
+    return DATASETS.get(name)
