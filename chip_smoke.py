@@ -9,10 +9,13 @@ Phases, each printed on its own flushed line with the seconds since start:
              unigeo_tpu_torch/_build/
   kernel     the packed flash-attention kernel against its plain version at
              the five main-path shapes (batch 2), with kernel / plain /
-             scaled_dot_product_attention times and the bound; then the
-             forward-with-logsumexp and the two backward kernels (dq, dk/dv)
-             at the three UNet training shapes in bf16 and one ragged f32
-             shape, the same numbers for each
+             scaled_dot_product_attention times and the bound; the
+             head-split forward at the same shapes, also bitwise against the
+             packed kernel; the fused GEGLU feed-forward at the UNet's four
+             shapes (M = 25 x tokens), with the unfused bf16 layers' time as
+             a yardstick; then the forward-with-logsumexp and the two
+             backward kernels (dq, dk/dv) at the three UNet training shapes
+             in bf16 and one ragged f32 shape, the same numbers for each
   reference  the tiny pipeline in f32 on the card (kernel path) against the
              same weights on the CPU (plain path); then one step of the tiny
              trainer the same way: loss, every gradient, and the AdamW step
@@ -21,6 +24,14 @@ Phases, each printed on its own flushed line with the seconds since start:
              launch count against the count the configuration predicts;
              depth and normal metrics against an analytic tilted plane
   profile    one more forward under torch.profiler
+  eval       the port's evaluator (unigeo_tpu_torch.evaluator.run_evaluation)
+             on two synthetic 25 x 384 x 512 clips with DepthCrafter built from
+             the config's model_params (random bf16 weights made on the card),
+             under UNIGEO_FUSED_GEGLU=1: per-clip seconds and frames/s, the
+             CSV, each kernel's launches per clip against the count the
+             configuration predicts; a resumed run that skips both clips; then
+             one clip with neither switch and with UNIGEO_PACKED_ATTN=0
+             (the head-split kernel), whose metrics must agree within 0.5%
   train      the port's trainer (unigeo_tpu_torch.train.main) at SVD-XT
              width on synthetic 384 x 512 clips, bf16: one warm-up step and
              three measured steps; losses, step seconds, peak memory, each
@@ -32,7 +43,9 @@ when any phase fails.  The second-last line is one JSON object with the
 kernels' numbers; the last is the run's summary for the device.
 """
 
+import contextlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -71,6 +84,10 @@ TRAIN_GRAD_TOL, TRAIN_GRAD_FLOOR = 1e-3, 1e-5
 H100_BF16_FLOPS = 989e12
 H100_F32_FLOPS = 67e12  # CUDA cores (the f32 kernels use no tensor core)
 H100_BYTES_PER_S = 3.35e12
+# eval: Abs Rel, delta < 1.25 and normal mean of the head-split forward
+# against the packed one, relative (BASELINE.json's metric tolerance)
+EVAL_METRIC_TOL_REL = 5e-3
+SWITCHES = ("UNIGEO_FUSED_GEGLU", "UNIGEO_PACKED_ATTN")
 
 
 def log(phase: str, msg: str) -> None:
@@ -150,6 +167,135 @@ def phase_kernel(dev):
             f"library_ms={lib_ms:.4f} bound_ms={bms:.5f} ({by})")
         del q, k, v, out, ref, limit, diff
     torch.cuda.synchronize()
+    return rows
+
+
+def phase_kernel_headsplit(dev):
+    """The head-split forward (``flash_attention`` on [B, S, H, D] views) at
+    MAIN_SHAPES: bitwise against the packed kernel on the same bytes, under
+    the bf16 limit against the plain version, and its times."""
+    from unigeo_tpu_torch.ops.attention import (
+        attention_packed_reference,
+        bf16_error_limit,
+        flash_attention,
+        flash_attention_packed,
+    )
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for name, s, h, d in MAIN_SHAPES:
+        b = KERNEL_BATCH
+        q, k, v = (
+            torch.randn((b, s, h * d), generator=gen, device=dev, dtype=torch.bfloat16)
+            for _ in range(3)
+        )
+        q4, k4, v4 = (x.view(b, s, h, d) for x in (q, k, v))
+        out = flash_attention(q4, k4, v4).view(b, s, h * d)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(out, flash_attention_packed(q, k, v, h))
+        ref = attention_packed_reference(q, k, v, h)
+        limit = bf16_error_limit(q, k, v, h, ref)
+        diff = (out.float() - ref.float()).abs()
+        err, ratio = diff.max().item(), (diff / limit).max().item()
+        if not (bitwise and np.isfinite(err) and ratio <= 1.0):
+            raise AssertionError(f"head-split {name}: bitwise equal to packed {bitwise}, "
+                                 f"max err/limit {ratio} (max abs err {err})")
+        iters = 20 if s * s * h * d < 1e9 else 5
+        kern_ms = time_ms(lambda: flash_attention(q4, k4, v4), iters)
+        plain_ms = time_ms(lambda: attention_packed_reference(q, k, v, h), iters)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)), iters)
+        bms, by = bound(b, s, h, d)
+        rows.append(dict(shape=name, b=b, s=s, h=h, d=d, max_abs_err=err,
+                         max_err_over_limit=ratio, bitwise_equal_to_packed=bitwise, ms=kern_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
+        log("kernel", f"headsplit {name} [B={b},S={s},H={h},D={d}] bitwise_equal_to_packed="
+            f"{bitwise} max_abs_err={err:.3e} max_err/limit={ratio:.3f} kernel_ms={kern_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bms:.5f} ({by})")
+        del q, k, v, q4, k4, v4, out, ref, limit, diff
+    torch.cuda.synchronize()
+    return rows
+
+
+# main-path shapes of the fused GEGLU feed-forward: (name, M, C), M = 25
+# frames x tokens at 384 x 512, hidden 4C, C_out = C
+GEGLU_SHAPES = [
+    ("unet_stage0", 76800, 320),
+    ("unet_stage1", 19200, 640),
+    ("unet_stage2", 4800, 1280),
+    ("unet_mid", 1200, 1280),
+]
+
+
+def geglu_bound(m, c, hidden):
+    """(least ms, bound_by): the useful products 2 M C 2H + 2 M H C (24 M C^2
+    at H = 4C) at the bf16 peak, against x, w1, b1, w2 read and out written
+    once in bf16."""
+    flops = 4.0 * m * c * hidden + 2.0 * m * hidden * c
+    nbytes = 2.0 * (m * c + 2 * hidden * c + 2 * hidden + hidden * c + m * c)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def geglu_column_split(c_out):
+    """Output-column blocks of the kernel (csrc/geglu_ffn.cu's BN rule) and
+    the work it does against the 24 M C^2 useful: (16 S + 8) / 24."""
+    bn = next(b for b in (320, 128, 64, 16) if c_out % b == 0)
+    split = c_out // bn
+    return split, (16 * split + 8) / 24
+
+
+def phase_kernel_geglu(dev):
+    """The fused GEGLU kernel against its plain version at GEGLU_SHAPES, with
+    kernel / plain / unfused-layers times and the bound.  No one PyTorch call
+    computes the function: the unfused bf16 layers (a linear with bias, the
+    tanh gelu, a product and a matmul, several calls) are a yardstick only."""
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.ops.geglu import geglu_error_limit, geglu_ffn, geglu_ffn_plain
+    import torch.nn.functional as F
+
+    set_exact_f32()  # the f32 plain version in full f32
+
+    def unfused(x, w1, b1, w2):
+        hidden = w1.shape[0] // 2
+        hg = F.linear(x, w1, b1)
+        return (hg[:, :hidden] * F.gelu(hg[:, hidden:], approximate="tanh")) @ w2.T
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for name, m, c in GEGLU_SHAPES:
+        hidden = 4 * c
+        mk = lambda shape, std: (torch.randn(shape, generator=gen, device=dev) * std).to(
+            torch.bfloat16)
+        x, w1, b1, w2 = (mk((m, c), 1.0), mk((2 * hidden, c), c**-0.5), mk((2 * hidden,), 0.05),
+                         mk((c, hidden), hidden**-0.5))
+        out = geglu_ffn(x, w1, b1, w2)
+        torch.cuda.synchronize()
+        ref = geglu_ffn_plain(x, w1, b1, w2)
+        limit = geglu_error_limit(x, w1, b1, w2, ref)
+        diff = (out.float() - ref.float()).abs()
+        err, ratio = diff.max().item(), (diff / limit).max().item()
+        if not (np.isfinite(err) and ratio <= 1.0):
+            raise AssertionError(f"geglu {name}: kernel vs plain max err/limit {ratio} "
+                                 f"(max abs err {err})")
+        kern_ms = time_ms(lambda: geglu_ffn(x, w1, b1, w2), 10)
+        plain_ms = time_ms(lambda: geglu_ffn_plain(x, w1, b1, w2), 3)
+        unfused_ms = time_ms(lambda: unfused(x, w1, b1, w2), 10)
+        bms, by = geglu_bound(m, c, hidden)
+        split, work = geglu_column_split(c)
+        rows.append(dict(shape=name, m=m, c=c, hidden=hidden, max_abs_err=err,
+                         max_err_over_limit=ratio, limit_min=limit.min().item(), ms=kern_ms,
+                         plain_ms=plain_ms, library_ms=None, unfused_ms=unfused_ms,
+                         bound_ms=bms, bound_by=by, column_blocks=split,
+                         work_over_useful=work))
+        log("kernel", f"geglu {name} [M={m},C={c},H={hidden}] max_abs_err={err:.3e} "
+            f"max_err/limit={ratio:.3f} kernel_ms={kern_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"unfused_layers_ms={unfused_ms:.4f} (several calls, yardstick) "
+            f"bound_ms={bms:.5f} ({by}) column_blocks={split} work/useful={work:.3f}")
+        del x, w1, b1, w2, out, ref, limit, diff
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -326,12 +472,15 @@ def phase_reference(dev):
 def kernel_wrappers():
     """name -> the wrapper whose ``launches`` counts that kernel."""
     from unigeo_tpu_torch.ops import attention as att
+    from unigeo_tpu_torch.ops import geglu
 
     return {
         "flash_attention_packed": att.flash_attention_packed,
+        "flash_attention_headsplit": att.flash_attention,
         "flash_attention_fwd_lse": att.flash_attention_fwd_lse,
         "flash_attention_bwd_dq": att.flash_attention_bwd_dq,
         "flash_attention_bwd_dkv": att.flash_attention_bwd_dkv,
+        "geglu_ffn": geglu.geglu_ffn,
     }
 
 
@@ -532,18 +681,12 @@ def phase_main(dev):
     if launches != predicted:
         raise AssertionError(f"kernel launches {launches} != predicted {predicted}")
     if any(n for name, n in counts.items() if name != "flash_attention_packed"):
-        raise AssertionError(f"the forward launched a training kernel: {counts}")
+        raise AssertionError(f"the default forward launched a training, head-split or "
+                             f"GEGLU kernel: {counts}")
 
-    depths, normals = out["pred_depths"], out["pred_normals"]
-    if depths.shape != (t, h, w) or normals.shape != (t, h, w, 3):
-        raise AssertionError(f"shapes {depths.shape} {normals.shape}")
-    if not (np.isfinite(depths).all() and np.isfinite(normals).all()):
-        raise AssertionError("non-finite depth or normals")
-    norm_dev = np.abs(np.linalg.norm(normals, axis=-1) - 1.0).max()
-    if norm_dev > 1e-3:
-        raise AssertionError(f"normals not unit length: {norm_dev}")
+    check_prediction("main", out, t, h, w)
     gt = prepare_gt_label(data)
-    dm, _ = depth_evaluation(out["pred_depths"], gt["gt_depths"],
+    dm, *_ = depth_evaluation(out["pred_depths"], gt["gt_depths"],
                              custom_mask=gt["gt_masks"], max_depth=80.0)
     nm = normal_evaluation(out["pred_normals"], gt["gt_normals"], custom_mask=gt["gt_masks"])
     scores = {"Abs Rel": dm["Abs Rel"], "delta < 1.25": dm["delta < 1.25"],
@@ -553,6 +696,18 @@ def phase_main(dev):
     log("main", f"metrics (random weights) {json.dumps(scores)}")
     profile_device("profile", lambda: model.forward(data), {"flash_kernel": "flash_packed"})
     return launches, stage_ms
+
+
+def check_prediction(what, out, t, h, w):
+    """Depths [t,h,w] and normals [t,h,w,3], finite, the normals unit length."""
+    depths, normals = out["pred_depths"], out["pred_normals"]
+    if depths.shape != (t, h, w) or normals.shape != (t, h, w, 3):
+        raise AssertionError(f"{what}: shapes {depths.shape} {normals.shape}")
+    if not (np.isfinite(depths).all() and np.isfinite(normals).all()):
+        raise AssertionError(f"{what}: non-finite depth or normals")
+    norm_dev = np.abs(np.linalg.norm(normals, axis=-1) - 1.0).max()
+    if norm_dev > 1e-3:
+        raise AssertionError(f"{what}: normals not unit length: {norm_dev}")
 
 
 def profile_device(phase, run, groups):
@@ -595,6 +750,180 @@ def profile_device(phase, run, groups):
     summary["top_ops"] = [[name, shapes, round(ms, 2), n] for name, shapes, ms, n in ops[:12]]
     log(phase, json.dumps(summary))
     return summary
+
+
+# the eval phase: frames per clip, resolution, Euler steps, clips scored
+EVAL_FRAMES, EVAL_H, EVAL_W, EVAL_STEPS, EVAL_CLIPS = 25, 384, 512, 5, 2
+EVAL_KEYS = ("Abs Rel", "delta < 1.25", "normal mean")
+
+
+def eval_config():
+    """The eval phase's config, a dict (no YAML): synthetic box clips rendered
+    at the eval resolution (no resize, so no PIL), DepthCrafter from
+    model_params at SVD-XT width with random weights (no checkpoint), the
+    metric sections of configs/depthcrafter_7scenes.yaml, no strips."""
+    return {
+        "dataset": "SyntheticBoxDataset", "root": None, "h": EVAL_H, "w": EVAL_W,
+        "clip_length": EVAL_FRAMES, "clip_overlap": 0, "split": "test",
+        "dataset_params": {"render_size": [EVAL_H, EVAL_W], "num_scenes": 1,
+                           "frames_per_scene": EVAL_CLIPS * EVAL_FRAMES},
+        "model_name": "DepthCrafter",
+        "model_params": {"checkpoint_path": None, "num_inference_steps": EVAL_STEPS,
+                         "overlap": 25, "seed": 42, "unet_config": SVD_XT_UNET,
+                         "clip_config": SVD_XT_CLIP},
+        "eval_depth": {"metric_names": ["Abs Rel", "delta < 1.25", "delta < 1.25^2",
+                                        "delta < 1.25^3"], "depth_alignment": "lstsq"},
+        "eval_normal": {"metric_names": ["normal mean", "normal median", "angle < 7.5",
+                                         "angle < 11.25"]},
+        "vis_depth": False,
+    }
+
+
+def unet_feed_forwards(unet_cfg):
+    """Feed-forwards of one UNet evaluation: every transformer (layers per
+    down stage and layers + 1 per up stage at all stages but the last, and
+    the mid block) has a spatial ff and a temporal ff_in and ff."""
+    n = len(unet_cfg["block_out_channels"])
+    layers = unet_cfg["layers_per_block"]
+    return 3 * ((n - 1) * (2 * layers + 1) + 1)
+
+
+@contextlib.contextmanager
+def switched(env):
+    """The switches set as in ``env`` (the others unset) inside the block."""
+    old = {k: os.environ.pop(k, None) for k in SWITCHES}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def forward_counted(model, data, env):
+    """(output, launches, seconds) of one model.forward with ``env`` set."""
+    with switched(env):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = model.forward(data)
+        torch.cuda.synchronize()
+        return out, read_counts(), time.perf_counter() - t0
+
+
+def phase_eval(dev):
+    """The port's evaluator on EVAL_CLIPS synthetic clips with the fused
+    GEGLU switch; the resumed run; one clip with neither switch and with the
+    head-split switch."""
+    from unigeo_tpu_torch.config import EvalConfig
+    from unigeo_tpu_torch.data.sample import prepare_gt_label
+    from unigeo_tpu_torch.evaluator import evaluate_clip, run_evaluation
+    from unigeo_tpu_torch.registry import get_dataset_cls, get_model_cls
+    from unigeo_tpu_torch.utils.profiling import ClipTimer
+
+    cfg = EvalConfig.from_dict(eval_config())
+    t0 = time.perf_counter()
+    model = get_model_cls(cfg.model_name)(**cfg.model_params)
+    torch.cuda.synchronize()
+    dataset = get_dataset_cls(cfg.dataset)(**cfg.dataset_kwargs)
+    log("eval", f"{type(model).__name__} from model_params on {model.pipeline.device} "
+        f"({model.pipeline.dtype}) in {time.perf_counter() - t0:.2f}s; {len(dataset)} clips "
+        f"of {EVAL_FRAMES} x {EVAL_H} x {EVAL_W}")
+    if len(dataset) < EVAL_CLIPS:
+        raise AssertionError(f"{len(dataset)} clips, not {EVAL_CLIPS}")
+    per_clip = {
+        "geglu_ffn": EVAL_STEPS * unet_feed_forwards(SVD_XT_UNET),
+        "flash_attention_packed": predicted_launches(SVD_XT_UNET, SVD_XT_CLIP, EVAL_H, EVAL_W,
+                                                     EVAL_STEPS),
+    }
+    fused_env = {"UNIGEO_FUSED_GEGLU": "1"}
+    save_dir = tempfile.mkdtemp(prefix="unigeo_eval_")
+    try:
+        timer = ClipTimer(jsonl_path=os.path.join(save_dir, "clips.jsonl"))
+        with switched(fused_env):
+            reset_counts()
+            t_run = time.perf_counter()
+            manager = run_evaluation(cfg, save_dir=save_dir, max_clips=EVAL_CLIPS,
+                                     dataset=dataset, model=model, timer=timer, verbose=False)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t_run
+            counts = read_counts()
+        with open(os.path.join(save_dir, "clips.jsonl")) as f:
+            clips = [json.loads(line) for line in f]
+        for c in clips:
+            log("eval", f"clip {c['clip']} (UNIGEO_FUSED_GEGLU=1): {c['seconds']:.3f}s "
+                f"{c['fps']:.3f} frames/s")
+        with open(os.path.join(save_dir, "metrics.csv")) as f:
+            csv_text = f.read()
+        log("eval", f"run_evaluation {run_s:.2f}s, metrics.csv {json.dumps(csv_text)}")
+        predicted = {name: EVAL_CLIPS * per_clip.get(name, 0) for name in kernel_wrappers()}
+        log("eval", f"kernel launches over {EVAL_CLIPS} clips {json.dumps(counts)}, predicted "
+            f"{json.dumps(predicted)}")
+        if counts != predicted:
+            raise AssertionError(f"eval launches {counts} != predicted {predicted}")
+        lines = csv_text.strip().splitlines()
+        if len(lines) != EVAL_CLIPS + 2 or not lines[-1].startswith("Average,") or len(clips) != 2:
+            raise AssertionError(f"expected {EVAL_CLIPS} rows and an Average row: {csv_text}")
+        rows = manager.rows()
+        if not all(np.isfinite(r[k]) for r in rows for k in cfg.metric_names):
+            raise AssertionError(f"non-finite metrics {rows}")
+
+        # resumed: both clips skipped, no kernel launched
+        again = ClipTimer()
+        with switched(fused_env):
+            reset_counts()
+            resumed = run_evaluation(cfg, save_dir=save_dir, max_clips=EVAL_CLIPS,
+                                     dataset=dataset, model=model, timer=again, verbose=False)
+            resumed_counts = read_counts()
+        with open(os.path.join(save_dir, "metrics.csv")) as f:
+            unchanged = f.read() == csv_text
+        skipped = resumed.sequence_names == manager.sequence_names
+        log("eval", f"resumed run: {again.count} clips run, launches "
+            f"{sum(resumed_counts.values())}, sequences {resumed.sequence_names}, CSV unchanged "
+            f"{unchanged}")
+        if again.count or any(resumed_counts.values()) or not (skipped and unchanged):
+            raise AssertionError(f"resume ran {again.count} clips, launches {resumed_counts}")
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+    # one clip: the fused switch again, neither switch, the head-split switch
+    data = dataset[0]
+    gt = prepare_gt_label(data)
+    runs = {}
+    for label, env in (("fused_geglu", fused_env), ("neither", {}),
+                       ("headsplit", {"UNIGEO_PACKED_ATTN": "0"})):
+        out, launched, secs = forward_counted(model, data, env)
+        check_prediction(f"eval {label}", out, EVAL_FRAMES, EVAL_H, EVAL_W)
+        metrics = evaluate_clip(cfg, out, gt)
+        runs[label] = dict(out=out, launches=launched, seconds=secs,
+                           metrics={k: metrics[k] for k in EVAL_KEYS})
+        log("eval", f"clip 0, {label}: forward {secs:.3f}s, launches {json.dumps(launched)}, "
+            f"metrics {json.dumps(runs[label]['metrics'])}")
+    expect = {
+        "fused_geglu": dict(per_clip),
+        "neither": {"flash_attention_packed": per_clip["flash_attention_packed"]},
+        "headsplit": {"flash_attention_headsplit": per_clip["flash_attention_packed"]},
+    }
+    for label, want in expect.items():
+        want = {name: want.get(name, 0) for name in kernel_wrappers()}
+        if runs[label]["launches"] != want:
+            raise AssertionError(f"clip 0 {label}: launches {runs[label]['launches']} != {want}")
+    same = runs["fused_geglu"]["metrics"] == {k: rows[0][k] for k in EVAL_KEYS}
+    log("eval", f"clip 0 under UNIGEO_FUSED_GEGLU=1 scores as in the evaluator's run: {same}")
+    plain, split = runs["neither"], runs["headsplit"]
+    depth_dev = float(np.abs(split["out"]["pred_depths"] - plain["out"]["pred_depths"]).max())
+    rel = {k: abs(split["metrics"][k] - plain["metrics"][k]) / abs(plain["metrics"][k])
+           for k in EVAL_KEYS}
+    shift = {k: runs["fused_geglu"]["metrics"][k] - plain["metrics"][k] for k in EVAL_KEYS}
+    log("eval", f"head-split vs packed: max depth difference {depth_dev:.3e}, metric rel "
+        f"dev {json.dumps(rel)} (tol {EVAL_METRIC_TOL_REL}); fused GEGLU vs unfused: metric "
+        f"shift {json.dumps(shift)}")
+    if not all(v <= EVAL_METRIC_TOL_REL for v in rel.values()):
+        raise AssertionError(f"head-split metrics off the packed ones: {rel}")
+    return dict(launches=counts, launches_per_clip=per_clip, clips=clips,
+                headsplit_launches=split["launches"]["flash_attention_headsplit"],
+                depth_dev=depth_dev, metric_rel_dev=rel, fused_shift=shift)
 
 
 # the training phase: frames per clip, resolution, measured steps after one
@@ -656,6 +985,9 @@ def phase_train(dev):
         # conditioning and the depth target
         "flash_attention_packed": clip_kernel_attentions(SVD_XT_CLIP)
         + 2 * vae_mid_attentions(TRAIN_H, TRAIN_W),
+        # neither switch is set in training
+        "flash_attention_headsplit": 0,
+        "geglu_ffn": 0,
     }
     predicted = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     measured = steps[1:]
@@ -698,7 +1030,10 @@ def phase_train(dev):
 
 def summarize(name, source, replaces, rows, launches, extra=None):
     """One entry of the kernels line: sums over the shapes, each shape below."""
-    sums = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    sums = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "bound_ms")}
+    # None where no one PyTorch call computes the function
+    libs = [r["library_ms"] for r in rows]
+    sums["library_ms"] = None if None in libs else sum(libs)
     entry = {
         "name": name,
         "route": "cuda",
@@ -739,13 +1074,20 @@ def main():
     built = "already built" if _build.build_seconds is None else f"nvcc {_build.build_seconds:.2f}s"
     log("build", f"{built} -> {_build.library_path()}")
 
+    for k in SWITCHES:  # the default paths, whatever the caller's environment
+        os.environ.pop(k, None)
     rows = phase_kernel(dev)
+    headsplit_rows = phase_kernel_headsplit(dev)
+    geglu_rows = phase_kernel_geglu(dev)
     train_rows = phase_kernel_train(dev)
     torch.cuda.synchronize()
     phase_reference(dev)
     phase_reference_train(dev)
     torch.cuda.synchronize()
     launches, _ = phase_main(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    evaluated = phase_eval(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     trained = phase_train(dev)
@@ -758,6 +1100,17 @@ def main():
                   "unigeo_tpu/ops/attention.py:298", rows, launches,
                   {"launches_train": trained["launches"]["flash_attention_packed"],
                    "launches_train_per_step": per_step["flash_attention_packed"]}),
+        summarize("flash_attention_headsplit", src + "flash_attention_packed.cu",
+                  "unigeo_tpu/ops/attention.py:163", headsplit_rows,
+                  evaluated["headsplit_launches"],
+                  {"launches_on": "one eval forward under UNIGEO_PACKED_ATTN=0"}),
+        summarize("geglu_ffn", src + "geglu_ffn.cu", "unigeo_tpu/ops/geglu.py:72", geglu_rows,
+                  evaluated["launches"]["geglu_ffn"],
+                  {"launches_on": f"the eval run of {EVAL_CLIPS} clips under UNIGEO_FUSED_GEGLU=1",
+                   "launches_per_clip": evaluated["launches_per_clip"]["geglu_ffn"],
+                   "unfused_ms": sum(r["unfused_ms"] for r in geglu_rows),
+                   "unfused_computes": "the unfused bf16 layers, several PyTorch calls "
+                                       "(a yardstick, not one library call)"}),
         summarize("flash_attention_fwd_lse", src + "flash_attention_packed.cu",
                   "unigeo_tpu/ops/attention.py:529", train_rows["fwd_lse"],
                   trained["launches"]["flash_attention_fwd_lse"],

@@ -25,9 +25,21 @@ product's sums taken in another order.  F carries the f32 error of S and dP
 (D 2^-24 of their magnitude sums) through P and dS; it holds the S_k = 1
 cases, where dP - delta cancels and dS is zero in exact arithmetic.
 
+The head-split forward (``flash_attention`` on [B, S, H, D]) is the packed
+kernel's body under another name: its output is bitwise equal to the packed
+kernel's on the same bytes, and held against the plain version under the
+same limits.
+
+The fused GEGLU feed-forward (bf16 only): the elementwise limit of
+``geglu_error_limit``, 1.0625 (2^-7 |ref| + (2^-7 + 2 H 2^-24) T + F_up),
+T = |h| |w2|^T, from the bf16 roundings of h and of the output, which f32
+sums taken in another order can move by one unit each (see there).
+
 The planted-fault tests show that the limits fail a kernel that drops one
-key tile or the ragged-edge mask (forward), or skips one query tile of
-dk/dv or the ragged-column mask of dq (backward).
+key tile or the ragged-edge mask (forward), skips one query tile of dk/dv
+or the ragged-column mask of dq (backward), or skips one hidden tile, swaps
+value and gate, or drops the ragged-row guard of the GEGLU kernel (rows
+past M must stay unwritten: their limit is 0).
 """
 
 import os
@@ -38,7 +50,7 @@ import torch
 
 from unigeo_tpu_torch import _build
 from unigeo_tpu_torch.device import set_exact_f32
-from unigeo_tpu_torch.ops import attention
+from unigeo_tpu_torch.ops import attention, geglu
 from unigeo_tpu_torch.ops.attention import (
     FlashAttentionPacked,
     _delta,
@@ -46,6 +58,7 @@ from unigeo_tpu_torch.ops.attention import (
     attention_fwd_lse_reference,
     attention_packed_reference,
     bf16_error_limit,
+    flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
@@ -53,6 +66,7 @@ from unigeo_tpu_torch.ops.attention import (
     flash_attention_packed,
     grad_error_limits,
 )
+from unigeo_tpu_torch.ops.geglu import geglu_error_limit, geglu_ffn, geglu_ffn_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -164,6 +178,25 @@ PLANTED_FAULTS = {
         "const float p = key < Sk ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;",
         "const float p = exp2f(s[j][e] * scale_log2 - lse2[e >> 1]);",
     ),
+    # GEGLU: the third hidden tile never reaches the down-projection
+    "geglu_skip_hidden_tile": (
+        "geglu_ffn.cu",
+        "  for (int j0 = 0; j0 < Hd; j0 += kBH) {  // hidden tiles\n",
+        "  for (int j0 = 0; j0 < Hd; j0 += kBH) {  // hidden tiles\n"
+        "    if (j0 == 2 * kBH) continue;\n",
+    ),
+    # GEGLU: g * gelu(v) instead of v * gelu(g)
+    "geglu_swap_value_gate": (
+        "geglu_ffn.cu",
+        "pack_bf16x2(v0 * gelu_tanh(q0), v1 * gelu_tanh(q1))",
+        "pack_bf16x2(q0 * gelu_tanh(v0), q1 * gelu_tanh(v1))",
+    ),
+    # GEGLU: rows past M (zero inputs) are stored too
+    "geglu_no_ragged_mask": (
+        "geglu_ffn.cu",
+        "    if (row >= M) continue;\n",
+        "",
+    ),
 }
 
 
@@ -202,13 +235,20 @@ def faulty_libraries(tmp_path_factory):
         ("no_ragged_mask", 2, 257, 16, 80),
         ("skip_query_tile", 2, 3072, 5, 64),
         ("dq_no_ragged_mask", 2, 257, 4, 64),
+        # GEGLU at (M, C) = (b * s, h * d): the UNet's stage 0, stage 2 and
+        # its ragged mid block (M = 1200, 18.75 row tiles)
+        ("geglu_skip_hidden_tile", 25, 3072, 5, 64),
+        ("geglu_swap_value_gate", 25, 192, 20, 64),
+        ("geglu_no_ragged_mask", 25, 48, 20, 64),
     ],
 )
 def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
     """At the main-path (or ragged) shapes, the kernel passes its bf16 limit
     and a copy of it with a planted fault fails it."""
-    q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, cuda, seed=5)
     lib = faulty_libraries[fault]
+    if PLANTED_FAULTS[fault][0] == "geglu_ffn.cu":
+        return _geglu_planted(cuda, lib, fault, m=b * s, c=h * d)
+    q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, cuda, seed=5)
     if PLANTED_FAULTS[fault][0] == "flash_attention_packed.cu":
         good = _err_over_limit(flash_attention_packed(q, k, v, h), q, k, v, h)
         bad_out = attention._launch(lib, q, k, v, h, d**-0.5)
@@ -379,3 +419,98 @@ def test_bwd_kernels_reject_what_they_do_not_take(cuda):
     shift = lambda x: torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(b, s, h * d)
     with pytest.raises(ValueError):  # rows not aligned to 16 bytes
         flash_attention_bwd(shift(q), shift(k), shift(v), shift(out), lse, shift(dout), h)
+
+
+# --- the head-split forward ---------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "dtype,b,sq,sk,h,d",
+    [(torch.bfloat16, 2, 3072, 3072, 5, 64), (torch.bfloat16, 2, 768, 768, 10, 64),
+     (torch.bfloat16, 2, 192, 192, 20, 64), (torch.bfloat16, 1, 3072, 3072, 1, 512),
+     (torch.bfloat16, 2, 257, 257, 16, 80), (torch.bfloat16, 2, 130, 61, 2, 64),
+     (torch.float32, 2, 70, 100, 3, 16)],
+)
+def test_headsplit_kernel_matches_plain_and_packed(cuda, dtype, b, sq, sk, h, d):
+    q, k, v = _qkv(b, sq, sk, h, d, dtype, cuda, seed=14)
+    split = lambda x: x.view(x.shape[0], x.shape[1], h, d)
+    before = flash_attention.launches, flash_attention_packed.launches
+    out = flash_attention(split(q), split(k), split(v))
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_packed.launches) == (before[0] + 1,
+                                                                           before[1])
+    assert out.shape == (b, sq, h, d) and out.dtype == dtype
+    packed = out.view(b, sq, h * d)
+    if dtype == torch.float32:
+        assert (packed - attention_packed_reference(q, k, v, h)).abs().max().item() < 1e-5
+    else:
+        assert _err_over_limit(packed, q, k, v, h) <= 1.0
+    # the same kernel body on the same bytes
+    assert torch.equal(packed, flash_attention_packed(q, k, v, h))
+
+
+# --- the fused GEGLU feed-forward ---------------------------------------------------
+
+
+def _geglu_inputs(m, c, mult, device, seed=0):
+    """bf16 x [M, C] ~ N(0, 1) and nn.Linear-layout weights at the
+    JAX package's init scales (lecun normal), small random biases."""
+    rng = np.random.default_rng(seed)
+    mk = lambda shape, std: torch.from_numpy(
+        (rng.standard_normal(shape) * std).astype(np.float32)).to(device, torch.bfloat16)
+    hidden = c * mult
+    return (mk((m, c), 1.0), mk((2 * hidden, c), c**-0.5), mk((2 * hidden,), 0.05),
+            mk((c, hidden), hidden**-0.5))
+
+
+def _geglu_ratio(out, x, w1, b1, w2):
+    ref = geglu_ffn_plain(x, w1, b1, w2)
+    limit = geglu_error_limit(x, w1, b1, w2, ref)
+    return ((out.float() - ref.float()).abs() / limit).max().item()
+
+
+# the UNet's (M, C) at 25 x 384 x 512: stages 0-2 and the mid block, and
+# ragged or small shapes (C_out column blocks of 320, 128, 64 and 16)
+GEGLU_CASES = [(76800, 320, 4), (19200, 640, 4), (4800, 1280, 4), (1200, 1280, 4),
+               (100, 64, 4), (37, 64, 2), (256, 128, 4), (65, 192, 4), (130, 320, 4)]
+
+
+@pytest.mark.parametrize("m,c,mult", GEGLU_CASES)
+def test_geglu_kernel_matches_plain(cuda, m, c, mult):
+    x, w1, b1, w2 = _geglu_inputs(m, c, mult, cuda, seed=m + c)
+    before = geglu_ffn.launches
+    out = geglu_ffn(x, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert geglu_ffn.launches == before + 1
+    assert out.shape == (m, c) and out.dtype == torch.bfloat16
+    ratio = _geglu_ratio(out, x, w1, b1, w2)
+    print(f"geglu [M={m},C={c},H={c * mult}]: max err/limit {ratio:.3f}", flush=True)
+    assert ratio <= 1.0, ratio
+
+
+def _geglu_planted(cuda, lib, fault, m, c):
+    x, w1, b1, w2 = _geglu_inputs(m, c, 4, cuda, seed=7)
+    good = _geglu_ratio(geglu_ffn(x, w1, b1, w2), x, w1, b1, w2)
+    rows = -(-m // 64) * 64
+    buf = torch.zeros((rows, c), dtype=torch.bfloat16, device=cuda)
+    geglu._launch(lib, x, w1, b1, w2, buf[:m])
+    torch.cuda.synchronize()
+    bad = _geglu_ratio(buf[:m], x, w1, b1, w2)
+    past = int(buf[m:].abs().amax(dim=1).gt(0).sum().item())
+    if past:  # rows past M must stay as they were: their limit is 0
+        bad = float("inf")
+    print(f"planted {fault} [M={m},C={c}]: max err/limit kernel {good:.3f}, faulty copy "
+          f"{bad:.3f} ({past} rows written past M)", flush=True)
+    assert good <= 1.0 < bad, (good, bad)
+
+
+def test_geglu_kernel_rejects_what_it_does_not_take(cuda):
+    x, w1, b1, w2 = _geglu_inputs(64, 64, 4, cuda)
+    with pytest.raises(ValueError):  # f32
+        geglu_ffn(x.float(), w1.float(), b1.float(), w2.float())
+    with pytest.raises(ValueError):  # C not a multiple of 64
+        x2, w12, b12, w22 = _geglu_inputs(64, 48, 4, cuda)
+        geglu_ffn(x2, w12, b12, w22)
+    with pytest.raises(ValueError):  # x not aligned to 16 bytes
+        shifted = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(64, 64)
+        geglu_ffn(shifted, w1, b1, w2)

@@ -365,7 +365,7 @@ def test_forward_metrics(forwards):
     for key in jg:
         np.testing.assert_array_equal(pg[key], jg[key])
     jd, *_ = j_depth(ref["pred_depths"], jg["gt_depths"], custom_mask=jg["gt_masks"])
-    pd, _ = p_depth(ours["pred_depths"], pg["gt_depths"], custom_mask=pg["gt_masks"])
+    pd, *_ = p_depth(ours["pred_depths"], pg["gt_depths"], custom_mask=pg["gt_masks"])
     jn = j_normal(ref["pred_normals"], jg["gt_normals"], custom_mask=jg["gt_masks"])
     pn = p_normal(ours["pred_normals"], pg["gt_normals"], custom_mask=pg["gt_masks"])
     assert abs(pd["Abs Rel"] - jd["Abs Rel"]) < 1e-3
@@ -388,7 +388,7 @@ def test_metrics_match_on_shared_predictions(forwards):
     mask[:, :5] = False
     for align in ("lstsq", "metric"):
         jd, *_ = j_depth(ref["pred_depths"], gt["gt_depths"], custom_mask=mask, alignment=align)
-        pd, _ = p_depth(ref["pred_depths"], gt["gt_depths"], custom_mask=mask, alignment=align)
+        pd, *_ = p_depth(ref["pred_depths"], gt["gt_depths"], custom_mask=mask, alignment=align)
         for key, val in jd.items():
             assert abs(pd[key] - val) <= 1e-5 * max(1.0, abs(val)), (align, key, pd[key], val)
     jn = j_normal(ref["pred_normals"], gt["gt_normals"], custom_mask=mask)

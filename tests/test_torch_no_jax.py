@@ -69,3 +69,43 @@ TRAINING_MODULES = [
 @pytest.mark.parametrize("rel", TRAINING_MODULES)
 def test_training_modules_are_checked(rel):
     assert os.path.join(ROOT, rel) in _port_files()
+
+
+# the modules of the eval slice, which the walk above must find
+EVAL_MODULES = [
+    "unigeo_tpu_torch/eval.py",
+    "unigeo_tpu_torch/evaluator.py",
+    "unigeo_tpu_torch/metrics/manager.py",
+    "unigeo_tpu_torch/metrics/alignment.py",
+    "unigeo_tpu_torch/metrics/depth.py",
+    "unigeo_tpu_torch/models/base.py",
+    "unigeo_tpu_torch/models/identity.py",
+    "unigeo_tpu_torch/ops/geglu.py",
+    "unigeo_tpu_torch/utils/profiling.py",
+    "unigeo_tpu_torch/utils/vis.py",
+]
+
+
+@pytest.mark.parametrize("rel", EVAL_MODULES)
+def test_eval_modules_are_checked(rel):
+    assert os.path.join(ROOT, rel) in _port_files()
+
+
+def test_evaluator_imports_no_pandas_yaml_pil_or_matplotlib():
+    """The card machine has none of them: the CLI, the evaluator and the CSV
+    manager import without them (vis imports matplotlib and PIL only when a
+    strip is saved, the config yaml only when a YAML file is read)."""
+    code = (
+        "import sys\n"
+        "import unigeo_tpu_torch.eval, unigeo_tpu_torch.evaluator\n"
+        "import unigeo_tpu_torch.metrics.manager, unigeo_tpu_torch.utils.vis\n"
+        "from unigeo_tpu_torch.registry import get_model_cls\n"
+        "get_model_cls('DepthCrafter'); get_model_cls('IdentityModel')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('pandas', 'yaml', 'PIL', 'matplotlib', 'jax', 'unigeo_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels into one shared library and load it.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into
-``_build/libunigeo_kernels_<hash>.so`` on first use; the hash covers the
+On first use every ``csrc/*.cu`` is compiled by its own ``nvcc``, all of
+them started together, and one more ``nvcc`` links the objects into
+``_build/libunigeo_kernels_<hash>.so``; the hash covers the
 sources (headers included) and the flags, so an edited source builds anew
 and an unchanged one loads the library already there.  The
 library has a plain C interface and is loaded with ``ctypes`` (no PyTorch
@@ -20,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from typing import Optional
@@ -30,7 +32,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_TIMEOUT_S = 300
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -68,28 +70,44 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libunigeo_kernels_{_digest(_sources())}.so")
 
 
-def compile_library(sources, out: str) -> float:
-    """nvcc ``sources`` into the shared library ``out``, under the time limit;
-    returns the seconds it took.  Writes a temporary name renamed into place."""
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cu = [s for s in sources if s.endswith(".cu")]
-    include = sorted({os.path.dirname(s) for s in cu})
-    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-I{d}" for d in include), "-o", tmp, *cu]
-    t0 = time.perf_counter()
+def _run_all(cmds, deadline: float) -> None:
+    """Run the commands at once; raise on the first that fails or outlives
+    ``deadline`` (a ``time.monotonic`` value), after stopping the others."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
     try:
-        proc = subprocess.run(
-            cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S
-        )
-    except subprocess.TimeoutExpired as e:
-        raise RuntimeError(f"nvcc did not finish in {NVCC_TIMEOUT_S} s: {cmd}") from e
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+        for cmd, proc in zip(cmds, procs):
+            try:
+                _, err = proc.communicate(timeout=max(deadline - time.monotonic(), 1e-3))
+            except subprocess.TimeoutExpired as e:
+                raise RuntimeError(f"nvcc did not finish in {NVCC_TIMEOUT_S} s: {cmd}") from e
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
+                                   f"{' '.join(cmd)}\n{err}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def compile_library(sources, out: str) -> float:
+    """nvcc ``sources`` into the shared library ``out``, one compile per
+    ``.cu`` in parallel and then the link, all under the time limit; returns
+    the seconds it took.  Objects go to a temporary directory beside ``out``
+    and the library to a temporary name renamed into place."""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    cu = [s for s in sources if s.endswith(".cu")]
+    include = [f"-I{d}" for d in sorted({os.path.dirname(s) for s in cu})]
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + NVCC_TIMEOUT_S
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as work:
+        objs = [os.path.join(work, os.path.basename(s)[:-3] + ".o") for s in cu]
+        _run_all([[_nvcc(), *NVCC_FLAGS, *include, "-c", "-o", o, s]
+                  for s, o in zip(cu, objs)], deadline)
+        tmp = os.path.join(work, "lib.so")
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]], deadline)
+        os.replace(tmp, out)
     return time.perf_counter() - t0
 
 
@@ -109,9 +127,11 @@ def open_library(path: str) -> ctypes.CDLL:
     f32 = ctypes.c_float
     signatures = {
         "unigeo_flash_attention_packed": [p] * 4 + [i64] * 8 + [i32] * 5 + [f32, i32, p],
+        "unigeo_flash_attention_headsplit": [p] * 4 + [i64] * 8 + [i32] * 5 + [f32, i32, p],
         "unigeo_flash_attention_fwd_lse": [p] * 5 + [i64] * 8 + [i32] * 5 + [f32, i32, p],
         "unigeo_flash_attention_bwd_dq": [p] * 7 + [i32] * 5 + [f32, i32, p],
         "unigeo_flash_attention_bwd_dkv": [p] * 8 + [i32] * 5 + [f32, i32, p],
+        "unigeo_geglu_ffn": [p] * 5 + [i32] * 4 + [p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

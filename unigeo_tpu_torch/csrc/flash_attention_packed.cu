@@ -3,12 +3,18 @@
 //
 // Replaces: unigeo_tpu/ops/attention.py::flash_attention_tpu_packed
 // (Pallas kernel _flash_packed_kernel) through unigeo_flash_attention_packed,
-// and unigeo_tpu/ops/attention.py::flash_attention_tpu_fwd_lse (Pallas
+// unigeo_tpu/ops/attention.py::flash_attention_tpu (Pallas kernel
+// _flash_kernel, the head-split layout [B, S, H, D]) through
+// unigeo_flash_attention_headsplit, and
+// unigeo_tpu/ops/attention.py::flash_attention_tpu_fwd_lse (Pallas
 // kernel _flash_fwd_lse_kernel, the forward of the differentiable attention)
-// through unigeo_flash_attention_fwd_lse.  The two entry points share one
-// kernel body, instantiated as two kernels with their own names
-// (flash_packed_*, flash_fwd_lse_*); the second also writes lse = m + log(l)
-// per query row, f32,
+// through unigeo_flash_attention_fwd_lse.  The three entry points share one
+// kernel body, instantiated as three kernels with their own names
+// (flash_packed_*, flash_headsplit_*, flash_fwd_lse_*), so a profile tells
+// them apart.  A contiguous [B, S, H, D] tensor has the bytes of [B, S, H*D],
+// so the head-split entry needs no other body: the JAX package has a second
+// Pallas kernel only because Mosaic's tiles want [B*H, S, D].  The lse entry
+// also writes lse = m + log(l) per query row, f32,
 // into a contiguous [B, H, Sq] tensor (no padded rows), the residual the
 // backward kernels in flash_attention_bwd.cu recompute P from.  It computes, for every batch b and
 // head h, softmax(q_h k_h^T * scale) v_h, where head h is the column slice
@@ -33,7 +39,7 @@
 //
 // One block layout per dtype:
 //
-// * bf16 (flash_packed_mma_kernel, flash_fwd_lse_mma_kernel), D in {16, 64, 80, 512} (the UNet's 64,
+// * bf16 (flash_{packed,headsplit,fwd_lse}_mma_kernel), D in {16, 64, 80, 512} (the UNet's 64,
 //   CLIP's 80, the VAE's 512, and 16 for small checks) with 16-byte-aligned
 //   rows; anything else is refused with cudaErrorInvalidValue.  Warps of 16
 //   query rows each; q, k, v tiles in shared memory; scores and P.V through
@@ -41,7 +47,7 @@
 //   over 4 warps per row group, each keeping a 16 x 128 f32 accumulator in
 //   registers and recomputing the 16 x 32 score tile; its tiles take
 //   ~100 KB of dynamic shared memory.  d = 80 (CLIP) is five 16-wide k-steps.
-// * f32 (flash_packed_kernel, flash_fwd_lse_kernel), any D up to 512: CUDA-core FMAs, the
+// * f32 (flash_{packed,headsplit,fwd_lse}_kernel), any D up to 512: CUDA-core FMAs, the
 //   reference numerics for f32 checks on the card.  256 threads own BQ query
 //   rows; TPR = 256 / BQ lanes of a warp share a row, each holding BK / TPR
 //   scores and NCOL accumulator columns; row max and sum are butterfly
@@ -67,6 +73,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+// which entry point a launch serves: the kernel it runs carries its name
+enum Entry { kPacked = 0, kHeadsplit = 1, kFwdLse = 2 };
 
 template <int TPR>
 __device__ __forceinline__ float group_max(float v) {
@@ -217,18 +226,24 @@ __global__ void __launch_bounds__(kThreads) flash_packed_kernel(UNIGEO_F32_PARAM
 }
 
 template <int BQ, int BK, int NCOL>
+__global__ void __launch_bounds__(kThreads) flash_headsplit_kernel(UNIGEO_F32_PARAMS) {
+  flash_f32_block<BQ, BK, NCOL, false>(UNIGEO_F32_ARGS);
+}
+
+template <int BQ, int BK, int NCOL>
 __global__ void __launch_bounds__(kThreads) flash_fwd_lse_kernel(UNIGEO_F32_PARAMS) {
   flash_f32_block<BQ, BK, NCOL, true>(UNIGEO_F32_ARGS);
 }
 
 template <int BQ, int BK, int NCOL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+cudaError_t launch(Entry entry, const void* q, const void* k, const void* v, void* o,
+                   float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                    int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                    int B, int Sq, int Sk, int H, int D, float scale,
                    cudaStream_t stream) {
-  auto kern = lse != nullptr ? flash_fwd_lse_kernel<BQ, BK, NCOL>
-                             : flash_packed_kernel<BQ, BK, NCOL>;
+  auto kern = entry == kFwdLse      ? flash_fwd_lse_kernel<BQ, BK, NCOL>
+              : entry == kHeadsplit ? flash_headsplit_kernel<BQ, BK, NCOL>
+                                    : flash_packed_kernel<BQ, BK, NCOL>;
   const size_t smem = smem_bytes<BQ, BK>(D);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -241,18 +256,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
-                     int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
-                     int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
-                     int B, int Sq, int Sk, int H, int D, float scale,
-                     cudaStream_t stream) {
+cudaError_t dispatch_f32(Entry entry, const void* q, const void* k, const void* v, void* o,
+                         float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                         int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
+                         int B, int Sq, int Sk, int H, int D, float scale,
+                         cudaStream_t stream) {
   if (D <= 64)
-    return launch<64, 64, 16>(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+    return launch<64, 64, 16>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                               o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
   if (D <= 128)
-    return launch<64, 64, 32>(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+    return launch<64, 64, 32>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                               o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
-  return launch<16, 32, 32>(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+  return launch<16, 32, 32>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                             o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
 }
 
@@ -428,17 +443,23 @@ __global__ void __launch_bounds__(WQ * WD * 32) flash_packed_mma_kernel(UNIGEO_M
 }
 
 template <int D, int WQ, int WD, int BK>
+__global__ void __launch_bounds__(WQ * WD * 32) flash_headsplit_mma_kernel(UNIGEO_MMA_PARAMS) {
+  flash_mma_block<D, WQ, WD, BK, false>(UNIGEO_MMA_ARGS);
+}
+
+template <int D, int WQ, int WD, int BK>
 __global__ void __launch_bounds__(WQ * WD * 32) flash_fwd_lse_mma_kernel(UNIGEO_MMA_PARAMS) {
   flash_mma_block<D, WQ, WD, BK, true>(UNIGEO_MMA_ARGS);
 }
 
 template <int D, int WQ, int WD, int BK>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
-                       int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+cudaError_t launch_mma(Entry entry, const void* q, const void* k, const void* v, void* o,
+                       float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                        int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                        int B, int Sq, int Sk, int H, float scale, cudaStream_t stream) {
-  auto kern = lse != nullptr ? flash_fwd_lse_mma_kernel<D, WQ, WD, BK>
-                             : flash_packed_mma_kernel<D, WQ, WD, BK>;
+  auto kern = entry == kFwdLse      ? flash_fwd_lse_mma_kernel<D, WQ, WD, BK>
+              : entry == kHeadsplit ? flash_headsplit_mma_kernel<D, WQ, WD, BK>
+                                    : flash_packed_mma_kernel<D, WQ, WD, BK>;
   constexpr size_t smem = mma_smem_bytes<D, WQ, WD, BK>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -462,8 +483,8 @@ bool aligned16(const void* q, const void* k, const void* v, const void* o,
   return (ptrs % 16) == 0 && (strides % 8) == 0;
 }
 
-cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
-                          int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+cudaError_t dispatch_bf16(Entry entry, const void* q, const void* k, const void* v, void* o,
+                          float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                           int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                           int B, int Sq, int Sk, int H, int D, float scale,
                           cudaStream_t stream) {
@@ -471,8 +492,8 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, 
     return cudaErrorInvalidValue;
 #define UNIGEO_MMA(DD, WQ, WD, BK)                                                   \
   case DD:                                                                           \
-    return launch_mma<DD, WQ, WD, BK>(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, \
-                                      o_sb, o_ss, B, Sq, Sk, H, scale, stream);
+    return launch_mma<DD, WQ, WD, BK>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, \
+                                      v_ss, o_sb, o_ss, B, Sq, Sk, H, scale, stream);
   switch (D) {
     UNIGEO_MMA(16, 4, 1, 64)
     UNIGEO_MMA(64, 4, 1, 64)
@@ -488,8 +509,8 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, 
 
 namespace {
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
-                     int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+cudaError_t dispatch(Entry entry, const void* q, const void* k, const void* v, void* o,
+                     float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                      int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                      int B, int Sq, int Sk, int H, int D, float scale, int dtype,
                      void* stream) {
@@ -498,10 +519,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_f32(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+    return dispatch_f32(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                         o_sb, o_ss, B, Sq, Sk, H, D, scale, st);
   if (dtype == 1)
-    return dispatch_bf16(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
+    return dispatch_bf16(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
                          o_ss, B, Sq, Sk, H, D, scale, st);
   return cudaErrorInvalidValue;
 }
@@ -517,7 +538,19 @@ extern "C" int unigeo_flash_attention_packed(
     int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
     int B, int Sq, int Sk, int H, int D, float scale, int dtype,
     void* stream) {
-  return (int)dispatch(q, k, v, o, nullptr, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+  return (int)dispatch(kPacked, q, k, v, o, nullptr, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                       o_sb, o_ss, B, Sq, Sk, H, D, scale, dtype, stream);
+}
+
+// The same function for q, k, v, o viewed as [B, S, H, D] (contiguous, so
+// the packed strides apply), launched as the flash_headsplit_* kernels.
+extern "C" int unigeo_flash_attention_headsplit(
+    const void* q, const void* k, const void* v, void* o,
+    int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+    int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
+    int B, int Sq, int Sk, int H, int D, float scale, int dtype,
+    void* stream) {
+  return (int)dispatch(kHeadsplit, q, k, v, o, nullptr, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                        o_sb, o_ss, B, Sq, Sk, H, D, scale, dtype, stream);
 }
 
@@ -529,7 +562,7 @@ extern "C" int unigeo_flash_attention_fwd_lse(
     int B, int Sq, int Sk, int H, int D, float scale, int dtype,
     void* stream) {
   if (lse == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)dispatch(q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+  return (int)dispatch(kFwdLse, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                        o_sb, o_ss, B, Sq, Sk, H, D, scale, dtype, stream);
 }
 

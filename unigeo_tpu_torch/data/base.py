@@ -26,6 +26,7 @@ import torch
 from unigeo_tpu_torch import coords
 from unigeo_tpu_torch.data.transforms import ResizeInputs, ResizeTargets
 from unigeo_tpu_torch.ops.backproject import backproject_to_cv_position
+from unigeo_tpu_torch.ops.normals import surface_normals_from_points
 
 
 class SceneIndex:
@@ -89,9 +90,10 @@ class ClipDataset:
     ``depth_scale`` (divisor), ``depth_clamp`` (min, max meters) and
     ``native_normals``, and implement ``list_scenes``, ``load_scene_index``
     and, for other files than the stock ones, the per-frame readers.  A
-    dataset without normal maps gets zero normals: the JAX package's
-    plane-fit fallback and the RGB-to-depth-resolution resize come with the
-    disk loaders that need them.
+    dataset without normal maps gets plane-fit normals of its camera points
+    (``compute_normals_if_missing``, default on, as in the JAX package), or
+    zeros when that is off.  The RGB-to-depth-resolution resize comes with
+    the disk loaders that need it.
     """
 
     base_dataset = "base"
@@ -109,9 +111,11 @@ class ClipDataset:
         input_size=None,
         target_size=None,
         cache_dir: Optional[str] = None,
+        compute_normals_if_missing: bool = True,
         **_: Dict,
     ):
         self.root = root
+        self.compute_normals_if_missing = compute_normals_if_missing
         self.split = split
         self.clip_length = clip_length
         self.clip_overlap = clip_overlap
@@ -227,6 +231,11 @@ class ClipDataset:
             cam_normal = self._native_clip("normal", normal_paths)
             if cam_normal is None:
                 cam_normal = np.stack([self.load_normal(p) for p in normal_paths])
+        elif self.compute_normals_if_missing:
+            # 5x5 plane fit of the OpenGL camera points, as the JAX package
+            pts_last = torch.from_numpy(np.ascontiguousarray(np.moveaxis(cam_coord, 1, -1)))
+            nrm = surface_normals_from_points(pts_last).numpy()
+            cam_normal = np.moveaxis(nrm, -1, 1).astype(np.float32)
         else:
             cam_normal = np.zeros_like(cam_coord)
 

@@ -1,4 +1,5 @@
-"""GT-label preparation, port of ``unigeo_tpu/data/sample.py::prepare_gt_label``.
+"""The clip-sample contract and GT-label preparation, port of
+``unigeo_tpu/data/sample.py`` (``validate_sample``, ``prepare_gt_label``).
 
 The clip sample is a dict of dense [Nf, ...] arrays in OpenGL convention
 (images 0..255, intrinsics, extrinsics world-to-camera rebased to frame 0,
@@ -13,6 +14,43 @@ from typing import Any, Dict
 import numpy as np
 
 from unigeo_tpu_torch import coords
+
+SAMPLE_KEYS = (
+    "scene_name",
+    "images",
+    "intrinsics",
+    "extrinsics",
+    "cam_coord",
+    "cam_normal",
+    "world_coord",
+    "world_normal",
+    "mask",
+    "keyview_idx",
+)
+
+
+def validate_sample(data: Dict[str, Any]) -> None:
+    """Raise ``KeyError`` for a missing key and ``ValueError`` for an array
+    whose shape breaks the contract (the evaluator's ``strict`` check)."""
+    missing = [k for k in SAMPLE_KEYS if k not in data]
+    if missing:
+        raise KeyError(f"clip sample missing keys: {missing}")
+    nf = data["images"].shape[0]
+    h, w = data["images"].shape[-2:]
+    expect = {
+        "images": (nf, 3, h, w),
+        "intrinsics": (nf, 3, 3),
+        "extrinsics": (nf, 4, 4),
+        "cam_coord": (nf, 3, h, w),
+        "cam_normal": (nf, 3, h, w),
+        "world_coord": (nf, 3, h, w),
+        "world_normal": (nf, 3, h, w),
+        "mask": (nf, h, w),
+    }
+    for key, shape in expect.items():
+        got = tuple(data[key].shape)
+        if got != shape:
+            raise ValueError(f"{key}: expected shape {shape}, got {got}")
 
 
 def prepare_gt_label(data: Dict[str, Any]) -> Dict[str, np.ndarray]:

@@ -1,0 +1,190 @@
+"""The evaluator, port of ``unigeo_tpu/evaluator.py``: dataset -> model ->
+GT -> metrics -> CSV.
+
+Config-driven: the dataset and the model come from the registries (the
+model's ``**model_params`` from the config), each ``eval_*`` section turns
+one metric family on, and the per-sequence rows stream into
+``<save_dir>/metrics.csv`` after every clip (``metrics/manager.py``).
+
+As in the JAX package:
+  * resumable: sequences already in the CSV are skipped;
+  * ``max_clips``, ``strict`` (the clip-sample contract checked on every
+    clip) and ``verbose``;
+  * per-clip seconds and frames/s (``utils/profiling.py::ClipTimer``);
+  * async metrics: clip i is scored on one worker thread while clip i+1's
+    forward runs; the queue holds at most two clips, a worker's error is
+    raised before the next forward, and the pool is shut down on every exit;
+  * ``data_parallel`` resolved as there: auto is on only for a model with
+    ``forward_batch`` that asks for a batch (``eval_batch_size`` > 1), and an
+    explicit request for a model without ``forward_batch`` raises.  No port
+    model asks for a batch yet, so every clip runs on its own.
+
+Not ported yet, and raising with their ROADMAP item instead of running
+something else: the ``eval_pcd`` and ``eval_camera`` sections (queue 1
+item 3), ``num_workers`` > 0 (item 4, prefetch), batches of clips (item 5),
+runs over several processes (item 11) and ``debug_nans`` (item 12).
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Optional
+
+from unigeo_tpu_torch.config import EvalConfig
+from unigeo_tpu_torch.data.sample import prepare_gt_label, validate_sample
+from unigeo_tpu_torch.metrics.depth import depth_evaluation
+from unigeo_tpu_torch.metrics.manager import MetricsManager
+from unigeo_tpu_torch.metrics.normal import normal_evaluation
+from unigeo_tpu_torch.registry import get_dataset_cls, get_model_cls
+from unigeo_tpu_torch.utils.profiling import ClipTimer
+
+
+def _refuse_unported_sections(cfg: EvalConfig) -> None:
+    if cfg.eval_pcd or cfg.eval_camera:
+        raise NotImplementedError(
+            "the eval_pcd and eval_camera sections are not ported yet (ROADMAP queue 1 "
+            "item 3: point-cloud and camera metrics); drop them from the config")
+
+
+def _refuse_unported(cfg: EvalConfig, num_workers: int, debug_nans: bool) -> None:
+    _refuse_unported_sections(cfg)
+    if num_workers > 0:
+        raise NotImplementedError(
+            f"num_workers={num_workers}: clip prefetch is not ported yet "
+            "(ROADMAP queue 1 item 4); use 0")
+    if debug_nans:
+        raise NotImplementedError("debug_nans is not ported yet (ROADMAP queue 1 item 12)")
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "an eval over several processes is not ported yet (ROADMAP queue 1 item 11)")
+
+
+def evaluate_clip(cfg: EvalConfig, output: Dict[str, Any],
+                  gt_label: Dict[str, Any]) -> Dict[str, float]:
+    """Score one clip's predictions against its GT labels."""
+    _refuse_unported_sections(cfg)
+    metric: Dict[str, float] = {}
+    if cfg.eval_depth:
+        res, *_ = depth_evaluation(
+            output["pred_depths"], gt_label["gt_depths"], custom_mask=gt_label["gt_masks"],
+            alignment=cfg.depth_alignment, max_depth=cfg.max_depth,
+        )
+        metric.update(res)
+    if cfg.eval_normal:
+        metric.update(normal_evaluation(output["pred_normals"], gt_label["gt_normals"],
+                                        custom_mask=gt_label["gt_masks"]))
+    return metric
+
+
+def run_evaluation(
+    cfg: EvalConfig,
+    save_dir: str = "./debug_output",
+    resume: bool = True,
+    max_clips: Optional[int] = None,
+    dataset=None,
+    model=None,
+    verbose: bool = True,
+    strict: bool = False,
+    debug_nans: bool = False,
+    num_workers: int = 0,
+    data_parallel: Optional[bool] = None,
+    async_metrics: bool = True,
+    timer: Optional[ClipTimer] = None,
+) -> MetricsManager:
+    """The full eval loop; returns the manager holding every row.
+
+    dataset / model: instances to use instead of the config's (the config's
+    ``model_params`` build the model otherwise).
+    data_parallel: None = auto (on when the model has ``forward_batch`` and
+        ``eval_batch_size`` > 1, which raises: batches are not ported yet);
+        True for a model without ``forward_batch`` raises.
+    async_metrics: score on one worker thread (default); off scores on the
+        main thread (clean stack traces).
+    timer: the ``ClipTimer`` that times each forward (a new one by default);
+        give one with a ``jsonl_path`` to keep each clip's seconds and frames/s.
+    """
+    _refuse_unported(cfg, num_workers, debug_nans)
+    os.makedirs(save_dir, exist_ok=True)
+    save_path = os.path.join(save_dir, "metrics.csv")
+    if dataset is None:
+        dataset = get_dataset_cls(cfg.dataset)(**cfg.dataset_kwargs)
+    if model is None:
+        model = get_model_cls(cfg.model_name)(**cfg.model_params)
+
+    manager = (MetricsManager.from_csv(save_path, cfg.metric_names) if resume
+               else MetricsManager(cfg.metric_names))
+    timer = ClipTimer() if timer is None else timer
+    n = len(dataset) if max_clips is None else min(max_clips, len(dataset))
+
+    if data_parallel is None:
+        data_parallel = (hasattr(model, "forward_batch")
+                         and getattr(model, "eval_batch_size", 1) > 1)
+    if data_parallel and not hasattr(model, "forward_batch"):
+        raise ValueError(
+            f"data_parallel requested but {type(model).__name__} has no forward_batch")
+    if data_parallel and getattr(model, "eval_batch_size", 1) > 1:
+        raise NotImplementedError("batches of clips through forward_batch are not ported "
+                                  "yet (ROADMAP queue 1 item 5)")
+
+    def _record(seq: str, data, output) -> None:
+        gt_label = prepare_gt_label(data)
+        metric = {"seq_name": seq}
+        metric.update(evaluate_clip(cfg, output, gt_label))
+        if cfg.vis_depth:
+            from unigeo_tpu_torch.utils.vis import save_depth_normal_maps
+
+            save_depth_normal_maps(output.get("pred_depths"), output.get("pred_normals"),
+                                   os.path.join(save_dir, f"depth_{seq}"),
+                                   rgbs=gt_label["gt_rgbs"])
+        manager.update_metrics(metric)
+        manager.export_to_csv(save_path)
+        if verbose:
+            shown = {k: round(v, 5) for k, v in metric.items()
+                     if isinstance(v, (int, float)) and k in cfg.metric_names}
+            print(f"  {shown}  [{timer.summary()}]")
+
+    # one worker scores clip i while the main thread runs clip i+1's forward;
+    # the bounded deque caps the outputs held, result() re-raises a worker's
+    # error on the main thread
+    record_pool = ThreadPoolExecutor(1, thread_name_prefix="metrics") if async_metrics else None
+    record_q: collections.deque = collections.deque()
+
+    def _submit_record(seq, data, output) -> None:
+        if record_pool is None:
+            _record(seq, data, output)
+            return
+        while len(record_q) >= 2:
+            record_q.popleft().result()
+        record_q.append(record_pool.submit(_record, seq, data, output))
+
+    def _check_worker() -> None:
+        """A finished worker's failure, raised before the next forward."""
+        while record_q and record_q[0].done():
+            record_q.popleft().result()
+
+    try:
+        for data_idx in range(n):
+            data = dataset[data_idx]
+            _check_worker()
+            seq = f"{data_idx:03d}_{data['scene_name']}"
+            if resume and manager.has_sequence(seq):
+                continue
+            if strict:
+                validate_sample(data)
+            if verbose:
+                print(f"processing seq: {seq}")
+            with timer.clip(num_frames=len(data["images"])):
+                output = model.forward(data)
+            _submit_record(seq, data, output)
+        while record_q:
+            record_q.popleft().result()
+    finally:
+        # every exit: cancel queued records and wait out a running one, so no
+        # thread outlives this call
+        if record_pool is not None:
+            record_pool.shutdown(wait=True, cancel_futures=True)
+    return manager

@@ -1,9 +1,10 @@
-"""Depth-map evaluation (port of ``unigeo_tpu/metrics/depth.py`` for the
-``lstsq`` and ``metric`` alignments).
+"""Depth-map evaluation, port of ``unigeo_tpu/metrics/depth.py``.
 
-Validity = 0 < gt < max_depth; alignment uses the validity mask, the
-metrics use validity AND the custom mask; pred is clamped to >= 1e-5 before
-Log RMSE and the delta thresholds; an all-invalid clip scores zeros.
+Validity = 0 < gt < max_depth; alignment (every mode of
+``metrics/alignment.py``) uses the validity mask, the metrics use validity
+AND the custom mask; with ``disp_input`` the alignment runs against 1/gt and
+the aligned prediction is inverted back to depth; pred is clamped to >= 1e-5
+before Log RMSE and the delta thresholds; an all-invalid clip scores zeros.
 """
 
 from __future__ import annotations
@@ -12,8 +13,8 @@ from typing import Optional
 
 import torch
 
-from unigeo_tpu_torch.metrics._masked import masked_mean
-from unigeo_tpu_torch.metrics.alignment import lstsq_scale_shift
+from unigeo_tpu_torch.metrics import alignment as align
+from unigeo_tpu_torch.metrics._masked import masked_mean, masked_median
 
 DEPTH_METRIC_KEYS = (
     "Abs Rel",
@@ -26,22 +27,69 @@ DEPTH_METRIC_KEYS = (
     "delta < 1.25^3",
     "valid_pixels",
 )
+ALIGNMENT_MODES = ("metric", "lstsq", "lad", "lad2", "scale", "median")
 
 
-def depth_evaluation(predicted_depth, ground_truth_depth,
-                     max_depth: Optional[float] = 80.0, custom_mask=None,
-                     alignment: str = "lstsq"):
-    """-> (metrics dict of Python floats, aligned prediction)."""
+def safe_gt_full(gt: torch.Tensor) -> torch.Tensor:
+    return torch.where(gt == 0, torch.ones_like(gt), gt)
+
+
+def _align(mode: str, p, g, mask, lr: float, max_iters: int):
+    """(s, t) of the alignment ``mode`` over the validity mask."""
+    one, zero = torch.ones((), device=p.device), torch.zeros((), device=p.device)
+    if mode == "metric":
+        return one, zero
+    if mode == "lstsq":
+        return align.lstsq_scale_shift(p, g, mask)
+    if mode == "lad":
+        return align.lad_scale_shift(p, g, mask)
+    if mode == "lad2":
+        s0 = masked_median(g, mask) / masked_median(p, mask).clamp_min(1e-12)
+        return align.adam_l1_scale_shift(p, g, mask, s0, lr=lr, max_iters=max_iters)
+    if mode == "scale":
+        return align.weiszfeld_scale(p, g, mask).clamp_min(1e-3), zero
+    if mode == "median":
+        return align.median_scale(p, g, mask), zero
+    raise ValueError(f"unknown alignment mode {mode!r}")
+
+
+def depth_evaluation(
+    predicted_depth,
+    ground_truth_depth,
+    max_depth: Optional[float] = 80.0,
+    custom_mask=None,
+    alignment: str = "lstsq",
+    disp_input: bool = False,
+    pre_clip_min: Optional[float] = None,
+    pre_clip_max: Optional[float] = None,
+    post_clip_min: Optional[float] = None,
+    post_clip_max: Optional[float] = None,
+    lr: float = 1e-4,
+    max_iters: int = 1000,
+):
+    """Evaluate a depth prediction ([H, W] or [Nf, H, W]) against GT.
+
+    Returns (metrics dict of Python floats, error-parity map, aligned
+    prediction, masked gt), the JAX package's tuple."""
     pred = torch.as_tensor(predicted_depth).float()
     gt = torch.as_tensor(ground_truth_depth).float().to(pred.device)
     mask = (gt > 0) & (gt < max_depth) if max_depth is not None else gt > 0
-    if alignment == "lstsq":
-        s, t = lstsq_scale_shift(pred, gt, mask)
-    elif alignment == "metric":
-        s, t = torch.tensor(1.0), torch.tensor(0.0)
-    else:
-        raise ValueError(f"alignment {alignment!r} is not ported yet")
-    p_aligned = s * pred + t
+
+    p = pred
+    if pre_clip_min is not None:
+        p = p.clamp_min(pre_clip_min)
+    if pre_clip_max is not None:
+        p = p.clamp_max(pre_clip_max)
+    g = 1.0 / (gt + 1e-8) if disp_input else gt
+
+    s, t = _align(alignment, p, g, mask, lr, max_iters)
+    p_aligned = s * p + t
+    if disp_input:
+        p_aligned = 1.0 / p_aligned.clamp_min(1e-8)
+    if post_clip_min is not None:
+        p_aligned = p_aligned.clamp_min(post_clip_min)
+    if post_clip_max is not None:
+        p_aligned = p_aligned.clamp_max(post_clip_max)
 
     metric_mask = mask
     if custom_mask is not None:
@@ -64,4 +112,8 @@ def depth_evaluation(predicted_depth, ground_truth_depth,
     ]
     out = {k: float(v) * has for k, v in zip(DEPTH_METRIC_KEYS, vals)}
     out["valid_pixels"] = int(n_valid)
-    return out, p_aligned
+
+    # error-parity map over the validity mask
+    zero = torch.zeros_like(gt)
+    parity = torch.where(mask, (p_aligned - gt).abs() / safe_gt_full(gt), zero)
+    return out, parity, p_aligned, torch.where(mask, gt, zero)

@@ -19,8 +19,11 @@ from unigeo_tpu_torch.ops.attention import (
     MIN_KERNEL_SEQ,
     FlashAttentionPacked,
     attention_packed_reference,
+    flash_attention,
     flash_attention_packed,
+    use_packed_attention,
 )
+from unigeo_tpu_torch.ops.geglu import GegluFFN, geglu_ffn, use_fused_geglu
 
 
 def sinusoidal_embedding(
@@ -72,20 +75,26 @@ class GroupNorm(nn.GroupNorm):
 
 
 def attend(q, k, v, num_heads: int, head_dim: int):
-    """Packed attention dispatch, as ``layers.py::Attention`` does it: query
-    sequences of at least 128 tokens go to the flash kernels, shorter ones
-    (the 25-frame temporal attention) to the plain version in their dtype,
-    differentiated by autograd.
+    """Attention dispatch over packed [B, S, H*D] q, k, v, as
+    ``layers.py::Attention`` does it: query sequences of at least 128 tokens
+    go to the flash kernels, shorter ones (the 25-frame temporal attention)
+    to the plain version in their dtype, differentiated by autograd.
 
     Under autograd (grad mode on and q, k or v requiring grad) the kernels
     are ``FlashAttentionPacked``: the forward with logsumexp, then the dq and
-    dk/dv kernels, as the JAX package's ``attention_packed`` custom_vjp.
-    Otherwise the forward kernel alone, which leaves no graph."""
+    dk/dv kernels, as the JAX package's ``attention_packed`` and
+    ``_attention_tpu`` custom_vjps, in either layout.  Otherwise the forward
+    kernel alone, which leaves no graph: the packed one, or under
+    ``UNIGEO_PACKED_ATTN=0`` (read at each call) the head-split one on the
+    [B, S, H, D] view."""
     scale = head_dim**-0.5
     if q.shape[1] >= MIN_KERNEL_SEQ:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
             return FlashAttentionPacked.apply(q, k, v, num_heads, scale)
-        return flash_attention_packed(q, k, v, num_heads, scale)
+        if use_packed_attention():
+            return flash_attention_packed(q, k, v, num_heads, scale)
+        split = lambda t: t.reshape(t.shape[0], t.shape[1], num_heads, head_dim)
+        return flash_attention(split(q), split(k), split(v), scale).reshape(q.shape)
     return attention_packed_reference(q, k, v, num_heads, scale, upcast=False)
 
 
@@ -138,7 +147,12 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward: net.0 (GEGLU), net.1 (dropout slot), net.2."""
+    """GEGLU feed-forward: net.0 (GEGLU), net.1 (dropout slot), net.2.
+
+    Under ``UNIGEO_FUSED_GEGLU=1`` (read at each call) with bf16 input and
+    weights it is one fused kernel (``ops/geglu.py``; ``GegluFFN`` under
+    autograd) plus b2 in bf16, as the JAX package's ``FeedForward``;
+    otherwise the unfused layers.  The parameters are the same either way."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -147,6 +161,15 @@ class FeedForward(nn.Module):
         )
 
     def forward(self, x):
+        w1, b1 = self.net[0].proj.weight, self.net[0].proj.bias
+        if use_fused_geglu(x.dtype, w1.dtype):
+            w2, b2 = self.net[2].weight, self.net[2].bias
+            x = x.contiguous()
+            if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2)):
+                out = GegluFFN.apply(x, w1, b1, w2)
+            else:
+                out = geglu_ffn(x, w1, b1, w2)
+            return out + b2.to(x.dtype)
         for m in self.net:
             x = m(x)
         return x

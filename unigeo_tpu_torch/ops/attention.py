@@ -10,6 +10,14 @@ one to its ``launches`` count per launch:
   ``unigeo_tpu/ops/attention.py::flash_attention_tpu_packed``), kernel
   ``csrc/flash_attention_packed.cu``; plain version
   ``attention_packed_reference``.
+* ``flash_attention``: the same forward in the head-split layout
+  ``[B, S, H, D]`` (port of ``flash_attention_tpu``).  A contiguous
+  ``[B, S, H, D]`` tensor has the bytes of ``[B, S, H*D]``, and the packed
+  kernel takes batch and sequence strides, so this is the packed kernel's
+  body instantiated once more under its own name (``flash_headsplit_*``)
+  with its own entry point and ``launches`` count; the JAX package needs a
+  second Pallas kernel only because Mosaic's tiles want ``[B*H, S, D]``.
+  Plain version ``attention_packed_reference`` on the packed view.
 * ``flash_attention_fwd_lse``: the same forward that also returns the row
   logsumexp ``lse [B, H, Sq]`` f32 (port of ``flash_attention_tpu_fwd_lse``),
   the lse kernels of the same source (one kernel body, instantiated
@@ -23,7 +31,9 @@ one to its ``launches`` count per launch:
 
 ``FlashAttentionPacked`` is the differentiable attention (the JAX package's
 ``attention_packed`` custom_vjp): its forward is ``flash_attention_fwd_lse``,
-its backward ``flash_attention_bwd``.
+its backward ``flash_attention_bwd``.  It serves both layouts under autograd,
+as the JAX package's ``_attention_tpu`` custom_vjp does for the head-split
+one.  ``use_packed_attention`` reads the A/B switch ``UNIGEO_PACKED_ATTN``.
 
 ``attention_packed_reference`` also serves, with ``upcast=False``, as the
 layers' path below the kernels' 128-token threshold (the 25-token temporal
@@ -34,6 +44,7 @@ are the elementwise limits on kernel vs plain version.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -123,9 +134,16 @@ def _check_kernel_input(q, k, v, d: int):
             raise ValueError("bf16 kernel takes rows aligned to 16 bytes")
 
 
-def _launch(lib, q, k, v, num_heads: int, scale: float, lse=None):
+def use_packed_attention() -> bool:
+    """The packed layout unless ``UNIGEO_PACKED_ATTN=0`` (read at call time,
+    as the JAX package's ``use_packed_attention`` reads it)."""
+    return os.environ.get("UNIGEO_PACKED_ATTN", "1") != "0"
+
+
+def _launch(lib, q, k, v, num_heads: int, scale: float, lse=None, headsplit: bool = False):
     """One launch of the forward kernel in ``lib`` (a library from
-    ``_build``); with ``lse`` (f32 [B, H, Sq]) through the lse entry point."""
+    ``_build``); with ``lse`` (f32 [B, H, Sq]) through the lse entry point,
+    with ``headsplit`` through the head-split one."""
     from unigeo_tpu_torch import _build
 
     b, sq, hd = q.shape
@@ -139,7 +157,9 @@ def _launch(lib, q, k, v, num_heads: int, scale: float, lse=None):
             _DTYPE_TAGS[q.dtype], stream,
         )
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-        if lse is None:
+        if headsplit:
+            err = lib.unigeo_flash_attention_headsplit(*ptrs, *args)
+        elif lse is None:
             err = lib.unigeo_flash_attention_packed(*ptrs, *args)
         else:
             err = lib.unigeo_flash_attention_fwd_lse(*ptrs, lse.data_ptr(), *args)
@@ -165,6 +185,34 @@ def flash_attention_packed(q, k, v, num_heads: int, scale: Optional[float] = Non
 
 
 flash_attention_packed.launches = 0
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None):
+    """Head-split flash-attention forward: q [B,Sq,H,D], k/v [B,Sk,H,D] ->
+    [B,Sq,H,D], through the packed view of the same bytes."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, S, H, D]")
+    b, sq, h, d = q.shape
+    if k.shape[2:] != (h, d):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)}")
+    qp, kp, vp = (t.reshape(t.shape[0], t.shape[1], h * d) for t in (q, k, v))
+    _check(qp, kp, vp, h)
+    if scale is None:
+        scale = d**-0.5
+    if q.device.type == "cpu":
+        return attention_packed_reference(qp, kp, vp, h, scale).view(b, sq, h, d)
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("kernel takes contiguous q, k, v")
+    _check_kernel_input(qp, kp, vp, d)
+
+    from unigeo_tpu_torch import _build
+
+    out = _launch(_build.load_library(), qp, kp, vp, h, scale, headsplit=True)
+    flash_attention.launches += 1
+    return out.view(b, sq, h, d)
+
+
+flash_attention.launches = 0
 
 
 # --- forward with logsumexp, and the backward ---------------------------------

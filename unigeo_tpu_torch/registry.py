@@ -1,8 +1,9 @@
-"""Explicit name -> class registry, a copy of ``unigeo_tpu/registry.py``'s
-``register`` and ``get``.
+"""Explicit name -> class registries of datasets and models, a copy of
+``unigeo_tpu/registry.py``'s ``register`` and ``get``.
 
-Only the dataset side exists so far: the port's dataset modules register
-themselves when ``unigeo_tpu_torch.data`` is imported.
+The port's dataset modules register themselves when ``unigeo_tpu_torch.data``
+is imported, its model modules when ``get_model_cls`` imports them; a name
+the port does not have yet raises ``KeyError`` listing the names it has.
 """
 
 from __future__ import annotations
@@ -34,9 +35,18 @@ class Registry:
 
 
 DATASETS = Registry("dataset")
+MODELS = Registry("model")
 
 
 def get_dataset_cls(name: str) -> type:
     import unigeo_tpu_torch.data  # noqa: F401  (self-registering modules)
 
     return DATASETS.get(name)
+
+
+def get_model_cls(name: str) -> type:
+    # the self-registering model modules
+    import unigeo_tpu_torch.models.depthcrafter.model  # noqa: F401
+    import unigeo_tpu_torch.models.identity  # noqa: F401
+
+    return MODELS.get(name)
