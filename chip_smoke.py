@@ -15,7 +15,11 @@ Phases, each printed on its own flushed line with the seconds since start:
              shapes (M = 25 x tokens), with the unfused bf16 layers' time as
              a yardstick; then the forward-with-logsumexp and the two
              backward kernels (dq, dk/dv) at the three UNet training shapes
-             in bf16 and one ragged f32 shape, the same numbers for each
+             in bf16 and one ragged f32 shape, the same numbers for each;
+             the fused LayerNorm -> dense at the UNet's three temporal-
+             attention shapes in bf16 and at ragged shapes in bf16 and f32
+             (max err/limit, kernel / plain / unfused-layers ms, the bound,
+             rows past M in a zeroed buffer of whole blocks held to 0)
   reference  the tiny pipeline in f32 on the card (kernel path) against the
              same weights on the CPU (plain path); then one step of the tiny
              trainer the same way: loss, every gradient, and the AdamW step
@@ -37,6 +41,17 @@ Phases, each printed on its own flushed line with the seconds since start:
              three measured steps; losses, step seconds, peak memory, each
              kernel's launches per step against the configuration's count,
              and a gradient on every spatial to_q
+  tool       the port's LayerNorm -> dense ablation
+             (unigeo_tpu_torch.tools.ablate_ln_qkv) in-process at full size,
+             its JSON line, and the kernel's launches against the count the
+             tool's parameters predict
+  metrics    run_evaluation with IdentityModel on the identity config (a
+             dict, configs/identity_synthetic.yaml's content) on the card:
+             perfect scores on all four families, held against the same
+             run on the CPU; then one synthetic 25 x 384 x 512 clip with a
+             perturbed point cloud, pcd_downsample_num 10000: the seconds
+             of pcd_evaluation and camera_pose_evaluation, and the card's
+             metrics against the CPU's
 
 It exits non-zero, and prints no result, when there is no CUDA device or
 when any phase fails.  The second-last line is one JSON object with the
@@ -45,6 +60,7 @@ kernels' numbers; the last is the run's summary for the device.
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -88,6 +104,11 @@ H100_BYTES_PER_S = 3.35e12
 # against the packed one, relative (BASELINE.json's metric tolerance)
 EVAL_METRIC_TOL_REL = 5e-3
 SWITCHES = ("UNIGEO_FUSED_GEGLU", "UNIGEO_PACKED_ATTN")
+# point-cloud metrics, card against CPU (tests/test_torch_cuda.py): distance
+# statistics v within PCD_MOVED_TOL max|q| + 2 E / v, E = 16 u max|q|^2 (the
+# expansion's round-off of a distance d is E / (2 d)); normal consistencies
+# within PCD_NC_TOL
+PCD_MOVED_TOL, PCD_NC_TOL = 1e-5, 1e-4
 
 
 def log(phase: str, msg: str) -> None:
@@ -299,6 +320,76 @@ def phase_kernel_geglu(dev):
     return rows
 
 
+# shapes of the fused LayerNorm -> dense: (name, M, C, N, dtype); the UNet's
+# temporal-attention q/k/v shapes at 25 x 384 x 512 (the ablation tool's),
+# and ragged ones (M = 100, N = 2C, C not a multiple of the K tile, with
+# and without 16-byte rows)
+LN_SHAPES = [
+    ("unet_stage0", 76800, 320, 960, torch.bfloat16),
+    ("unet_stage1", 19200, 640, 1920, torch.bfloat16),
+    ("unet_stage2", 4800, 1280, 3840, torch.bfloat16),
+    ("ragged_c200", 100, 200, 400, torch.bfloat16),
+    ("ragged_c100", 100, 100, 200, torch.bfloat16),
+    ("ragged_c200_f32", 100, 200, 400, torch.float32),
+    ("ragged_c100_f32", 100, 100, 200, torch.float32),
+]
+
+
+def phase_kernel_ln_dense(dev):
+    """The fused LayerNorm -> dense against its plain version at LN_SHAPES:
+    max err/limit, the rows past M of a launch into a zeroed buffer of whole
+    blocks (limit 0), kernel / plain / unfused-layers times and the bound.
+    No one PyTorch call computes the function: F.layer_norm then F.linear
+    (two calls) is a yardstick only."""
+    from unigeo_tpu_torch import _build
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.ops import ln_qkv
+    from unigeo_tpu_torch.tools.ablate_ln_qkv import bound as ln_bound
+    import torch.nn.functional as F
+
+    set_exact_f32()  # the f32 plain version in full f32
+    lib = _build.load_library()
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rows = []
+    for name, m, c, n, dtype in LN_SHAPES:
+        mk = lambda shape, std, mean=0.0: (
+            torch.randn(shape, generator=gen, device=dev) * std + mean).to(dtype)
+        args = (mk((m, c), 1.0, 0.5), mk((c,), 0.2, 1.0), mk((c,), 0.3), mk((n, c), c**-0.5),
+                mk((n,), 0.1))
+        out = ln_qkv.ln_dense(*args)
+        torch.cuda.synchronize()
+        ref = ln_qkv.ln_dense_plain(*args)
+        diff = (out.float() - ref.float()).abs()
+        limit = ln_qkv.ln_dense_error_limit(*args, ref)
+        err, ratio = diff.max().item(), (diff / limit).max().item()
+        blocks = -(-m // ln_qkv.BLOCK_M) * ln_qkv.BLOCK_M
+        buf = torch.zeros((blocks, n), dtype=dtype, device=dev)
+        ln_qkv._launch(lib, *args, buf[:m], 1e-5)
+        torch.cuda.synchronize()
+        past = buf[m:].abs().max().item() if blocks > m else 0.0
+        if not (np.isfinite(err) and ratio <= 1.0 and past == 0.0
+                and torch.equal(buf[:m], out)):
+            raise AssertionError(f"ln_dense {name}: kernel vs plain max err/limit {ratio} "
+                                 f"(max abs err {err}), rows past M max {past}")
+        kern_ms = time_ms(lambda: ln_qkv.ln_dense(*args), 20)
+        plain_ms = time_ms(lambda: ln_qkv.ln_dense_plain(*args), 5)
+        x, g, b, w, bias = args
+        unfused_ms = time_ms(lambda: F.linear(F.layer_norm(x, (c,), g, b, 1e-5), w, bias), 20)
+        bms, by = ln_bound(m, c, n, dtype)
+        rows.append(dict(shape=name, m=m, c=c, n=n, dtype=str(dtype).split(".")[-1],
+                         max_abs_err=err, max_err_over_limit=ratio, rows_past_m_max=past,
+                         ms=kern_ms, plain_ms=plain_ms, library_ms=None, unfused_ms=unfused_ms,
+                         bound_ms=bms, bound_by=by))
+        log("kernel", f"ln_dense {name} [M={m},C={c},N={n},{rows[-1]['dtype']}] "
+            f"max_abs_err={err:.3e} max_err/limit={ratio:.3f} rows_past_M_max={past} "
+            f"kernel_ms={kern_ms:.4f} plain_ms={plain_ms:.4f} unfused_layers_ms={unfused_ms:.4f} "
+            f"(two calls, yardstick) bound_ms={bms:.5f} ({by})")
+        del args, out, ref, diff, limit, buf
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
 # training shapes of the forward-with-lse and backward kernels: (name, dtype,
 # Sq, Sk, H, D); the UNet's three spatial stages at batch 2 (the main path
 # runs batch 25) and one ragged f32 shape
@@ -472,7 +563,7 @@ def phase_reference(dev):
 def kernel_wrappers():
     """name -> the wrapper whose ``launches`` counts that kernel."""
     from unigeo_tpu_torch.ops import attention as att
-    from unigeo_tpu_torch.ops import geglu
+    from unigeo_tpu_torch.ops import geglu, ln_qkv
 
     return {
         "flash_attention_packed": att.flash_attention_packed,
@@ -481,6 +572,7 @@ def kernel_wrappers():
         "flash_attention_bwd_dq": att.flash_attention_bwd_dq,
         "flash_attention_bwd_dkv": att.flash_attention_bwd_dkv,
         "geglu_ffn": geglu.geglu_ffn,
+        "ln_dense": ln_qkv.ln_dense,
     }
 
 
@@ -985,9 +1077,10 @@ def phase_train(dev):
         # conditioning and the depth target
         "flash_attention_packed": clip_kernel_attentions(SVD_XT_CLIP)
         + 2 * vae_mid_attentions(TRAIN_H, TRAIN_W),
-        # neither switch is set in training
+        # neither switch is set in training, and no model uses ln_dense
         "flash_attention_headsplit": 0,
         "geglu_ffn": 0,
+        "ln_dense": 0,
     }
     predicted = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     measured = steps[1:]
@@ -1026,6 +1119,141 @@ def phase_train(dev):
     del out, unet, batch
     torch.cuda.empty_cache()
     return result
+
+
+def phase_tool_ln_qkv():
+    """The port's ablation tool in-process at full size; the kernel's
+    launches against its parameters' count, nothing else launched."""
+    from unigeo_tpu_torch.tools import ablate_ln_qkv
+
+    reset_counts()
+    t0 = time.perf_counter()
+    results = ablate_ln_qkv.main([])  # prints its JSON line
+    torch.cuda.synchronize()
+    counts = read_counts()
+    predicted = {name: 0 for name in counts}
+    predicted["ln_dense"] = len(ablate_ln_qkv.SHAPES) * ablate_ln_qkv.launches_per_shape()
+    log("tool", f"ablate_ln_qkv {time.perf_counter() - t0:.2f}s, kernel launches "
+        f"{json.dumps(counts)}, predicted {json.dumps(predicted)} ({len(ablate_ln_qkv.SHAPES)} "
+        f"shapes x (warm-up {ablate_ln_qkv.WARMUP} + chain {ablate_ln_qkv.LENGTH} + check 1))")
+    if counts != predicted:
+        raise AssertionError(f"tool launches {counts} != predicted {predicted}")
+    worst = max(r["max_err_over_limit"] for r in results["shapes"])
+    if not worst <= 1.0:
+        raise AssertionError(f"ablate_ln_qkv: kernel vs plain max err/limit {worst}")
+    return counts["ln_dense"], results
+
+
+def identity_config():
+    """configs/identity_synthetic.yaml as a dict (the card machine has no
+    PyYAML)."""
+    return {
+        "dataset": "SyntheticBoxDataset", "root": None, "h": 96, "w": 128, "clip_length": 8,
+        "clip_overlap": 2, "split": "test", "model_name": "IdentityModel", "model_params": {},
+        "eval_depth": {"metric_names": ["Abs Rel", "delta < 1.25", "delta < 1.25^2",
+                                        "delta < 1.25^3"], "depth_alignment": "lstsq"},
+        "eval_normal": {"metric_names": ["normal mean", "normal median", "angle < 7.5",
+                                         "angle < 11.25"]},
+        "eval_pcd": {"metric_names": ["acc", "comp", "nc1", "nc2"], "pcd_downsample_num": 4000},
+        "eval_camera": {"metric_names": ["ATE", "RPE trans", "RPE rot"]},
+    }
+
+
+def pcd_tolerance(key, value, q_max):
+    """The card-vs-CPU tolerance of one point-cloud statistic."""
+    if key.startswith("nc"):
+        return PCD_NC_TOL
+    return PCD_MOVED_TOL * q_max + 2 * 16 * 2.0**-24 * q_max**2 / max(value, 1e-30)
+
+
+def phase_metrics(dev):
+    """The identity config on the card (all four families, perfect scores)
+    against the same run on the CPU; then one 25 x 384 x 512 clip with a
+    perturbed cloud at pcd_downsample_num 10000: pcd_evaluation and
+    camera_pose_evaluation seconds, card against CPU."""
+    from unigeo_tpu_torch.config import EvalConfig
+    from unigeo_tpu_torch.data.sample import prepare_gt_label
+    from unigeo_tpu_torch.evaluator import run_evaluation
+    from unigeo_tpu_torch.metrics.camera import camera_pose_evaluation
+    from unigeo_tpu_torch.metrics.pointcloud import PCD_METRIC_KEYS, pcd_evaluation
+    from unigeo_tpu_torch.registry import get_dataset_cls
+
+    cfg = EvalConfig.from_dict(identity_config())
+    dataset = get_dataset_cls(cfg.dataset)(**cfg.dataset_kwargs)
+    q_max = 0.0
+    for i in range(len(dataset)):
+        gt = prepare_gt_label(dataset[i])
+        norms = np.linalg.norm(gt["gt_world_pts"][gt["gt_masks"]], axis=-1)
+        q_max = max(q_max, float(norms.max()))
+    dirs = {d: tempfile.mkdtemp(prefix=f"unigeo_identity_{d}_") for d in ("cuda", "cpu")}
+    try:
+        runs, csvs = {}, {}
+        for device, save_dir in dirs.items():
+            reset_counts()
+            t0 = time.perf_counter()
+            runs[device] = run_evaluation(cfg, save_dir=save_dir, dataset=dataset,
+                                          verbose=False, device=device)
+            torch.cuda.synchronize()
+            with open(os.path.join(save_dir, "metrics.csv")) as f:
+                csvs[device] = f.read()
+            log("metrics", f"identity config, metrics on {device}: {len(dataset)} clips in "
+                f"{time.perf_counter() - t0:.2f}s, kernel launches {sum(read_counts().values())}"
+                f", metrics.csv {json.dumps(csvs[device])}")
+    finally:
+        for save_dir in dirs.values():
+            shutil.rmtree(save_dir, ignore_errors=True)
+    avg = runs["cuda"].calculate_averages()
+    cpu_avg = runs["cpu"].calculate_averages()
+    dist_tol = math.sqrt(32 * 2.0**-24) * q_max
+    perfect = (avg["Abs Rel"] < 1e-5 and avg["delta < 1.25"] == 1.0 and avg["ATE"] < 1e-6
+               and avg["RPE trans"] < 1e-6 and avg["RPE rot"] == cpu_avg["RPE rot"]
+               and avg["acc"] < dist_tol and avg["comp"] < dist_tol and avg["nc1"] > 1 - 1e-5
+               and avg["nc2"] > 1 - 1e-5 and avg["normal mean"] < 0.1)
+    same = {k: avg[k] == cpu_avg[k] for k in avg}
+    log("metrics", f"identity averages on the card {json.dumps(avg)}; equal to the CPU run's: "
+        f"{json.dumps(same)}; acc/comp round-off bound {dist_tol:.3e}")
+    if not perfect:
+        raise AssertionError(f"identity scores not perfect on the card: {avg}")
+    if any(abs(avg[k] - cpu_avg[k]) > dist_tol for k in ("acc", "comp")):
+        raise AssertionError(f"identity acc/comp card {avg} vs CPU {cpu_avg}")
+
+    # one production-size clip, a perturbed prediction of its cloud
+    clip = get_dataset_cls("SyntheticBoxDataset")(
+        clip_length=EVAL_FRAMES, num_scenes=1, frames_per_scene=EVAL_FRAMES,
+        render_size=(EVAL_H, EVAL_W))[0]
+    gt = prepare_gt_label(clip)
+    rng = np.random.default_rng(13)
+    a = math.radians(3.0)
+    rot = np.array([[math.cos(a), -math.sin(a), 0], [math.sin(a), math.cos(a), 0], [0, 0, 1]])
+    pts = gt["gt_world_pts"]
+    pred = (1.1 * pts @ rot.T + np.array([0.02, -0.01, 0.03])
+            + rng.normal(0, 0.005, pts.shape)).astype(np.float32)
+    poses = gt["gt_poses"].copy()
+    poses[:, :3, 3] += rng.normal(0, 0.01, poses[:, :3, 3].shape).astype(np.float32)
+    kw = dict(rgbs=gt["gt_rgbs"], downsample_num=10000)
+    q_max = float(np.linalg.norm(pts[gt["gt_masks"]], axis=-1).max())
+    res, secs = {}, {}
+    for label, device in (("card_first", "cuda"), ("card", "cuda"), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        res[label] = pcd_evaluation(pred, pts, gt["gt_masks"], device=device, **kw)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cam = camera_pose_evaluation(poses, gt["gt_poses"])
+    cam_s = time.perf_counter() - t0
+    pcd = {k: res["card"][k] for k in PCD_METRIC_KEYS}
+    ratio = max(abs(res["card"][k] - res["cpu"][k]) / pcd_tolerance(k, res["cpu"][k], q_max)
+                for k in PCD_METRIC_KEYS)
+    log("metrics", f"clip {EVAL_FRAMES}x{EVAL_H}x{EVAL_W}, {int(gt['gt_masks'].sum())} valid "
+        f"points, downsample 10000: pcd_evaluation on the card {secs['card']:.3f}s (first call "
+        f"{secs['card_first']:.3f}s), on the CPU {secs['cpu']:.3f}s; camera_pose_evaluation "
+        f"(numpy f64, host) {cam_s:.4f}s; card metrics {json.dumps(pcd)}, ATE/RPE trans/RPE rot "
+        f"{json.dumps(cam)}; card vs CPU max dev/tol {ratio:.3e}")
+    if not (ratio <= 1.0 and all(np.isfinite(v) for v in pcd.values())):
+        raise AssertionError(f"pcd metrics card {res['card']} vs CPU {res['cpu']}")
+    if not torch.backends.cuda.matmul.allow_tf32 is False:
+        raise AssertionError("TF32 is on for the metrics' f32 products")
+    return dict(pcd_s=secs["card"], pcd_cpu_s=secs["cpu"], camera_s=cam_s, pcd=pcd, camera=cam)
 
 
 def summarize(name, source, replaces, rows, launches, extra=None):
@@ -1079,6 +1307,7 @@ def main():
     rows = phase_kernel(dev)
     headsplit_rows = phase_kernel_headsplit(dev)
     geglu_rows = phase_kernel_geglu(dev)
+    ln_rows = phase_kernel_ln_dense(dev)
     train_rows = phase_kernel_train(dev)
     torch.cuda.synchronize()
     phase_reference(dev)
@@ -1092,6 +1321,10 @@ def main():
     torch.cuda.empty_cache()
     trained = phase_train(dev)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ln_launches, _ = phase_tool_ln_qkv()
+    torch.cuda.empty_cache()
+    phase_metrics(dev)
 
     src = "unigeo_tpu_torch/csrc/"
     per_step = trained["launches_per_step"]
@@ -1125,6 +1358,15 @@ def main():
                   trained["launches"]["flash_attention_bwd_dkv"],
                   {"launches_per_step": per_step["flash_attention_bwd_dkv"],
                    "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)"}),
+        summarize("ln_dense", src + "ln_dense.cu", "unigeo_tpu/ops/ln_qkv.py:49",
+                  [r for r in ln_rows if r["shape"].startswith("unet")], ln_launches,
+                  {"launches_on": "python -m unigeo_tpu_torch.tools.ablate_ln_qkv at full size "
+                                  "(no model uses it: 0 on the forward, eval and train paths)",
+                   "unfused_ms": sum(r["unfused_ms"] for r in ln_rows
+                                     if r["shape"].startswith("unet")),
+                   "unfused_computes": "F.layer_norm then F.linear, two PyTorch calls "
+                                       "(a yardstick, not one library call)",
+                   "ragged_shapes": [r for r in ln_rows if not r["shape"].startswith("unet")]}),
     ]
     for k in kernels:
         if not k["launches"] > 0:

@@ -35,11 +35,30 @@ The fused GEGLU feed-forward (bf16 only): the elementwise limit of
 T = |h| |w2|^T, from the bf16 roundings of h and of the output, which f32
 sums taken in another order can move by one unit each (see there).
 
+The fused LayerNorm -> dense (bf16 and f32): the elementwise limit of
+``ln_dense_error_limit``, 1.0625 (2 u_out |ref| + 2 C 2^-24 T + dY |W|^T),
+T = |y| |W|^T + |b|: the output's rounding (u_out = 2^-8 in bf16, 2^-24 in
+f32), the product's f32 sums in another order, and y's rounding flips, only
+where the two f32 values of y can straddle a boundary (see there).  Rows
+past M, written into a zeroed buffer of whole 64-row blocks, must stay 0.
+
 The planted-fault tests show that the limits fail a kernel that drops one
 key tile or the ragged-edge mask (forward), skips one query tile of dk/dv
-or the ragged-column mask of dq (backward), or skips one hidden tile, swaps
+or the ragged-column mask of dq (backward), skips one hidden tile, swaps
 value and gate, or drops the ragged-row guard of the GEGLU kernel (rows
-past M must stay unwritten: their limit is 0).
+past M must stay unwritten: their limit is 0), or skips the last K tile,
+drops beta, leaves the last half tile of columns at N = 960 unwritten or
+writes rows past M in the LayerNorm -> dense kernel (each by at least 3x).
+
+The point-cloud metrics on the card against the port's CPU run of the same
+clip (a synthetic 8 x 96 x 128 clip, its world points scaled, rotated,
+shifted and noised as the prediction): the distance statistics v within
+1e-5 max|q| + 2 E / v, E = 16 u max|q|^2, and the normal consistencies
+within 1e-4, the bounds of tests/test_torch_pointcloud.py for the JAX
+package against the port (f32 sums in other orders, cuSOLVER's SVD and
+eigh for LAPACK's).  The camera metrics run in numpy f64 on the host
+wherever the model ran (chip_smoke.py's metrics phase holds the card run's
+CSV against the CPU run's).
 """
 
 import os
@@ -67,6 +86,8 @@ from unigeo_tpu_torch.ops.attention import (
     grad_error_limits,
 )
 from unigeo_tpu_torch.ops.geglu import geglu_error_limit, geglu_ffn, geglu_ffn_plain
+from unigeo_tpu_torch.ops import ln_qkv
+from unigeo_tpu_torch.ops.ln_qkv import ln_dense, ln_dense_error_limit, ln_dense_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -195,6 +216,31 @@ PLANTED_FAULTS = {
     "geglu_no_ragged_mask": (
         "geglu_ffn.cu",
         "    if (row >= M) continue;\n",
+        "",
+    ),
+    # LayerNorm -> dense (bf16): the last K tile never reaches the product
+    "ln_skip_last_k_tile": (
+        "ln_dense.cu",
+        "  for (int k0 = 0; k0 < C; k0 += kBK16) {\n",
+        "  for (int k0 = 0; k0 < C; k0 += kBK16) {\n    if (k0 + kBK16 >= C) continue;\n",
+    ),
+    # LayerNorm -> dense: beta is not added
+    "ln_skip_beta": (
+        "ln_dense.cu",
+        "(xv[j] - mean) * rstd * gv[j] + bv[j]",
+        "(xv[j] - mean) * rstd * gv[j]",
+    ),
+    # LayerNorm -> dense (bf16): the grid stops at the last whole column
+    # tile, so N = 960 leaves 64 columns unwritten
+    "ln_last_n_tile_unwritten": (
+        "ln_dense.cu",
+        "dim3 grid((M + kBM - 1) / kBM, (N + kBN16 - 1) / kBN16);",
+        "dim3 grid((M + kBM - 1) / kBM, N / kBN16);",
+    ),
+    # LayerNorm -> dense (bf16): rows past M are stored too
+    "ln_rows_past_m": (
+        "ln_dense.cu",
+        "      if (row >= M) continue;  // rows past M are not stored\n",
         "",
     ),
 }
@@ -514,3 +560,120 @@ def test_geglu_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # x not aligned to 16 bytes
         shifted = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(64, 64)
         geglu_ffn(shifted, w1, b1, w2)
+
+
+# --- the fused LayerNorm -> dense ----------------------------------------------------
+
+
+def _ln_inputs(m, c, n, dtype, device, seed=0):
+    """x [M, C] with row means of 0.5, gamma ~ 1 + 0.2 N, beta ~ 0.3 N, the
+    nn.Linear weight [N, C] ~ N(0, 1/C) and bias ~ 0.1 N, in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    mk = lambda shape, std, mean=0.0: torch.from_numpy(
+        (rng.standard_normal(shape) * std + mean).astype(np.float32)).to(device, dtype)
+    return (mk((m, c), 1.0, 0.5), mk((c,), 0.2, 1.0), mk((c,), 0.3), mk((n, c), c**-0.5),
+            mk((n,), 0.1))
+
+
+def _ln_ratio(out, args):
+    ref = ln_dense_plain(*args)
+    return ((out.float() - ref.float()).abs() / ln_dense_error_limit(*args, ref)).max().item()
+
+
+def _ln_into_tiles(lib, args):
+    """The kernel in ``lib`` into a zeroed buffer of whole 64-row blocks:
+    (the rows < M, the number of rows past M it wrote)."""
+    x, weight = args[0], args[3]
+    m = x.shape[0]
+    buf = torch.zeros((-(-m // ln_qkv.BLOCK_M) * ln_qkv.BLOCK_M, weight.shape[0]),
+                      dtype=x.dtype, device=x.device)
+    ln_qkv._launch(lib, *args, buf[:m], 1e-5)
+    torch.cuda.synchronize()
+    return buf[:m], int(buf[m:].abs().amax(dim=1).gt(0).sum().item())
+
+
+# the UNet's temporal-attention shapes (M, C, N = 3C) at 25 x 384 x 512, and
+# ragged ones: M = 100, N = 2C, C not a multiple of the K tile (64 in bf16,
+# 32 in f32), with and without 16-byte rows (C % 8), an odd N
+LN_CASES = [(76800, 320, 960, "bf16"), (19200, 640, 1920, "bf16"), (4800, 1280, 3840, "bf16"),
+            (100, 200, 400, "bf16"), (100, 100, 200, "bf16"), (37, 72, 129, "bf16"),
+            (100, 200, 400, "f32"), (100, 100, 200, "f32"), (37, 72, 129, "f32")]
+LN_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+@pytest.mark.parametrize("m,c,n,dtype", LN_CASES)
+def test_ln_dense_kernel_matches_plain(cuda, m, c, n, dtype):
+    args = _ln_inputs(m, c, n, LN_DTYPES[dtype], cuda, seed=m + c)
+    before = ln_dense.launches
+    out = ln_dense(*args)
+    torch.cuda.synchronize()
+    assert ln_dense.launches == before + 1
+    assert out.shape == (m, n) and out.dtype == LN_DTYPES[dtype]
+    ratio = _ln_ratio(out, args)
+    tiled, past = _ln_into_tiles(_build.load_library(), args)
+    print(f"ln_dense [M={m},C={c},N={n},{dtype}]: max err/limit {ratio:.3f}, rows written "
+          f"past M {past}", flush=True)
+    assert ratio <= 1.0 and past == 0 and torch.equal(tiled, out)
+
+
+@pytest.mark.parametrize(
+    "fault,m,c,n",
+    [
+        ("ln_skip_last_k_tile", 76800, 320, 960),
+        ("ln_skip_beta", 19200, 640, 1920),
+        ("ln_last_n_tile_unwritten", 1200, 320, 960),
+        ("ln_rows_past_m", 100, 200, 400),
+    ],
+)
+def test_ln_dense_limit_fails_planted_faults(cuda, faulty_libraries, fault, m, c, n):
+    """The kernel passes its limit and a copy with a planted fault fails it
+    by at least 3x (rows written past M: inf)."""
+    args = _ln_inputs(m, c, n, torch.bfloat16, cuda, seed=11)
+    good = _ln_ratio(ln_dense(*args), args)
+    out, past = _ln_into_tiles(faulty_libraries[fault], args)
+    bad = float("inf") if past else _ln_ratio(out, args)
+    print(f"planted {fault} [M={m},C={c},N={n}]: max err/limit kernel {good:.3f}, faulty copy "
+          f"{bad:.3f} ({past} rows written past M)", flush=True)
+    assert good <= 1.0 and bad >= 3.0, (good, bad)
+
+
+def test_ln_dense_kernel_rejects_what_it_does_not_take(cuda):
+    x, g, b, w, bias = _ln_inputs(64, 96, 192, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):  # x not contiguous
+        ln_dense(x.t().contiguous().t(), g, b, w, bias)
+    with pytest.raises(ValueError):  # mixed dtypes
+        ln_dense(x, g, b, w.float(), bias)
+    with pytest.raises(ValueError):  # a dtype the kernel does not take
+        ln_dense(*(t.half() for t in (x, g, b, w, bias)))
+    with pytest.raises(ValueError):  # a weight on another device
+        ln_dense(x, g, b, w.cpu(), bias)
+
+
+# --- the point-cloud and camera metrics ----------------------------------------------
+
+
+def test_pcd_metrics_on_the_card_match_the_cpu(cuda):
+    from unigeo_tpu_torch.data.sample import prepare_gt_label
+    from unigeo_tpu_torch.data.synthetic import SyntheticBoxDataset
+    from unigeo_tpu_torch.metrics.pointcloud import PCD_METRIC_KEYS, pcd_evaluation
+
+    gt = prepare_gt_label(SyntheticBoxDataset(clip_length=8, num_scenes=1, frames_per_scene=8)[0])
+    rng = np.random.default_rng(12)
+    a = np.radians(3.0)
+    rot = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]])
+    pts = gt["gt_world_pts"]
+    pred = (1.1 * pts @ rot.T + np.array([0.02, -0.01, 0.03])
+            + rng.normal(0, 0.005, pts.shape)).astype(np.float32)
+    args = (pred, pts, gt["gt_masks"])
+    kw = dict(rgbs=gt["gt_rgbs"], downsample_num=4000)
+    on_card = pcd_evaluation(*args, device="cuda", **kw)
+    on_cpu = pcd_evaluation(*args, device="cpu", **kw)
+    q_max = float(np.linalg.norm(pts[gt["gt_masks"]], axis=-1).max())
+    e = 16 * 2.0**-24 * q_max**2
+    for key in PCD_METRIC_KEYS:
+        tol = 1e-4 if key.startswith("nc") else 1e-5 * q_max + 2 * e / on_cpu[key]
+        print(f"pcd {key}: card {on_card[key]:.6g} cpu {on_cpu[key]:.6g} tol {tol:.3g}",
+              flush=True)
+        assert abs(on_card[key] - on_cpu[key]) <= tol, key
+    np.testing.assert_array_equal(on_card["gt_pcd"][0], on_cpu["gt_pcd"][0])
+    assert torch.backends.cuda.matmul.allow_tf32 is False

@@ -16,18 +16,27 @@
   shares: within 3 pixels' share, 3 / valid pixels (a pixel within
   round-off of a threshold may land on either side).
 * ``validate_sample`` accepts and rejects the same samples.
-* ``IdentityModel`` through both ``run_evaluation``s on
-  ``configs/identity_synthetic.yaml`` without its ``eval_pcd`` and
-  ``eval_camera`` sections (96x128, clips of 8): the CSVs are byte-identical
-  but for the "normal mean" column, and a resumed run skips every clip.
-  The normal error of a perfect prediction is f32 round-off: cos = 1 - 1e-6
-  to a few ulps, ~0.079 degree.  The two packages round the 3-term dot
-  product and norms in different orders, so a pixel's cos may differ by up
-  to ~4 ulps (4 * 2^-24), which arccos turns into 4 * 2^-24 / sin(theta)
-  radians, ~0.01 degree at theta = 0.079 degree.  That column is held to
-  this bound plus one unit of the printed fifth decimal (seen: 8.3e-4
-  degree at most on a clip).  The median and the threshold shares land on
-  the same printed values.
+* ``IdentityModel`` on ``configs/identity_synthetic.yaml`` as it is (all
+  four families; 96x128, clips of 8, 4000 points): the JAX package's
+  ``run_evaluation`` against the port's CLI (``python -m
+  unigeo_tpu_torch.eval --device cpu``).  The CSVs are byte-identical but
+  for the columns that carry f32 round-off of a perfect prediction, and a
+  resumed run skips every clip.
+  - "normal mean": the normal error of a perfect prediction is cos = 1 -
+    1e-6 to a few ulps, ~0.079 degree.  The two packages round the 3-term
+    dot product and norms in different orders, so a pixel's cos may differ
+    by up to ~4 ulps (4 * 2^-24), which arccos turns into 4 * 2^-24 /
+    sin(theta) radians, ~0.01 degree at theta = 0.079 degree.  Held to this
+    bound plus one unit of the printed fifth decimal (seen: 8.3e-4 degree at
+    most on a clip).
+  - "acc", "comp": a point's distance to itself is the f32 round-off of the
+    expansion ||q||^2 + ||r||^2 - 2 q.r, at most 16 u (||q||^2 + ||r||^2)
+    = 32 u ||q||^2 in either package (u = 2^-24), clamped at 0, through the
+    square root: each package's value lies in [0, sqrt(32 u) max ||q||]
+    (max over the run's valid world points), so they are held to that plus
+    one printed unit (seen: 1e-5, one unit).
+  The normal median and shares, nc1 and nc2 (1.00000), ATE and RPE (the
+  same numpy f64 code) land on the same printed values.
 * A tiny DepthCrafter (the ``tiny_*_config()`` sizes, f32, the JAX weights
   carried over, the JAX noise draws passed in) through both
   ``run_evaluation``s: the error metrics of every row within 2e-2 relative,
@@ -35,6 +44,11 @@
   1e-2 relative (tests/test_torch_depthcrafter.py: the clip's min-max and
   1/(x + 0.1) amplify the pipeline's f32 differences); the lstsq-aligned
   errors and plane-fit angles move by about as much.
+* With ``vis_pcd`` the evaluator writes each clip's downsampled clouds as
+  PLY files, which the JAX package's reader reads; for the identity model
+  pred equals gt within 1e-5 of its
+  largest coordinate (the alignment's f32 rescale by gt_scale / pred_scale,
+  a few ulps).
 * What is not ported raises, naming its ROADMAP item; the CLI runs a YAML
   config on the CPU.
 """
@@ -183,61 +197,112 @@ def test_validate_sample_accepts_and_rejects_as_jax(tmp_path):
 # ---------------------------------------------------------------------------
 
 
+IDENTITY_YAML = os.path.join(ROOT, "configs", "identity_synthetic.yaml")
+# the identity CSV's columns that carry f32 round-off (module docstring)
+ROUND_OFF_COLUMNS = ("normal mean", "acc", "comp")
+
+
 def _identity_config():
-    with open(os.path.join(ROOT, "configs", "identity_synthetic.yaml")) as f:
-        cfg = yaml.safe_load(f)
-    del cfg["eval_pcd"], cfg["eval_camera"]
-    return cfg
+    with open(IDENTITY_YAML) as f:
+        return yaml.safe_load(f)
+
+
+def _max_world_norm(cfg):
+    """The largest norm of a valid GT world point over the config's clips."""
+    from unigeo_tpu_torch.data.sample import prepare_gt_label
+    from unigeo_tpu_torch.registry import get_dataset_cls
+
+    ecfg = EvalConfig.from_dict(cfg)
+    dataset = get_dataset_cls(ecfg.dataset)(**ecfg.dataset_kwargs)
+    norms = []
+    for i in range(len(dataset)):
+        gt = prepare_gt_label(dataset[i])
+        norms.append(np.linalg.norm(gt["gt_world_pts"][gt["gt_masks"]], axis=-1).max())
+    return float(max(norms))
 
 
 def test_identity_eval_csv_matches_jax_and_resumes(tmp_path, capsys):
+    from unigeo_tpu_torch import eval as eval_cli
+
     cfg = _identity_config()
+    assert all(k in cfg for k in ("eval_depth", "eval_normal", "eval_pcd", "eval_camera"))
     jax_run_evaluation(JaxEvalConfig.from_dict(cfg), save_dir=str(tmp_path / "jax"))
-    timer = ClipTimer(jsonl_path=str(tmp_path / "clips.jsonl"))
-    manager = run_evaluation(EvalConfig.from_dict(cfg), save_dir=str(tmp_path / "port"),
-                             timer=timer)
+    cli = ["--config", IDENTITY_YAML, "--output", str(tmp_path / "port"), "--device", "cpu"]
+    manager = eval_cli.main(cli)
     csv_bytes = _read(tmp_path / "port" / "metrics.csv")
-    ours, ref = (_split_column(_read(tmp_path / d / "metrics.csv"), "normal mean")
+    ours, ref = (_split_columns(_read(tmp_path / d / "metrics.csv"), ROUND_OFF_COLUMNS)
                  for d in ("port", "jax"))
     assert ours[0] == ref[0]  # every byte of the other columns
-    for cell, ref_cell in zip(ours[1], ref[1]):
-        # 4 ulps of cos near 1 through arccos (module docstring), plus one
-        # unit of the printed fifth decimal
-        theta = math.radians(float(ref_cell))
-        tol = math.degrees(4 * 2.0**-24 / math.sin(theta)) + 1e-5
-        assert abs(float(cell) - float(ref_cell)) <= tol, (cell, ref_cell, tol)
+    dist_tol = math.sqrt(32 * 2.0**-24) * _max_world_norm(cfg) + 1e-5
+    for name in ROUND_OFF_COLUMNS:
+        for cell, ref_cell in zip(ours[1][name], ref[1][name]):
+            if name == "normal mean":
+                # 4 ulps of cos near 1 through arccos, plus one printed unit
+                theta = math.radians(float(ref_cell))
+                tol = math.degrees(4 * 2.0**-24 / math.sin(theta)) + 1e-5
+            else:
+                tol = dist_tol
+            assert abs(float(cell) - float(ref_cell)) <= tol, (name, cell, ref_cell, tol)
     n = len(manager.sequence_names)
-    assert n >= 2 and timer.count == n
-    with open(tmp_path / "clips.jsonl") as f:
-        lines = [json.loads(line) for line in f]
-    assert [r["clip"] for r in lines] == list(range(1, n + 1))
-    assert all(r["frames"] == 8 and r["fps"] > 0 for r in lines)
+    assert n >= 2
     averages = manager.calculate_averages()
     assert averages["Abs Rel"] < 1e-5 and averages["delta < 1.25"] == 1.0
     assert averages["normal mean"] < 0.1
+    assert averages["acc"] < dist_tol and averages["comp"] < dist_tol
+    assert averages["nc1"] > 1 - 1e-5 and averages["nc2"] > 1 - 1e-5
+    assert averages["ATE"] < 1e-6 and averages["RPE trans"] < 1e-6
 
-    # resumed: every clip skipped, nothing run, the CSV as it was
-    again = ClipTimer()
+    # resumed through the CLI and through run_evaluation: every clip
+    # skipped, nothing run, the CSV as it was
     capsys.readouterr()
-    run_evaluation(EvalConfig.from_dict(cfg), save_dir=str(tmp_path / "port"), timer=again)
+    eval_cli.main(cli)
+    assert "processing seq" not in capsys.readouterr().out
+    again = ClipTimer()
+    run_evaluation(EvalConfig.from_dict(cfg), save_dir=str(tmp_path / "port"), timer=again,
+                   device="cpu")
     assert again.count == 0 and "processing seq" not in capsys.readouterr().out
     assert _read(tmp_path / "port" / "metrics.csv") == csv_bytes
-    # max_clips, strict and the synchronous path give the same first rows
+    # max_clips, strict and the synchronous path give the same first rows;
+    # the timer journals each forward
+    timer = ClipTimer(jsonl_path=str(tmp_path / "clips.jsonl"))
     sync = run_evaluation(EvalConfig.from_dict(cfg), save_dir=str(tmp_path / "sync"),
-                          max_clips=2, strict=True, async_metrics=False, verbose=False)
+                          max_clips=2, strict=True, async_metrics=False, verbose=False,
+                          timer=timer, device="cpu")
     assert sync.rows() == manager.rows()[:2]
+    assert timer.count == 2
+    with open(tmp_path / "clips.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    assert [r["clip"] for r in lines] == [1, 2]
+    assert all(r["frames"] == 8 and r["fps"] > 0 for r in lines)
 
 
-def _split_column(csv_bytes, name):
-    """(the CSV without column ``name``, that column's cells)."""
+def test_point_clouds_are_written_under_vis_pcd(tmp_path):
+    from unigeo_tpu.utils.vis import load_point_cloud  # the JAX package's reader
+
+    cfg = dict(_identity_config(), vis_pcd=True, clip_overlap=0,
+               dataset_params={"num_scenes": 1, "frames_per_scene": 8})
+    cfg["eval_pcd"] = dict(cfg["eval_pcd"], pcd_downsample_num=500)
+    run_evaluation(EvalConfig.from_dict(cfg), save_dir=str(tmp_path), verbose=False,
+                   device="cpu")
+    (seq_dir,) = [d for d in os.listdir(tmp_path) if d.startswith("pcd_")]
+    pred, pred_rgb = load_point_cloud(str(tmp_path / seq_dir / "pred.ply"))
+    gt, gt_rgb = load_point_cloud(str(tmp_path / seq_dir / "gt.ply"))
+    assert pred.shape == gt.shape == (500, 3) and pred_rgb.dtype == np.uint8
+    np.testing.assert_array_equal(pred_rgb, gt_rgb)
+    assert np.abs(pred - gt).max() <= 1e-5 * np.abs(gt).max()
+
+
+def _split_columns(csv_bytes, names):
+    """(the CSV without the columns ``names``, {name: that column's cells})."""
     import csv
     import io
 
     rows = list(csv.reader(io.StringIO(csv_bytes.decode())))
-    i = rows[0].index(name)
+    idx = [rows[0].index(name) for name in names]
     out = io.StringIO()
-    csv.writer(out, lineterminator="\n").writerows([r[:i] + r[i + 1:] for r in rows])
-    return out.getvalue(), [r[i] for r in rows[1:]]
+    csv.writer(out, lineterminator="\n").writerows(
+        [[c for j, c in enumerate(r) if j not in idx] for r in rows])
+    return out.getvalue(), {name: [r[i] for r in rows[1:]] for name, i in zip(names, idx)}
 
 
 class _WithJaxDraws:
@@ -308,10 +373,6 @@ def test_tiny_depthcrafter_eval_rows_match_jax(shared_tiny_pipeline, tmp_path):
 
 
 def test_unported_sections_and_options_raise(tmp_path):
-    with open(os.path.join(ROOT, "configs", "identity_synthetic.yaml")) as f:
-        full = EvalConfig.from_dict(yaml.safe_load(f))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        run_evaluation(full, save_dir=str(tmp_path))
     cfg = EvalConfig.from_dict(_identity_config())
     with pytest.raises(NotImplementedError, match="item 4"):
         run_evaluation(cfg, save_dir=str(tmp_path), num_workers=2)

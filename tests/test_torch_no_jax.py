@@ -91,14 +91,37 @@ def test_eval_modules_are_checked(rel):
     assert os.path.join(ROOT, rel) in _port_files()
 
 
+# the modules of the LayerNorm -> dense and metrics slice, which the walk
+# above must find
+METRICS_SLICE_MODULES = [
+    "unigeo_tpu_torch/ops/ln_qkv.py",
+    "unigeo_tpu_torch/tools/ablate_ln_qkv.py",
+    "unigeo_tpu_torch/ops/knn.py",
+    "unigeo_tpu_torch/ops/geometry.py",
+    "unigeo_tpu_torch/metrics/pointcloud.py",
+    "unigeo_tpu_torch/metrics/camera.py",
+    "unigeo_tpu_torch/metrics/extras.py",
+    "unigeo_tpu_torch/data/trajectories.py",
+]
+
+
+@pytest.mark.parametrize("rel", METRICS_SLICE_MODULES)
+def test_metrics_slice_modules_are_checked(rel):
+    assert os.path.join(ROOT, rel) in _port_files()
+
+
 def test_evaluator_imports_no_pandas_yaml_pil_or_matplotlib():
-    """The card machine has none of them: the CLI, the evaluator and the CSV
-    manager import without them (vis imports matplotlib and PIL only when a
-    strip is saved, the config yaml only when a YAML file is read)."""
+    """The card machine has none of them: the CLI, the evaluator, the CSV
+    manager, the metrics (extras imports matplotlib only to plot a
+    trajectory), the trajectory readers and the LayerNorm -> dense tool
+    import without them (vis imports matplotlib and PIL only when a strip is
+    saved, the config yaml only when a YAML file is read)."""
     code = (
         "import sys\n"
         "import unigeo_tpu_torch.eval, unigeo_tpu_torch.evaluator\n"
         "import unigeo_tpu_torch.metrics.manager, unigeo_tpu_torch.utils.vis\n"
+        "import unigeo_tpu_torch.metrics.extras, unigeo_tpu_torch.data.trajectories\n"
+        "import unigeo_tpu_torch.tools.ablate_ln_qkv\n"
         "from unigeo_tpu_torch.registry import get_model_cls\n"
         "get_model_cls('DepthCrafter'); get_model_cls('IdentityModel')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

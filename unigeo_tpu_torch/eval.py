@@ -4,9 +4,10 @@
         [--max-clips N] [--no-resume] [--strict] [--device cuda|cpu] ...
 
 CONFIG is a YAML file (read with PyYAML, imported only then).
-The model runs on ``--device`` (default ``cuda``; a missing card is an error,
-the CPU only when asked for); it is built here from the config's
-``model_params`` with that device.  Flags the port does not support yet
+The model and the point-cloud metrics run on ``--device`` (default
+``cuda``; a missing card is an error, the CPU only when asked for); the
+model is built here from the config's ``model_params`` with that device.
+Flags the port does not support yet
 (``--num-workers`` > 0, ``--debug-nans``, ``--validate-root``) raise with
 their ROADMAP item.
 """
@@ -41,7 +42,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         default=True, help="score clips on the main thread (debugging)")
     parser.add_argument("--validate-root", action="store_true",
                         help="preflight the dataset layout and exit")
-    parser.add_argument("--device", default="cuda", help="the model's device (cuda or cpu)")
+    parser.add_argument("--device", default="cuda", help="the model's and the point-cloud metrics' device (cuda or cpu)")
     return parser.parse_args(argv)
 
 
@@ -63,6 +64,7 @@ def main(argv: Optional[List[str]] = None):
         num_workers=args.num_workers,
         data_parallel=args.data_parallel,
         async_metrics=args.async_metrics,
+        device=args.device,
     )
     print("Averages:")
     for name, value in manager.calculate_averages().items():

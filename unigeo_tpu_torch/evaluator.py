@@ -19,10 +19,15 @@ As in the JAX package:
     explicit request for a model without ``forward_batch`` raises.  No port
     model asks for a batch yet, so every clip runs on its own.
 
+The four metric families: depth, normals, point clouds (``eval_pcd``, on
+``device``: the card unless the caller asks for the CPU) and camera poses
+(``eval_camera``, numpy f64 on the host); with ``vis_pcd`` each clip's
+aligned clouds go to ``<save_dir>/pcd_<seq>/{pred,gt}.ply``.
+
 Not ported yet, and raising with their ROADMAP item instead of running
-something else: the ``eval_pcd`` and ``eval_camera`` sections (queue 1
-item 3), ``num_workers`` > 0 (item 4, prefetch), batches of clips (item 5),
-runs over several processes (item 11) and ``debug_nans`` (item 12).
+something else: ``num_workers`` > 0 (queue 1 item 4, prefetch), batches of
+clips (item 5), runs over several processes (item 11) and ``debug_nans``
+(item 12).
 """
 
 from __future__ import annotations
@@ -34,22 +39,16 @@ from typing import Any, Dict, Optional
 
 from unigeo_tpu_torch.config import EvalConfig
 from unigeo_tpu_torch.data.sample import prepare_gt_label, validate_sample
+from unigeo_tpu_torch.metrics.camera import camera_pose_evaluation
 from unigeo_tpu_torch.metrics.depth import depth_evaluation
 from unigeo_tpu_torch.metrics.manager import MetricsManager
 from unigeo_tpu_torch.metrics.normal import normal_evaluation
+from unigeo_tpu_torch.metrics.pointcloud import pcd_evaluation
 from unigeo_tpu_torch.registry import get_dataset_cls, get_model_cls
 from unigeo_tpu_torch.utils.profiling import ClipTimer
 
 
-def _refuse_unported_sections(cfg: EvalConfig) -> None:
-    if cfg.eval_pcd or cfg.eval_camera:
-        raise NotImplementedError(
-            "the eval_pcd and eval_camera sections are not ported yet (ROADMAP queue 1 "
-            "item 3: point-cloud and camera metrics); drop them from the config")
-
-
-def _refuse_unported(cfg: EvalConfig, num_workers: int, debug_nans: bool) -> None:
-    _refuse_unported_sections(cfg)
+def _refuse_unported(num_workers: int, debug_nans: bool) -> None:
     if num_workers > 0:
         raise NotImplementedError(
             f"num_workers={num_workers}: clip prefetch is not ported yet "
@@ -63,11 +62,12 @@ def _refuse_unported(cfg: EvalConfig, num_workers: int, debug_nans: bool) -> Non
             "an eval over several processes is not ported yet (ROADMAP queue 1 item 11)")
 
 
-def evaluate_clip(cfg: EvalConfig, output: Dict[str, Any],
-                  gt_label: Dict[str, Any]) -> Dict[str, float]:
-    """Score one clip's predictions against its GT labels."""
-    _refuse_unported_sections(cfg)
-    metric: Dict[str, float] = {}
+def evaluate_clip(cfg: EvalConfig, output: Dict[str, Any], gt_label: Dict[str, Any],
+                  device="cuda") -> Dict[str, Any]:
+    """Score one clip's predictions against its GT labels; the point-cloud
+    metrics run on ``device``, and their clouds come back under
+    ``_pcd_clouds`` ((points, colours) of pred and gt)."""
+    metric: Dict[str, Any] = {}
     if cfg.eval_depth:
         res, *_ = depth_evaluation(
             output["pred_depths"], gt_label["gt_depths"], custom_mask=gt_label["gt_masks"],
@@ -77,6 +77,17 @@ def evaluate_clip(cfg: EvalConfig, output: Dict[str, Any],
     if cfg.eval_normal:
         metric.update(normal_evaluation(output["pred_normals"], gt_label["gt_normals"],
                                         custom_mask=gt_label["gt_masks"]))
+    if cfg.eval_pcd:
+        pcd_res = pcd_evaluation(output["pred_world_pts"], gt_label["gt_world_pts"],
+                                 gt_label["gt_masks"], rgbs=gt_label["gt_rgbs"],
+                                 downsample_num=cfg.pcd_downsample_num, device=device)
+        metric["_pcd_clouds"] = (pcd_res.pop("pred_pcd"), pcd_res.pop("gt_pcd"))
+        pcd_res.pop("alignment")
+        metric.update(pcd_res)
+    if cfg.eval_camera:
+        ate, rpe_trans, rpe_rot = camera_pose_evaluation(output["pred_poses"],
+                                                         gt_label["gt_poses"])
+        metric.update({"ATE": ate, "RPE trans": rpe_trans, "RPE rot": rpe_rot})
     return metric
 
 
@@ -94,6 +105,7 @@ def run_evaluation(
     data_parallel: Optional[bool] = None,
     async_metrics: bool = True,
     timer: Optional[ClipTimer] = None,
+    device="cuda",
 ) -> MetricsManager:
     """The full eval loop; returns the manager holding every row.
 
@@ -106,8 +118,10 @@ def run_evaluation(
         main thread (clean stack traces).
     timer: the ``ClipTimer`` that times each forward (a new one by default);
         give one with a ``jsonl_path`` to keep each clip's seconds and frames/s.
+    device: where the point-cloud metrics run (the card by default, and a
+        missing card is an error; "cpu" when asked for).
     """
-    _refuse_unported(cfg, num_workers, debug_nans)
+    _refuse_unported(num_workers, debug_nans)
     os.makedirs(save_dir, exist_ok=True)
     save_path = os.path.join(save_dir, "metrics.csv")
     if dataset is None:
@@ -133,7 +147,14 @@ def run_evaluation(
     def _record(seq: str, data, output) -> None:
         gt_label = prepare_gt_label(data)
         metric = {"seq_name": seq}
-        metric.update(evaluate_clip(cfg, output, gt_label))
+        metric.update(evaluate_clip(cfg, output, gt_label, device=device))
+        clouds = metric.pop("_pcd_clouds", None)
+        if cfg.vis_pcd and clouds is not None:
+            from unigeo_tpu_torch.utils.vis import save_point_cloud
+
+            pcd_dir = os.path.join(save_dir, f"pcd_{seq}")
+            save_point_cloud(*clouds[0], os.path.join(pcd_dir, "pred.ply"))
+            save_point_cloud(*clouds[1], os.path.join(pcd_dir, "gt.ply"))
         if cfg.vis_depth:
             from unigeo_tpu_torch.utils.vis import save_depth_normal_maps
 

@@ -1,6 +1,7 @@
-"""Depth and normal strips, port of the part of ``unigeo_tpu/utils/vis.py``
-the evaluator calls (``vis_depth``): ``colorize``, ``normal_to_rgb`` and
-``save_depth_normal_maps``.  matplotlib and PIL are imported inside the
+"""Visualization, port of the part of ``unigeo_tpu/utils/vis.py`` the
+evaluator calls: the binary PLY point clouds of ``vis_pcd``
+(``save_point_cloud``) and the depth and normal strips of ``vis_depth`` (``colorize``, ``normal_to_rgb``,
+``save_depth_normal_maps``).  matplotlib and PIL are imported inside the
 functions that need them, so the module imports without them.
 """
 
@@ -10,6 +11,36 @@ import os
 from typing import Optional
 
 import numpy as np
+
+
+def save_point_cloud(points: np.ndarray, colors: Optional[np.ndarray], path: str):
+    """Write a binary little-endian PLY, y and z flipped (as the reference
+    exports, so viewers see the cloud upright); colours in [0, 1] are
+    scaled to uint8."""
+    pts = np.asarray(points, np.float32).reshape(-1, 3).copy()
+    pts[:, 1:] *= -1
+    n = pts.shape[0]
+    has_color = colors is not None
+    if has_color:
+        cols = np.asarray(colors).reshape(-1, 3)
+        if cols.dtype != np.uint8:
+            cols = np.clip(cols * 255.0 if cols.max() <= 1.0 + 1e-6 else cols, 0, 255).astype(
+                np.uint8)
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}"]
+    header += [f"property float {ax}" for ax in "xyz"]
+    if has_color:
+        header += [f"property uchar {c}" for c in ("red", "green", "blue")]
+    header += ["end_header"]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode())
+        if has_color:
+            rec = np.zeros(n, dtype=[("xyz", np.float32, 3), ("rgb", np.uint8, 3)])
+            rec["xyz"] = pts
+            rec["rgb"] = cols
+            f.write(rec.tobytes())
+        else:
+            f.write(pts.astype("<f4").tobytes())
 
 
 def colorize(value: np.ndarray, vmin: Optional[float] = None, vmax: Optional[float] = None,
