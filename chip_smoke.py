@@ -15,8 +15,13 @@ Phases, each printed on its own flushed line with the seconds since start:
              shapes (M = 25 x tokens), with the unfused bf16 layers' time as
              a yardstick; then the forward-with-logsumexp and the two
              backward kernels (dq, dk/dv) at the three UNet training shapes
-             in bf16 and one ragged f32 shape, the same numbers for each;
-             the fused LayerNorm -> dense at the UNet's three temporal-
+             in bf16 and one ragged f32 shape at batch 2, the same numbers
+             for each, and again at the training path's batch 25 ([25, 3072,
+             5, 64], [25, 768, 10, 64], [25, 192, 20, 64]; the packed and
+             head-split forwards too at stage 0) against SDPA and its
+             backward and the bounds, each checked on frames 0, 1 and 24
+             against the plain version run on those frames alone; the
+             fused LayerNorm -> dense at the UNet's three temporal-
              attention shapes in bf16 and at ragged shapes in bf16 and f32
              (max err/limit, kernel / plain / unfused-layers ms, the bound,
              rows past M in a zeroed buffer of whole blocks held to 0)
@@ -391,8 +396,12 @@ def phase_kernel_ln_dense(dev):
 
 
 # training shapes of the forward-with-lse and backward kernels: (name, dtype,
-# Sq, Sk, H, D); the UNet's three spatial stages at batch 2 (the main path
-# runs batch 25) and one ragged f32 shape
+# Sq, Sk, H, D); the UNet's three spatial stages and one ragged f32 shape, at
+# KERNEL_BATCH = 2 beside the plain versions; the bf16 stages again at the
+# training path's own batch (TRAIN_BATCH: the 25 frames of a clip are the
+# spatial attention's batch), checked on the frames SLICE_FRAMES
+TRAIN_BATCH = 25
+SLICE_FRAMES = (0, 1, 24)
 TRAIN_SHAPES = [
     ("unet_stage0", torch.bfloat16, 3072, 3072, 5, 64),
     ("unet_stage1", torch.bfloat16, 768, 768, 10, 64),
@@ -526,6 +535,124 @@ def phase_kernel_train(dev):
         del q, k, v, dout, out, lse, ref, grads, refs, limits, errs, sdpa_out, qs, ks, vs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    rows["batch25"] = kernel_train_batch25(dev)
+    return rows
+
+
+def hold_slices(what, ratios):
+    """Fail unless every max err/limit in ``ratios`` is at most 1."""
+    if not max(ratios) <= 1.0:
+        raise AssertionError(f"{what}: max err/limit {ratios} on frames {SLICE_FRAMES}")
+
+
+def kernel_train_batch25(dev):
+    """The training kernels at the training path's own batch, TRAIN_BATCH:
+    fwd_lse, dq and dk/dv at the three bf16 UNet stages, and the packed and
+    head-split forwards at stage 0, each against one PyTorch call (SDPA, or its
+    backward under autograd) and its bound.  The plain versions cannot run
+    whole here (stage 0's dense f32 intermediates would take some 47 GB), so
+    each kernel's output on the frames SLICE_FRAMES is held against the
+    plain version run on those frames alone, under the same limits (batch
+    entries are independent)."""
+    from unigeo_tpu_torch.ops.attention import (
+        attention_bwd_reference,
+        attention_fwd_lse_reference,
+        attention_packed_reference,
+        bf16_error_limit,
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd_lse,
+        flash_attention_packed,
+        grad_error_limits,
+        _delta,
+    )
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    b, idx = TRAIN_BATCH, list(SLICE_FRAMES)
+    rows = []
+    for name, dtype, sq, sk, h, d in TRAIN_SHAPES:
+        if dtype != torch.bfloat16:
+            continue
+        mk = lambda s_: torch.randn((b, s_, h * d), generator=gen, device=dev, dtype=dtype)
+        q, k, v, dout = mk(sq), mk(sk), mk(sk), mk(sq)
+        out, lse = flash_attention_fwd_lse(q, k, v, h)
+        grads = flash_attention_bwd(q, k, v, out, lse, dout, h)
+        torch.cuda.synchronize()
+        sl = [x[idx] for x in (q, k, v, out, lse, dout)]
+        ref, ref_lse = attention_fwd_lse_reference(*sl[:3], h)
+        fwd_ratio = ((out[idx].float() - ref.float()).abs()
+                     / bf16_error_limit(*sl[:3], h, ref)).max().item()
+        lse_err = (lse[idx] - ref_lse).abs().max().item()
+        hold_slices(f"fwd_lse {name} batch {b}", [fwd_ratio, lse_err / LSE_TOL])
+        refs = attention_bwd_reference(*sl, h)
+        limits = grad_error_limits(*sl, h, refs)
+        ratios = [((g[idx].float() - r.float()).abs() / lim).max().item()
+                  for g, r, lim in zip(grads, refs, limits)]
+        errs = [(g[idx].float() - r.float()).abs().max().item() for g, r in zip(grads, refs)]
+        hold_slices(f"bwd {name} batch {b}", ratios)
+        del ref, ref_lse, refs, limits, sl
+        delta = _delta(out, dout, h)
+        split = lambda x, s_: x.view(b, s_, h, d).transpose(1, 2)
+        qs, ks, vs = (split(x, s_).detach().requires_grad_()
+                      for x, s_ in ((q, sq), (k, sk), (v, sk)))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
+        g_sdpa = split(dout, sq)
+        iters = 10
+        bounds = train_bounds(dtype, b, sq, sk, h, d)
+        row = dict(
+            shape=name, dtype="bfloat16", b=b, sq=sq, sk=sk, h=h, d=d,
+            checked_frames=idx, max_err_over_limit_dq=ratios[0],
+            max_err_over_limit_dkv=max(ratios[1:]), max_abs_err_dq=errs[0],
+            max_abs_err_dkv=max(errs[1:]), fwd_lse_max_err_over_limit=fwd_ratio,
+            fwd_lse_lse_err=lse_err,
+            dq_ms=time_ms(lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta, h), iters),
+            dkv_ms=time_ms(lambda: flash_attention_bwd_dkv(q, k, v, dout, lse, delta, h), iters),
+            library_bwd_ms=time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qs, ks, vs), g_sdpa, retain_graph=True), iters),
+            fwd_lse_ms=time_ms(lambda: flash_attention_fwd_lse(q, k, v, h), iters),
+            library_fwd_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                split(q, sq), split(k, sk), split(v, sk)), iters),
+            dq_bound_ms=bounds["bwd_dq"][0], dkv_bound_ms=bounds["bwd_dkv"][0],
+            bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1],
+            fwd_lse_bound_ms=bounds["fwd_lse"][0], fwd_lse_bound_by=bounds["fwd_lse"][1],
+        )
+        row["pair_ms"] = row["dq_ms"] + row["dkv_ms"]
+        row["pair_bound_ms"] = row["dq_bound_ms"] + row["dkv_bound_ms"]
+        if name == "unet_stage0":  # the packed and head-split forwards (rows 1, 2)
+            packed = flash_attention_packed(q, k, v, h)
+            q4, k4, v4 = (x.view(b, -1, h, d) for x in (q, k, v))
+            row["headsplit_bitwise_equal_to_packed"] = torch.equal(
+                flash_attention(q4, k4, v4).view(b, sq, h * d), packed)
+            torch.cuda.synchronize()
+            ref = attention_packed_reference(q[idx], k[idx], v[idx], h)
+            row["packed_max_err_over_limit"] = ((packed[idx].float() - ref.float()).abs() / (
+                bf16_error_limit(q[idx], k[idx], v[idx], h, ref))).max().item()
+            hold_slices(f"packed {name} batch {b}", [row["packed_max_err_over_limit"]])
+            if not row["headsplit_bitwise_equal_to_packed"]:
+                raise AssertionError(f"head-split {name} batch {b} differs from packed")
+            row["packed_ms"] = time_ms(lambda: flash_attention_packed(q, k, v, h), iters)
+            row["headsplit_ms"] = time_ms(lambda: flash_attention(q4, k4, v4), iters)
+            row["packed_bound_ms"], row["packed_bound_by"] = bound(b, sq, h, d)
+            del packed, ref, q4, k4, v4
+        rows.append(row)
+        log("kernel", f"{name} [B={b},Sq={sq},Sk={sk},H={h},D={d},bf16] bwd: max_err/limit on "
+            f"frames {idx} dq={ratios[0]:.3f} dk={ratios[1]:.3f} dv={ratios[2]:.3f} "
+            f"dq_ms={row['dq_ms']:.4f} dkv_ms={row['dkv_ms']:.4f} pair_ms={row['pair_ms']:.4f} "
+            f"library_bwd_ms={row['library_bwd_ms']:.4f} bound_ms dq={row['dq_bound_ms']:.5f} "
+            f"dkv={row['dkv_bound_ms']:.5f} pair={row['pair_bound_ms']:.5f} "
+            f"whole={row['bwd_bound_ms']:.5f} ({row['bwd_bound_by']})")
+        log("kernel", f"{name} [B={b}] fwd_lse: max_err/limit on frames {idx} {fwd_ratio:.3f} "
+            f"lse_err={lse_err:.2e} ms={row['fwd_lse_ms']:.4f} library_ms="
+            f"{row['library_fwd_ms']:.4f} bound_ms={row['fwd_lse_bound_ms']:.5f}"
+            + (f"; packed: max_err/limit {row['packed_max_err_over_limit']:.3f} ms="
+               f"{row['packed_ms']:.4f}, head-split (bitwise equal) ms={row['headsplit_ms']:.4f}"
+               f" (library_ms as fwd_lse's) bound_ms={row['packed_bound_ms']:.5f}"
+               if "packed_ms" in row else ""))
+        del q, k, v, dout, out, lse, grads, delta, sdpa_out, qs, ks, vs, g_sdpa
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1116,6 +1243,11 @@ def phase_train(dev):
     log("profile", f"training step: device_ms {prof['device_ms']} over the unprofiled mean "
         f"step {1e3 * sum(step_s) / len(step_s):.1f} ms: busy share "
         f"{prof['device_ms'] / (1e3 * sum(step_s) / len(step_s)):.3f}")
+    per_step_ms = {k: prof[f"flash_{k}_ms"] for k in ("bwd_dq", "bwd_dkv", "fwd_lse")}
+    log("train", f"per step: mean step_s {sum(step_s) / len(step_s):.4f}, device ms "
+        f"{json.dumps(per_step_ms)} (the profiled step; bwd pair "
+        f"{per_step_ms['bwd_dq'] + per_step_ms['bwd_dkv']:.2f} ms)")
+    result.update(device_ms_per_step=per_step_ms, profiled_device_ms=prof["device_ms"])
     del out, unet, batch
     torch.cuda.empty_cache()
     return result
@@ -1257,7 +1389,9 @@ def phase_metrics(dev):
 
 
 def summarize(name, source, replaces, rows, launches, extra=None):
-    """One entry of the kernels line: sums over the shapes, each shape below."""
+    """One entry of the kernels line: sums over the shapes, each shape below.
+    The sums are over the rows given, all at KERNEL_BATCH (the batch-25 rows
+    of the training kernels ride along under their own key)."""
     sums = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "bound_ms")}
     # None where no one PyTorch call computes the function
     libs = [r["library_ms"] for r in rows]
@@ -1270,7 +1404,7 @@ def summarize(name, source, replaces, rows, launches, extra=None):
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "max_err_over_limit": max(r["max_err_over_limit"] for r in rows),
-        # sums over the shapes at batch 2; per shape below
+        "sums_over": f"the shapes below at batch {KERNEL_BATCH}",
         "ms": sums["ms"],
         "plain_ms": sums["plain_ms"],
         "bound_ms": sums["bound_ms"],
@@ -1328,15 +1462,27 @@ def main():
 
     src = "unigeo_tpu_torch/csrc/"
     per_step = trained["launches_per_step"]
+    b25 = train_rows["batch25"]
+
+    def batch25(*keys):
+        """The batch-25 rows' fields ``keys`` (with the shape), per shape."""
+        return [{"shape": r["shape"], "b": r["b"], "sq": r["sq"], "h": r["h"], "d": r["d"],
+                 **{k: r[k] for k in keys if k in r}} for r in b25]
+
     kernels = [
         summarize("flash_attention_packed", src + "flash_attention_packed.cu",
                   "unigeo_tpu/ops/attention.py:298", rows, launches,
                   {"launches_train": trained["launches"]["flash_attention_packed"],
-                   "launches_train_per_step": per_step["flash_attention_packed"]}),
+                   "launches_train_per_step": per_step["flash_attention_packed"],
+                   "batch25_shapes": batch25("packed_ms", "library_fwd_ms", "packed_bound_ms",
+                                             "packed_bound_by", "packed_max_err_over_limit")[:1]}),
         summarize("flash_attention_headsplit", src + "flash_attention_packed.cu",
                   "unigeo_tpu/ops/attention.py:163", headsplit_rows,
                   evaluated["headsplit_launches"],
-                  {"launches_on": "one eval forward under UNIGEO_PACKED_ATTN=0"}),
+                  {"launches_on": "one eval forward under UNIGEO_PACKED_ATTN=0",
+                   "batch25_shapes": batch25("headsplit_ms", "library_fwd_ms", "packed_bound_ms",
+                                             "packed_bound_by",
+                                             "headsplit_bitwise_equal_to_packed")[:1]}),
         summarize("geglu_ffn", src + "geglu_ffn.cu", "unigeo_tpu/ops/geglu.py:72", geglu_rows,
                   evaluated["launches"]["geglu_ffn"],
                   {"launches_on": f"the eval run of {EVAL_CLIPS} clips under UNIGEO_FUSED_GEGLU=1",
@@ -1347,17 +1493,26 @@ def main():
         summarize("flash_attention_fwd_lse", src + "flash_attention_packed.cu",
                   "unigeo_tpu/ops/attention.py:529", train_rows["fwd_lse"],
                   trained["launches"]["flash_attention_fwd_lse"],
-                  {"launches_per_step": per_step["flash_attention_fwd_lse"]}),
+                  {"launches_per_step": per_step["flash_attention_fwd_lse"],
+                   "batch25_shapes": batch25("fwd_lse_ms", "library_fwd_ms", "fwd_lse_bound_ms",
+                                             "fwd_lse_bound_by", "fwd_lse_max_err_over_limit",
+                                             "fwd_lse_lse_err")}),
         summarize("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                   "unigeo_tpu/ops/attention.py:582", train_rows["bwd_dq"],
                   trained["launches"]["flash_attention_bwd_dq"],
                   {"launches_per_step": per_step["flash_attention_bwd_dq"],
-                   "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)"}),
+                   "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)",
+                   "batch25_shapes": batch25("dq_ms", "library_bwd_ms", "dq_bound_ms",
+                                             "max_err_over_limit_dq", "max_abs_err_dq",
+                                             "pair_ms", "pair_bound_ms", "bwd_bound_ms")}),
         summarize("flash_attention_bwd_dkv", src + "flash_attention_bwd.cu",
                   "unigeo_tpu/ops/attention.py:582", train_rows["bwd_dkv"],
                   trained["launches"]["flash_attention_bwd_dkv"],
                   {"launches_per_step": per_step["flash_attention_bwd_dkv"],
-                   "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)"}),
+                   "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)",
+                   "batch25_shapes": batch25("dkv_ms", "library_bwd_ms", "dkv_bound_ms",
+                                             "max_err_over_limit_dkv", "max_abs_err_dkv",
+                                             "pair_ms", "pair_bound_ms", "bwd_bound_ms")}),
         summarize("ln_dense", src + "ln_dense.cu", "unigeo_tpu/ops/ln_qkv.py:49",
                   [r for r in ln_rows if r["shape"].startswith("unet")], ln_launches,
                   {"launches_on": "python -m unigeo_tpu_torch.tools.ablate_ln_qkv at full size "

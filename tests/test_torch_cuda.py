@@ -43,8 +43,9 @@ where the two f32 values of y can straddle a boundary (see there).  Rows
 past M, written into a zeroed buffer of whole 64-row blocks, must stay 0.
 
 The planted-fault tests show that the limits fail a kernel that drops one
-key tile or the ragged-edge mask (forward), skips one query tile of dk/dv
-or the ragged-column mask of dq (backward), skips one hidden tile, swaps
+key tile or the ragged-edge mask (forward), skips one query tile of dk/dv,
+drops the ragged last key tile of dq or reads dv's B operand without
+wgmma's transpose bit (backward), skips one hidden tile, swaps
 value and gate, or drops the ragged-row guard of the GEGLU kernel (rows
 past M must stay unwritten: their limit is 0), or skips the last K tile,
 drops beta, leaves the last half tile of columns at N = 960 unwritten or
@@ -186,18 +187,27 @@ PLANTED_FAULTS = {
         "s[j][e] = s[j][e] * scale_log2;",
     ),
     # backward: the tensor-core dk/dv kernel skips its eighth query tile
+    # (the ring still hands the tile over, but it adds nothing to dk, dv)
     "skip_query_tile": (
         "flash_attention_bwd.cu",
-        "  for (int q0 = 0; q0 < Sq; q0 += kMmaTile) {  // query tiles (tensor cores)\n"
-        "    __syncthreads();",
-        "  for (int q0 = 0; q0 < Sq; q0 += kMmaTile) {  // query tiles (tensor cores)\n"
-        "    if (q0 == 7 * kMmaTile) continue;\n    __syncthreads();",
+        "st[4 * j + e] = 8 * j + (e & 1) < lim ? p : 0.f;",
+        "st[4 * j + e] = 8 * j + (e & 1) < lim && it != 7 ? p : 0.f;",
     ),
-    # backward: the tensor-core dq kernel lets the clamped rows past Sk into P
+    # backward: the tensor-core dq kernel loses its ragged key edge: its loop
+    # stops at the last whole key tile, so the keys of the partial tile never
+    # reach dq (dropping the key mask alone is no fault now: the TMA's zero
+    # key rows add dS * 0 to dq)
     "dq_no_ragged_mask": (
         "flash_attention_bwd.cu",
-        "const float p = key < Sk ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;",
-        "const float p = exp2f(s[j][e] * scale_log2 - lse2[e >> 1]);",
+        "const int n_tiles = (Sk + kTile - 1) / kTile;",
+        "const int n_tiles = Sk / kTile;",
+    ),
+    # backward: the dk/dv kernel reads dO, dv's B operand, without wgmma's
+    # transpose bit (as K-major, though the TMA lays it out MN-major)
+    "dv_no_transpose": (
+        "flash_attention_bwd.cu",
+        "sm90::wgmma_rs<D, 1>(acc_v, pa[i], Tile::mnmajor(dos, i), 1);",
+        "sm90::wgmma_rs<D, 0>(acc_v, pa[i], Tile::mnmajor(dos, i), 1);",
     ),
     # GEGLU: the third hidden tile never reaches the down-projection
     "geglu_skip_hidden_tile": (
@@ -281,6 +291,7 @@ def faulty_libraries(tmp_path_factory):
         ("no_ragged_mask", 2, 257, 16, 80),
         ("skip_query_tile", 2, 3072, 5, 64),
         ("dq_no_ragged_mask", 2, 257, 4, 64),
+        ("dv_no_transpose", 2, 3072, 5, 64),
         # GEGLU at (M, C) = (b * s, h * d): the UNet's stage 0, stage 2 and
         # its ragged mid block (M = 1200, 18.75 row tiles)
         ("geglu_skip_hidden_tile", 25, 3072, 5, 64),
@@ -290,7 +301,7 @@ def faulty_libraries(tmp_path_factory):
 )
 def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
     """At the main-path (or ragged) shapes, the kernel passes its bf16 limit
-    and a copy of it with a planted fault fails it."""
+    and a copy of it with a planted fault fails it by at least 3x."""
     lib = faulty_libraries[fault]
     if PLANTED_FAULTS[fault][0] == "geglu_ffn.cu":
         return _geglu_planted(cuda, lib, fault, m=b * s, c=h * d)
@@ -309,7 +320,7 @@ def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
         bad = max(_grad_ratios((bad_dq, bad_dk, bad_dv), q, k, v, out, lse, dout, h))
     print(f"planted {fault} [B={b},S={s},H={h},D={d}]: max err/limit "
           f"kernel {good:.3f}, faulty copy {bad:.3f}", flush=True)
-    assert good <= 1.0 < bad, (good, bad)
+    assert good <= 1.0 and bad >= 3.0, (good, bad)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -394,6 +405,12 @@ BWD_CASES = [
     (torch.bfloat16, 1, 200, 150, 1, 64),
     (torch.bfloat16, 2, 130, 61, 2, 64),
     (torch.bfloat16, 1, 100, 1, 2, 64),
+    # ragged edges inside a 64-row tile and a 128- or 192-row block, where
+    # the TMA returns zero rows past Sq or Sk
+    (torch.bfloat16, 2, 150, 150, 3, 64),
+    (torch.bfloat16, 2, 257, 100, 4, 64),
+    (torch.bfloat16, 2, 150, 150, 3, 16),
+    (torch.bfloat16, 2, 257, 100, 4, 16),
 ]
 
 
@@ -423,6 +440,22 @@ def test_bwd_kernels_match_plain_bf16_main_path_shapes(cuda, b, s, h, d):
     torch.cuda.synchronize()
     ratios = _grad_ratios(grads, q, k, v, out, lse, dout, h)
     assert max(ratios) <= 1.0, ratios
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 3072, 3072, 5, 64), (2, 257, 100, 4, 16)])
+def test_bwd_kernels_are_bitwise_reproducible(cuda, b, sq, sk, h, d):
+    """Every output element is written by one block, once: two launches on
+    the same inputs give the same bits."""
+    q, k, v = _qkv(b, sq, sk, h, d, torch.bfloat16, cuda, seed=17)
+    out, lse, dout = _fwd_and_dout(q, k, v, h, seed=18)
+    delta = _delta(out, dout, h)
+    first = (flash_attention_bwd_dq(q, k, v, dout, lse, delta, h),
+             *flash_attention_bwd_dkv(q, k, v, dout, lse, delta, h))
+    second = (flash_attention_bwd_dq(q, k, v, dout, lse, delta, h),
+              *flash_attention_bwd_dkv(q, k, v, dout, lse, delta, h))
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def test_autograd_function_matches_autograd_through_plain(cuda):
@@ -547,7 +580,7 @@ def _geglu_planted(cuda, lib, fault, m, c):
         bad = float("inf")
     print(f"planted {fault} [M={m},C={c}]: max err/limit kernel {good:.3f}, faulty copy "
           f"{bad:.3f} ({past} rows written past M)", flush=True)
-    assert good <= 1.0 < bad, (good, bad)
+    assert good <= 1.0 and bad >= 3.0, (good, bad)
 
 
 def test_geglu_kernel_rejects_what_it_does_not_take(cuda):
