@@ -16,11 +16,15 @@ Phases, each printed on its own flushed line with the seconds since start:
              a yardstick; then the forward-with-logsumexp and the two
              backward kernels (dq, dk/dv) at the three UNet training shapes
              in bf16 and one ragged f32 shape at batch 2, the same numbers
-             for each, and again at the training path's batch 25 ([25, 3072,
-             5, 64], [25, 768, 10, 64], [25, 192, 20, 64]; the packed and
-             head-split forwards too at stage 0) against SDPA and its
-             backward and the bounds, each checked on frames 0, 1 and 24
-             against the plain version run on those frames alone; the
+             for each, and the backward pair again at the training path's
+             batch 25 ([25, 3072, 5, 64], [25, 768, 10, 64], [25, 192, 20,
+             64]) against SDPA's backward and the bounds, each checked on
+             frames 0, 1 and 24 against the plain version run on those
+             frames alone; the packed, head-split and lse forwards at batch
+             25 at all five forward shapes, checked the same way, with
+             SDPA's time, the bound, the SFUs' exponential floor, the
+             device time and the body each ran (wgmma at d = 64, mma.sync
+             at d = 80 and 512, by kernel name); the
              fused LayerNorm -> dense at the UNet's three temporal-
              attention shapes in bf16 and at ragged shapes in bf16 and f32
              (max err/limit, kernel / plain / unfused-layers ms, the bound,
@@ -546,25 +550,23 @@ def hold_slices(what, ratios):
 
 
 def kernel_train_batch25(dev):
-    """The training kernels at the training path's own batch, TRAIN_BATCH:
-    fwd_lse, dq and dk/dv at the three bf16 UNet stages, and the packed and
-    head-split forwards at stage 0, each against one PyTorch call (SDPA, or its
-    backward under autograd) and its bound.  The plain versions cannot run
-    whole here (stage 0's dense f32 intermediates would take some 47 GB), so
-    each kernel's output on the frames SLICE_FRAMES is held against the
-    plain version run on those frames alone, under the same limits (batch
-    entries are independent)."""
+    """The backward kernels at the training path's own batch, TRAIN_BATCH: dq
+    and dk/dv at the three bf16 UNet stages, from the fwd_lse kernel's out
+    and lse, each against one PyTorch call (SDPA's backward under autograd)
+    and its bound (the forwards' times at this batch are
+    kernel_forward_batch25's).  The plain versions cannot run whole here
+    (stage 0's dense f32 intermediates would take some 47 GB), so each
+    kernel's output on the frames SLICE_FRAMES is held against the plain
+    version run on those frames alone, under the same limits (batch entries
+    are independent)."""
     from unigeo_tpu_torch.ops.attention import (
         attention_bwd_reference,
         attention_fwd_lse_reference,
-        attention_packed_reference,
         bf16_error_limit,
-        flash_attention,
         flash_attention_bwd,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
         flash_attention_fwd_lse,
-        flash_attention_packed,
         grad_error_limits,
         _delta,
     )
@@ -606,37 +608,16 @@ def kernel_train_batch25(dev):
             shape=name, dtype="bfloat16", b=b, sq=sq, sk=sk, h=h, d=d,
             checked_frames=idx, max_err_over_limit_dq=ratios[0],
             max_err_over_limit_dkv=max(ratios[1:]), max_abs_err_dq=errs[0],
-            max_abs_err_dkv=max(errs[1:]), fwd_lse_max_err_over_limit=fwd_ratio,
-            fwd_lse_lse_err=lse_err,
+            max_abs_err_dkv=max(errs[1:]),
             dq_ms=time_ms(lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta, h), iters),
             dkv_ms=time_ms(lambda: flash_attention_bwd_dkv(q, k, v, dout, lse, delta, h), iters),
             library_bwd_ms=time_ms(lambda: torch.autograd.grad(
                 sdpa_out, (qs, ks, vs), g_sdpa, retain_graph=True), iters),
-            fwd_lse_ms=time_ms(lambda: flash_attention_fwd_lse(q, k, v, h), iters),
-            library_fwd_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                split(q, sq), split(k, sk), split(v, sk)), iters),
             dq_bound_ms=bounds["bwd_dq"][0], dkv_bound_ms=bounds["bwd_dkv"][0],
             bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1],
-            fwd_lse_bound_ms=bounds["fwd_lse"][0], fwd_lse_bound_by=bounds["fwd_lse"][1],
         )
         row["pair_ms"] = row["dq_ms"] + row["dkv_ms"]
         row["pair_bound_ms"] = row["dq_bound_ms"] + row["dkv_bound_ms"]
-        if name == "unet_stage0":  # the packed and head-split forwards (rows 1, 2)
-            packed = flash_attention_packed(q, k, v, h)
-            q4, k4, v4 = (x.view(b, -1, h, d) for x in (q, k, v))
-            row["headsplit_bitwise_equal_to_packed"] = torch.equal(
-                flash_attention(q4, k4, v4).view(b, sq, h * d), packed)
-            torch.cuda.synchronize()
-            ref = attention_packed_reference(q[idx], k[idx], v[idx], h)
-            row["packed_max_err_over_limit"] = ((packed[idx].float() - ref.float()).abs() / (
-                bf16_error_limit(q[idx], k[idx], v[idx], h, ref))).max().item()
-            hold_slices(f"packed {name} batch {b}", [row["packed_max_err_over_limit"]])
-            if not row["headsplit_bitwise_equal_to_packed"]:
-                raise AssertionError(f"head-split {name} batch {b} differs from packed")
-            row["packed_ms"] = time_ms(lambda: flash_attention_packed(q, k, v, h), iters)
-            row["headsplit_ms"] = time_ms(lambda: flash_attention(q4, k4, v4), iters)
-            row["packed_bound_ms"], row["packed_bound_by"] = bound(b, sq, h, d)
-            del packed, ref, q4, k4, v4
         rows.append(row)
         log("kernel", f"{name} [B={b},Sq={sq},Sk={sk},H={h},D={d},bf16] bwd: max_err/limit on "
             f"frames {idx} dq={ratios[0]:.3f} dk={ratios[1]:.3f} dv={ratios[2]:.3f} "
@@ -644,14 +625,109 @@ def kernel_train_batch25(dev):
             f"library_bwd_ms={row['library_bwd_ms']:.4f} bound_ms dq={row['dq_bound_ms']:.5f} "
             f"dkv={row['dkv_bound_ms']:.5f} pair={row['pair_bound_ms']:.5f} "
             f"whole={row['bwd_bound_ms']:.5f} ({row['bwd_bound_by']})")
-        log("kernel", f"{name} [B={b}] fwd_lse: max_err/limit on frames {idx} {fwd_ratio:.3f} "
-            f"lse_err={lse_err:.2e} ms={row['fwd_lse_ms']:.4f} library_ms="
-            f"{row['library_fwd_ms']:.4f} bound_ms={row['fwd_lse_bound_ms']:.5f}"
-            + (f"; packed: max_err/limit {row['packed_max_err_over_limit']:.3f} ms="
-               f"{row['packed_ms']:.4f}, head-split (bitwise equal) ms={row['headsplit_ms']:.4f}"
-               f" (library_ms as fwd_lse's) bound_ms={row['packed_bound_ms']:.5f}"
-               if "packed_ms" in row else ""))
         del q, k, v, dout, out, lse, grads, delta, sdpa_out, qs, ks, vs, g_sdpa
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the SFU's rate of ex2, per SM and clock (Hopper)
+SFU_EX2_PER_SM_CLOCK = 16
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def exp_floor_ms(b, sq, sk, h):
+    """The least time the SMs' SFUs take for the forward's B H Sq Sk
+    exponentials (one per score) at the card's maximum SM clock; kept beside
+    bound_ms, not folded into it."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return b * h * sq * sk / (sms * SFU_EX2_PER_SM_CLOCK * sm_clock_hz()) * 1e3
+
+
+def forward_body(fn, iters):
+    """``iters`` calls of ``fn`` under torch.profiler: the forward body they
+    ran, by the kernel's name ("wgmma" for TMA + wgmma, "mma.sync", or the
+    name itself), and its mean device ms per call (the kernel alone, no host
+    cost)."""
+    from unigeo_tpu_torch.tools.forward_variants import profile_flash
+
+    name, ms = profile_flash(fn, iters)
+    body = "wgmma" if "_wgmma_kernel" in name else ("mma.sync" if "_mma_kernel" in name else name)
+    return body, ms
+
+
+def kernel_forward_batch25(dev):
+    """Rows 1-3 (the packed, head-split and lse forwards) at the training
+    path's batch TRAIN_BATCH at every forward shape (MAIN_SHAPES: the three
+    UNet stages, the VAE mid block, CLIP), each held against its plain
+    version on the frames SLICE_FRAMES (batch entries are independent; the
+    whole batch's dense plain version would not fit), the head-split output
+    bitwise against the packed one; ms of each, SDPA's, the bound, the
+    exponential floor, and the body each ran (by kernel name)."""
+    from unigeo_tpu_torch.ops.attention import (
+        attention_fwd_lse_reference,
+        bf16_error_limit,
+        flash_attention,
+        flash_attention_fwd_lse,
+        flash_attention_packed,
+    )
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, idx = TRAIN_BATCH, list(SLICE_FRAMES)
+    rows = []
+    for name, s, h, d in MAIN_SHAPES:
+        q, k, v = (torch.randn((b, s, h * d), generator=gen, device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        q4, k4, v4 = (x.view(b, s, h, d) for x in (q, k, v))
+        packed = flash_attention_packed(q, k, v, h)
+        split = flash_attention(q4, k4, v4).view(b, s, h * d)
+        out, lse = flash_attention_fwd_lse(q, k, v, h)
+        torch.cuda.synchronize()
+        sl = [x[idx] for x in (q, k, v)]
+        ref, ref_lse = attention_fwd_lse_reference(*sl, h)
+        limit = bf16_error_limit(*sl, h, ref)
+        ratio = {key: ((x[idx].float() - ref.float()).abs() / limit).max().item()
+                 for key, x in (("packed", packed), ("headsplit", split), ("fwd_lse", out))}
+        err = max((x[idx].float() - ref.float()).abs().max().item() for x in (packed, out))
+        lse_err = (lse[idx] - ref_lse).abs().max().item()
+        bitwise = torch.equal(split, packed)
+        hold_slices(f"forward {name} batch {b}", [*ratio.values(), lse_err / LSE_TOL])
+        if not bitwise:
+            raise AssertionError(f"head-split {name} batch {b} differs from packed")
+        del packed, split, out, lse, ref, ref_lse, limit, sl
+        calls = {
+            "packed": lambda: flash_attention_packed(q, k, v, h),
+            "headsplit": lambda: flash_attention(q4, k4, v4),
+            "fwd_lse": lambda: flash_attention_fwd_lse(q, k, v, h),
+        }
+        iters = 10
+        bms, by = bound(b, s, h, d)
+        row = dict(shape=name, b=b, s=s, h=h, d=d, checked_frames=idx, max_abs_err=err,
+                   lse_err=lse_err, headsplit_bitwise_equal_to_packed=bitwise,
+                   bound_ms=bms, bound_by=by, exp_floor_ms=exp_floor_ms(b, s, s, h))
+        for key, fn in calls.items():
+            row[f"{key}_max_err_over_limit"] = ratio[key]
+            row[f"{key}_ms"] = time_ms(fn, iters)
+            row[f"{key}_body"], row[f"{key}_device_ms"] = forward_body(fn, iters)
+        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)), iters)
+        rows.append(row)
+        log("kernel", f"forward {name} [B={b},S={s},H={h},D={d}] body {row['packed_body']}: "
+            f"max_err/limit on frames {idx} packed={ratio['packed']:.3f} "
+            f"headsplit={ratio['headsplit']:.3f} fwd_lse={ratio['fwd_lse']:.3f} "
+            f"lse_err={lse_err:.2e} ms packed={row['packed_ms']:.4f} "
+            f"headsplit={row['headsplit_ms']:.4f} fwd_lse={row['fwd_lse_ms']:.4f} device_ms "
+            f"packed={row['packed_device_ms']:.4f} headsplit={row['headsplit_device_ms']:.4f} "
+            f"fwd_lse={row['fwd_lse_device_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} bound_ms={bms:.5f} ({by}) "
+            f"exp_floor_ms={row['exp_floor_ms']:.5f}")
+        del q, k, v, q4, k4, v4
         torch.cuda.empty_cache()
     return rows
 
@@ -1443,6 +1519,7 @@ def main():
     geglu_rows = phase_kernel_geglu(dev)
     ln_rows = phase_kernel_ln_dense(dev)
     train_rows = phase_kernel_train(dev)
+    fwd25 = kernel_forward_batch25(dev)
     torch.cuda.synchronize()
     phase_reference(dev)
     phase_reference_train(dev)
@@ -1469,20 +1546,30 @@ def main():
         return [{"shape": r["shape"], "b": r["b"], "sq": r["sq"], "h": r["h"], "d": r["d"],
                  **{k: r[k] for k in keys if k in r}} for r in b25]
 
+    def forward25(key):
+        """Row ``key``'s numbers at batch TRAIN_BATCH per forward shape, and the
+        body (wgmma or mma.sync, by kernel name) that served each head width."""
+        shapes = [{"shape": r["shape"], "b": r["b"], "s": r["s"], "h": r["h"], "d": r["d"],
+                   "body": r[f"{key}_body"], "ms": r[f"{key}_ms"],
+                   "device_ms": r[f"{key}_device_ms"],
+                   "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+                   "bound_by": r["bound_by"], "exp_floor_ms": r["exp_floor_ms"],
+                   "max_err_over_limit": r[f"{key}_max_err_over_limit"],
+                   **({"lse_err": r["lse_err"]} if key == "fwd_lse" else {})} for r in fwd25]
+        return {"body_by_head_width": {str(r["d"]): r[f"{key}_body"] for r in fwd25},
+                "batch25_forward_shapes": shapes}
+
     kernels = [
         summarize("flash_attention_packed", src + "flash_attention_packed.cu",
                   "unigeo_tpu/ops/attention.py:298", rows, launches,
                   {"launches_train": trained["launches"]["flash_attention_packed"],
                    "launches_train_per_step": per_step["flash_attention_packed"],
-                   "batch25_shapes": batch25("packed_ms", "library_fwd_ms", "packed_bound_ms",
-                                             "packed_bound_by", "packed_max_err_over_limit")[:1]}),
+                   **forward25("packed")}),
         summarize("flash_attention_headsplit", src + "flash_attention_packed.cu",
                   "unigeo_tpu/ops/attention.py:163", headsplit_rows,
                   evaluated["headsplit_launches"],
                   {"launches_on": "one eval forward under UNIGEO_PACKED_ATTN=0",
-                   "batch25_shapes": batch25("headsplit_ms", "library_fwd_ms", "packed_bound_ms",
-                                             "packed_bound_by",
-                                             "headsplit_bitwise_equal_to_packed")[:1]}),
+                   **forward25("headsplit")}),
         summarize("geglu_ffn", src + "geglu_ffn.cu", "unigeo_tpu/ops/geglu.py:72", geglu_rows,
                   evaluated["launches"]["geglu_ffn"],
                   {"launches_on": f"the eval run of {EVAL_CLIPS} clips under UNIGEO_FUSED_GEGLU=1",
@@ -1494,9 +1581,7 @@ def main():
                   "unigeo_tpu/ops/attention.py:529", train_rows["fwd_lse"],
                   trained["launches"]["flash_attention_fwd_lse"],
                   {"launches_per_step": per_step["flash_attention_fwd_lse"],
-                   "batch25_shapes": batch25("fwd_lse_ms", "library_fwd_ms", "fwd_lse_bound_ms",
-                                             "fwd_lse_bound_by", "fwd_lse_max_err_over_limit",
-                                             "fwd_lse_lse_err")}),
+                   **forward25("fwd_lse")}),
         summarize("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                   "unigeo_tpu/ops/attention.py:582", train_rows["bwd_dq"],
                   trained["launches"]["flash_attention_bwd_dq"],

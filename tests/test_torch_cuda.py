@@ -25,6 +25,11 @@ product's sums taken in another order.  F carries the f32 error of S and dP
 (D 2^-24 of their magnitude sums) through P and dS; it holds the S_k = 1
 cases, where dP - delta cancels and dS is zero in exact arithmetic.
 
+The bf16 forward has two bodies, chosen by head width in one switch: the
+Hopper body (TMA, wgmma) at d in {16, 64}, the mma.sync body at d in {80,
+512}.  A launch either body refuses raises; no other body is tried.  Each
+writes every output element once, so two launches give the same bits.
+
 The head-split forward (``flash_attention`` on [B, S, H, D]) is the packed
 kernel's body under another name: its output is bitwise equal to the packed
 kernel's on the same bytes, and held against the plain version under the
@@ -43,7 +48,10 @@ where the two f32 values of y can straddle a boundary (see there).  Rows
 past M, written into a zeroed buffer of whole 64-row blocks, must stay 0.
 
 The planted-fault tests show that the limits fail a kernel that drops one
-key tile or the ragged-edge mask (forward), skips one query tile of dk/dv,
+key tile or the ragged-edge mask (forward, each of its two bf16 bodies),
+reads P v's B operand without wgmma's transpose bit, or writes lse without
+its log l term or into another consumer's rows (the wgmma forward, the
+lse held to LSE_TOL), skips one query tile of dk/dv,
 drops the ragged last key tile of dq or reads dv's B operand without
 wgmma's transpose bit (backward), skips one hidden tile, swaps
 value and gate, or drops the ragged-row guard of the GEGLU kernel (rows
@@ -91,6 +99,8 @@ from unigeo_tpu_torch.ops import ln_qkv
 from unigeo_tpu_torch.ops.ln_qkv import ln_dense, ln_dense_error_limit, ln_dense_plain
 
 pytestmark = pytest.mark.cuda
+
+LSE_TOL = 1e-4  # the logsumexp, both dtypes (see above)
 
 
 @pytest.fixture()
@@ -173,18 +183,55 @@ def test_kernel_matches_plain_bf16_main_path_shapes(cuda, b, s, h, d):
 
 # textual faults planted in a copy of a kernel source: (file, anchor, replacement)
 PLANTED_FAULTS = {
-    # the forward's tensor-core loop skips its eighth key tile
+    # the forward's mma.sync body (D in {80, 512}) skips its eighth key tile
     "drop_key_tile": (
         "flash_attention_packed.cu",
         "  for (int k0 = 0; k0 < Sk; k0 += BK) {\n    __syncthreads();\n    load_tile<",
         "  for (int k0 = 0; k0 < Sk; k0 += BK) {\n    if (k0 == 7 * BK) continue;\n"
         "    __syncthreads();\n    load_tile<",
     ),
-    # forward: keys past Sk (zero-filled) keep their score instead of -inf
+    # forward, mma.sync body: keys past Sk (zero-filled) keep their score
+    # instead of -inf
     "no_ragged_mask": (
         "flash_attention_packed.cu",
         "s[j][e] = key < Sk ? s[j][e] * scale_log2 : -INFINITY;",
         "s[j][e] = s[j][e] * scale_log2;",
+    ),
+    # forward, wgmma body (D in {16, 64}): a consumer drops its eighth key
+    # tile (its scores become -inf, so it adds to neither O nor l); the ring
+    # still hands the tile over
+    "wgmma_skip_key_tile": (
+        "flash_attention_packed.cu",
+        "    // tile it's softmax while P(it - 1) v(it - 1) runs\n",
+        "    // tile it's softmax while P(it - 1) v(it - 1) runs\n"
+        "    if (it == 7) for (float& x : s) x = -INFINITY;\n",
+    ),
+    # forward, wgmma body: the last tile's select goes, so the TMA's zero
+    # key rows past Sk score 0 instead of -inf
+    "wgmma_no_ragged_mask": (
+        "flash_attention_packed.cu",
+        "      if (kMask) s[4 * j + e] = 8 * j + (e & 1) < lim ? s[4 * j + e] : -INFINITY;\n",
+        "",
+    ),
+    # forward, wgmma body: P v reads v, its B operand, without wgmma's
+    # transpose bit (as K-major, though the TMA lays it out MN-major)
+    "wgmma_pv_no_transpose": (
+        "flash_attention_packed.cu",
+        "sm90::wgmma_rs<D, 1>(o, pa[i], Tile::mnmajor(vs, i), 1);",
+        "sm90::wgmma_rs<D, 0>(o, pa[i], Tile::mnmajor(vs, i), 1);",
+    ),
+    # forward with lse, wgmma body: lse written without its log l term
+    "lse_no_log_l": (
+        "flash_attention_packed.cu",
+        "(m[i] + log2f(l[i])) * kLn2;",
+        "m[i] * kLn2;",
+    ),
+    # forward with lse, wgmma body: each consumer writes its lse into
+    # another consumer's rows (row ^ 64; within the lse at Sq = 3072)
+    "lse_wrong_consumer": (
+        "flash_attention_packed.cu",
+        "lse[lse_bh + row] =",
+        "lse[lse_bh + (row ^ kWgRows)] =",
     ),
     # backward: the tensor-core dk/dv kernel skips its eighth query tile
     # (the ring still hands the tile over, but it adds nothing to dk, dv)
@@ -286,9 +333,17 @@ def faulty_libraries(tmp_path_factory):
 @pytest.mark.parametrize(
     "fault,b,s,h,d",
     [
-        ("drop_key_tile", 2, 3072, 5, 64),
+        # the mma.sync body, at its head widths 512 and 80
         ("drop_key_tile", 1, 3072, 1, 512),
+        ("drop_key_tile", 2, 1024, 16, 80),
         ("no_ragged_mask", 2, 257, 16, 80),
+        # the wgmma body at the UNet's stage 0 and a ragged shape (S = 257:
+        # the last 128-key tile holds one key and 127 zero rows)
+        ("wgmma_skip_key_tile", 2, 3072, 5, 64),
+        ("wgmma_no_ragged_mask", 2, 257, 4, 64),
+        ("wgmma_pv_no_transpose", 2, 3072, 5, 64),
+        ("lse_no_log_l", 2, 3072, 5, 64),
+        ("lse_wrong_consumer", 2, 3072, 5, 64),
         ("skip_query_tile", 2, 3072, 5, 64),
         ("dq_no_ragged_mask", 2, 257, 4, 64),
         ("dv_no_transpose", 2, 3072, 5, 64),
@@ -306,7 +361,14 @@ def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
     if PLANTED_FAULTS[fault][0] == "geglu_ffn.cu":
         return _geglu_planted(cuda, lib, fault, m=b * s, c=h * d)
     q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, cuda, seed=5)
-    if PLANTED_FAULTS[fault][0] == "flash_attention_packed.cu":
+    if fault.startswith("lse_"):
+        # the lse entry point: max of the output's err/limit and the lse's
+        # error over LSE_TOL
+        good = _fwd_lse_ratio(*flash_attention_fwd_lse(q, k, v, h), q, k, v, h)
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=cuda)
+        bad_out = attention._launch(lib, q, k, v, h, d**-0.5, lse=lse)
+        bad = _fwd_lse_ratio(bad_out, lse, q, k, v, h)
+    elif PLANTED_FAULTS[fault][0] == "flash_attention_packed.cu":
         good = _err_over_limit(flash_attention_packed(q, k, v, h), q, k, v, h)
         bad_out = attention._launch(lib, q, k, v, h, d**-0.5)
         bad = _err_over_limit(bad_out, q, k, v, h)
@@ -321,6 +383,14 @@ def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
     print(f"planted {fault} [B={b},S={s},H={h},D={d}]: max err/limit "
           f"kernel {good:.3f}, faulty copy {bad:.3f}", flush=True)
     assert good <= 1.0 and bad >= 3.0, (good, bad)
+
+
+def _fwd_lse_ratio(out, lse, q, k, v, h):
+    """max of the output's err/limit and the lse's max abs error / LSE_TOL."""
+    torch.cuda.synchronize()
+    _, ref_lse = attention_fwd_lse_reference(q, k, v, h)
+    return max(_err_over_limit(out, q, k, v, h),
+               (lse - ref_lse).abs().max().item() / LSE_TOL)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -344,6 +414,41 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     assert qs.is_contiguous() and qs.data_ptr() % 16 != 0
     with pytest.raises(ValueError):
         flash_attention_packed(qs, ks, vs, h)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 3072, 3072, 5, 64), (2, 257, 100, 4, 16),
+                                         (2, 257, 257, 16, 80)])
+def test_fwd_kernels_are_bitwise_reproducible(cuda, b, sq, sk, h, d):
+    """Each output element (and each lse) is written by one block, once:
+    two launches of the packed and of the lse forward give the same bits."""
+    q, k, v = _qkv(b, sq, sk, h, d, torch.bfloat16, cuda, seed=19)
+    first = (flash_attention_packed(q, k, v, h), *flash_attention_fwd_lse(q, k, v, h))
+    second = (flash_attention_packed(q, k, v, h), *flash_attention_fwd_lse(q, k, v, h))
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_bf16_forward_switch_refuses_without_fallback(cuda):
+    """The bf16 forward's switch by head width: at d = 64 the wgmma body
+    refuses rows that are not contiguous [B, S, H*D] (its tensor maps assume
+    them) and the launch raises; no other body is tried.  At d = 80 the
+    mma.sync body takes the same strided rows and computes the function."""
+    lib = _build.load_library()
+    for d, refused in ((64, True), (80, False)):
+        b, s, h = 2, 200, 2
+        wide = _qkv(b, s, s, 2 * h, d, torch.bfloat16, cuda, seed=20)
+        q, k, v = (x[:, :, : h * d] for x in wide)  # row stride 2 H D, 16-byte aligned
+        assert not q.is_contiguous() and q.data_ptr() % 16 == 0
+        with pytest.raises(ValueError):  # the wrapper takes contiguous rows only
+            flash_attention_packed(q, k, v, h)
+        if refused:
+            with pytest.raises(RuntimeError):
+                attention._launch(lib, q, k, v, h, d**-0.5)
+        else:
+            out = attention._launch(lib, q, k, v, h, d**-0.5)
+            torch.cuda.synchronize()
+            assert _err_over_limit(out, q.contiguous(), k.contiguous(), v.contiguous(), h) <= 1.0
 
 
 # --- forward with logsumexp, and the backward ---------------------------------

@@ -29,24 +29,52 @@
 // (989 TF/s bf16) rather than memory (3.35 TB/s) become the limit.  The
 // bound is the operations at every main-path shape.
 //
+// The exponentials are the other half of the work at D = 64: one per score
+// against the 4*D = 256 operations of the two products, and the SFU's ex2
+// rate (16 a clock per SM, ~3.7 T/s on the card) is about the tensor cores'
+// rate in scores (989 TF/s / 256 ~ 3.9 T/s).  Run one after the other, the
+// two take twice the bound; the wgmma body overlaps them.
+//
 // What this design does about it: the S x S score matrix never reaches
-// device memory (online softmax with an f32 running max, sum and
-// accumulator, one key tile at a time in shared memory), and in bf16 both
-// products run on the tensor cores (mma.sync m16n8k16, f32 accumulate).
-// This is the simple form of that design: no TMA, no wgmma, no pipelining of
-// the tile loads against the products, so it reaches a fraction of the
-// bound; those are later work.
+// device memory (online softmax with an f32 running max in log2 units, sum
+// and accumulator, one key tile at a time in shared memory), and in bf16
+// both products run on the tensor cores, f32 accumulate.
 //
-// One block layout per dtype:
+// Three block layouts, chosen by dtype and, in bf16, by head width in one
+// switch (dispatch_bf16):
 //
-// * bf16 (flash_{packed,headsplit,fwd_lse}_mma_kernel), D in {16, 64, 80, 512} (the UNet's 64,
-//   CLIP's 80, the VAE's 512, and 16 for small checks) with 16-byte-aligned
-//   rows; anything else is refused with cudaErrorInvalidValue.  Warps of 16
-//   query rows each; q, k, v tiles in shared memory; scores and P.V through
-//   mma.sync.  d = 512 (the VAE's single head) splits its output columns
-//   over 4 warps per row group, each keeping a 16 x 128 f32 accumulator in
-//   registers and recomputing the 16 x 32 score tile; its tiles take
-//   ~100 KB of dynamic shared memory.  d = 80 (CLIP) is five 16-wide k-steps.
+// * bf16, D in {16, 64} (the UNet's 64, and 16 for small checks):
+//   flash_{packed,headsplit,fwd_lse}_wgmma_kernel<D>, Hopper's TMA and
+//   wgmma (blocks from sm90.cuh).  A block owns 192 queries of one (batch,
+//   head): a producer warpgroup (setmaxnreg 24) whose one thread loads q
+//   once and keeps a 4-slot ring of 128-key k and v tiles full under full /
+//   empty mbarriers (3-D tensor maps over the packed layout, 128-byte
+//   swizzle at D = 64, 32-byte at D = 16), and three consumer warpgroups
+//   (160 registers) of 64 query rows.  S = q k^T is an m64n128 wgmma with
+//   both operands from shared memory (q is never held in registers); P
+//   goes from the S accumulator into bf16 A registers for O += P v, whose B
+//   is the v tile read MN-major (the transpose bit).  Each consumer issues
+//   S of tile it with P v of tile it - 1 and runs tile it's softmax (one
+//   ex2.approx.ftz per score, the scale folded into log2 units) while P v
+//   runs; the consumers take turns to issue (named barriers), so one's
+//   softmax runs under another's products.  Three consumers rather than
+//   two (three warps a scheduler to hide the softmax's latencies), the
+//   turns, the 4-slot ring and the 128-key tiles are the measured choices
+//   of unigeo_tpu_torch/tools/forward_variants.py.  The TMA returns zero
+//   rows past Sk, which would score 0, not -inf: the last key tile, when Sk
+//   is ragged, selects -inf for them (full tiles pay nothing).  Query rows
+//   past Sq are computed on zeros and not stored.  Each output element is
+//   written once, no atomics: two launches give the same bits.
+// * bf16, D in {80, 512} (CLIP's 80, the VAE's 512):
+//   flash_{packed,headsplit,fwd_lse}_mma_kernel, mma.sync m16n8k16 with no
+//   TMA and no pipelining of the loads against the products.  Warps of 16
+//   query rows each; q, k, v tiles in shared memory.  d = 512 (the VAE's
+//   single head) splits its output columns over 4 warps per row group, each
+//   keeping a 16 x 128 f32 accumulator in registers and recomputing the
+//   16 x 32 score tile; its tiles take ~100 KB of dynamic shared memory.
+//   d = 80 (CLIP) is five 16-wide k-steps.
+//   Other bf16 widths, and rows not aligned to 16 bytes, are refused with
+//   cudaErrorInvalidValue.
 // * f32 (flash_{packed,headsplit,fwd_lse}_kernel), any D up to 512: CUDA-core FMAs, the
 //   reference numerics for f32 checks on the card.  256 threads own BQ query
 //   rows; TPR = 256 / BQ lanes of a warp share a row, each holding BK / TPR
@@ -56,7 +84,7 @@
 //     D <= 128: BQ = 64, BK = 64, NCOL = 32
 //     D <= 512: BQ = 16, BK = 32, NCOL = 32 (~166 KB of shared memory)
 //
-// Both: keys past Sk (the ragged edge, e.g. 257 CLIP tokens) get zero
+// All: keys past Sk (the ragged edge, e.g. 257 CLIP tokens) get zero
 // weight; query rows past Sq are computed on zeros and not stored (nor is
 // their lse).  The lse costs 4 bytes per row against 2*D*(2 + 2*Sk/Sq) of
 // q, k, v and o: it moves neither bound.  Shared
@@ -69,6 +97,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -483,6 +512,336 @@ bool aligned16(const void* q, const void* k, const void* v, const void* o,
   return (ptrs % 16) == 0 && (strides % 8) == 0;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at D in {16, 64}: TMA -> mbarrier ring -> wgmma, warp-specialised.
+// A block owns kWgConsumers * 64 queries of one (batch, head): a producer
+// warpgroup whose one thread issues every TMA load (q once, then k and v
+// tiles of 128 keys into a ring of slots under full / empty mbarriers), and
+// consumer warpgroups of 64 query rows each.  A consumer runs S = q k^T with
+// both operands from shared memory (q by descriptor, never held in
+// registers), turns the S accumulator into P's bf16 A registers, and runs
+// O += P v with v read MN-major through the transpose bit.  Its loop issues
+// S of tile it and P v of tile it - 1 together, then runs tile it's softmax
+// while P v runs: the exponentials of one tile overlap the products of the
+// other.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;                        // query rows of a consumer
+constexpr int kWgConsumers = 3;
+constexpr int kWgBlockQ = kWgConsumers * kWgRows;  // queries of a block
+constexpr int kWgBlockK = 128;                     // keys of a ring slot
+constexpr int kWgStages = 4;
+// the consumers take turns to issue their products (named barriers 1 + c),
+// so one's softmax runs under another's products
+constexpr bool kWgPingpong = true;
+constexpr int kWgThreads = 128 * (kWgConsumers + 1);
+constexpr int kWgProducerRegs = 24;
+// the registers the producer gives up, shared among the consumers
+constexpr int kWgConsumerRegs = (65536 - 128 * kWgProducerRegs) / (128 * kWgConsumers) / 8 * 8;
+static_assert(kWgConsumers == 2 || kWgConsumers == 3, "two or three consumers");
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A slot holds v before k: a descriptor that misreads v, as the planted
+// transpose-bit fault of tests/test_torch_cuda.py does, still reads inside
+// the slot.
+template <int D>
+struct WgSmem {
+  struct Slot {
+    __nv_bfloat16 v[kWgBlockK * D];
+    __nv_bfloat16 k[kWgBlockK * D];
+  };
+  __nv_bfloat16 q[kWgBlockQ * D];  // consumer c's rows at q + c * 64 * D
+  Slot slot[kWgStages];
+  uint64_t q_full, full[kWgStages], empty[kWgStages];
+};
+
+// 2^x by the SFU (ex2.approx.ftz: 2 ulp, results below 2^-126 flushed to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = q k^T of one consumer's 64 rows and a slot's BK keys (the first
+// k-step overwrites s)
+template <int D, int BK>
+__device__ __forceinline__ void issue_scores(float (&s)[BK / 2], const __nv_bfloat16* qs,
+                                             const __nv_bfloat16* ks) {
+  using Tile = sm90::SwizzledTile<D>;
+#pragma unroll
+  for (int i = 0; i < D / 16; ++i) {
+    if constexpr (BK == 128)
+      sm90::wgmma_ss128(s, Tile::kmajor(qs, i), Tile::kmajor(ks, i), i);
+    else
+      sm90::wgmma_ss64<0, 0>(s, Tile::kmajor(qs, i), Tile::kmajor(ks, i), i);
+  }
+  sm90::wgmma_commit();
+}
+
+// O += P v: A = P's registers, B = the slot's v read MN-major
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[kWgBlockK / 16][4],
+                                         const __nv_bfloat16* vs) {
+  using Tile = sm90::SwizzledTile<D>;
+#pragma unroll
+  for (int i = 0; i < kWgBlockK / 16; ++i)
+    sm90::wgmma_rs<D, 1>(o, pa[i], Tile::mnmajor(vs, i), 1);
+  sm90::wgmma_commit();
+}
+
+// One key tile of the online softmax for this thread's two rows (g and
+// g + 8 of its warp's 16).  Element 4j + e of s is the score of row
+// g + 8 (e >> 1) and key 8j + 2tg + (e & 1) of the tile.  m is the running
+// max in log2 units (scores times scale * log2(e)), l this thread's share
+// of the row sums.  s becomes p = 2^(s * scale_log2 - m); returns
+// alpha = 2^(m_old - m_new) per row.  kMask (the last tile, when Sk is
+// ragged): keys with 8j + (e & 1) >= lim score -inf, since the TMA's zero
+// key rows would otherwise score 0.
+template <bool kMask>
+__device__ __forceinline__ float2 softmax_tile(float (&s)[kWgBlockK / 2], float (&m)[2],
+                                               float (&l)[2], float scale_log2, int lim) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kWgBlockK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (kMask) s[4 * j + e] = 8 * j + (e & 1) < lim ? s[4 * j + e] : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * scale_log2);  // finite: each tile has a key
+    alpha[i] = exp2_approx(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < kWgBlockK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], scale_log2, -m[e >> 1]));
+      l[e >> 1] += s[4 * j + e];
+    }
+  return make_float2(alpha[0], alpha[1]);
+}
+
+// p (f32, the S accumulator's layout) -> the bf16 A registers of P v's
+// k-steps: k-step i takes the tile's keys [16i, 16i + 16)
+__device__ __forceinline__ void p_to_a(uint32_t (&pa)[kWgBlockK / 16][4],
+                                       const float (&p)[kWgBlockK / 2]) {
+#pragma unroll
+  for (int i = 0; i < kWgBlockK / 16; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[i][r] = pack_bf16x2(p[8 * i + 2 * r], p[8 * i + 2 * r + 1]);
+}
+
+#define UNIGEO_WG_PARAMS                                                            \
+  const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k, \
+      const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,          \
+      float* __restrict__ lse, int Sq, int Sk, float scale_log2
+#define UNIGEO_WG_ARGS tm_q, tm_k, tm_v, o, lse, Sq, Sk, scale_log2
+
+// the body of the three wgmma kernels; kLse: write the row logsumexp
+template <int D, bool kLse>
+__device__ __forceinline__ void flash_wgmma_block(const CUtensorMap& tm_q,
+                                                  const CUtensorMap& tm_k,
+                                                  const CUtensorMap& tm_v,
+                                                  __nv_bfloat16* __restrict__ o,
+                                                  float* __restrict__ lse, int Sq, int Sk,
+                                                  float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WgSmem<D>& sm = sm90::aligned_smem<WgSmem<D>>(smem_raw);
+  const int q0 = blockIdx.x * kWgBlockQ, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int n_tiles = (Sk + kWgBlockK - 1) / kWgBlockK;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kWgStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 1);
+      sm90::mbar_init(&sm.empty[s], 4 * kWgConsumers);  // one arrival per consumer warp
+    }
+    sm90::mbar_init(&sm.q_full, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread issues every TMA load
+    sm90::setmaxnreg_dec<kWgProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_arrive_expect_tx(&sm.q_full, kWgBlockQ * D * sizeof(__nv_bfloat16));
+      sm90::tma_load_3d(sm.q, &tm_q, &sm.q_full, h * D, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kWgStages;
+        sm90::mbar_wait(&sm.empty[s], ((it / kWgStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kWgBlockK * D * sizeof(__nv_bfloat16));
+        sm90::tma_load_3d(sm.slot[s].k, &tm_k, &sm.full[s], h * D, it * kWgBlockK, b);
+        sm90::tma_load_3d(sm.slot[s].v, &tm_v, &sm.full[s], h * D, it * kWgBlockK, b);
+      }
+    }
+    return;
+  }
+
+  // consumer c: queries [q0 + 64c, q0 + 64c + 64)
+  sm90::setmaxnreg_inc<kWgConsumerRegs>();
+  const int c = wg - 1, w = (threadIdx.x / 32) % 4, g = lane / 4, tg = lane % 4;
+  const __nv_bfloat16* qs = sm.q + c * kWgRows * D;
+  const int last = n_tiles - 1;
+  const bool ragged = Sk % kWgBlockK != 0;
+  const int lim = Sk - last * kWgBlockK - 2 * tg;  // the last tile's mask bound
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float s[kWgBlockK / 2];
+  uint32_t pa[kWgBlockK / 16][4];
+  // the consumers' turns, in the order 0, 1, ...: c issues between a sync
+  // on its barrier (1 + c) and an arrival on the next one's; consumer 0
+  // goes first, and the last consumer's last turn passes nothing on, so
+  // every arrival is consumed
+  const int next = 1 + (c + 1) % kWgConsumers;
+  const auto turn = [&] {
+    if constexpr (kWgPingpong) sm90::bar_sync<2 * 128>(1 + c);
+  };
+  const auto pass = [&](bool more) {
+    if constexpr (kWgPingpong)
+      if (more) sm90::bar_arrive<2 * 128>(next);
+  };
+  if (kWgPingpong && c == kWgConsumers - 1) sm90::bar_arrive<2 * 128>(1);
+  sm90::mbar_wait(&sm.q_full, 0);
+
+  // tile 0: S, its softmax, P
+  sm90::mbar_wait(&sm.full[0], 0);
+  turn();
+  sm90::wgmma_fence();
+  issue_scores<D, kWgBlockK>(s, qs, sm.slot[0].k);
+  pass(true);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+  if (ragged && last == 0)
+    softmax_tile<true>(s, m, l, scale_log2, lim);
+  else
+    softmax_tile<false>(s, m, l, scale_log2, lim);
+  p_to_a(pa, s);
+
+  for (int it = 1; it < n_tiles; ++it) {
+    const int sl = it % kWgStages, prev = (it - 1) % kWgStages;
+    sm90::mbar_wait(&sm.full[sl], (it / kWgStages) & 1);
+    // S(it), and O += P(it - 1) v(it - 1) behind it
+    sm90::fence_regs(pa);
+    sm90::fence_regs(acc);
+    turn();
+    sm90::wgmma_fence();
+    issue_scores<D, kWgBlockK>(s, qs, sm.slot[sl].k);
+    issue_pv<D>(acc, pa, sm.slot[prev].v);
+    pass(true);
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(s);
+    // tile it's softmax while P(it - 1) v(it - 1) runs
+    const float2 alpha = ragged && it == last ? softmax_tile<true>(s, m, l, scale_log2, lim)
+                                              : softmax_tile<false>(s, m, l, scale_log2, lim);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::fence_regs(pa);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&sm.empty[prev]);  // slot it - 1 is free
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= alpha.x;
+      acc[4 * j + 1] *= alpha.x;
+      acc[4 * j + 2] *= alpha.y;
+      acc[4 * j + 3] *= alpha.y;
+    }
+    p_to_a(pa, s);
+  }
+
+  // O += P(last) v(last)
+  sm90::fence_regs(pa);
+  sm90::fence_regs(acc);
+  turn();
+  sm90::wgmma_fence();
+  issue_pv<D>(acc, pa, sm.slot[last % kWgStages].v);
+  pass(c != kWgConsumers - 1);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+
+  // O / l into the packed rows (and lse = (m + log2 l) ln 2); rows past Sq,
+  // computed on the TMA's zero rows, are not stored
+  const int64_t hd = (int64_t)H * D;
+  const int64_t lse_bh = ((int64_t)b * H + h) * Sq;
+  const int row0 = q0 + c * kWgRows + 16 * w + g;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = row0 + 8 * i;
+    if (row >= Sq) continue;
+    if (kLse && tg == 0) lse[lse_bh + row] = (m[i] + log2f(l[i])) * kLn2;
+    const float inv = 1.f / l[i];
+    __nv_bfloat16* orow = o + ((int64_t)b * Sq + row) * hd + (int64_t)h * D + 2 * tg;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack_bf16x2(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_packed_wgmma_kernel(UNIGEO_WG_PARAMS) {
+  flash_wgmma_block<D, false>(UNIGEO_WG_ARGS);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_headsplit_wgmma_kernel(UNIGEO_WG_PARAMS) {
+  flash_wgmma_block<D, false>(UNIGEO_WG_ARGS);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_lse_wgmma_kernel(UNIGEO_WG_PARAMS) {
+  flash_wgmma_block<D, true>(UNIGEO_WG_ARGS);
+}
+
+// q, k, v and o must be contiguous [B, S, H*D] (the tensor maps and the
+// stores assume it); anything else is refused
+template <int D>
+cudaError_t launch_wgmma(Entry entry, const void* q, const void* k, const void* v, void* o,
+                         float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                         int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
+                         int B, int Sq, int Sk, int H, float scale, cudaStream_t stream) {
+  const int64_t hd = (int64_t)H * D;
+  if (q_ss != hd || k_ss != hd || v_ss != hd || o_ss != hd || q_sb != Sq * hd ||
+      o_sb != Sq * hd || k_sb != Sk * hd || v_sb != Sk * hd)
+    return cudaErrorInvalidValue;
+  constexpr CUtensorMapSwizzle swz = D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                             : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = sm90::packed_tile_map(&tq, q, B, Sq, (int)hd, D, kWgBlockQ, swz)) != cudaSuccess ||
+      (err = sm90::packed_tile_map(&tk, k, B, Sk, (int)hd, D, kWgBlockK, swz)) != cudaSuccess ||
+      (err = sm90::packed_tile_map(&tv, v, B, Sk, (int)hd, D, kWgBlockK, swz)) != cudaSuccess)
+    return err;
+  auto kern = entry == kFwdLse      ? flash_fwd_lse_wgmma_kernel<D>
+              : entry == kHeadsplit ? flash_headsplit_wgmma_kernel<D>
+                                    : flash_packed_wgmma_kernel<D>;
+  constexpr size_t smem = sizeof(WgSmem<D>) + 1024;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + kWgBlockQ - 1) / kWgBlockQ, H, B);
+  kern<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
+                                           Sq, Sk, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// The bf16 forward's one switch by head width: the wgmma body at the UNet's
+// 64 (and 16 for small checks), the mma.sync body at CLIP's 80 and the VAE's
+// 512.  A launch either body refuses returns its error: no other body is
+// tried.
 cudaError_t dispatch_bf16(Entry entry, const void* q, const void* k, const void* v, void* o,
                           float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                           int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
@@ -490,19 +849,24 @@ cudaError_t dispatch_bf16(Entry entry, const void* q, const void* k, const void*
                           cudaStream_t stream) {
   if (!aligned16(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss))
     return cudaErrorInvalidValue;
+#define UNIGEO_WG(DD)                                                                    \
+  case DD:                                                                               \
+    return launch_wgmma<DD>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,  \
+                            o_sb, o_ss, B, Sq, Sk, H, scale, stream);
 #define UNIGEO_MMA(DD, WQ, WD, BK)                                                   \
   case DD:                                                                           \
     return launch_mma<DD, WQ, WD, BK>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, \
                                       v_ss, o_sb, o_ss, B, Sq, Sk, H, scale, stream);
   switch (D) {
-    UNIGEO_MMA(16, 4, 1, 64)
-    UNIGEO_MMA(64, 4, 1, 64)
+    UNIGEO_WG(16)
+    UNIGEO_WG(64)
     UNIGEO_MMA(80, 4, 1, 64)
     UNIGEO_MMA(512, 2, 4, 32)
     default:
       return cudaErrorInvalidValue;
   }
 #undef UNIGEO_MMA
+#undef UNIGEO_WG
 }
 
 }  // namespace

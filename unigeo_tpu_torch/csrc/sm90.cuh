@@ -11,7 +11,8 @@
 //   tiles as the TMA writes them, wgmma.mma_async m64nNk16 bf16 -> f32 with
 //   A from shared memory or from registers and B K-major or MN-major (the
 //   transpose bit), and wgmma.fence / commit_group / wait_group;
-// * setmaxnreg, to move registers from a producer warpgroup to consumers.
+// * setmaxnreg, to move registers from a producer warpgroup to consumers;
+// * named barriers (bar.sync / bar.arrive), to order warpgroups' turns.
 //
 // Layouts.  A tile of R rows of W bf16 (row bytes 2W = 128 with the 128-byte
 // swizzle, 32 with the 32-byte swizzle), loaded by the TMA at a shared
@@ -256,8 +257,37 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t
       : "l"(da), "l"(db), "n"(TransA), "n"(TransB), "r"(scale_d));
 }
 
+// d (+)= A B for a 64 x 128 tile, k = 16, both operands K-major from shared
+// memory by descriptor (the forward's S = q k^T over a 128-key tile).  The
+// accumulator layout is wgmma_rs's with j in [0, 16).
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SM90_F8(d, 0), SM90_F8(d, 8), SM90_F8(d, 16), SM90_F8(d, 24), SM90_F8(d, 32),
+        SM90_F8(d, 40), SM90_F8(d, 48), SM90_F8(d, 56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 #undef SM90_F8
 #undef SM90_D32
+
+// named barriers (ids 1-15; __syncthreads uses 0): `count` threads, a
+// multiple of 32, arrive in all, some syncing (waiting), some only arriving
+template <int Count>
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(Count) : "memory");
+}
+template <int Count>
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(Count) : "memory");
+}
 
 // registers per thread of the warpgroup that runs it (a multiple of 8 in
 // [24, 256]); all four warps of the warpgroup run it together

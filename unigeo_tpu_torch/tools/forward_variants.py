@@ -1,0 +1,145 @@
+"""Time variants of the bf16 flash forward's wgmma body side by side.
+
+Each variant is the kernel sources with textual edits (``VARIANTS``: name ->
+[(file, anchor, replacement)]), built by ``_build.compile_library`` into a
+temporary directory, all builds in parallel; ``built`` is the sources as
+they are.  Each library's packed forward runs at the UNet's three attention
+shapes at batch 25 (the frames of a clip), held against the plain version
+on frames 0, 1 and 24 under ``bf16_error_limit``, and timed two ways: CUDA
+events around ``ITERS`` back-to-back calls (``ms``, what a caller waits,
+host cost included) and the kernel's own device time from torch.profiler
+(``device_ms``).  The variants are the design choices of the body:
+
+    python -m unigeo_tpu_torch.tools.forward_variants [--variants a,b,...]
+
+It prints one JSON object: per variant and shape ``ms``, ``device_ms``,
+``max_err_over_limit``; and the card's name.  It needs the card and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+_SRC = "flash_attention_packed.cu"
+VARIANTS = {
+    "built": [],
+    # the consumers issue their products whenever they are ready
+    "no_pingpong": [(_SRC, "constexpr bool kWgPingpong = true;",
+                     "constexpr bool kWgPingpong = false;")],
+    # ring depth
+    "stages2": [(_SRC, "constexpr int kWgStages = 4;", "constexpr int kWgStages = 2;")],
+    "stages6": [(_SRC, "constexpr int kWgStages = 4;", "constexpr int kWgStages = 6;")],
+    # two consumers (128 queries a block, 240 registers each)
+    "consumers2": [(_SRC, "constexpr int kWgConsumers = 3;", "constexpr int kWgConsumers = 2;")],
+    # 64-key tiles (S = q k^T as m64n64 products)
+    "block_k64": [(_SRC, "constexpr int kWgBlockK = 128;", "constexpr int kWgBlockK = 64;")],
+}
+SHAPES = [("unet_stage0", 3072, 5, 64), ("unet_stage1", 768, 10, 64),
+          ("unet_stage2", 192, 20, 64)]
+BATCH = 25
+FRAMES = (0, 1, 24)
+ITERS = 20
+
+
+def build_variants(names: List[str], root: str) -> dict:
+    """name -> the loaded library of that variant, built under ``root``."""
+    from unigeo_tpu_torch import _build
+
+    jobs = {}
+    for name in names:
+        work = os.path.join(root, name)
+        shutil.copytree(_build.CSRC_DIR, work)
+        for fname, anchor, repl in VARIANTS[name]:
+            path = os.path.join(work, fname)
+            with open(path) as f:
+                text = f.read()
+            if text.count(anchor) != 1:
+                raise RuntimeError(f"{name}: anchor not found once in {fname}: {anchor!r}")
+            with open(path, "w") as f:
+                f.write(text.replace(anchor, repl))
+        cu = sorted(os.path.join(work, f) for f in os.listdir(work) if f.endswith(".cu"))
+        jobs[name] = (cu, os.path.join(work, "lib.so"))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda j: _build.compile_library(*j), jobs.values()))
+    return {name: _build.open_library(out) for name, (_, out) in jobs.items()}
+
+
+def events_ms(fn, iters: int) -> float:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_flash(fn, iters: int):
+    """``iters`` calls of ``fn`` under torch.profiler: (the name of the one
+    flash kernel they launched, its mean device ms per launch the profiler
+    recorded; it may miss one of a run of long launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "flash_" in e.key]
+    if len(found) != 1:
+        raise RuntimeError(f"{iters} calls launched the flash kernels "
+                           f"{[(e.key, e.count) for e in found]}")
+    return found[0].key, found[0].self_device_time_total / 1e3 / found[0].count
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    from unigeo_tpu_torch.ops import attention
+    from unigeo_tpu_torch.ops.attention import attention_packed_reference, bf16_error_limit
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated names from VARIANTS")
+    args = ap.parse_args(argv)
+    names = args.variants.split(",")
+    if not torch.cuda.is_available():
+        raise SystemExit("forward_variants needs an NVIDIA GPU")
+    dev = torch.device("cuda:0")
+    result = {"device": torch.cuda.get_device_name(0), "batch": BATCH, "variants": {}}
+    with tempfile.TemporaryDirectory() as root:
+        libs = build_variants(names, root)
+        for name, s, h, d in SHAPES:
+            rng = np.random.default_rng(s)
+            q, k, v = (torch.from_numpy(rng.standard_normal((BATCH, s, h * d), dtype=np.float32))
+                       .to(dev, torch.bfloat16) for _ in range(3))
+            idx = list(FRAMES)
+            ref = attention_packed_reference(q[idx], k[idx], v[idx], h)
+            limit = bf16_error_limit(q[idx], k[idx], v[idx], h, ref)
+            for var in names:
+                fn = lambda: attention._launch(libs[var], q, k, v, h, d**-0.5)
+                out = fn()
+                torch.cuda.synchronize()
+                ratio = ((out[idx].float() - ref.float()).abs() / limit).max().item()
+                result["variants"].setdefault(var, {})[name] = dict(
+                    ms=events_ms(fn, ITERS), device_ms=profile_flash(fn, ITERS)[1],
+                    max_err_over_limit=ratio)
+            del q, k, v, ref, limit
+            torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()
