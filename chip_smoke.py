@@ -23,8 +23,8 @@ Phases, each printed on its own flushed line with the seconds since start:
              frames alone; the packed, head-split and lse forwards at batch
              25 at all five forward shapes, checked the same way, with
              SDPA's time, the bound, the SFUs' exponential floor, the
-             device time and the body each ran (wgmma at d = 64, mma.sync
-             at d = 80 and 512, by kernel name); the
+             device time of each and of SDPA and the body each ran (wgmma
+             at d = 64, 80 and 512, by kernel name); the
              fused LayerNorm -> dense at the UNet's three temporal-
              attention shapes in bf16 and at ragged shapes in bf16 and f32
              (max err/limit, kernel / plain / unfused-layers ms, the bound,
@@ -651,14 +651,13 @@ def exp_floor_ms(b, sq, sk, h):
 
 def forward_body(fn, iters):
     """``iters`` calls of ``fn`` under torch.profiler: the forward body they
-    ran, by the kernel's name ("wgmma" for TMA + wgmma, "mma.sync", or the
+    ran, by the kernel's name ("wgmma" for the TMA + wgmma bodies, or the
     name itself), and its mean device ms per call (the kernel alone, no host
     cost)."""
     from unigeo_tpu_torch.tools.forward_variants import profile_flash
 
     name, ms = profile_flash(fn, iters)
-    body = "wgmma" if "_wgmma_kernel" in name else ("mma.sync" if "_mma_kernel" in name else name)
-    return body, ms
+    return ("wgmma" if "_wgmma" in name else name), ms
 
 
 def kernel_forward_batch25(dev):
@@ -668,7 +667,8 @@ def kernel_forward_batch25(dev):
     version on the frames SLICE_FRAMES (batch entries are independent; the
     whole batch's dense plain version would not fit), the head-split output
     bitwise against the packed one; ms of each, SDPA's, the bound, the
-    exponential floor, and the body each ran (by kernel name)."""
+    exponential floor, and the body each ran (by kernel name); each call's
+    device ms by torch.profiler beside its events ms, SDPA's too."""
     from unigeo_tpu_torch.ops.attention import (
         attention_fwd_lse_reference,
         bf16_error_limit,
@@ -676,6 +676,7 @@ def kernel_forward_batch25(dev):
         flash_attention_fwd_lse,
         flash_attention_packed,
     )
+    from unigeo_tpu_torch.tools.forward_variants import profile_device_ms
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -715,8 +716,10 @@ def kernel_forward_batch25(dev):
             row[f"{key}_max_err_over_limit"] = ratio[key]
             row[f"{key}_ms"] = time_ms(fn, iters)
             row[f"{key}_body"], row[f"{key}_device_ms"] = forward_body(fn, iters)
-        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)), iters)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2))
+        row["library_ms"] = time_ms(sdpa, iters)
+        row["library_device_ms"] = profile_device_ms(sdpa, iters)
         rows.append(row)
         log("kernel", f"forward {name} [B={b},S={s},H={h},D={d}] body {row['packed_body']}: "
             f"max_err/limit on frames {idx} packed={ratio['packed']:.3f} "
@@ -725,7 +728,8 @@ def kernel_forward_batch25(dev):
             f"headsplit={row['headsplit_ms']:.4f} fwd_lse={row['fwd_lse_ms']:.4f} device_ms "
             f"packed={row['packed_device_ms']:.4f} headsplit={row['headsplit_device_ms']:.4f} "
             f"fwd_lse={row['fwd_lse_device_ms']:.4f} "
-            f"library_ms={row['library_ms']:.4f} bound_ms={bms:.5f} ({by}) "
+            f"library_ms={row['library_ms']:.4f} "
+            f"library_device_ms={row['library_device_ms']:.4f} bound_ms={bms:.5f} ({by}) "
             f"exp_floor_ms={row['exp_floor_ms']:.5f}")
         del q, k, v, q4, k4, v4
         torch.cuda.empty_cache()
@@ -1548,11 +1552,12 @@ def main():
 
     def forward25(key):
         """Row ``key``'s numbers at batch TRAIN_BATCH per forward shape, and the
-        body (wgmma or mma.sync, by kernel name) that served each head width."""
+        body (wgmma, by kernel name) that served each head width."""
         shapes = [{"shape": r["shape"], "b": r["b"], "s": r["s"], "h": r["h"], "d": r["d"],
                    "body": r[f"{key}_body"], "ms": r[f"{key}_ms"],
                    "device_ms": r[f"{key}_device_ms"],
-                   "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+                   "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
+                   "bound_ms": r["bound_ms"],
                    "bound_by": r["bound_by"], "exp_floor_ms": r["exp_floor_ms"],
                    "max_err_over_limit": r[f"{key}_max_err_over_limit"],
                    **({"lse_err": r["lse_err"]} if key == "fwd_lse" else {})} for r in fwd25]

@@ -25,10 +25,13 @@ product's sums taken in another order.  F carries the f32 error of S and dP
 (D 2^-24 of their magnitude sums) through P and dS; it holds the S_k = 1
 cases, where dP - delta cancels and dS is zero in exact arithmetic.
 
-The bf16 forward has two bodies, chosen by head width in one switch: the
-Hopper body (TMA, wgmma) at d in {16, 64}, the mma.sync body at d in {80,
-512}.  A launch either body refuses raises; no other body is tried.  Each
-writes every output element once, so two launches give the same bits.
+The bf16 forward has two Hopper bodies (TMA, wgmma), chosen by head width
+in one switch: 64-row consumers that each own whole rows at d in {16, 64,
+80}, and at d = 512 two consumers that split a row's 512 output columns and
+trade their partial scores through shared memory.  A launch either body
+refuses raises; no other body is tried, and any other bf16 width is
+refused.  Each writes every output element once, so two launches give the
+same bits.
 
 The head-split forward (``flash_attention`` on [B, S, H, D]) is the packed
 kernel's body under another name: its output is bitwise equal to the packed
@@ -50,8 +53,10 @@ past M, written into a zeroed buffer of whole 64-row blocks, must stay 0.
 The planted-fault tests show that the limits fail a kernel that drops one
 key tile or the ragged-edge mask (forward, each of its two bf16 bodies),
 reads P v's B operand without wgmma's transpose bit, or writes lse without
-its log l term or into another consumer's rows (the wgmma forward, the
-lse held to LSE_TOL), skips one query tile of dk/dv,
+its log l term or into another consumer's rows (the lse held to LSE_TOL),
+skips the fifth 16-column k-step of S (d = 80), or, at d = 512, adds a
+consumer's own partial scores twice or stores each consumer's output half
+at the other's columns (forward), skips one query tile of dk/dv,
 drops the ragged last key tile of dq or reads dv's B operand without
 wgmma's transpose bit (backward), skips one hidden tile, swaps
 value and gate, or drops the ragged-row guard of the GEGLU kernel (rows
@@ -183,32 +188,18 @@ def test_kernel_matches_plain_bf16_main_path_shapes(cuda, b, s, h, d):
 
 # textual faults planted in a copy of a kernel source: (file, anchor, replacement)
 PLANTED_FAULTS = {
-    # the forward's mma.sync body (D in {80, 512}) skips its eighth key tile
+    # the forward, both wgmma bodies (the softmax step they share): the
+    # eighth key tile's scores become -inf, so it adds to neither O nor l;
+    # the ring still hands the tile over
     "drop_key_tile": (
         "flash_attention_packed.cu",
-        "  for (int k0 = 0; k0 < Sk; k0 += BK) {\n    __syncthreads();\n    load_tile<",
-        "  for (int k0 = 0; k0 < Sk; k0 += BK) {\n    if (k0 == 7 * BK) continue;\n"
-        "    __syncthreads();\n    load_tile<",
+        "  return ragged && it == last ? softmax_tile<true, BK>",
+        "  if (it == 7) for (float& x : s) x = -INFINITY;\n"
+        "  return ragged && it == last ? softmax_tile<true, BK>",
     ),
-    # forward, mma.sync body: keys past Sk (zero-filled) keep their score
-    # instead of -inf
+    # forward, both wgmma bodies: the last tile's select goes, so the TMA's
+    # zero key rows past Sk score 0 instead of -inf
     "no_ragged_mask": (
-        "flash_attention_packed.cu",
-        "s[j][e] = key < Sk ? s[j][e] * scale_log2 : -INFINITY;",
-        "s[j][e] = s[j][e] * scale_log2;",
-    ),
-    # forward, wgmma body (D in {16, 64}): a consumer drops its eighth key
-    # tile (its scores become -inf, so it adds to neither O nor l); the ring
-    # still hands the tile over
-    "wgmma_skip_key_tile": (
-        "flash_attention_packed.cu",
-        "    // tile it's softmax while P(it - 1) v(it - 1) runs\n",
-        "    // tile it's softmax while P(it - 1) v(it - 1) runs\n"
-        "    if (it == 7) for (float& x : s) x = -INFINITY;\n",
-    ),
-    # forward, wgmma body: the last tile's select goes, so the TMA's zero
-    # key rows past Sk score 0 instead of -inf
-    "wgmma_no_ragged_mask": (
         "flash_attention_packed.cu",
         "      if (kMask) s[4 * j + e] = 8 * j + (e & 1) < lim ? s[4 * j + e] : -INFINITY;\n",
         "",
@@ -217,8 +208,8 @@ PLANTED_FAULTS = {
     # transpose bit (as K-major, though the TMA lays it out MN-major)
     "wgmma_pv_no_transpose": (
         "flash_attention_packed.cu",
-        "sm90::wgmma_rs<D, 1>(o, pa[i], Tile::mnmajor(vs, i), 1);",
-        "sm90::wgmma_rs<D, 0>(o, pa[i], Tile::mnmajor(vs, i), 1);",
+        "sm90::wgmma_rs<D, 1>(o, pa[i], Tile::mnmajor(vs, i, box), 1);",
+        "sm90::wgmma_rs<D, 0>(o, pa[i], Tile::mnmajor(vs, i, box), 1);",
     ),
     # forward with lse, wgmma body: lse written without its log l term
     "lse_no_log_l": (
@@ -232,6 +223,28 @@ PLANTED_FAULTS = {
         "flash_attention_packed.cu",
         "lse[lse_bh + row] =",
         "lse[lse_bh + (row ^ kWgRows)] =",
+    ),
+    # forward, wgmma body at D = 80 (five 16-column boxes a row): S = q k^T
+    # skips its fifth k-step, the columns [64, 80) of the d-sum
+    "skip_fifth_k_step": (
+        "flash_attention_packed.cu",
+        "    const int x = i / (W / 16), kk = i % (W / 16);  // box, k-step within it\n",
+        "    if (i == 4) continue;\n"
+        "    const int x = i / (W / 16), kk = i % (W / 16);  // box, k-step within it\n",
+    ),
+    # forward, D = 512 body: the trade reads the consumer's own partial
+    # scores back, so S = S_c + S_c
+    "trade_reads_own_partial": (
+        "flash_attention_packed.cu",
+        "    const float4 y = sm.x[par][c ^ 1][f][t];",
+        "    const float4 y = sm.x[par][c][f][t];",
+    ),
+    # forward, D = 512 body: each consumer stores its output half at the
+    # other's column offset
+    "store_other_half": (
+        "flash_attention_packed.cu",
+        "(int64_t)h * kW5D + kW5Half * c,",
+        "(int64_t)h * kW5D + kW5Half * (c ^ 1),",
     ),
     # backward: the tensor-core dk/dv kernel skips its eighth query tile
     # (the ring still hands the tile over, but it adds nothing to dk, dv)
@@ -333,14 +346,18 @@ def faulty_libraries(tmp_path_factory):
 @pytest.mark.parametrize(
     "fault,b,s,h,d",
     [
-        # the mma.sync body, at its head widths 512 and 80
+        # the forward at the UNet's stage 0, the VAE's and CLIP's head
+        # widths 512 and 80, and ragged shapes (S = 257: the last key tile
+        # holds one key and 127, 63 or 31 zero rows at d 64, 80 and 512)
+        ("drop_key_tile", 2, 3072, 5, 64),
         ("drop_key_tile", 1, 3072, 1, 512),
         ("drop_key_tile", 2, 1024, 16, 80),
+        ("no_ragged_mask", 2, 257, 4, 64),
         ("no_ragged_mask", 2, 257, 16, 80),
-        # the wgmma body at the UNet's stage 0 and a ragged shape (S = 257:
-        # the last 128-key tile holds one key and 127 zero rows)
-        ("wgmma_skip_key_tile", 2, 3072, 5, 64),
-        ("wgmma_no_ragged_mask", 2, 257, 4, 64),
+        ("no_ragged_mask", 2, 257, 1, 512),
+        ("skip_fifth_k_step", 2, 257, 16, 80),
+        ("trade_reads_own_partial", 1, 3072, 1, 512),
+        ("store_other_half", 1, 3072, 1, 512),
         ("wgmma_pv_no_transpose", 2, 3072, 5, 64),
         ("lse_no_log_l", 2, 3072, 5, 64),
         ("lse_wrong_consumer", 2, 3072, 5, 64),
@@ -417,7 +434,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("b,sq,sk,h,d", [(2, 3072, 3072, 5, 64), (2, 257, 100, 4, 16),
-                                         (2, 257, 257, 16, 80)])
+                                         (2, 257, 257, 16, 80), (2, 257, 257, 1, 512),
+                                         (2, 130, 61, 16, 80)])
 def test_fwd_kernels_are_bitwise_reproducible(cuda, b, sq, sk, h, d):
     """Each output element (and each lse) is written by one block, once:
     two launches of the packed and of the lse forward give the same bits."""
@@ -430,25 +448,23 @@ def test_fwd_kernels_are_bitwise_reproducible(cuda, b, sq, sk, h, d):
 
 
 def test_bf16_forward_switch_refuses_without_fallback(cuda):
-    """The bf16 forward's switch by head width: at d = 64 the wgmma body
-    refuses rows that are not contiguous [B, S, H*D] (its tensor maps assume
-    them) and the launch raises; no other body is tried.  At d = 80 the
-    mma.sync body takes the same strided rows and computes the function."""
+    """The bf16 forward's switch by head width: at d = 64, 80 and 512 the
+    wgmma bodies refuse rows that are not contiguous [B, S, H*D] (their
+    tensor maps assume them) and the launch raises; no other body is tried.
+    A bf16 width outside the switch is refused too."""
     lib = _build.load_library()
-    for d, refused in ((64, True), (80, False)):
+    for d in (64, 80, 512):
         b, s, h = 2, 200, 2
         wide = _qkv(b, s, s, 2 * h, d, torch.bfloat16, cuda, seed=20)
         q, k, v = (x[:, :, : h * d] for x in wide)  # row stride 2 H D, 16-byte aligned
         assert not q.is_contiguous() and q.data_ptr() % 16 == 0
         with pytest.raises(ValueError):  # the wrapper takes contiguous rows only
             flash_attention_packed(q, k, v, h)
-        if refused:
-            with pytest.raises(RuntimeError):
-                attention._launch(lib, q, k, v, h, d**-0.5)
-        else:
-            out = attention._launch(lib, q, k, v, h, d**-0.5)
-            torch.cuda.synchronize()
-            assert _err_over_limit(out, q.contiguous(), k.contiguous(), v.contiguous(), h) <= 1.0
+        with pytest.raises(RuntimeError):
+            attention._launch(lib, q, k, v, h, d**-0.5)
+    q, k, v = _qkv(1, 128, 128, 2, 32, torch.bfloat16, cuda, seed=21)
+    with pytest.raises(RuntimeError):  # d = 32: no bf16 body
+        attention._launch(lib, q, k, v, 2, 32**-0.5)
 
 
 # --- forward with logsumexp, and the backward ---------------------------------

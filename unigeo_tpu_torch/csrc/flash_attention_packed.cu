@@ -27,7 +27,8 @@
 // so at the UNet's first stage (Sq = Sk = 3072) it does Sq*Sk/(Sq+Sk) = 1536
 // operations per byte: far above the ~295 at which the tensor cores
 // (989 TF/s bf16) rather than memory (3.35 TB/s) become the limit.  The
-// bound is the operations at every main-path shape.
+// bound is the operations at the UNet's and the VAE's shapes, the bytes at
+// CLIP's 257 tokens (Sq*Sk/(Sq+Sk) = 128 operations per byte).
 //
 // The exponentials are the other half of the work at D = 64: one per score
 // against the 4*D = 256 operations of the two products, and the SFU's ex2
@@ -41,40 +42,54 @@
 // both products run on the tensor cores, f32 accumulate.
 //
 // Three block layouts, chosen by dtype and, in bf16, by head width in one
-// switch (dispatch_bf16):
+// switch (dispatch_bf16); every bf16 body is Hopper's TMA and wgmma
+// (blocks from sm90.cuh):
 //
-// * bf16, D in {16, 64} (the UNet's 64, and 16 for small checks):
-//   flash_{packed,headsplit,fwd_lse}_wgmma_kernel<D>, Hopper's TMA and
-//   wgmma (blocks from sm90.cuh).  A block owns 192 queries of one (batch,
-//   head): a producer warpgroup (setmaxnreg 24) whose one thread loads q
-//   once and keeps a 4-slot ring of 128-key k and v tiles full under full /
-//   empty mbarriers (3-D tensor maps over the packed layout, 128-byte
-//   swizzle at D = 64, 32-byte at D = 16), and three consumer warpgroups
-//   (160 registers) of 64 query rows.  S = q k^T is an m64n128 wgmma with
-//   both operands from shared memory (q is never held in registers); P
-//   goes from the S accumulator into bf16 A registers for O += P v, whose B
-//   is the v tile read MN-major (the transpose bit).  Each consumer issues
-//   S of tile it with P v of tile it - 1 and runs tile it's softmax (one
-//   ex2.approx.ftz per score, the scale folded into log2 units) while P v
-//   runs; the consumers take turns to issue (named barriers), so one's
-//   softmax runs under another's products.  Three consumers rather than
-//   two (three warps a scheduler to hide the softmax's latencies), the
-//   turns, the 4-slot ring and the 128-key tiles are the measured choices
-//   of unigeo_tpu_torch/tools/forward_variants.py.  The TMA returns zero
-//   rows past Sk, which would score 0, not -inf: the last key tile, when Sk
-//   is ragged, selects -inf for them (full tiles pay nothing).  Query rows
-//   past Sq are computed on zeros and not stored.  Each output element is
-//   written once, no atomics: two launches give the same bits.
-// * bf16, D in {80, 512} (CLIP's 80, the VAE's 512):
-//   flash_{packed,headsplit,fwd_lse}_mma_kernel, mma.sync m16n8k16 with no
-//   TMA and no pipelining of the loads against the products.  Warps of 16
-//   query rows each; q, k, v tiles in shared memory.  d = 512 (the VAE's
-//   single head) splits its output columns over 4 warps per row group, each
-//   keeping a 16 x 128 f32 accumulator in registers and recomputing the
-//   16 x 32 score tile; its tiles take ~100 KB of dynamic shared memory.
-//   d = 80 (CLIP) is five 16-wide k-steps.
-//   Other bf16 widths, and rows not aligned to 16 bytes, are refused with
-//   cudaErrorInvalidValue.
+// * bf16, D in {16, 64, 80} (the UNet's 64, CLIP's 80, and 16 for small
+//   checks): flash_{packed,headsplit,fwd_lse}_wgmma_kernel<D>.  At most one
+//   block per SM walks over items of 192 queries of one (batch, head): a
+//   producer warpgroup (setmaxnreg 24) whose one thread loads each item's q
+//   (two buffers, so the next item's q arrives while this one finishes) and
+//   keeps a 4-slot ring of k and v tiles full across items under full /
+//   empty mbarriers (3-D tensor maps over the packed layout; a row is one
+//   64-column box with the 128-byte swizzle at D = 64,
+//   one 16-column box with the 32-byte swizzle at D = 16, and five of those
+//   at D = 80, whose 160 bytes are wider than the 128-byte swizzle span),
+//   and three consumer warpgroups (160 registers) of 64 query rows.  S =
+//   q k^T is an m64nBK wgmma with both operands from shared memory (q is
+//   never held in registers), one k-step per 16 columns; P goes from the S
+//   accumulator into bf16 A registers for O += P v, one m64nD wgmma per 16
+//   keys whose B is the v tile read MN-major (the transpose bit; at D = 80
+//   its five boxes are the atoms along N, a box apart).  Each consumer
+//   issues S of tile it with P v of tile it - 1 and runs tile it's softmax
+//   (one ex2.approx.ftz per score, the scale folded into log2 units) while
+//   P v runs; the consumers take turns to issue (named barriers), so one's
+//   softmax runs under another's products.  Key tiles are 128 keys at D 16
+//   and 64, 64 at D = 80 (CLIP's 257 tokens: five tiles, the last of one
+//   key, in place of three of 128).  Three consumers rather than two (three
+//   warps a scheduler to hide the softmax's latencies), the turns, the
+//   4-slot ring, the key tiles and the walk over items are the measured
+//   choices of unigeo_tpu_torch/tools/forward_variants.py.
+//   The TMA returns zero rows past Sk, which would score 0, not -inf: the
+//   last key tile, when Sk is ragged, selects -inf for them (full tiles pay
+//   nothing).  Query rows past Sq are computed on zeros and not stored.
+// * bf16, D = 512 (the VAE mid block's one head):
+//   flash_{packed,headsplit,fwd_lse}_wgmma512_kernel.  A 64-row f32
+//   accumulator over 512 columns would take 256 registers a thread of one
+//   warpgroup, so a block owns 64 query rows and its two consumer
+//   warpgroups (240 registers) split the output columns, 256 each; each
+//   computes its half of the d-sum of S (sixteen m64n32 k-steps from shared
+//   memory), the two trade the partial S through shared memory at a named
+//   barrier and both run the same softmax on S = S_0 + S_1, then
+//   O_c += P v[:, half c] is an m64n256 wgmma with v MN-major.  q (64 KB)
+//   is loaded once; k and v tiles of 32 keys have rings of their own (two
+//   slots each, 224 KB in all with q and the trade's buffers), so a k slot
+//   is freed as soon as its S is taken and a v slot after its P v.  Each
+//   64-row block fetches every key's 2 KB of k and v from L2.
+//   Every bf16 body writes each output element once, no atomics: two
+//   launches give the same bits.  Other bf16 widths, rows not contiguous
+//   [B, S, H*D] and rows not aligned to 16 bytes are refused with
+//   cudaErrorInvalidValue; no width is sent to another body.
 // * f32 (flash_{packed,headsplit,fwd_lse}_kernel), any D up to 512: CUDA-core FMAs, the
 //   reference numerics for f32 checks on the card.  256 threads own BQ query
 //   rows; TPR = 256 / BQ lanes of a warp share a row, each holding BK / TPR
@@ -300,208 +315,6 @@ cudaError_t dispatch_f32(Entry entry, const void* q, const void* k, const void* 
                             o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
 }
 
-// ---------------------------------------------------------------------------
-// bf16 tensor-core path: mma.sync m16n8k16 (bf16 in, f32 accumulate).
-// One warp owns 16 query rows; WQ warps stack rows, WD warps split the output
-// columns of the same rows (each recomputes the 16 x BK scores, so the d = 512
-// accumulator is 128 columns, 64 registers, per warp).  Scores, running max
-// and sum stay f32; P is rounded to bf16 for the P.V product, as the Pallas
-// kernel does.  Tiles are staged in shared memory with 16-byte loads; rows
-// are padded by 8 elements so the fragment loads of a warp hit 32 banks.
-// ---------------------------------------------------------------------------
-
-// rows [s0, s0+rows) of a packed head into shared memory (pitch P), zeros
-// past S; every row is D contiguous bf16 at 16-byte-aligned addresses
-template <int D, int P, int NT>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t ss, int s0, int S, int rows, int tid) {
-  constexpr int CH = D / 8;
-  for (int i = tid; i < rows * CH; i += NT) {
-    const int r = i / CH, c = i % CH, s = s0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S) val = *reinterpret_cast<const uint4*>(src + s * ss + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * P + c * 8) = val;
-  }
-}
-
-template <int D, int WQ, int WD, int BK>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)(WQ * 16 + 2 * BK) * (D + 8);
-}
-
-#define UNIGEO_MMA_PARAMS                                                              \
-  const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,            \
-      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,              \
-      float* __restrict__ lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss, \
-      int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss, int Sq, int Sk,           \
-      float scale_log2
-#define UNIGEO_MMA_ARGS \
-  q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, Sq, Sk, scale_log2
-
-// the body of both bf16 kernels; kLse: write the row logsumexp
-template <int D, int WQ, int WD, int BK, bool kLse>
-__device__ __forceinline__ void flash_mma_block(UNIGEO_MMA_PARAMS) {
-  constexpr int NT = WQ * WD * 32;
-  constexpr int BQ = WQ * 16;
-  constexpr int P = D + 8;    // shared-memory pitch in elements
-  constexpr int DW = D / WD;  // output columns per warp
-  constexpr int NO = DW / 8;  // output n-tiles per warp
-  constexpr int NS = BK / 8;  // score n-tiles
-  static_assert(D % 16 == 0 && DW % 8 == 0 && BK % 16 == 0, "tile shapes");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + BQ * P;
-  __nv_bfloat16* vs = ks + BK * P;
-  const unsigned short* vs16 = reinterpret_cast<const unsigned short*>(vs);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wq = warp / WD, wd = warp % WD;
-  const int g = lane >> 2, tg = lane & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int r0 = wq * 16;
-
-  const __nv_bfloat16* qb = q + b * q_sb + (int64_t)h * D;
-  const __nv_bfloat16* kb = k + b * k_sb + (int64_t)h * D;
-  const __nv_bfloat16* vb = v + b * v_sb + (int64_t)h * D;
-
-  load_tile<D, P, NT>(qs, qb, q_ss, q0, Sq, BQ, tid);
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[NO][4];
-#pragma unroll
-  for (int t = 0; t < NO; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    __syncthreads();
-    load_tile<D, P, NT>(ks, kb, k_ss, k0, Sk, BK, tid);
-    load_tile<D, P, NT>(vs, vb, v_ss, k0, Sk, BK, tid);
-    __syncthreads();
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; kk += 16) {
-      const __nv_bfloat16* qa = qs + (r0 + g) * P + kk + tg * 2;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * P), ld32(qa + 8), ld32(qa + 8 * P + 8)};
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const __nv_bfloat16* kp = ks + (j * 8 + g) * P + kk + tg * 2;
-        mma_16816(s[j], a, ld32(kp), ld32(kp + 8));
-      }
-    }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + tg * 2 + (e & 1);
-        s[j][e] = key < Sk ? s[j][e] * scale_log2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);  // finite: each tile has a valid key
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - m[e >> 1]);
-        l[e >> 1] += s[j][e];  // this lane's share; summed over the quad at the end
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < NO; ++t) {
-      acc[t][0] *= alpha[0];
-      acc[t][1] *= alpha[0];
-      acc[t][2] *= alpha[1];
-      acc[t][3] *= alpha[1];
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      const int j = kk / 8;
-      const uint32_t a[4] = {pack_bf16x2(s[j][0], s[j][1]), pack_bf16x2(s[j][2], s[j][3]),
-                             pack_bf16x2(s[j + 1][0], s[j + 1][1]),
-                             pack_bf16x2(s[j + 1][2], s[j + 1][3])};
-#pragma unroll
-      for (int t = 0; t < NO; ++t) {
-        const unsigned short* vp = vs16 + (kk + tg * 2) * P + wd * DW + t * 8 + g;
-        const uint32_t b0 = (uint32_t)vp[0] | ((uint32_t)vp[P] << 16);
-        const uint32_t b1 = (uint32_t)vp[8 * P] | ((uint32_t)vp[9 * P] << 16);
-        mma_16816(acc[t], a, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] = fmaxf(l[i], 1e-30f);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int s = q0 + r0 + g + 8 * i;
-    if (s >= Sq) continue;
-    // m is in log2 units (scores scaled by scale * log2(e))
-    if (kLse && tg == 0 && wd == 0)
-      lse[((int64_t)b * gridDim.y + h) * Sq + s] = (m[i] + log2f(l[i])) * 0.6931471805599453f;
-    l[i] = 1.f / l[i];
-    __nv_bfloat16* orow = o + b * o_sb + s * o_ss + (int64_t)h * D + wd * DW + tg * 2;
-#pragma unroll
-    for (int t = 0; t < NO; ++t)
-      *reinterpret_cast<uint32_t*>(orow + t * 8) =
-          pack_bf16x2(acc[t][2 * i] * l[i], acc[t][2 * i + 1] * l[i]);
-  }
-}
-
-template <int D, int WQ, int WD, int BK>
-__global__ void __launch_bounds__(WQ * WD * 32) flash_packed_mma_kernel(UNIGEO_MMA_PARAMS) {
-  flash_mma_block<D, WQ, WD, BK, false>(UNIGEO_MMA_ARGS);
-}
-
-template <int D, int WQ, int WD, int BK>
-__global__ void __launch_bounds__(WQ * WD * 32) flash_headsplit_mma_kernel(UNIGEO_MMA_PARAMS) {
-  flash_mma_block<D, WQ, WD, BK, false>(UNIGEO_MMA_ARGS);
-}
-
-template <int D, int WQ, int WD, int BK>
-__global__ void __launch_bounds__(WQ * WD * 32) flash_fwd_lse_mma_kernel(UNIGEO_MMA_PARAMS) {
-  flash_mma_block<D, WQ, WD, BK, true>(UNIGEO_MMA_ARGS);
-}
-
-template <int D, int WQ, int WD, int BK>
-cudaError_t launch_mma(Entry entry, const void* q, const void* k, const void* v, void* o,
-                       float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
-                       int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
-                       int B, int Sq, int Sk, int H, float scale, cudaStream_t stream) {
-  auto kern = entry == kFwdLse      ? flash_fwd_lse_mma_kernel<D, WQ, WD, BK>
-              : entry == kHeadsplit ? flash_headsplit_mma_kernel<D, WQ, WD, BK>
-                                    : flash_packed_mma_kernel<D, WQ, WD, BK>;
-  constexpr size_t smem = mma_smem_bytes<D, WQ, WD, BK>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + WQ * 16 - 1) / (WQ * 16), H, B);
-  kern<<<grid, WQ * WD * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
-      q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, Sq, Sk,
-      scale * 1.4426950408889634f);
-  return cudaGetLastError();
-}
-
 // 16-byte tile loads need 16-byte-aligned rows: pointers, strides and the
 // head offset all multiples of 8 bf16
 bool aligned16(const void* q, const void* k, const void* v, const void* o,
@@ -513,47 +326,69 @@ bool aligned16(const void* q, const void* k, const void* v, const void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at D in {16, 64}: TMA -> mbarrier ring -> wgmma, warp-specialised.
-// A block owns kWgConsumers * 64 queries of one (batch, head): a producer
+// bf16 at D in {16, 64, 80}: TMA -> mbarrier ring -> wgmma, warp-specialised.
+// A block owns kConsumers * 64 queries of one (batch, head): a producer
 // warpgroup whose one thread issues every TMA load (q once, then k and v
-// tiles of 128 keys into a ring of slots under full / empty mbarriers), and
+// tiles of kBlockK keys into a ring of slots under full / empty mbarriers), and
 // consumer warpgroups of 64 query rows each.  A consumer runs S = q k^T with
 // both operands from shared memory (q by descriptor, never held in
 // registers), turns the S accumulator into P's bf16 A registers, and runs
 // O += P v with v read MN-major through the transpose bit.  Its loop issues
 // S of tile it and P v of tile it - 1 together, then runs tile it's softmax
 // while P v runs: the exponentials of one tile overlap the products of the
-// other.
+// other.  A row of D columns is D / W boxes of W columns (kBoxW), each a
+// TMA load and a swizzle atom's width: one box at D = 16 and 64, five of 16
+// columns at D = 80 (160 bytes is wider than the 128-byte swizzle span).
 // ---------------------------------------------------------------------------
 
-constexpr int kWgRows = 64;                        // query rows of a consumer
-constexpr int kWgConsumers = 3;
-constexpr int kWgBlockQ = kWgConsumers * kWgRows;  // queries of a block
-constexpr int kWgBlockK = 128;                     // keys of a ring slot
-constexpr int kWgStages = 4;
+constexpr int kWgRows = 64;  // query rows of a consumer
 // the consumers take turns to issue their products (named barriers 1 + c),
 // so one's softmax runs under another's products
 constexpr bool kWgPingpong = true;
-constexpr int kWgThreads = 128 * (kWgConsumers + 1);
+// at most one block per SM, each walking over (query block, head, batch)
+// items and loading its next item's q and tiles while it finishes the
+// current one (two q buffers), so a short item's start-up is hidden
+constexpr int kWgQBuffers = 2;
 constexpr int kWgProducerRegs = 24;
-// the registers the producer gives up, shared among the consumers
-constexpr int kWgConsumerRegs = (65536 - 128 * kWgProducerRegs) / (128 * kWgConsumers) / 8 * 8;
-static_assert(kWgConsumers == 2 || kWgConsumers == 3, "two or three consumers");
+
+// The body's shape at head width D: consumers, keys of a ring slot, ring
+// slots.  CLIP's 257 tokens take 64-key tiles (five, the last of one key)
+// rather than 128 (three, the last of one key): less work on zero rows.
+template <int D>
+struct WgShape {
+  static constexpr int kConsumers = 3;
+  static constexpr int kBlockK = D == 80 ? 64 : 128;
+  static constexpr int kStages = 4;
+  static constexpr int kBlockQ = kConsumers * kWgRows;  // queries of a block
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  // the registers the producer gives up, shared among the consumers
+  static constexpr int kConsumerRegs =
+      (65536 - 128 * kWgProducerRegs) / (128 * kConsumers) / 8 * 8;
+  static_assert(kConsumers == 2 || kConsumers == 3, "two or three consumers");
+};
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// columns of a TMA box: 64 with the 128-byte swizzle, 16 with the 32-byte one
+template <int D>
+constexpr int kBoxW = D % 64 == 0 ? 64 : 16;
+
 // A slot holds v before k: a descriptor that misreads v, as the planted
 // transpose-bit fault of tests/test_torch_cuda.py does, still reads inside
-// the slot.
+// the slot.  Each tile is its boxes one after another: box x of rows
+// [0, R) at x * R * W.
 template <int D>
 struct WgSmem {
+  using Shape = WgShape<D>;
   struct Slot {
-    __nv_bfloat16 v[kWgBlockK * D];
-    __nv_bfloat16 k[kWgBlockK * D];
+    __nv_bfloat16 v[Shape::kBlockK * D];
+    __nv_bfloat16 k[Shape::kBlockK * D];
   };
-  __nv_bfloat16 q[kWgBlockQ * D];  // consumer c's rows at q + c * 64 * D
-  Slot slot[kWgStages];
-  uint64_t q_full, full[kWgStages], empty[kWgStages];
+  // consumer c's rows at q[i] + c * 64 * W in each box
+  __nv_bfloat16 q[kWgQBuffers][Shape::kBlockQ * D];
+  Slot slot[Shape::kStages];
+  uint64_t q_full[kWgQBuffers], q_empty[kWgQBuffers], full[Shape::kStages],
+      empty[Shape::kStages];
 };
 
 // 2^x by the SFU (ex2.approx.ftz: 2 ulp, results below 2^-126 flushed to 0)
@@ -564,47 +399,55 @@ __device__ __forceinline__ float exp2_approx(float x) {
 }
 
 // S = q k^T of one consumer's 64 rows and a slot's BK keys (the first
-// k-step overwrites s)
+// k-step overwrites s); qs and ks point at box 0, boxes kBlockQ * W and
+// BK * W elements apart
 template <int D, int BK>
 __device__ __forceinline__ void issue_scores(float (&s)[BK / 2], const __nv_bfloat16* qs,
                                              const __nv_bfloat16* ks) {
-  using Tile = sm90::SwizzledTile<D>;
+  constexpr int W = kBoxW<D>;
+  using Tile = sm90::SwizzledTile<W>;
 #pragma unroll
   for (int i = 0; i < D / 16; ++i) {
+    const int x = i / (W / 16), kk = i % (W / 16);  // box, k-step within it
+    const uint64_t da = Tile::kmajor(qs + x * WgShape<D>::kBlockQ * W, kk);
+    const uint64_t db = Tile::kmajor(ks + x * BK * W, kk);
     if constexpr (BK == 128)
-      sm90::wgmma_ss128(s, Tile::kmajor(qs, i), Tile::kmajor(ks, i), i);
+      sm90::wgmma_ss128(s, da, db, i);
     else
-      sm90::wgmma_ss64<0, 0>(s, Tile::kmajor(qs, i), Tile::kmajor(ks, i), i);
+      sm90::wgmma_ss64<0, 0>(s, da, db, i);
   }
   sm90::wgmma_commit();
 }
 
-// O += P v: A = P's registers, B = the slot's v read MN-major
+// O += P v: A = P's registers, B = the slot's v read MN-major (its boxes
+// are the atoms along N)
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&pa)[kWgBlockK / 16][4],
+                                         const uint32_t (&pa)[WgShape<D>::kBlockK / 16][4],
                                          const __nv_bfloat16* vs) {
-  using Tile = sm90::SwizzledTile<D>;
+  constexpr int W = kBoxW<D>, BK = WgShape<D>::kBlockK;
+  using Tile = sm90::SwizzledTile<W>;
+  constexpr uint32_t box = BK * W * sizeof(__nv_bfloat16);
 #pragma unroll
-  for (int i = 0; i < kWgBlockK / 16; ++i)
-    sm90::wgmma_rs<D, 1>(o, pa[i], Tile::mnmajor(vs, i), 1);
+  for (int i = 0; i < BK / 16; ++i)
+    sm90::wgmma_rs<D, 1>(o, pa[i], Tile::mnmajor(vs, i, box), 1);
   sm90::wgmma_commit();
 }
 
-// One key tile of the online softmax for this thread's two rows (g and
-// g + 8 of its warp's 16).  Element 4j + e of s is the score of row
+// One key tile of BK keys of the online softmax for this thread's two rows
+// (g and g + 8 of its warp's 16).  Element 4j + e of s is the score of row
 // g + 8 (e >> 1) and key 8j + 2tg + (e & 1) of the tile.  m is the running
 // max in log2 units (scores times scale * log2(e)), l this thread's share
 // of the row sums.  s becomes p = 2^(s * scale_log2 - m); returns
 // alpha = 2^(m_old - m_new) per row.  kMask (the last tile, when Sk is
 // ragged): keys with 8j + (e & 1) >= lim score -inf, since the TMA's zero
 // key rows would otherwise score 0.
-template <bool kMask>
-__device__ __forceinline__ float2 softmax_tile(float (&s)[kWgBlockK / 2], float (&m)[2],
+template <bool kMask, int BK>
+__device__ __forceinline__ float2 softmax_tile(float (&s)[BK / 2], float (&m)[2],
                                                float (&l)[2], float scale_log2, int lim) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < kWgBlockK / 8; ++j)
+  for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (kMask) s[4 * j + e] = 8 * j + (e & 1) < lim ? s[4 * j + e] : -INFINITY;
@@ -621,7 +464,7 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[kWgBlockK / 2], float 
     l[i] *= alpha[i];
   }
 #pragma unroll
-  for (int j = 0; j < kWgBlockK / 8; ++j)
+  for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], scale_log2, -m[e >> 1]));
@@ -630,82 +473,146 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[kWgBlockK / 2], float 
   return make_float2(alpha[0], alpha[1]);
 }
 
+// tile it's softmax, masked where it is the last tile and Sk is ragged
+template <int BK>
+__device__ __forceinline__ float2 softmax_step(float (&s)[BK / 2], float (&m)[2],
+                                               float (&l)[2], float scale_log2, int it,
+                                               int last, bool ragged, int lim) {
+  return ragged && it == last ? softmax_tile<true, BK>(s, m, l, scale_log2, lim)
+                              : softmax_tile<false, BK>(s, m, l, scale_log2, lim);
+}
+
 // p (f32, the S accumulator's layout) -> the bf16 A registers of P v's
 // k-steps: k-step i takes the tile's keys [16i, 16i + 16)
-__device__ __forceinline__ void p_to_a(uint32_t (&pa)[kWgBlockK / 16][4],
-                                       const float (&p)[kWgBlockK / 2]) {
+template <int BK>
+__device__ __forceinline__ void p_to_a(uint32_t (&pa)[BK / 16][4], const float (&p)[BK / 2]) {
 #pragma unroll
-  for (int i = 0; i < kWgBlockK / 16; ++i)
+  for (int i = 0; i < BK / 16; ++i)
 #pragma unroll
     for (int r = 0; r < 4; ++r) pa[i][r] = pack_bf16x2(p[8 * i + 2 * r], p[8 * i + 2 * r + 1]);
+}
+
+// acc *= alpha per row (the accumulator's layout: x for row g, y for g + 8)
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N / 2], float2 alpha) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    acc[4 * j] *= alpha.x;
+    acc[4 * j + 1] *= alpha.x;
+    acc[4 * j + 2] *= alpha.y;
+    acc[4 * j + 3] *= alpha.y;
+  }
+}
+
+// O / l of this thread's two rows (row0 and row0 + 8) into the N columns
+// from col0 of the packed output [B, Sq, hd], and, where write_lse,
+// lse = (m + log2 l) ln 2; rows past Sq, computed on the TMA's zero rows,
+// are not stored.  l is summed over the quad first.
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N / 2], float (&l)[2],
+                                           const float (&m)[2], __nv_bfloat16* __restrict__ o,
+                                           float* __restrict__ lse, int64_t hd, int b, int Sq,
+                                           int row0, int64_t col0, int64_t lse_bh,
+                                           bool write_lse, int tg) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int row = row0 + 8 * i;
+    if (row >= Sq) continue;
+    if (write_lse && tg == 0) lse[lse_bh + row] = (m[i] + log2f(l[i])) * kLn2;
+    const float inv = 1.f / l[i];
+    __nv_bfloat16* orow = o + ((int64_t)b * Sq + row) * hd + col0 + 2 * tg;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack_bf16x2(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+  }
 }
 
 #define UNIGEO_WG_PARAMS                                                            \
   const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k, \
       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,          \
-      float* __restrict__ lse, int Sq, int Sk, float scale_log2
-#define UNIGEO_WG_ARGS tm_q, tm_k, tm_v, o, lse, Sq, Sk, scale_log2
+      float* __restrict__ lse, int Sq, int Sk, int H, int B, float scale_log2
+#define UNIGEO_WG_ARGS tm_q, tm_k, tm_v, o, lse, Sq, Sk, H, B, scale_log2
 
-// the body of the three wgmma kernels; kLse: write the row logsumexp
+// the body of the three wgmma kernels at D in {16, 64, 80}; kLse: write the
+// row logsumexp.  Block i takes items i, i + gridDim.x, ... (item i is
+// query block i % n_qb of head i / n_qb % H of batch entry i / (n_qb H));
+// the ring's slots and phases run on across a block's items.
 template <int D, bool kLse>
 __device__ __forceinline__ void flash_wgmma_block(const CUtensorMap& tm_q,
                                                   const CUtensorMap& tm_k,
                                                   const CUtensorMap& tm_v,
                                                   __nv_bfloat16* __restrict__ o,
-                                                  float* __restrict__ lse, int Sq, int Sk,
-                                                  float scale_log2) {
+                                                  float* __restrict__ lse, int Sq, int Sk, int H,
+                                                  int B, float scale_log2) {
+  using Shape = WgShape<D>;
+  constexpr int W = kBoxW<D>, BQ = Shape::kBlockQ, BK = Shape::kBlockK, NS = Shape::kStages;
+  constexpr int NC = Shape::kConsumers, QB = kWgQBuffers;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   WgSmem<D>& sm = sm90::aligned_smem<WgSmem<D>>(smem_raw);
-  const int q0 = blockIdx.x * kWgBlockQ, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
-  const int n_tiles = (Sk + kWgBlockK - 1) / kWgBlockK;
+  const int n_tiles = (Sk + BK - 1) / BK, n_qb = (Sq + BQ - 1) / BQ;
+  const int n_items = n_qb * H * B;
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < kWgStages; ++s) {
+    for (int s = 0; s < NS; ++s) {
       sm90::mbar_init(&sm.full[s], 1);
-      sm90::mbar_init(&sm.empty[s], 4 * kWgConsumers);  // one arrival per consumer warp
+      sm90::mbar_init(&sm.empty[s], 4 * NC);  // one arrival per consumer warp
     }
-    sm90::mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int i = 0; i < QB; ++i) {
+      sm90::mbar_init(&sm.q_full[i], 1);
+      sm90::mbar_init(&sm.q_empty[i], 4 * NC);
+    }
     sm90::fence_barrier_init();
   }
   __syncthreads();
 
   if (wg == 0) {
-    // producer: one thread issues every TMA load
+    // producer: one thread issues every TMA load, a box at a time
     sm90::setmaxnreg_dec<kWgProducerRegs>();
     if (threadIdx.x == 0) {
-      sm90::mbar_arrive_expect_tx(&sm.q_full, kWgBlockQ * D * sizeof(__nv_bfloat16));
-      sm90::tma_load_3d(sm.q, &tm_q, &sm.q_full, h * D, q0, b);
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kWgStages;
-        sm90::mbar_wait(&sm.empty[s], ((it / kWgStages) & 1) ^ 1);
-        sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kWgBlockK * D * sizeof(__nv_bfloat16));
-        sm90::tma_load_3d(sm.slot[s].k, &tm_k, &sm.full[s], h * D, it * kWgBlockK, b);
-        sm90::tma_load_3d(sm.slot[s].v, &tm_v, &sm.full[s], h * D, it * kWgBlockK, b);
+      int gt = 0;  // the block's tiles so far
+      for (int item = blockIdx.x, j = 0; item < n_items; item += gridDim.x, ++j) {
+        const int q0 = item % n_qb * BQ, h = item / n_qb % H, b = item / (n_qb * H);
+        const int qb = j % QB;
+        sm90::mbar_wait(&sm.q_empty[qb], ((j / QB) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&sm.q_full[qb], BQ * D * sizeof(__nv_bfloat16));
+#pragma unroll
+        for (int x = 0; x < D / W; ++x)
+          sm90::tma_load_3d(sm.q[qb] + x * BQ * W, &tm_q, &sm.q_full[qb], h * D + x * W, q0,
+                            b);
+        for (int it = 0; it < n_tiles; ++it, ++gt) {
+          const int s = gt % NS;
+          sm90::mbar_wait(&sm.empty[s], ((gt / NS) & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * BK * D * sizeof(__nv_bfloat16));
+#pragma unroll
+          for (int x = 0; x < D / W; ++x) {
+            sm90::tma_load_3d(sm.slot[s].k + x * BK * W, &tm_k, &sm.full[s],
+                              h * D + x * W, it * BK, b);
+            sm90::tma_load_3d(sm.slot[s].v + x * BK * W, &tm_v, &sm.full[s],
+                              h * D + x * W, it * BK, b);
+          }
+        }
       }
     }
     return;
   }
 
-  // consumer c: queries [q0 + 64c, q0 + 64c + 64)
-  sm90::setmaxnreg_inc<kWgConsumerRegs>();
+  // consumer c: queries [q0 + 64c, q0 + 64c + 64) of each item
+  sm90::setmaxnreg_inc<Shape::kConsumerRegs>();
   const int c = wg - 1, w = (threadIdx.x / 32) % 4, g = lane / 4, tg = lane % 4;
-  const __nv_bfloat16* qs = sm.q + c * kWgRows * D;
   const int last = n_tiles - 1;
-  const bool ragged = Sk % kWgBlockK != 0;
-  const int lim = Sk - last * kWgBlockK - 2 * tg;  // the last tile's mask bound
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float s[kWgBlockK / 2];
-  uint32_t pa[kWgBlockK / 16][4];
+  const bool ragged = Sk % BK != 0;
+  const int lim = Sk - last * BK - 2 * tg;  // the last tile's mask bound
   // the consumers' turns, in the order 0, 1, ...: c issues between a sync
   // on its barrier (1 + c) and an arrival on the next one's; consumer 0
   // goes first, and the last consumer's last turn passes nothing on, so
   // every arrival is consumed
-  const int next = 1 + (c + 1) % kWgConsumers;
+  const int next = 1 + (c + 1) % NC;
   const auto turn = [&] {
     if constexpr (kWgPingpong) sm90::bar_sync<2 * 128>(1 + c);
   };
@@ -713,135 +620,409 @@ __device__ __forceinline__ void flash_wgmma_block(const CUtensorMap& tm_q,
     if constexpr (kWgPingpong)
       if (more) sm90::bar_arrive<2 * 128>(next);
   };
-  if (kWgPingpong && c == kWgConsumers - 1) sm90::bar_arrive<2 * 128>(1);
-  sm90::mbar_wait(&sm.q_full, 0);
+  const auto arrive = [&](uint64_t* bar) {  // one arrival per warp
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(bar);
+  };
+  if (kWgPingpong && c == NC - 1) sm90::bar_arrive<2 * 128>(1);
 
-  // tile 0: S, its softmax, P
-  sm90::mbar_wait(&sm.full[0], 0);
-  turn();
-  sm90::wgmma_fence();
-  issue_scores<D, kWgBlockK>(s, qs, sm.slot[0].k);
-  pass(true);
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(s);
-  if (ragged && last == 0)
-    softmax_tile<true>(s, m, l, scale_log2, lim);
-  else
-    softmax_tile<false>(s, m, l, scale_log2, lim);
-  p_to_a(pa, s);
+  int gt = 0;  // the block's tiles so far
+  for (int item = blockIdx.x, j = 0; item < n_items; item += gridDim.x, ++j, gt += n_tiles) {
+    const int q0 = item % n_qb * BQ, h = item / n_qb % H, b = item / (n_qb * H);
+    const int qb = j % QB;
+    const bool final_item = item + (int)gridDim.x >= n_items;
+    const __nv_bfloat16* qs = sm.q[qb] + c * kWgRows * W;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float s[BK / 2];
+    uint32_t pa[BK / 16][4];
+    sm90::mbar_wait(&sm.q_full[qb], (j / QB) & 1);
 
-  for (int it = 1; it < n_tiles; ++it) {
-    const int sl = it % kWgStages, prev = (it - 1) % kWgStages;
-    sm90::mbar_wait(&sm.full[sl], (it / kWgStages) & 1);
-    // S(it), and O += P(it - 1) v(it - 1) behind it
+    // tile 0: S, its softmax, P
+    sm90::mbar_wait(&sm.full[gt % NS], (gt / NS) & 1);
+    turn();
+    sm90::wgmma_fence();
+    issue_scores<D, BK>(s, qs, sm.slot[gt % NS].k);
+    pass(true);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    if (last == 0) arrive(&sm.q_empty[qb]);  // q's last product is done
+    softmax_step<BK>(s, m, l, scale_log2, 0, last, ragged, lim);
+    p_to_a<BK>(pa, s);
+
+    for (int it = 1; it < n_tiles; ++it) {
+      const int sl = (gt + it) % NS, prev = (gt + it - 1) % NS;
+      sm90::mbar_wait(&sm.full[sl], ((gt + it) / NS) & 1);
+      // S(it), and O += P(it - 1) v(it - 1) behind it
+      sm90::fence_regs(pa);
+      sm90::fence_regs(acc);
+      turn();
+      sm90::wgmma_fence();
+      issue_scores<D, BK>(s, qs, sm.slot[sl].k);
+      issue_pv<D>(acc, pa, sm.slot[prev].v);
+      pass(true);
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(s);
+      if (it == last) arrive(&sm.q_empty[qb]);
+      // tile it's softmax while P(it - 1) v(it - 1) runs
+      const float2 alpha = softmax_step<BK>(s, m, l, scale_log2, it, last, ragged, lim);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::fence_regs(pa);
+      arrive(&sm.empty[prev]);  // slot it - 1 is free
+      rescale<D>(acc, alpha);
+      p_to_a<BK>(pa, s);
+    }
+
+    // O += P(last) v(last)
+    const int sl = (gt + last) % NS;
     sm90::fence_regs(pa);
     sm90::fence_regs(acc);
     turn();
     sm90::wgmma_fence();
-    issue_scores<D, kWgBlockK>(s, qs, sm.slot[sl].k);
-    issue_pv<D>(acc, pa, sm.slot[prev].v);
-    pass(true);
-    sm90::wgmma_wait<1>();
-    sm90::fence_regs(s);
-    // tile it's softmax while P(it - 1) v(it - 1) runs
-    const float2 alpha = ragged && it == last ? softmax_tile<true>(s, m, l, scale_log2, lim)
-                                              : softmax_tile<false>(s, m, l, scale_log2, lim);
+    issue_pv<D>(acc, pa, sm.slot[sl].v);
+    pass(!final_item || c != NC - 1);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc);
-    sm90::fence_regs(pa);
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&sm.empty[prev]);  // slot it - 1 is free
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[4 * j] *= alpha.x;
-      acc[4 * j + 1] *= alpha.x;
-      acc[4 * j + 2] *= alpha.y;
-      acc[4 * j + 3] *= alpha.y;
-    }
-    p_to_a(pa, s);
-  }
+    arrive(&sm.empty[sl]);
 
-  // O += P(last) v(last)
-  sm90::fence_regs(pa);
-  sm90::fence_regs(acc);
-  turn();
-  sm90::wgmma_fence();
-  issue_pv<D>(acc, pa, sm.slot[last % kWgStages].v);
-  pass(c != kWgConsumers - 1);
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(acc);
-
-  // O / l into the packed rows (and lse = (m + log2 l) ln 2); rows past Sq,
-  // computed on the TMA's zero rows, are not stored
-  const int64_t hd = (int64_t)H * D;
-  const int64_t lse_bh = ((int64_t)b * H + h) * Sq;
-  const int row0 = q0 + c * kWgRows + 16 * w + g;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const int row = row0 + 8 * i;
-    if (row >= Sq) continue;
-    if (kLse && tg == 0) lse[lse_bh + row] = (m[i] + log2f(l[i])) * kLn2;
-    const float inv = 1.f / l[i];
-    __nv_bfloat16* orow = o + ((int64_t)b * Sq + row) * hd + (int64_t)h * D + 2 * tg;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-          pack_bf16x2(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+    store_rows<D>(acc, l, m, o, lse, (int64_t)H * D, b, Sq, q0 + c * kWgRows + 16 * w + g,
+                  (int64_t)h * D, ((int64_t)b * H + h) * Sq, kLse, tg);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWgThreads, 1) flash_packed_wgmma_kernel(UNIGEO_WG_PARAMS) {
+__global__ void __launch_bounds__(WgShape<D>::kThreads, 1)
+    flash_packed_wgmma_kernel(UNIGEO_WG_PARAMS) {
   flash_wgmma_block<D, false>(UNIGEO_WG_ARGS);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWgThreads, 1) flash_headsplit_wgmma_kernel(UNIGEO_WG_PARAMS) {
+__global__ void __launch_bounds__(WgShape<D>::kThreads, 1)
+    flash_headsplit_wgmma_kernel(UNIGEO_WG_PARAMS) {
   flash_wgmma_block<D, false>(UNIGEO_WG_ARGS);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_lse_wgmma_kernel(UNIGEO_WG_PARAMS) {
+__global__ void __launch_bounds__(WgShape<D>::kThreads, 1)
+    flash_fwd_lse_wgmma_kernel(UNIGEO_WG_PARAMS) {
   flash_wgmma_block<D, true>(UNIGEO_WG_ARGS);
 }
 
-// q, k, v and o must be contiguous [B, S, H*D] (the tensor maps and the
-// stores assume it); anything else is refused
+// ---------------------------------------------------------------------------
+// bf16 at D = 512 (the VAE mid block's one head): TMA -> two mbarrier rings
+// -> wgmma, warp-specialised.  A 64-row f32 accumulator over 512 columns
+// would take 256 registers a thread of one warpgroup, so a block owns 64
+// query rows of one (batch, head) and two consumer warpgroups split them by
+// output column: consumer c holds O[:, 256c, 256c + 256) (128 registers)
+// and sums the matching half of q k^T's d-sum.  A producer thread loads q
+// once (eight 64-column boxes, 64 KB) and keeps rings of k and of v tiles of
+// kW5BlockK keys full, each box of a tile its own TMA load; a k slot is
+// freed as soon as both partial S are taken, a v slot after its P v.  Per
+// key tile, consumer c runs its partial S_c = q[:, half c] k[:, half c]^T
+// (sixteen k-steps from shared memory), trades it for the other's through
+// shared memory at a named barrier, and both form S = S_0 + S_1 (f32
+// addition commutes, so both hold the same bits) and run the same online
+// softmax; then O_c += P v[:, half c] as m64n256 wgmma with P from
+// registers and v MN-major.  As in the body above, S of tile it is issued
+// with P v of tile it - 1, and the trade and the softmax run under P v.
+// ---------------------------------------------------------------------------
+
+constexpr int kW5D = 512;
+constexpr int kW5Rows = 64;     // query rows of a block
+constexpr int kW5Half = 256;    // output columns of a consumer
+constexpr int kW5BlockK = 32;   // keys of a ring slot
+constexpr int kW5Stages = 2;    // slots of each ring
+constexpr int kW5Threads = 3 * 128;
+constexpr int kW5ConsumerRegs = 240;
+constexpr int kW5Boxes = kW5D / 64;  // 64-column boxes of a row
+
+struct W5Smem {
+  __nv_bfloat16 q[kW5Boxes][kW5Rows * 64];
+  __nv_bfloat16 k[kW5Stages][kW5Boxes][kW5BlockK * 64];
+  __nv_bfloat16 v[kW5Stages][kW5Boxes][kW5BlockK * 64];
+  // partial S by tile parity and consumer: thread t's float4 f at [f][t].
+  // Two parities let one barrier a tile separate a write from the other
+  // consumer's read two tiles back.
+  float4 x[2][2][kW5BlockK / 8][128];
+  uint64_t q_full, k_full[kW5Stages], k_empty[kW5Stages], v_full[kW5Stages],
+      v_empty[kW5Stages];
+};
+
+// consumer c's partial S over its 256 columns of d (sixteen k-steps)
+__device__ __forceinline__ void issue_scores512(float (&s)[kW5BlockK / 2], const W5Smem& sm,
+                                                int slot, int c) {
+  using Tile = sm90::SwizzledTile<64>;
+#pragma unroll
+  for (int i = 0; i < kW5Half / 16; ++i) {
+    const int x = 4 * c + i / 4;
+    const uint64_t da = Tile::kmajor(sm.q[x], i % 4), db = Tile::kmajor(sm.k[slot][x], i % 4);
+    sm90::wgmma_ss32(s, da, db, i);
+  }
+  sm90::wgmma_commit();
+}
+
+// O_c += P v[:, half c]: v's four boxes of half c are the atoms along N
+__device__ __forceinline__ void issue_pv512(float (&o)[kW5Half / 2],
+                                            const uint32_t (&pa)[kW5BlockK / 16][4],
+                                            const W5Smem& sm, int slot, int c) {
+  using Tile = sm90::SwizzledTile<64>;
+  constexpr uint32_t box = kW5BlockK * 64 * sizeof(__nv_bfloat16);
+#pragma unroll
+  for (int i = 0; i < kW5BlockK / 16; ++i)
+    sm90::wgmma_rs<kW5Half, 1>(o, pa[i], Tile::mnmajor(sm.v[slot][4 * c], i, box), 1);
+  sm90::wgmma_commit();
+}
+
+// S = S_0 + S_1: this consumer's partial out, the other's in (thread t of
+// both consumers holds the same elements of S)
+__device__ __forceinline__ void trade_scores(float (&s)[kW5BlockK / 2], W5Smem& sm, int par,
+                                             int c, int t) {
+#pragma unroll
+  for (int f = 0; f < kW5BlockK / 8; ++f)
+    sm.x[par][c][f][t] = make_float4(s[4 * f], s[4 * f + 1], s[4 * f + 2], s[4 * f + 3]);
+  sm90::bar_sync<256>(1);
+#pragma unroll
+  for (int f = 0; f < kW5BlockK / 8; ++f) {
+    const float4 y = sm.x[par][c ^ 1][f][t];
+    s[4 * f] += y.x;
+    s[4 * f + 1] += y.y;
+    s[4 * f + 2] += y.z;
+    s[4 * f + 3] += y.w;
+  }
+}
+
+// consumer c of a d = 512 block: output columns [256c, 256c + 256) of its
+// 64 rows
+template <bool kLse>
+__device__ __forceinline__ void consume512(W5Smem& sm, __nv_bfloat16* __restrict__ o,
+                                           float* __restrict__ lse, int Sq, int Sk,
+                                           float scale_log2, int q0, int h, int b, int H) {
+  constexpr int BK = kW5BlockK, S = kW5Stages;
+  const int n_tiles = (Sk + BK - 1) / BK;
+  const int lane = threadIdx.x % 32;
+  const int c = threadIdx.x / 128 - 1, t = threadIdx.x % 128, w = t / 32, g = lane / 4,
+            tg = lane % 4;
+  const int last = n_tiles - 1;
+  const bool ragged = Sk % BK != 0;
+  const int lim = Sk - last * BK - 2 * tg;  // the last tile's mask bound
+  float acc[kW5Half / 2];
+#pragma unroll
+  for (int i = 0; i < kW5Half / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float s[BK / 2];
+  uint32_t pa[BK / 16][4];
+  const auto free_slot = [&](uint64_t* empty) {  // one arrival per warp
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty);
+  };
+  sm90::mbar_wait(&sm.q_full, 0);
+
+  // tile 0: S, its softmax, P
+  sm90::mbar_wait(&sm.k_full[0], 0);
+  sm90::wgmma_fence();
+  issue_scores512(s, sm, 0, c);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+  free_slot(&sm.k_empty[0]);
+  trade_scores(s, sm, 0, c, t);
+  softmax_step<BK>(s, m, l, scale_log2, 0, last, ragged, lim);
+  p_to_a<BK>(pa, s);
+
+  for (int it = 1; it < n_tiles; ++it) {
+    const int sl = it % S, prev = (it - 1) % S;
+    sm90::mbar_wait(&sm.k_full[sl], (it / S) & 1);
+    sm90::mbar_wait(&sm.v_full[prev], ((it - 1) / S) & 1);
+    // S_c(it), and O_c += P(it - 1) v(it - 1) behind it
+    sm90::fence_regs(pa);
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+    issue_scores512(s, sm, sl, c);
+    issue_pv512(acc, pa, sm, prev, c);
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(s);
+    free_slot(&sm.k_empty[sl]);
+    // the trade and tile it's softmax while P(it - 1) v(it - 1) runs
+    trade_scores(s, sm, it & 1, c, t);
+    const float2 alpha = softmax_step<BK>(s, m, l, scale_log2, it, last, ragged, lim);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::fence_regs(pa);
+    free_slot(&sm.v_empty[prev]);
+    rescale<kW5Half>(acc, alpha);
+    p_to_a<BK>(pa, s);
+  }
+
+  // O_c += P(last) v(last)
+  sm90::mbar_wait(&sm.v_full[last % S], (last / S) & 1);
+  sm90::fence_regs(pa);
+  sm90::fence_regs(acc);
+  sm90::wgmma_fence();
+  issue_pv512(acc, pa, sm, last % S, c);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+
+  // both consumers hold the same m and l: consumer 0 writes the lse
+  store_rows<kW5Half>(acc, l, m, o, lse, (int64_t)H * kW5D, b, Sq, q0 + 16 * w + g,
+                      (int64_t)h * kW5D + kW5Half * c, ((int64_t)b * H + h) * Sq,
+                      kLse && c == 0, tg);
+}
+
+template <bool kLse>
+__device__ __forceinline__ void flash_wgmma512_block(const CUtensorMap& tm_q,
+                                                     const CUtensorMap& tm_k,
+                                                     const CUtensorMap& tm_v,
+                                                     __nv_bfloat16* __restrict__ o,
+                                                     float* __restrict__ lse, int Sq, int Sk,
+                                                     int H, int /*B: the grid's z*/,
+                                                     float scale_log2) {
+  constexpr int BK = kW5BlockK, S = kW5Stages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  W5Smem& sm = sm90::aligned_smem<W5Smem>(smem_raw);
+  const int q0 = blockIdx.x * kW5Rows, h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (Sk + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&sm.k_full[s], 1);
+      sm90::mbar_init(&sm.v_full[s], 1);
+      sm90::mbar_init(&sm.k_empty[s], 8);  // one arrival per consumer warp
+      sm90::mbar_init(&sm.v_empty[s], 8);
+    }
+    sm90::mbar_init(&sm.q_full, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: q once, then each k and v tile a box at a time
+    sm90::setmaxnreg_dec<kWgProducerRegs>();
+    if (threadIdx.x == 0) {
+      constexpr uint32_t tile_bytes = BK * kW5D * sizeof(__nv_bfloat16);
+      sm90::mbar_arrive_expect_tx(&sm.q_full, kW5Rows * kW5D * sizeof(__nv_bfloat16));
+#pragma unroll
+      for (int x = 0; x < kW5Boxes; ++x)
+        sm90::tma_load_3d(sm.q[x], &tm_q, &sm.q_full, h * kW5D + 64 * x, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % S, free_parity = ((it / S) & 1) ^ 1;
+        sm90::mbar_wait(&sm.k_empty[s], free_parity);
+        sm90::mbar_arrive_expect_tx(&sm.k_full[s], tile_bytes);
+#pragma unroll
+        for (int x = 0; x < kW5Boxes; ++x)
+          sm90::tma_load_3d(sm.k[s][x], &tm_k, &sm.k_full[s], h * kW5D + 64 * x, it * BK, b);
+        sm90::mbar_wait(&sm.v_empty[s], free_parity);
+        sm90::mbar_arrive_expect_tx(&sm.v_full[s], tile_bytes);
+#pragma unroll
+        for (int x = 0; x < kW5Boxes; ++x)
+          sm90::tma_load_3d(sm.v[s][x], &tm_v, &sm.v_full[s], h * kW5D + 64 * x, it * BK, b);
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<kW5ConsumerRegs>();
+    consume512<kLse>(sm, o, lse, Sq, Sk, scale_log2, q0, h, b, H);
+  }
+}
+
+__global__ void __launch_bounds__(kW5Threads, 1)
+    flash_packed_wgmma512_kernel(UNIGEO_WG_PARAMS) {
+  flash_wgmma512_block<false>(UNIGEO_WG_ARGS);
+}
+
+__global__ void __launch_bounds__(kW5Threads, 1)
+    flash_headsplit_wgmma512_kernel(UNIGEO_WG_PARAMS) {
+  flash_wgmma512_block<false>(UNIGEO_WG_ARGS);
+}
+
+__global__ void __launch_bounds__(kW5Threads, 1)
+    flash_fwd_lse_wgmma512_kernel(UNIGEO_WG_PARAMS) {
+  flash_wgmma512_block<true>(UNIGEO_WG_ARGS);
+}
+
+// q, k, v and o contiguous [B, S, H*D] (the tensor maps and the stores
+// assume it)
+bool packed_contiguous(int64_t hd, int Sq, int Sk, int64_t q_sb, int64_t q_ss, int64_t k_sb,
+                       int64_t k_ss, int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss) {
+  return q_ss == hd && k_ss == hd && v_ss == hd && o_ss == hd && q_sb == Sq * hd &&
+         o_sb == Sq * hd && k_sb == Sk * hd && v_sb == Sk * hd;
+}
+
+// the three tensor maps of a launch: boxes of W columns, q's of bq rows,
+// k's and v's of bk rows
+cudaError_t qkv_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv, const void* q,
+                     const void* k, const void* v, int B, int Sq, int Sk, int hd, int W, int bq,
+                     int bk) {
+  const CUtensorMapSwizzle swz = W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                         : CU_TENSOR_MAP_SWIZZLE_32B;
+  cudaError_t err;
+  if ((err = sm90::packed_tile_map(tq, q, B, Sq, hd, W, bq, swz)) != cudaSuccess ||
+      (err = sm90::packed_tile_map(tk, k, B, Sk, hd, W, bk, swz)) != cudaSuccess)
+    return err;
+  return sm90::packed_tile_map(tv, v, B, Sk, hd, W, bk, swz);
+}
+
+// anything but contiguous [B, S, H*D] rows is refused
 template <int D>
 cudaError_t launch_wgmma(Entry entry, const void* q, const void* k, const void* v, void* o,
                          float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                          int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                          int B, int Sq, int Sk, int H, float scale, cudaStream_t stream) {
   const int64_t hd = (int64_t)H * D;
-  if (q_ss != hd || k_ss != hd || v_ss != hd || o_ss != hd || q_sb != Sq * hd ||
-      o_sb != Sq * hd || k_sb != Sk * hd || v_sb != Sk * hd)
+  if (!packed_contiguous(hd, Sq, Sk, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss))
     return cudaErrorInvalidValue;
-  constexpr CUtensorMapSwizzle swz = D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                             : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap tq, tk, tv;
-  cudaError_t err;
-  if ((err = sm90::packed_tile_map(&tq, q, B, Sq, (int)hd, D, kWgBlockQ, swz)) != cudaSuccess ||
-      (err = sm90::packed_tile_map(&tk, k, B, Sk, (int)hd, D, kWgBlockK, swz)) != cudaSuccess ||
-      (err = sm90::packed_tile_map(&tv, v, B, Sk, (int)hd, D, kWgBlockK, swz)) != cudaSuccess)
-    return err;
+  using Shape = WgShape<D>;
+  cudaError_t err = qkv_maps(&tq, &tk, &tv, q, k, v, B, Sq, Sk, (int)hd, kBoxW<D>,
+                             Shape::kBlockQ, Shape::kBlockK);
+  if (err != cudaSuccess) return err;
   auto kern = entry == kFwdLse      ? flash_fwd_lse_wgmma_kernel<D>
               : entry == kHeadsplit ? flash_headsplit_wgmma_kernel<D>
                                     : flash_packed_wgmma_kernel<D>;
   constexpr size_t smem = sizeof(WgSmem<D>) + 1024;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + kWgBlockQ - 1) / kWgBlockQ, H, B);
-  kern<<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
-                                           Sq, Sk, scale * kLog2e);
+  // at most one block per SM, walking over the items
+  const int64_t items = (int64_t)((Sq + Shape::kBlockQ - 1) / Shape::kBlockQ) * H * B;
+  if (items > INT32_MAX) return cudaErrorInvalidValue;
+  int dev, sms;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int blocks = items < sms ? (int)items : sms;
+  kern<<<blocks, Shape::kThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
+                                                  lse, Sq, Sk, H, B, scale * kLog2e);
   return cudaGetLastError();
 }
 
-// The bf16 forward's one switch by head width: the wgmma body at the UNet's
-// 64 (and 16 for small checks), the mma.sync body at CLIP's 80 and the VAE's
-// 512.  A launch either body refuses returns its error: no other body is
-// tried.
+cudaError_t launch_wgmma512(Entry entry, const void* q, const void* k, const void* v, void* o,
+                            float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                            int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
+                            int B, int Sq, int Sk, int H, float scale, cudaStream_t stream) {
+  const int64_t hd = (int64_t)H * kW5D;
+  if (!packed_contiguous(hd, Sq, Sk, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss))
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = qkv_maps(&tq, &tk, &tv, q, k, v, B, Sq, Sk, (int)hd, 64, kW5Rows,
+                             kW5BlockK);
+  if (err != cudaSuccess) return err;
+  auto kern = entry == kFwdLse      ? flash_fwd_lse_wgmma512_kernel
+              : entry == kHeadsplit ? flash_headsplit_wgmma512_kernel
+                                    : flash_packed_wgmma512_kernel;
+  constexpr size_t smem = sizeof(W5Smem) + 1024;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Sq + kW5Rows - 1) / kW5Rows, H, B);
+  kern<<<grid, kW5Threads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
+                                           Sq, Sk, H, B, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// The bf16 forward's one switch by head width: the wgmma body of 64-row
+// consumers at the UNet's 64, CLIP's 80 (and 16 for small checks), the
+// column-split wgmma body at the VAE's 512; any other width is refused.  A
+// launch a body refuses returns its error: no other body is tried.
 cudaError_t dispatch_bf16(Entry entry, const void* q, const void* k, const void* v, void* o,
                           float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                           int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
@@ -853,19 +1034,16 @@ cudaError_t dispatch_bf16(Entry entry, const void* q, const void* k, const void*
   case DD:                                                                               \
     return launch_wgmma<DD>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,  \
                             o_sb, o_ss, B, Sq, Sk, H, scale, stream);
-#define UNIGEO_MMA(DD, WQ, WD, BK)                                                   \
-  case DD:                                                                           \
-    return launch_mma<DD, WQ, WD, BK>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, \
-                                      v_ss, o_sb, o_ss, B, Sq, Sk, H, scale, stream);
   switch (D) {
     UNIGEO_WG(16)
     UNIGEO_WG(64)
-    UNIGEO_MMA(80, 4, 1, 64)
-    UNIGEO_MMA(512, 2, 4, 32)
+    UNIGEO_WG(80)
+    case kW5D:
+      return launch_wgmma512(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
+                             o_ss, B, Sq, Sk, H, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
-#undef UNIGEO_MMA
 #undef UNIGEO_WG
 }
 

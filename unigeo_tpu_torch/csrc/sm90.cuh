@@ -169,12 +169,14 @@ struct SwizzledTile {
   __device__ static uint64_t kmajor(const void* tile, int i) {
     return make_desc(tile, 16, kGroupBytes, kLayout) + (uint64_t)(i * 32 >> 4);
   }
-  // MN-major operand (rows = k, columns = N <= W: one swizzle atom wide);
-  // k-step i of 16 rows starts 16 rows further.  The leading offset, the
-  // stride between atoms along N, is unused for N <= W and is given the
-  // 8-row stride too.
-  __device__ static uint64_t mnmajor(const void* tile, int i) {
-    return make_desc(tile, kGroupBytes, kGroupBytes, kLayout) +
+  // MN-major operand (rows = k, columns = N); k-step i of 16 rows starts 16
+  // rows further.  N <= W is one swizzle atom wide; a wider N spans atoms
+  // of W columns `atom_stride` bytes apart (the leading offset: one TMA box
+  // of W columns after another).  The leading offset is unused for N <= W
+  // and is then given the 8-row stride.
+  __device__ static uint64_t mnmajor(const void* tile, int i,
+                                     uint32_t atom_stride = kGroupBytes) {
+    return make_desc(tile, atom_stride, kGroupBytes, kLayout) +
            (uint64_t)(i * 16 * kRowBytes >> 4);
   }
 };
@@ -208,11 +210,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #define SM90_F8(d, i)                                                                  \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),          \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define SM90_F64(d, i)                                                                 \
+  SM90_F8(d, i), SM90_F8(d, i + 8), SM90_F8(d, i + 16), SM90_F8(d, i + 24),            \
+      SM90_F8(d, i + 32), SM90_F8(d, i + 40), SM90_F8(d, i + 48), SM90_F8(d, i + 56)
+#define SM90_D128 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, " \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, " \
+  "%120, %121, %122, %123, %124, %125, %126, %127" \
+  "}"
 #define SM90_D32                                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
-// d (+)= A B for a 64 x N tile, N in {16, 64}, k = 16: A from registers
+// d (+)= A B for a 64 x N tile, N in {16, 64, 80, 256}, k = 16: A from registers
 // (four words per thread: per warp w of the warpgroup, the mma.m16n8k16 A
 // layout of rows [16w, 16w + 16)), B by descriptor; TransB = 1 for an
 // MN-major B.  scale_d = 0 overwrites d.  The accumulator d holds, per warp
@@ -233,8 +252,25 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
         ", {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
         : SM90_F8(d, 0), SM90_F8(d, 8), SM90_F8(d, 16), SM90_F8(d, 24)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TransB), "r"(scale_d));
+  } else if constexpr (N == 80) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %46, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39}"
+        ", {%40, %41, %42, %43}, %44, p, 1, 1, %45;\n}\n"
+        : SM90_F8(d, 0), SM90_F8(d, 8), SM90_F8(d, 16), SM90_F8(d, 24), SM90_F8(d, 32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TransB), "r"(scale_d));
+  } else if constexpr (N == 256) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %134, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_D128
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, %133;\n}\n"
+        : SM90_F64(d, 0), SM90_F64(d, 64)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TransB), "r"(scale_d));
   } else {
-    static_assert(N == 16, "wgmma_rs: N = 16 or 64");
+    static_assert(N == 16, "wgmma_rs: N = 16, 64, 80 or 256");
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
@@ -257,6 +293,19 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t
       : "l"(da), "l"(db), "n"(TransA), "n"(TransB), "r"(scale_d));
 }
 
+// d (+)= A B for a 64 x 32 tile, k = 16, both operands K-major from shared
+// memory by descriptor (the d = 512 forward's partial S over a 32-key tile)
+__device__ __forceinline__ void wgmma_ss32(float (&d)[16], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : SM90_F8(d, 0), SM90_F8(d, 8)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (+)= A B for a 64 x 128 tile, k = 16, both operands K-major from shared
 // memory by descriptor (the forward's S = q k^T over a 128-key tile).  The
 // accumulator layout is wgmma_rs's with j in [0, 16).
@@ -275,7 +324,9 @@ __device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+#undef SM90_F64
 #undef SM90_F8
+#undef SM90_D128
 #undef SM90_D32
 
 // named barriers (ids 1-15; __syncthreads uses 0): `count` threads, a

@@ -52,8 +52,9 @@ import torch
 _DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
 MIN_KERNEL_SEQ = 128  # same threshold as unigeo_tpu's use_packed_attention
 # head widths of the bf16 tensor-core forward: UNet 64, CLIP 80, VAE 512, and
-# 16 for small checks (the TMA + wgmma body at 16 and 64, the mma.sync body
-# at 80 and 512); f32 takes any width up to 512 (CUDA cores)
+# 16 for small checks (TMA + wgmma bodies: 64-row consumers at 16, 64 and 80,
+# a column-split pair of consumers at 512); f32 takes any width up to 512
+# (CUDA cores)
 BF16_HEAD_WIDTHS = (16, 64, 80, 512)
 # the backward kernels: bf16 at the UNet's 64 (and 16 for small checks),
 # f32 at any width up to 128

@@ -1,14 +1,16 @@
-"""Time variants of the bf16 flash forward's wgmma body side by side.
+"""Time variants of the bf16 flash forward's wgmma bodies side by side.
 
 Each variant is the kernel sources with textual edits (``VARIANTS``: name ->
 [(file, anchor, replacement)]), built by ``_build.compile_library`` into a
 temporary directory, all builds in parallel; ``built`` is the sources as
-they are.  Each library's packed forward runs at the UNet's three attention
-shapes at batch 25 (the frames of a clip), held against the plain version
-on frames 0, 1 and 24 under ``bf16_error_limit``, and timed two ways: CUDA
-events around ``ITERS`` back-to-back calls (``ms``, what a caller waits,
-host cost included) and the kernel's own device time from torch.profiler
-(``device_ms``).  The variants are the design choices of the body:
+they are.  Each library's packed forward runs at the forward's attention
+shapes at batch 25 (the frames of a clip): the UNet's three stages (d = 64),
+the VAE mid block (d = 512) and CLIP (d = 80), held against the plain
+version on frames 0, 1 and 24 under ``bf16_error_limit``, and timed two
+ways: CUDA events around ``ITERS`` back-to-back calls (``ms``, what a caller
+waits, host cost included) and the kernel's own device time from
+torch.profiler (``device_ms``).  The variants are the design choices of the
+64-row body (d = 16, 64 and 80); the d = 512 body runs as built:
 
     python -m unigeo_tpu_torch.tools.forward_variants [--variants a,b,...]
 
@@ -36,15 +38,23 @@ VARIANTS = {
     "no_pingpong": [(_SRC, "constexpr bool kWgPingpong = true;",
                      "constexpr bool kWgPingpong = false;")],
     # ring depth
-    "stages2": [(_SRC, "constexpr int kWgStages = 4;", "constexpr int kWgStages = 2;")],
-    "stages6": [(_SRC, "constexpr int kWgStages = 4;", "constexpr int kWgStages = 6;")],
-    # two consumers (128 queries a block, 240 registers each)
-    "consumers2": [(_SRC, "constexpr int kWgConsumers = 3;", "constexpr int kWgConsumers = 2;")],
-    # 64-key tiles (S = q k^T as m64n64 products)
-    "block_k64": [(_SRC, "constexpr int kWgBlockK = 128;", "constexpr int kWgBlockK = 64;")],
+    "stages2": [(_SRC, "static constexpr int kStages = 4;", "static constexpr int kStages = 2;")],
+    "stages5": [(_SRC, "static constexpr int kStages = 4;", "static constexpr int kStages = 5;")],
+    # two consumers (128 queries a block, 240 registers each), at every
+    # width or at d = 80 alone
+    "consumers2": [(_SRC, "static constexpr int kConsumers = 3;",
+                    "static constexpr int kConsumers = 2;")],
+    "clip_consumers2": [(_SRC, "static constexpr int kConsumers = 3;",
+                         "static constexpr int kConsumers = D == 80 ? 2 : 3;")],
+    # the key tile: 64 keys (S = q k^T as m64n64 products) at every width,
+    # or 128 at d = 80 too
+    "block_k64": [(_SRC, "static constexpr int kBlockK = D == 80 ? 64 : 128;",
+                   "static constexpr int kBlockK = 64;")],
+    "clip_block_k128": [(_SRC, "static constexpr int kBlockK = D == 80 ? 64 : 128;",
+                         "static constexpr int kBlockK = 128;")],
 }
 SHAPES = [("unet_stage0", 3072, 5, 64), ("unet_stage1", 768, 10, 64),
-          ("unet_stage2", 192, 20, 64)]
+          ("unet_stage2", 192, 20, 64), ("vae_mid", 3072, 1, 512), ("clip_vit_h", 257, 16, 80)]
 BATCH = 25
 FRAMES = (0, 1, 24)
 ITERS = 20
@@ -86,19 +96,44 @@ def events_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+PROFILE_ATTEMPTS = 3
+
+
+def _profiled_kernels(fn, iters: int):
+    """``iters`` calls of ``fn`` under torch.profiler: the key averages of
+    the device kernels they launched.  The profiler at times records no
+    kernel of a window at all; such a window is run again, up to
+    PROFILE_ATTEMPTS times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count > 0]
+        if found:
+            return found
+    raise RuntimeError(f"torch.profiler recorded no kernel of {iters} calls "
+                       f"in {PROFILE_ATTEMPTS} windows")
+
+
+def profile_device_ms(fn, iters: int) -> float:
+    """``iters`` calls of ``fn`` under torch.profiler: the device time of
+    the kernels they launched, in ms per call (for a library call, whose
+    kernels have names of their own): each kernel's mean per recorded
+    launch, times its launches per call."""
+    return sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+               for e in _profiled_kernels(fn, iters)) / 1e3
+
+
 def profile_flash(fn, iters: int):
     """``iters`` calls of ``fn`` under torch.profiler: (the name of the one
     flash kernel they launched, its mean device ms per launch the profiler
     recorded; it may miss one of a run of long launches)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "flash_" in e.key]
+    found = [e for e in _profiled_kernels(fn, iters) if "flash_" in e.key]
     if len(found) != 1:
         raise RuntimeError(f"{iters} calls launched the flash kernels "
                            f"{[(e.key, e.count) for e in found]}")
