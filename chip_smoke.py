@@ -12,8 +12,10 @@ Phases, each printed on its own flushed line with the seconds since start:
              scaled_dot_product_attention times and the bound; the
              head-split forward at the same shapes, also bitwise against the
              packed kernel; the fused GEGLU feed-forward at the UNet's four
-             shapes (M = 25 x tokens), with the unfused bf16 layers' time as
-             a yardstick; then the forward-with-logsumexp and the two
+             shapes (M = 25 x tokens), with the body and plan that ran
+             (fused, or the two wgmma passes), its grid and work over the
+             useful work, rows past M held to 0, events and device ms, and
+             the unfused bf16 layers' time as a yardstick; then the forward-with-logsumexp and the two
              backward kernels (dq, dk/dv) at the three UNet training shapes
              in bf16 and one ragged f32 shape at batch 2, the same numbers
              for each, and the backward pair again at the training path's
@@ -26,9 +28,11 @@ Phases, each printed on its own flushed line with the seconds since start:
              device time of each and of SDPA and the body each ran (wgmma
              at d = 64, 80 and 512, by kernel name); the
              fused LayerNorm -> dense at the UNet's three temporal-
-             attention shapes in bf16 and at ragged shapes in bf16 and f32
-             (max err/limit, kernel / plain / unfused-layers ms, the bound,
-             rows past M in a zeroed buffer of whole blocks held to 0)
+             attention shapes in bf16 (the wgmma body, asserted) and at
+             ragged shapes in bf16 and f32 (the body that ran and its grid,
+             max err/limit, kernel events and device / plain / unfused-layers
+             ms, the bound, rows past M in a zeroed buffer of whole items
+             held to 0)
   reference  the tiny pipeline in f32 on the card (kernel path) against the
              same weights on the CPU (plain path); then one step of the tiny
              trainer the same way: loss, every gradient, and the AdamW step
@@ -44,7 +48,9 @@ Phases, each printed on its own flushed line with the seconds since start:
              CSV, each kernel's launches per clip against the count the
              configuration predicts; a resumed run that skips both clips; then
              one clip with neither switch and with UNIGEO_PACKED_ATTN=0
-             (the head-split kernel), whose metrics must agree within 0.5%
+             (the head-split kernel), whose metrics, and the fused GEGLU
+             clip's against the one with neither switch, must agree within
+             0.5%
   train      the port's trainer (unigeo_tpu_torch.train.main) at SVD-XT
              width on synthetic 384 x 512 clips, bf16: one warm-up step and
              three measured steps; losses, step seconds, peak memory, each
@@ -110,7 +116,8 @@ H100_BF16_FLOPS = 989e12
 H100_F32_FLOPS = 67e12  # CUDA cores (the f32 kernels use no tensor core)
 H100_BYTES_PER_S = 3.35e12
 # eval: Abs Rel, delta < 1.25 and normal mean of the head-split forward
-# against the packed one, relative (BASELINE.json's metric tolerance)
+# against the packed one, and of the fused GEGLU clip against the unfused
+# one, relative (BASELINE.json's metric tolerance)
 EVAL_METRIC_TOL_REL = 5e-3
 SWITCHES = ("UNIGEO_FUSED_GEGLU", "UNIGEO_PACKED_ATTN")
 # point-cloud metrics, card against CPU (tests/test_torch_cuda.py): distance
@@ -268,21 +275,38 @@ def geglu_bound(m, c, hidden):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def geglu_column_split(c_out):
-    """Output-column blocks of the kernel (csrc/geglu_ffn.cu's BN rule) and
-    the work it does against the 24 M C^2 useful: (16 S + 8) / 24."""
-    bn = next(b for b in (320, 128, 64, 16) if c_out % b == 0)
-    split = c_out // bn
-    return split, (16 * split + 8) / 24
+def geglu_body(plan, c, hidden, c_out):
+    """(the body that ran, its grid, the work it does over the useful 2 M C 2H
+    + 2 M H C_out): the fused pass computes the up-projection once per
+    column group, the two passes each product once."""
+    if plan["two_pass"]:
+        body = "wgmma two-pass (up-projection, then down-projection)"
+        work = 1.0
+    else:
+        body = "wgmma fused"
+        work = (2 * plan["column_groups"] * c + c_out) / (2 * c + c_out)
+    grid = {"clusters": plan["blocks"] // 2, "items": plan["items"],
+            "column_groups": plan["column_groups"], "hidden_splits": plan["hidden_splits"],
+            "x_resident": plan["x_resident"]}
+    if plan["two_pass"]:
+        grid.update(up_clusters=plan["up_pass_blocks"] // 2, up_items=plan["up_pass_items"],
+                    up_hidden_splits=plan["up_pass_hidden_splits"])
+    return body, grid, work
 
 
 def phase_kernel_geglu(dev):
     """The fused GEGLU kernel against its plain version at GEGLU_SHAPES, with
-    kernel / plain / unfused-layers times and the bound.  No one PyTorch call
+    the body and plan that ran, rows past M of a launch into a buffer of
+    whole items filled with NaN held unwritten (in the two-pass plan they
+    would be zeros), kernel (events and torch.profiler device) /
+    plain / unfused-layers times and the bound.  No one PyTorch call
     computes the function: the unfused bf16 layers (a linear with bias, the
     tanh gelu, a product and a matmul, several calls) are a yardstick only."""
+    from unigeo_tpu_torch import _build
     from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.ops import geglu
     from unigeo_tpu_torch.ops.geglu import geglu_error_limit, geglu_ffn, geglu_ffn_plain
+    from unigeo_tpu_torch.tools.forward_variants import profile_device_ms
     import torch.nn.functional as F
 
     set_exact_f32()  # the f32 plain version in full f32
@@ -292,6 +316,7 @@ def phase_kernel_geglu(dev):
         hg = F.linear(x, w1, b1)
         return (hg[:, :hidden] * F.gelu(hg[:, hidden:], approximate="tanh")) @ w2.T
 
+    lib = _build.load_library()
     gen = torch.Generator(device=dev).manual_seed(9)
     rows = []
     for name, m, c in GEGLU_SHAPES:
@@ -306,24 +331,33 @@ def phase_kernel_geglu(dev):
         limit = geglu_error_limit(x, w1, b1, w2, ref)
         diff = (out.float() - ref.float()).abs()
         err, ratio = diff.max().item(), (diff / limit).max().item()
-        if not (np.isfinite(err) and ratio <= 1.0):
+        items = -(-m // geglu.BLOCK_M) * geglu.BLOCK_M
+        buf = torch.full((items, c), float("nan"), dtype=torch.bfloat16, device=dev)
+        geglu._launch(lib, x, w1, b1, w2, buf[:m])
+        torch.cuda.synchronize()
+        past = int((~torch.isnan(buf[m:].float())).any(dim=1).sum().item())
+        if not (np.isfinite(err) and ratio <= 1.0 and past == 0
+                and torch.equal(buf[:m], out)):
             raise AssertionError(f"geglu {name}: kernel vs plain max err/limit {ratio} "
-                                 f"(max abs err {err})")
+                                 f"(max abs err {err}), rows written past M {past}")
         kern_ms = time_ms(lambda: geglu_ffn(x, w1, b1, w2), 10)
+        kern_dev_ms = profile_device_ms(lambda: geglu_ffn(x, w1, b1, w2), 10)
         plain_ms = time_ms(lambda: geglu_ffn_plain(x, w1, b1, w2), 3)
         unfused_ms = time_ms(lambda: unfused(x, w1, b1, w2), 10)
         bms, by = geglu_bound(m, c, hidden)
-        split, work = geglu_column_split(c)
+        body, grid, work = geglu_body(geglu.kernel_plan(lib, m, c, hidden, c), c, hidden, c)
         rows.append(dict(shape=name, m=m, c=c, hidden=hidden, max_abs_err=err,
-                         max_err_over_limit=ratio, limit_min=limit.min().item(), ms=kern_ms,
+                         max_err_over_limit=ratio, limit_min=limit.min().item(),
+                         rows_past_m_written=past, ms=kern_ms, device_ms=kern_dev_ms,
                          plain_ms=plain_ms, library_ms=None, unfused_ms=unfused_ms,
-                         bound_ms=bms, bound_by=by, column_blocks=split,
+                         bound_ms=bms, bound_by=by, body=body, grid=grid,
                          work_over_useful=work))
-        log("kernel", f"geglu {name} [M={m},C={c},H={hidden}] max_abs_err={err:.3e} "
-            f"max_err/limit={ratio:.3f} kernel_ms={kern_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"unfused_layers_ms={unfused_ms:.4f} (several calls, yardstick) "
-            f"bound_ms={bms:.5f} ({by}) column_blocks={split} work/useful={work:.3f}")
-        del x, w1, b1, w2, out, ref, limit, diff
+        log("kernel", f"geglu {name} [M={m},C={c},H={hidden}] body={body} grid={json.dumps(grid)} "
+            f"work/useful={work:.3f} max_abs_err={err:.3e} max_err/limit={ratio:.3f} "
+            f"rows_written_past_M={past} kernel_ms={kern_ms:.4f} device_ms={kern_dev_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} unfused_layers_ms={unfused_ms:.4f} (several calls, "
+            f"yardstick) bound_ms={bms:.5f} ({by})")
+        del x, w1, b1, w2, out, ref, limit, diff, buf
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return rows
@@ -346,14 +380,17 @@ LN_SHAPES = [
 
 def phase_kernel_ln_dense(dev):
     """The fused LayerNorm -> dense against its plain version at LN_SHAPES:
-    max err/limit, the rows past M of a launch into a zeroed buffer of whole
-    blocks (limit 0), kernel / plain / unfused-layers times and the bound.
-    No one PyTorch call computes the function: F.layer_norm then F.linear
-    (two calls) is a yardstick only."""
+    the body that ran (the bf16 wgmma body, the mma.sync body where rows are
+    not 16-byte aligned, the f32 body) and its grid, max err/limit, the rows
+    past M of a launch into a zeroed buffer of whole items (limit 0), kernel
+    (events and torch.profiler device) / plain / unfused-layers times and
+    the bound.  No one PyTorch call computes the function: F.layer_norm then
+    F.linear (two calls) is a yardstick only."""
     from unigeo_tpu_torch import _build
     from unigeo_tpu_torch.device import set_exact_f32
     from unigeo_tpu_torch.ops import ln_qkv
     from unigeo_tpu_torch.tools.ablate_ln_qkv import bound as ln_bound
+    from unigeo_tpu_torch.tools.forward_variants import profile_device_ms
     import torch.nn.functional as F
 
     set_exact_f32()  # the f32 plain version in full f32
@@ -371,7 +408,7 @@ def phase_kernel_ln_dense(dev):
         diff = (out.float() - ref.float()).abs()
         limit = ln_qkv.ln_dense_error_limit(*args, ref)
         err, ratio = diff.max().item(), (diff / limit).max().item()
-        blocks = -(-m // ln_qkv.BLOCK_M) * ln_qkv.BLOCK_M
+        blocks = -(-m // ln_qkv.BLOCK_M) * ln_qkv.BLOCK_M  # whole items
         buf = torch.zeros((blocks, n), dtype=dtype, device=dev)
         ln_qkv._launch(lib, *args, buf[:m], 1e-5)
         torch.cuda.synchronize()
@@ -381,18 +418,31 @@ def phase_kernel_ln_dense(dev):
             raise AssertionError(f"ln_dense {name}: kernel vs plain max err/limit {ratio} "
                                  f"(max abs err {err}), rows past M max {past}")
         kern_ms = time_ms(lambda: ln_qkv.ln_dense(*args), 20)
+        kern_dev_ms = profile_device_ms(lambda: ln_qkv.ln_dense(*args), 20)
         plain_ms = time_ms(lambda: ln_qkv.ln_dense_plain(*args), 5)
         x, g, b, w, bias = args
         unfused_ms = time_ms(lambda: F.linear(F.layer_norm(x, (c,), g, b, 1e-5), w, bias), 20)
         bms, by = ln_bound(m, c, n, dtype)
+        if dtype == torch.float32:
+            body, grid = "f32 CUDA cores", {"blocks": [-(-m // ln_qkv.BLOCK_M), -(-n // 64)]}
+        else:
+            plan = ln_qkv.kernel_plan(lib, *args[:4])
+            body = "wgmma" if plan["wgmma"] else "mma.sync (rows not 16-byte aligned)"
+            grid = ({"blocks": plan["blocks"], "items": plan["items"],
+                     "n_splits": plan["n_splits"], "y_buffers": plan["y_buffers"]}
+                    if plan["wgmma"] else {"blocks": [-(-m // ln_qkv.BLOCK_M), -(-n // 128)]})
+        if name.startswith("unet") and body != "wgmma":
+            raise AssertionError(f"ln_dense {name}: the {body} body ran, not the wgmma body")
         rows.append(dict(shape=name, m=m, c=c, n=n, dtype=str(dtype).split(".")[-1],
                          max_abs_err=err, max_err_over_limit=ratio, rows_past_m_max=past,
-                         ms=kern_ms, plain_ms=plain_ms, library_ms=None, unfused_ms=unfused_ms,
-                         bound_ms=bms, bound_by=by))
-        log("kernel", f"ln_dense {name} [M={m},C={c},N={n},{rows[-1]['dtype']}] "
-            f"max_abs_err={err:.3e} max_err/limit={ratio:.3f} rows_past_M_max={past} "
-            f"kernel_ms={kern_ms:.4f} plain_ms={plain_ms:.4f} unfused_layers_ms={unfused_ms:.4f} "
-            f"(two calls, yardstick) bound_ms={bms:.5f} ({by})")
+                         ms=kern_ms, device_ms=kern_dev_ms, plain_ms=plain_ms, library_ms=None,
+                         unfused_ms=unfused_ms, bound_ms=bms, bound_by=by, body=body, grid=grid,
+                         work_over_useful=1.0))
+        log("kernel", f"ln_dense {name} [M={m},C={c},N={n},{rows[-1]['dtype']}] body={body} "
+            f"grid={json.dumps(grid)} max_abs_err={err:.3e} max_err/limit={ratio:.3f} "
+            f"rows_past_M_max={past} kernel_ms={kern_ms:.4f} device_ms={kern_dev_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} unfused_layers_ms={unfused_ms:.4f} (two calls, yardstick) "
+            f"bound_ms={bms:.5f} ({by})")
         del args, out, ref, diff, limit, buf
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1215,14 +1265,21 @@ def phase_eval(dev):
     rel = {k: abs(split["metrics"][k] - plain["metrics"][k]) / abs(plain["metrics"][k])
            for k in EVAL_KEYS}
     shift = {k: runs["fused_geglu"]["metrics"][k] - plain["metrics"][k] for k in EVAL_KEYS}
+    fused_rel = {k: abs(shift[k]) / abs(plain["metrics"][k]) for k in EVAL_KEYS}
     log("eval", f"head-split vs packed: max depth difference {depth_dev:.3e}, metric rel "
         f"dev {json.dumps(rel)} (tol {EVAL_METRIC_TOL_REL}); fused GEGLU vs unfused: metric "
-        f"shift {json.dumps(shift)}")
+        f"shift {json.dumps(shift)}, rel dev {json.dumps(fused_rel)} (tol "
+        f"{EVAL_METRIC_TOL_REL}); clip seconds fused {runs['fused_geglu']['seconds']:.3f}, "
+        f"neither {plain['seconds']:.3f}")
     if not all(v <= EVAL_METRIC_TOL_REL for v in rel.values()):
         raise AssertionError(f"head-split metrics off the packed ones: {rel}")
+    if not all(v <= EVAL_METRIC_TOL_REL for v in fused_rel.values()):
+        raise AssertionError(f"fused GEGLU metrics off the unfused ones: {fused_rel}")
     return dict(launches=counts, launches_per_clip=per_clip, clips=clips,
                 headsplit_launches=split["launches"]["flash_attention_headsplit"],
-                depth_dev=depth_dev, metric_rel_dev=rel, fused_shift=shift)
+                depth_dev=depth_dev, metric_rel_dev=rel, fused_shift=shift,
+                fused_metric_rel_dev=fused_rel,
+                clip_seconds={label: runs[label]["seconds"] for label in runs})
 
 
 # the training phase: frames per clip, resolution, measured steps after one
@@ -1577,7 +1634,9 @@ def main():
                    **forward25("headsplit")}),
         summarize("geglu_ffn", src + "geglu_ffn.cu", "unigeo_tpu/ops/geglu.py:72", geglu_rows,
                   evaluated["launches"]["geglu_ffn"],
-                  {"launches_on": f"the eval run of {EVAL_CLIPS} clips under UNIGEO_FUSED_GEGLU=1",
+                  {"sums_over": "the shapes below at the paths' M (25 frames x tokens)",
+                   "device_ms": sum(r["device_ms"] for r in geglu_rows),
+                   "launches_on": f"the eval run of {EVAL_CLIPS} clips under UNIGEO_FUSED_GEGLU=1",
                    "launches_per_clip": evaluated["launches_per_clip"]["geglu_ffn"],
                    "unfused_ms": sum(r["unfused_ms"] for r in geglu_rows),
                    "unfused_computes": "the unfused bf16 layers, several PyTorch calls "
@@ -1605,7 +1664,10 @@ def main():
                                              "pair_ms", "pair_bound_ms", "bwd_bound_ms")}),
         summarize("ln_dense", src + "ln_dense.cu", "unigeo_tpu/ops/ln_qkv.py:49",
                   [r for r in ln_rows if r["shape"].startswith("unet")], ln_launches,
-                  {"launches_on": "python -m unigeo_tpu_torch.tools.ablate_ln_qkv at full size "
+                  {"sums_over": "the shapes below at the paths' M (25 frames x tokens)",
+                   "device_ms": sum(r["device_ms"] for r in ln_rows
+                                    if r["shape"].startswith("unet")),
+                   "launches_on": "python -m unigeo_tpu_torch.tools.ablate_ln_qkv at full size "
                                   "(no model uses it: 0 on the forward, eval and train paths)",
                    "unfused_ms": sum(r["unfused_ms"] for r in ln_rows
                                      if r["shape"].startswith("unet")),

@@ -41,14 +41,21 @@ same limits.
 The fused GEGLU feed-forward (bf16 only): the elementwise limit of
 ``geglu_error_limit``, 1.0625 (2^-7 |ref| + (2^-7 + 2 H 2^-24) T + F_up),
 T = |h| |w2|^T, from the bf16 roundings of h and of the output, which f32
-sums taken in another order can move by one unit each (see there).
+sums taken in another order can move by one unit each (see there; the
+hidden splits' partials summed in a fixed order are such an order).  The
+kernel runs fused or as two passes (h through a bf16 scratch) by its plan;
+both round h and the output once, and two launches give the same bits.
+Rows past M of the output and of the h scratch, written into buffers of
+whole items (``geglu.BLOCK_M``) filled with NaN, must stay NaN.
 
 The fused LayerNorm -> dense (bf16 and f32): the elementwise limit of
 ``ln_dense_error_limit``, 1.0625 (2 u_out |ref| + 2 C 2^-24 T + dY |W|^T),
 T = |y| |W|^T + |b|: the output's rounding (u_out = 2^-8 in bf16, 2^-24 in
 f32), the product's f32 sums in another order, and y's rounding flips, only
 where the two f32 values of y can straddle a boundary (see there).  Rows
-past M, written into a zeroed buffer of whole 64-row blocks, must stay 0.
+past M, written into a zeroed buffer of whole items (each kernel's
+``BLOCK_M``), must stay 0.  bf16 takes the wgmma body for 16-byte rows and
+the mma.sync body otherwise, by shape and alignment.
 
 The planted-fault tests show that the limits fail a kernel that drops one
 key tile or the ragged-edge mask (forward, each of its two bf16 bodies),
@@ -58,11 +65,14 @@ skips the fifth 16-column k-step of S (d = 80), or, at d = 512, adds a
 consumer's own partial scores twice or stores each consumer's output half
 at the other's columns (forward), skips one query tile of dk/dv,
 drops the ragged last key tile of dq or reads dv's B operand without
-wgmma's transpose bit (backward), skips one hidden tile, swaps
-value and gate, or drops the ragged-row guard of the GEGLU kernel (rows
-past M must stay unwritten: their limit is 0), or skips the last K tile,
-drops beta, leaves the last half tile of columns at N = 960 unwritten or
-writes rows past M in the LayerNorm -> dense kernel (each by at least 3x).
+wgmma's transpose bit (backward), zeroes one hidden tile's h, swaps value
+and gate, drops the ragged-row guard of the output (fused and two-pass) or
+of the h scratch (rows past M must stay unwritten: their limit is 0),
+leaves a consumer's half of h unwritten, reads the h buffer of the tile
+before, or drops a hidden split from the sum in the GEGLU kernel, or skips the last K chunk, drops beta, leaves the last N
+tile at N = 960 unwritten, writes rows past M or normalizes rows with
+another row's statistics in the LayerNorm -> dense kernel (each by at
+least 3x; a faulty output that is not finite fails outright).
 
 The point-cloud metrics on the card against the port's CPU run of the same
 clip (a synthetic 8 x 96 x 128 clip, its world points scaled, rotated,
@@ -269,12 +279,13 @@ PLANTED_FAULTS = {
         "sm90::wgmma_rs<D, 1>(acc_v, pa[i], Tile::mnmajor(dos, i), 1);",
         "sm90::wgmma_rs<D, 0>(acc_v, pa[i], Tile::mnmajor(dos, i), 1);",
     ),
-    # GEGLU: the third hidden tile never reaches the down-projection
+    # GEGLU: the third hidden tile's h is zero, so it adds nothing to the
+    # down-projection (the ring still hands the tile over)
     "geglu_skip_hidden_tile": (
         "geglu_ffn.cu",
-        "  for (int j0 = 0; j0 < Hd; j0 += kBH) {  // hidden tiles\n",
-        "  for (int j0 = 0; j0 < Hd; j0 += kBH) {  // hidden tiles\n"
-        "    if (j0 == 2 * kBH) continue;\n",
+        "const float v0 = upa[4 * jj + 2 * i] + bv0, v1 = upa[4 * jj + 2 * i + 1] + bv1;",
+        "const float v0 = j == 2 ? 0.f : upa[4 * jj + 2 * i] + bv0,\n"
+        "                      v1 = j == 2 ? 0.f : upa[4 * jj + 2 * i + 1] + bv1;",
     ),
     # GEGLU: g * gelu(v) instead of v * gelu(g)
     "geglu_swap_value_gate": (
@@ -282,36 +293,75 @@ PLANTED_FAULTS = {
         "pack_bf16x2(v0 * gelu_tanh(q0), v1 * gelu_tanh(q1))",
         "pack_bf16x2(q0 * gelu_tanh(v0), q1 * gelu_tanh(v1))",
     ),
-    # GEGLU: rows past M (zero inputs) are stored too
+    # GEGLU: rows past M are stored too, by the fused pass (their outputs
+    # come from the biases) or the down pass (zeros: h past M loads as
+    # zeros); held at shapes whose plan takes one hidden split, since the
+    # splits' partials end at row M
     "geglu_no_ragged_mask": (
         "geglu_ffn.cu",
-        "    if (row >= M) continue;\n",
+        "      if (row >= M) continue;\n",
         "",
     ),
-    # LayerNorm -> dense (bf16): the last K tile never reaches the product
+    # GEGLU: the up-projection pass stores h rows past M too, past the end
+    # of the h scratch
+    "geglu_h_rows_past_m": (
+        "geglu_ffn.cu",
+        "} else if (item.m0 + row < M) {",
+        "} else {",
+    ),
+    # GEGLU: consumer 1 never writes its half of h, which keeps whatever the
+    # buffer held
+    "geglu_half_h_unwritten": (
+        "geglu_ffn.cu",
+        "*reinterpret_cast<uint32_t*>(hs + row * 128 + ((2 * col) ^ ((row & 7) << 4))) = hv;",
+        "if (c == 0) *reinterpret_cast<uint32_t*>(hs + row * 128 + ((2 * col) ^ ((row & 7) << 4))) = hv;",
+    ),
+    # GEGLU: a tile's down-projection reads the other h buffer, where both
+    # consumers' halves of the tile before it lie
+    "geglu_stale_h_tile": (
+        "geglu_ffn.cu",
+        "const __nv_bfloat16* hts = h_tile(MODE == kFused ? ht % kHTiles : hr.slot);",
+        "const __nv_bfloat16* hts = h_tile(MODE == kFused ? (ht + 1) % kHTiles : hr.slot);",
+    ),
+    # GEGLU: the split sum drops the last hidden split
+    "geglu_drop_split": (
+        "geglu_ffn.cu",
+        "for (int sp = 1; sp < splits; ++sp) {",
+        "for (int sp = 1; sp < splits - 1; ++sp) {",
+    ),
+    # LayerNorm -> dense (bf16 wgmma body): the last 32-column chunk of C
+    # never reaches the product (the ring still hands it over)
     "ln_skip_last_k_tile": (
         "ln_dense.cu",
-        "  for (int k0 = 0; k0 < C; k0 += kBK16) {\n",
-        "  for (int k0 = 0; k0 < C; k0 += kBK16) {\n    if (k0 + kBK16 >= C) continue;\n",
+        "        for (int i = 0; i < kWgKC / 16; ++i)\n",
+        "        for (int i = 0; i < kWgKC / 16 && kc < n_kc - 1; ++i)\n",
     ),
-    # LayerNorm -> dense: beta is not added
+    # LayerNorm -> dense (bf16 wgmma body): beta is not added
     "ln_skip_beta": (
         "ln_dense.cu",
-        "(xv[j] - mean) * rstd * gv[j] + bv[j]",
-        "(xv[j] - mean) * rstd * gv[j]",
+        "y[j] = (v[j] - st.x) * st.y * gv[j] + bv[j];",
+        "y[j] = (v[j] - st.x) * st.y * gv[j];",
     ),
-    # LayerNorm -> dense (bf16): the grid stops at the last whole column
-    # tile, so N = 960 leaves 64 columns unwritten
+    # LayerNorm -> dense (bf16 wgmma body): the N tiles stop at the last
+    # whole one below N, so N = 960 leaves its last tile of 320 unwritten
     "ln_last_n_tile_unwritten": (
         "ln_dense.cu",
-        "dim3 grid((M + kBM - 1) / kBM, (N + kBN16 - 1) / kBN16);",
-        "dim3 grid((M + kBM - 1) / kBM, N / kBN16);",
+        "const int n_tiles = (N + kWgBN - 1) / kWgBN, n_kc",
+        "const int n_tiles = (N - 1) / kWgBN, n_kc",
     ),
-    # LayerNorm -> dense (bf16): rows past M are stored too
+    # LayerNorm -> dense (bf16 wgmma body): rows past M are stored too
     "ln_rows_past_m": (
         "ln_dense.cu",
-        "      if (row >= M) continue;  // rows past M are not stored\n",
+        "          if (row >= M) continue;  // rows past M are not stored\n",
         "",
+    ),
+    # LayerNorm -> dense (bf16 wgmma body): each row is normalized with the
+    # statistics of the row 8 away in its block of 64, which the same warp
+    # normalizes just before or after it
+    "ln_other_rows_stats": (
+        "ln_dense.cu",
+        "const float2 st = row_stats(r);",
+        "const float2 st = row_stats(r ^ 8);",
     ),
 }
 
@@ -364,11 +414,20 @@ def faulty_libraries(tmp_path_factory):
         ("skip_query_tile", 2, 3072, 5, 64),
         ("dq_no_ragged_mask", 2, 257, 4, 64),
         ("dv_no_transpose", 2, 3072, 5, 64),
-        # GEGLU at (M, C) = (b * s, h * d): the UNet's stage 0, stage 2 and
-        # its ragged mid block (M = 1200, 18.75 row tiles)
+        # GEGLU at (M, C) = (b * s, h * d): the UNet's stage 0 (the fused
+        # pass, where h lives in shared memory), stage 2 and its ragged mid
+        # block (two passes; M = 1200, 18.75 row blocks, three hidden splits
+        # by the kernel's plan), and ragged shapes whose plan takes one
+        # hidden split: M = 76784 at C = 320 (the fused pass; 600 pairs of
+        # row blocks, 16 rows past M) and M = 19184 at C = 640 (two passes)
         ("geglu_skip_hidden_tile", 25, 3072, 5, 64),
         ("geglu_swap_value_gate", 25, 192, 20, 64),
-        ("geglu_no_ragged_mask", 25, 48, 20, 64),
+        ("geglu_no_ragged_mask", 1, 76784, 5, 64),
+        ("geglu_no_ragged_mask", 1, 19184, 10, 64),
+        ("geglu_h_rows_past_m", 1, 19184, 10, 64),
+        ("geglu_half_h_unwritten", 25, 3072, 5, 64),
+        ("geglu_stale_h_tile", 25, 3072, 5, 64),
+        ("geglu_drop_split", 25, 48, 20, 64),
     ],
 )
 def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
@@ -675,6 +734,26 @@ GEGLU_CASES = [(76800, 320, 4), (19200, 640, 4), (4800, 1280, 4), (1200, 1280, 4
                (100, 64, 4), (37, 64, 2), (256, 128, 4), (65, 192, 4), (130, 320, 4)]
 
 
+def _geglu_into_tiles(lib, x, w1, b1, w2):
+    """The kernel in ``lib`` into buffers of whole items of ``geglu.BLOCK_M``
+    rows filled with NaN: the output and, where the plan takes two passes,
+    the h scratch.  Returns (the output's rows < M, the number of rows past
+    M written in either)."""
+    m, c, hidden, c_out = x.shape[0], x.shape[1], w1.shape[0] // 2, w2.shape[0]
+    plan = geglu.kernel_plan(lib, m, c, hidden, c_out)
+    rows = -(-m // geglu.BLOCK_M) * geglu.BLOCK_M
+    nan = lambda width: torch.full((rows, width), float("nan"), dtype=torch.bfloat16,
+                                   device=x.device)
+    out, hbuf = nan(c_out), nan(hidden) if plan["two_pass"] else None
+    splits = plan["hidden_splits"]
+    partial = (torch.empty((splits, m, c_out), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    geglu._run(lib, x, w1, b1, w2, out[:m], partial, None if hbuf is None else hbuf[:m])
+    torch.cuda.synchronize()
+    written = lambda buf: int((~torch.isnan(buf[m:].float())).any(dim=1).sum().item())
+    return out[:m], written(out) + (0 if hbuf is None else written(hbuf))
+
+
 @pytest.mark.parametrize("m,c,mult", GEGLU_CASES)
 def test_geglu_kernel_matches_plain(cuda, m, c, mult):
     x, w1, b1, w2 = _geglu_inputs(m, c, mult, cuda, seed=m + c)
@@ -684,24 +763,56 @@ def test_geglu_kernel_matches_plain(cuda, m, c, mult):
     assert geglu_ffn.launches == before + 1
     assert out.shape == (m, c) and out.dtype == torch.bfloat16
     ratio = _geglu_ratio(out, x, w1, b1, w2)
-    print(f"geglu [M={m},C={c},H={c * mult}]: max err/limit {ratio:.3f}", flush=True)
-    assert ratio <= 1.0, ratio
+    tiled, past = _geglu_into_tiles(_build.load_library(), x, w1, b1, w2)
+    print(f"geglu [M={m},C={c},H={c * mult}]: max err/limit {ratio:.3f}, rows written past M "
+          f"{past}", flush=True)
+    assert ratio <= 1.0 and past == 0 and torch.equal(tiled, out), ratio
 
 
 def _geglu_planted(cuda, lib, fault, m, c):
     x, w1, b1, w2 = _geglu_inputs(m, c, 4, cuda, seed=7)
     good = _geglu_ratio(geglu_ffn(x, w1, b1, w2), x, w1, b1, w2)
-    rows = -(-m // 64) * 64
-    buf = torch.zeros((rows, c), dtype=torch.bfloat16, device=cuda)
-    geglu._launch(lib, x, w1, b1, w2, buf[:m])
-    torch.cuda.synchronize()
-    bad = _geglu_ratio(buf[:m], x, w1, b1, w2)
-    past = int(buf[m:].abs().amax(dim=1).gt(0).sum().item())
-    if past:  # rows past M must stay as they were: their limit is 0
+    if fault == "geglu_no_ragged_mask":
+        # without the row mask, split partials' rows past M would lie outside
+        # their scratch: the shapes are ones whose plan takes one split
+        assert geglu.kernel_plan(lib, m, c, 4 * c, c)["hidden_splits"] == 1
+    out, past = _geglu_into_tiles(lib, x, w1, b1, w2)
+    bad = _geglu_ratio(out, x, w1, b1, w2)
+    # rows past M must stay as they were (their limit is 0), and a value
+    # that is not finite fails any limit
+    if past or not np.isfinite(bad):
         bad = float("inf")
     print(f"planted {fault} [M={m},C={c}]: max err/limit kernel {good:.3f}, faulty copy "
           f"{bad:.3f} ({past} rows written past M)", flush=True)
     assert good <= 1.0 and bad >= 3.0, (good, bad)
+
+
+@pytest.mark.parametrize("m,c", [(76800, 320), (1200, 1280), (100, 64)])
+def test_geglu_kernel_is_bitwise_reproducible(cuda, m, c):
+    """Every output element is written once, and the hidden splits' partials
+    are summed in a fixed order: two launches give the same bits."""
+    x, w1, b1, w2 = _geglu_inputs(m, c, 4, cuda, seed=23)
+    first, second = geglu_ffn(x, w1, b1, w2), geglu_ffn(x, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_geglu_kernel_plans_at_the_main_path_shapes(cuda):
+    """The wgmma body's plan at the UNet's four feed-forward shapes: fused
+    at C_out = 320 (x resident), two passes (up-projection, then
+    down-projection) at 640 and 1280 (two column groups), hidden splits for
+    the mid block's 19 row blocks, at most one block per SM."""
+    lib = _build.load_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {c: geglu.kernel_plan(lib, m, c, 4 * c, c)
+             for m, c in ((76800, 320), (19200, 640), (4800, 1280))}
+    assert [plans[c]["column_groups"] for c in (320, 640, 1280)] == [1, 1, 2]
+    assert [plans[c]["two_pass"] for c in (320, 640, 1280)] == [0, 1, 1]
+    assert plans[320]["consumer_columns"] == 160 and plans[640]["consumer_columns"] == 320
+    assert plans[320]["x_resident"] == 1
+    mid = geglu.kernel_plan(lib, 1200, 1280, 5120, 1280)
+    assert mid["two_pass"] == 1 and mid["hidden_splits"] > 1
+    assert all(p["blocks"] <= sms and p["up_pass_blocks"] <= sms for p in (*plans.values(), mid))
 
 
 def test_geglu_kernel_rejects_what_it_does_not_take(cuda):
@@ -735,8 +846,9 @@ def _ln_ratio(out, args):
 
 
 def _ln_into_tiles(lib, args):
-    """The kernel in ``lib`` into a zeroed buffer of whole 64-row blocks:
-    (the rows < M, the number of rows past M it wrote)."""
+    """The kernel in ``lib`` into a zeroed buffer of whole items of
+    ``ln_qkv.BLOCK_M`` rows: (the rows < M, the number of rows past M it
+    wrote)."""
     x, weight = args[0], args[3]
     m = x.shape[0]
     buf = torch.zeros((-(-m // ln_qkv.BLOCK_M) * ln_qkv.BLOCK_M, weight.shape[0]),
@@ -777,6 +889,7 @@ def test_ln_dense_kernel_matches_plain(cuda, m, c, n, dtype):
         ("ln_skip_beta", 19200, 640, 1920),
         ("ln_last_n_tile_unwritten", 1200, 320, 960),
         ("ln_rows_past_m", 100, 200, 400),
+        ("ln_other_rows_stats", 19200, 640, 1920),
     ],
 )
 def test_ln_dense_limit_fails_planted_faults(cuda, faulty_libraries, fault, m, c, n):
@@ -785,10 +898,39 @@ def test_ln_dense_limit_fails_planted_faults(cuda, faulty_libraries, fault, m, c
     args = _ln_inputs(m, c, n, torch.bfloat16, cuda, seed=11)
     good = _ln_ratio(ln_dense(*args), args)
     out, past = _ln_into_tiles(faulty_libraries[fault], args)
-    bad = float("inf") if past else _ln_ratio(out, args)
+    bad = _ln_ratio(out, args)
+    if past or not np.isfinite(bad):  # as in _geglu_planted
+        bad = float("inf")
     print(f"planted {fault} [M={m},C={c},N={n}]: max err/limit kernel {good:.3f}, faulty copy "
           f"{bad:.3f} ({past} rows written past M)", flush=True)
     assert good <= 1.0 and bad >= 3.0, (good, bad)
+
+
+@pytest.mark.parametrize("m,c,n", [(4800, 1280, 3840), (76800, 320, 960), (100, 100, 200)])
+def test_ln_dense_kernel_is_bitwise_reproducible(cuda, m, c, n):
+    """Every output element is written once: two launches give the same bits
+    (the wgmma body with and without N splits, and the mma.sync body)."""
+    args = _ln_inputs(m, c, n, torch.bfloat16, cuda, seed=29)
+    first, second = ln_dense(*args), ln_dense(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_ln_dense_body_by_shape(cuda):
+    """bf16 takes the wgmma body at the UNet's three shapes and at 16-byte
+    rows (C % 8 == 0), the mma.sync body where rows are not 16-byte
+    aligned (C = 100) or x is not; f32 launches its own kernel."""
+    lib = _build.load_library()
+    body = lambda args: ln_qkv.kernel_plan(lib, *args[:4])["wgmma"]
+    for m, c, n in ((76800, 320, 960), (19200, 640, 1920), (4800, 1280, 3840), (37, 72, 129)):
+        assert body(_ln_inputs(m, c, n, torch.bfloat16, cuda)) == 1
+    assert body(_ln_inputs(100, 100, 200, torch.bfloat16, cuda)) == 0
+    x, g, b, w, bias = _ln_inputs(64, 96, 192, torch.bfloat16, cuda)
+    shifted = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(64, 96)
+    assert body((shifted, g, b, w)) == 0
+    args = (shifted, g, b, w, bias)
+    ratio = _ln_ratio(ln_dense(*args), args)
+    assert ratio <= 1.0, ratio
 
 
 def test_ln_dense_kernel_rejects_what_it_does_not_take(cuda):

@@ -131,8 +131,10 @@ def open_library(path: str) -> ctypes.CDLL:
         "unigeo_flash_attention_fwd_lse": [p] * 5 + [i64] * 8 + [i32] * 5 + [f32, i32, p],
         "unigeo_flash_attention_bwd_dq": [p] * 7 + [i32] * 5 + [f32, i32, p],
         "unigeo_flash_attention_bwd_dkv": [p] * 8 + [i32] * 5 + [f32, i32, p],
-        "unigeo_geglu_ffn": [p] * 5 + [i32] * 4 + [p],
+        "unigeo_geglu_ffn": [p] * 7 + [i32] * 4 + [p],
+        "unigeo_geglu_ffn_plan": [i32] * 4 + [p],
         "unigeo_ln_dense": [p] * 6 + [i32] * 3 + [f32, i32, p],
+        "unigeo_ln_dense_plan": [p] * 4 + [i32] * 3 + [p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

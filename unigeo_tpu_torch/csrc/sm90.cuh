@@ -5,20 +5,26 @@
 //   reached through the runtime's driver entry point (so the library needs
 //   no -lcuda); each map goes to its kernel as a
 //   `const __grid_constant__ CUtensorMap` parameter;
+// * a cache of launch plans per device and sizes (host);
 // * mbarriers: init, arrive, arrive.expect_tx, try_wait.parity;
 // * the TMA's 3-D tile load into shared memory, completing on an mbarrier;
-// * wgmma: shared-memory matrix descriptors for 128- and 32-byte swizzled
-//   tiles as the TMA writes them, wgmma.mma_async m64nNk16 bf16 -> f32 with
-//   A from shared memory or from registers and B K-major or MN-major (the
-//   transpose bit), and wgmma.fence / commit_group / wait_group;
+// * wgmma: shared-memory matrix descriptors for 128-, 64- and 32-byte
+//   swizzled tiles as the TMA writes them, wgmma.mma_async m64nNk16 bf16 ->
+//   f32 with A from shared memory or from registers and B K-major or
+//   MN-major (the transpose bit), and wgmma.fence / commit_group /
+//   wait_group; the proxy fence that lets a wgmma read what threads stored
+//   to shared memory;
 // * setmaxnreg, to move registers from a producer warpgroup to consumers;
-// * named barriers (bar.sync / bar.arrive), to order warpgroups' turns.
+// * named barriers (bar.sync / bar.arrive), to order warpgroups' turns;
+// * thread-block clusters: the block's rank, the cluster barrier, an
+//   mbarrier arrival on another block's barrier, and the TMA load that
+//   multicasts one tile to every block of a cluster.
 //
 // Layouts.  A tile of R rows of W bf16 (row bytes 2W = 128 with the 128-byte
-// swizzle, 32 with the 32-byte swizzle), loaded by the TMA at a shared
-// address aligned to 1024 bytes, holds element (r, c) at byte
-// swizzle(r * 2W + 2c), where swizzle XORs address bits [4, 4+n) with bits
-// [7, 7+n) (n = 3 for 128 bytes, 1 for 32).  As a wgmma operand such a
+// swizzle, 64 with the 64-byte one, 32 with the 32-byte one), loaded by the
+// TMA at a shared address aligned to 1024 bytes, holds element (r, c) at
+// byte swizzle(r * 2W + 2c), where swizzle XORs address bits [4, 4+n) with
+// bits [7, 7+n) (n = 3 for 128 bytes, 2 for 64, 1 for 32).  As a wgmma operand such a
 // tile is K-major when its rows are the product's M or N index and its
 // columns the summed index k, and MN-major when its rows are k.  The
 // descriptors below encode both, 8-row groups 8 * 2W bytes apart.
@@ -28,6 +34,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
 
 namespace sm90 {
 
@@ -79,6 +88,36 @@ inline cudaError_t packed_tile_map(CUtensorMap* map, const void* base, int B, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A launch's plan per key (the device and the sizes), worked out once: a
+// plan asks the CUDA runtime for attributes and occupancy, which costs host
+// time on every call where it is worked out anew.  `make(&plan)` fills in a plan
+// for a key not seen yet; a plan is kept only where it succeeded.
+template <typename Key, typename Plan>
+class PlanCache {
+ public:
+  template <typename Make>
+  cudaError_t get(const Key& key, Plan* plan, Make make) {
+    {
+      std::lock_guard<std::mutex> lock(mu_);
+      const auto it = plans_.find(key);
+      if (it != plans_.end()) {
+        *plan = it->second;
+        return cudaSuccess;
+      }
+    }
+    const cudaError_t err = make(plan);
+    if (err == cudaSuccess) {
+      std::lock_guard<std::mutex> lock(mu_);
+      plans_.emplace(key, *plan);
+    }
+    return err;
+  }
+
+ private:
+  std::mutex mu_;
+  std::map<Key, Plan> plans_;
+};
+
 // ---------------------------------------------------------------------------
 // device: shared memory, mbarriers, TMA
 // ---------------------------------------------------------------------------
@@ -128,6 +167,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// A ring slot and its phase, advanced in the order a producer fills the
+// ring: a consumer waits for the slot's full barrier at `phase`, the
+// producer for its empty barrier at `phase ^ 1`
+struct Ring {
+  int slot = 0, phase = 0;
+  __device__ __forceinline__ void next(int n) {
+    if (++slot == n) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
 // TMA: the box of `map` at coordinates (c0, c1, c2) into shared `dst`; the
 // bytes complete on `bar`
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -140,12 +192,54 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// the same, multicast: the box lands at `dst`'s offset in the shared memory
+// of every block of the cluster in `mask` (bit i: rank i), and its bytes
+// complete on the mbarrier at `bar`'s offset in each of them
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, uint16_t mask, int c0,
+                                                      int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+        "h"(mask), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: clusters
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster: after it, what each did
+// before (mbarrier inits included) is visible to all
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// one arrival on the mbarrier at `bar`'s offset in block `rank` of the
+// cluster (the arrival's default semantics, release at the block's scope,
+// as a consumer frees a slot whose reads its wgmma_wait completed)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(smem_u32(bar)), "r"(rank) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // device: wgmma
 // ---------------------------------------------------------------------------
 
 // descriptor layout types (bits 62-63)
-constexpr uint32_t kSwizzle128B = 1, kSwizzle32B = 3;
+constexpr uint32_t kSwizzle128B = 1, kSwizzle64B = 2, kSwizzle32B = 3;
 
 // a shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (given in bytes, encoded in 16-byte units), layout type
@@ -155,14 +249,16 @@ __device__ __forceinline__ uint64_t make_desc(const void* tile, uint32_t lbo, ui
          ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
 }
 
-// Tiles of rows of W bf16 (W = 64 with the 128-byte swizzle, W = 16 with the
-// 32-byte one), as written by the TMA.
+// Tiles of rows of W bf16 (W = 64 with the 128-byte swizzle, W = 32 with the
+// 64-byte one, W = 16 with the 32-byte one), as written by the TMA.
 template <int W>
 struct SwizzledTile {
-  static_assert(W == 64 || W == 16, "row widths of 128 or 32 bytes");
+  static_assert(W == 64 || W == 32 || W == 16, "row widths of 128, 64 or 32 bytes");
   static constexpr uint32_t kRowBytes = 2 * W;
   static constexpr uint32_t kGroupBytes = 8 * kRowBytes;  // one 8-row swizzle atom
-  static constexpr uint32_t kLayout = W == 64 ? kSwizzle128B : kSwizzle32B;
+  static constexpr uint32_t kLayout = W == 64 ? kSwizzle128B
+                                      : W == 32 ? kSwizzle64B
+                                                : kSwizzle32B;
 
   // K-major operand (rows = M or N, columns = k); k-step i of 16 columns
   // starts 32 bytes further into each row (the leading offset is unused)
@@ -322,6 +418,49 @@ __device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da, uint64_
       : SM90_F8(d, 0), SM90_F8(d, 8), SM90_F8(d, 16), SM90_F8(d, 24), SM90_F8(d, 32),
         SM90_F8(d, 40), SM90_F8(d, 48), SM90_F8(d, 56)
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A B for a 64 x N tile, k = 16, both operands K-major from shared
+// memory by descriptor, N in {8, 32, 64, 128, 160}.  The accumulator layout
+// is wgmma_rs's with j in [0, N / 8).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 64) {
+    wgmma_ss64<0, 0>(d, da, db, scale_d);
+  } else if constexpr (N == 32) {
+    wgmma_ss32(d, da, db, scale_d);
+  } else if constexpr (N == 128) {
+    wgmma_ss128(d, da, db, scale_d);
+  } else if constexpr (N == 160) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+        "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
+        "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, "
+        "%69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}"
+        ", %80, %81, p, 1, 1, 0, 0;\n}\n"
+        : SM90_F8(d, 0), SM90_F8(d, 8), SM90_F8(d, 16), SM90_F8(d, 24), SM90_F8(d, 32),
+          SM90_F8(d, 40), SM90_F8(d, 48), SM90_F8(d, 56), SM90_F8(d, 64), SM90_F8(d, 72)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    static_assert(N == 8, "wgmma_ss: N = 8, 32, 64, 128 or 160");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+// after threads' stores to shared memory that a wgmma (the async proxy)
+// reads next: each storing thread runs it before the barrier that orders
+// the stores before the wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 #undef SM90_F64

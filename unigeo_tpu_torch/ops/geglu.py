@@ -15,6 +15,16 @@ in both packages.
 * ``geglu_ffn``: the wrapper.  On a CUDA tensor it launches the kernel of
   ``csrc/geglu_ffn.cu`` (bf16 only; anything else raises) and adds one to
   ``geglu_ffn.launches``; on a CPU tensor it runs ``geglu_ffn_plain``.
+  Where the kernel's plan splits the hidden tiles over items (too few row
+  blocks to fill the card), the wrapper allocates the f32 scratch of the
+  splits' partial outputs, which a last kernel sums in a fixed order; where
+  it takes two passes (the up-projection, then the down-projection: at
+  C_out 640 and 1280), the bf16 scratch of h [M, H] between them.
+* ``kernel_plan``: the plan the kernel takes at a shape (``PLAN_KEYS``:
+  columns a consumer, column groups, hidden splits, x resident or
+  streamed, ring depths, items, blocks of the fused or down-projection
+  pass; two passes or not; the up-projection pass's splits, x, ring, items
+  and blocks).
 * ``geglu_ffn_plain``: the same function step by step in f32 with
   ``torch.matmul``, h and the output rounded to bf16 as in the kernel.
 * ``geglu_ffn_reference``: the unfused layers' arithmetic in the input
@@ -28,12 +38,19 @@ in both packages.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
 import torch.nn.functional as F
 
 GELU_TANH_C = 0.7978845608028654  # sqrt(2 / pi)
+# rows of a cluster's item (two blocks of 64): a buffer of whole items holds
+# every row the kernel may touch (out, and h in the two-pass plan)
+BLOCK_M = 128
+PLAN_KEYS = ("consumer_columns", "column_groups", "hidden_splits", "x_resident", "up_ring",
+             "w2_ring", "items", "blocks", "two_pass", "up_pass_hidden_splits",
+             "up_pass_x_resident", "up_pass_up_ring", "up_pass_items", "up_pass_blocks")
 # the largest |gelu_tanh'|, over all of R (at x of about 1.5)
 GELU_TANH_MAX_SLOPE = 1.13
 
@@ -137,19 +154,60 @@ def _check_kernel_input(x2, w1, b1, w2):
         raise ValueError("kernel takes x, w1, w2 aligned to 16 bytes")
 
 
-def _launch(lib, x2, w1, b1, w2, out):
-    """One launch of the kernel in ``lib`` (a library from ``_build``) into
-    ``out`` [M, C_out] (contiguous bf16)."""
+@functools.lru_cache(maxsize=None)
+def _plan(lib, device, m, c, hidden, c_out):
+    import ctypes
+
     from unigeo_tpu_torch import _build
 
+    plan = (ctypes.c_int * len(PLAN_KEYS))()
+    with torch.cuda.device(device):
+        err = lib.unigeo_geglu_ffn_plan(m, c, hidden, c_out, plan)
+    _build.check(lib, err, "geglu feed-forward plan")
+    return tuple(plan)
+
+
+def kernel_plan(lib, m, c, hidden, c_out, device=None):
+    """The plan of the kernel in ``lib`` at x [m, c], hidden ``hidden`` and
+    ``c_out`` output columns on ``device`` (the current one by default): a
+    dict of ``PLAN_KEYS``.  Worked out once per library, device and sizes,
+    here and in the library."""
+    device = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return dict(zip(PLAN_KEYS, _plan(lib, index, m, c, hidden, c_out)))
+
+
+def _run(lib, x2, w1, b1, w2, out, partial, hbuf):
+    """The kernel in ``lib`` into ``out`` with the scratch buffers its plan
+    needs: ``partial`` f32 [hidden splits, M, C_out] where the plan splits
+    the hidden tiles, ``hbuf`` bf16 [M, H] where it takes two passes (else
+    None)."""
+    from unigeo_tpu_torch import _build
+
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = lib.unigeo_geglu_ffn(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr(),
-            x2.shape[0], x2.shape[1], w1.shape[0] // 2, w2.shape[0], stream,
+            ptr(partial), ptr(hbuf), x2.shape[0], x2.shape[1], w1.shape[0] // 2, w2.shape[0],
+            stream,
         )
     _build.check(lib, err, "geglu feed-forward launch")
     return out
+
+
+def _launch(lib, x2, w1, b1, w2, out):
+    """One launch of the kernel in ``lib`` (a library from ``_build``) into
+    ``out`` [M, C_out] (contiguous bf16), with the scratch its plan needs."""
+    m, c, hidden, c_out = x2.shape[0], x2.shape[1], w1.shape[0] // 2, w2.shape[0]
+    plan = kernel_plan(lib, m, c, hidden, c_out, x2.device)
+    splits = plan["hidden_splits"]
+    partial = hbuf = None
+    if splits > 1:  # the splits' f32 partial outputs, summed by the kernel's last pass
+        partial = torch.empty((splits, m, c_out), dtype=torch.float32, device=x2.device)
+    if plan["two_pass"]:  # h, written by the up-projection pass, read by the down pass
+        hbuf = torch.empty((m, hidden), dtype=torch.bfloat16, device=x2.device)
+    return _run(lib, x2, w1, b1, w2, out, partial, hbuf)
 
 
 def geglu_ffn(x, w1, b1, w2):

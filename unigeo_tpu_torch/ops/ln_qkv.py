@@ -14,6 +14,8 @@ dtype (none for f32), the rounding points of the JAX kernel's body.
   ``csrc/ln_dense.cu`` (bf16 or f32, all inputs of one dtype and contiguous;
   anything else raises) and adds one to ``ln_dense.launches``; on a CPU
   tensor it runs ``ln_dense_plain``.
+* ``kernel_plan``: the bf16 body a launch takes (the wgmma body for 16-byte
+  rows, else the mma.sync body) and the wgmma body's plan.
 * ``ln_dense_plain``: the same function step by step with ``torch.matmul``.
 * ``ln_dense_reference``: the unfused layers, ``F.layer_norm`` then
   ``F.linear`` in f32 with the same two roundings (the JAX package's
@@ -26,7 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-BLOCK_M = 64  # rows per block of the kernel: a buffer of whole blocks holds every row it may touch
+BLOCK_M = 64  # rows of a kernel item: a buffer of whole items holds every row it may touch
+PLAN_KEYS = ("wgmma", "y_buffers", "w_ring", "n_splits", "items", "blocks")
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _U = 2.0**-24  # f32 unit roundoff
 
@@ -133,6 +136,23 @@ def _check_kernel_input(x, gamma, beta, weight, bias):
     if max(x.shape[0], x.shape[1], weight.shape[0]) >= 2**31:
         raise ValueError(f"kernel takes M, C, N below 2^31, not {tuple(x.shape)} / "
                          f"{weight.shape[0]}")
+
+
+def kernel_plan(lib, x, gamma, beta, weight):
+    """The bf16 body the kernel in ``lib`` takes for these tensors on the
+    current device and its plan: a dict of ``PLAN_KEYS``, ``wgmma`` 1 for
+    the TMA + wgmma body, 0 for the mma.sync body (the rest 0 then)."""
+    import ctypes
+
+    from unigeo_tpu_torch import _build
+
+    plan = (ctypes.c_int * len(PLAN_KEYS))()
+    with torch.cuda.device(x.device):
+        err = lib.unigeo_ln_dense_plan(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                                       weight.data_ptr(), x.shape[0], x.shape[1],
+                                       weight.shape[0], plan)
+    _build.check(lib, err, "LayerNorm -> dense plan")
+    return dict(zip(PLAN_KEYS, plan))
 
 
 def _launch(lib, x, gamma, beta, weight, bias, out, eps):

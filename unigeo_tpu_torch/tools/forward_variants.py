@@ -60,15 +60,17 @@ FRAMES = (0, 1, 24)
 ITERS = 20
 
 
-def build_variants(names: List[str], root: str) -> dict:
-    """name -> the loaded library of that variant, built under ``root``."""
+def build_variants(names: List[str], root: str, variants: Optional[dict] = None) -> dict:
+    """name -> the loaded library of that variant of ``variants`` (this
+    tool's ``VARIANTS`` by default), built under ``root``."""
     from unigeo_tpu_torch import _build
 
+    variants = VARIANTS if variants is None else variants
     jobs = {}
     for name in names:
         work = os.path.join(root, name)
         shutil.copytree(_build.CSRC_DIR, work)
-        for fname, anchor, repl in VARIANTS[name]:
+        for fname, anchor, repl in variants[name]:
             path = os.path.join(work, fname)
             with open(path) as f:
                 text = f.read()

@@ -15,8 +15,8 @@ The weights are random, drawn on the device from a fixed seed (no published
 checkpoint is in the repository).  It runs on the card unless ``--device cpu`` is
 given.  The other trainer families of ``train.py`` (pointmap, flow
 matching, disparity) and the other diffusion models are not ported yet
-(ROADMAP queue 1 item 9), nor are checkpoint IO (queue 1 item 8) and the
-device mesh (queue 1 item 10): ``--ckpt-dir`` and ``--mesh`` are refused.
+(ROADMAP queue 1 item 10), nor are checkpoint IO (queue 1 item 9) and the
+device mesh (queue 1 item 11): ``--ckpt-dir`` and ``--mesh`` are refused.
 
 ``main(argv, config=dict)`` takes the experiment config as a dict instead of
 ``--config``, so a caller needs neither a YAML file nor the ``yaml`` package.
@@ -30,9 +30,9 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-TRAINER_ROADMAP = "ROADMAP.md queue 1 item 9"
-CHECKPOINT_ROADMAP = "ROADMAP.md queue 1 item 8"
-PARALLEL_ROADMAP = "ROADMAP.md queue 1 item 10"
+TRAINER_ROADMAP = "ROADMAP.md queue 1 item 10"
+CHECKPOINT_ROADMAP = "ROADMAP.md queue 1 item 9"
+PARALLEL_ROADMAP = "ROADMAP.md queue 1 item 11"
 
 
 def _normalized_depth_target(gt, direct_depth: bool) -> np.ndarray:
