@@ -51,6 +51,21 @@ Phases, each printed on its own flushed line with the seconds since start:
              (the head-split kernel), whose metrics, and the fused GEGLU
              clip's against the one with neither switch, must agree within
              0.5%
+  disk_eval  the port's eval CLI (unigeo_tpu_torch.eval.main) on a copy of
+             configs/depthcrafter_7scenes.yaml (clips of 20, overlap 5, 384 x
+             512, 5 steps, DepthCrafter at SVD-XT width, random bf16 weights)
+             with root at a 7-Scenes-layout scene of 45 frames written by
+             unigeo_tpu_torch/tools/disk_fixture.py (480 x 640 when PIL is
+             there, else 384 x 512): --validate-root passes every check; a
+             run with --num-workers 2 writes 3 rows and the Average, finite;
+             its resume runs nothing; --num-workers 0 writes the same bytes;
+             clips_per_step 2 (clips 0 and 1 in one batched denoise) against
+             the serial run; clips 0 and 1 warm, one by one and as a batched
+             pair; one 45-frame clip in two windows of 25 (overlap 5) held
+             exactly against the two windows run alone and their blend
+             (under cuDNN's deterministic algorithms); the reader that
+             decoded, per-clip seconds and frames/s, peak memory, and the
+             packed kernel's launches against the prediction on every path
   train      the port's trainer (unigeo_tpu_torch.train.main) at SVD-XT
              width on synthetic 384 x 512 clips, bf16: one warm-up step and
              three measured steps; losses, step seconds, peak memory, each
@@ -1282,6 +1297,366 @@ def phase_eval(dev):
                 clip_seconds={label: runs[label]["seconds"] for label in runs})
 
 
+# the disk-eval phase: a 7-Scenes-layout scene of DISK_FRAMES frames read
+# through configs/depthcrafter_7scenes.yaml's settings (clips of 20 with
+# overlap 5: 3 clips), then one clip of all 45 frames in windows of 25
+# overlapping by 5 (windows at 0 and 20)
+DISK_FRAMES, DISK_CLIP, DISK_OVERLAP, DISK_CLIPS = 45, 20, 5, 3
+DISK_H, DISK_W, DISK_STEPS, DISK_SEED = 384, 512, 5, 42
+DISK_WINDOW, DISK_WINDOW_OVERLAP = 25, 5
+# clips_per_step 2 against the serial run, bf16 at SVD-XT width.  The
+# batch changes nothing per clip but the row count M of the UNet's products
+# (encode and decode run per clip; attention, group norm and elementwise
+# work per clip), so cuBLAS / cuDNN may sum a product's K terms in another
+# order.  Two f32 sums of K terms differ by about K 2^-24 of their
+# magnitude, so a bf16 output rounds one unit (2^-8) the other way with
+# probability p ~ K 2^-16: 0.02 to 0.18 for the UNet's K of 1280 to 11520,
+# an rms change of sqrt(p) 2^-8 <= 1.7e-3 of each product output.  Such
+# changes add about in quadrature over the ~L = 300 products of the five
+# UNet evaluations that feed the last latent: sqrt(L) 1.7e-3 ~ 3e-2 of its
+# scale, carried by the decoder into the normalised disparity x = 1 / depth
+# - 0.1 in [0, 1].  Held: the mean over pixels of |x_batched - x_serial|
+# within 2^-5 (the estimate's upper end), each batched clip nearer its own
+# serial clip than any other, and the metrics within EVAL_METRIC_TOL_REL
+# (BASELINE.json's 0.5%); the largest |dx| is reported.
+BATCH_X_MEAN_TOL = 2.0**-5
+
+
+def disk_eval_config(root, cache_dir, **model_params):
+    """configs/depthcrafter_7scenes.yaml's content as a dict (the machine with
+    the card may lack PyYAML), with ``root`` at the fixture, the sample lists
+    cached in ``cache_dir``, the SVD-XT widths written out, ``model_params``
+    added and vis_depth off (its strips need matplotlib)."""
+    return {
+        "dataset": "sevenScenesDataset", "root": root, "h": DISK_H, "w": DISK_W,
+        "clip_length": DISK_CLIP, "clip_overlap": DISK_OVERLAP, "split": "test",
+        "dataset_params": {"cache_dir": cache_dir},
+        "model_name": "DepthCrafter",
+        "model_params": {"checkpoint_path": None, "num_inference_steps": DISK_STEPS,
+                         "overlap": 25, "unet_config": SVD_XT_UNET, "clip_config": SVD_XT_CLIP,
+                         **model_params},
+        "eval_depth": {"metric_names": ["Abs Rel", "delta < 1.25", "delta < 1.25^2",
+                                        "delta < 1.25^3"], "depth_alignment": "lstsq"},
+        "eval_normal": {"metric_names": ["normal mean", "normal median", "angle < 7.5",
+                                         "angle < 11.25"]},
+        "vis_depth": False,
+    }
+
+
+def run_cli(argv):
+    """(stdout, exit code or None) of ``unigeo_tpu_torch.eval.main(argv)``."""
+    import io
+
+    from unigeo_tpu_torch import eval as eval_cli
+
+    buf = io.StringIO()
+    code = None
+    with contextlib.redirect_stdout(buf):
+        try:
+            eval_cli.main(argv)
+        except SystemExit as e:  # --validate-root ends with its report's verdict
+            code = e.code
+    return buf.getvalue(), code
+
+
+@contextlib.contextmanager
+def recorded_outputs(store):
+    """Inside the block, every DepthCrafter.forward / forward_batch output is
+    also kept in ``store`` under its clip's dataset index (observation only)."""
+    from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
+
+    forward, forward_batch = DepthCrafter.forward, DepthCrafter.forward_batch
+
+    def forward_kept(self, data, *args, **kwargs):
+        out = forward(self, data, *args, **kwargs)
+        store[data["_index"]] = out
+        return out
+
+    def forward_batch_kept(self, datas, *args, **kwargs):
+        outs = forward_batch(self, datas, *args, **kwargs)
+        store.update({d["_index"]: o for d, o in zip(datas, outs)})
+        return outs
+
+    DepthCrafter.forward, DepthCrafter.forward_batch = forward_kept, forward_batch_kept
+    try:
+        yield store
+    finally:
+        DepthCrafter.forward, DepthCrafter.forward_batch = forward, forward_batch
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms inside the block (its
+    default heuristics may pick one whose sums land in another order from
+    run to run: found for the f32 UNet, tests/test_torch_cuda.py)."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def read_csv_rows(path):
+    """metrics.csv's rows as dicts, its unnamed first column as "seq_name"."""
+    import csv
+
+    with open(path) as f:
+        header, *rows = list(csv.reader(f))
+    return [dict(zip(["seq_name"] + header[1:], row)) for row in rows]
+
+
+def phase_disk_eval(dev):
+    """The port's eval CLI over a 7-Scenes-layout fixture: the preflight, a run
+    with prefetch, its resume, the serial run (the same CSV, byte for byte),
+    the batched denoise (clips_per_step 2) against the serial run, then the
+    two-window crossfade held exactly against its windows."""
+    import gc
+
+    from unigeo_tpu_torch import native
+    from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
+    from unigeo_tpu_torch.registry import get_dataset_cls
+    from unigeo_tpu_torch.tools.disk_fixture import write_seven_scenes
+
+    try:
+        import PIL  # noqa: F401  (only whether it is there)
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    reader = native.reader_name()
+    log("disk_eval", f"PIL {'present' if have_pil else 'absent'}; clip reader {reader}"
+        + (f" (native build: {native.build_error})" if native.build_error else ""))
+    if not have_pil and reader != "native":
+        raise RuntimeError("this machine has neither PIL nor a native clip reader it can build "
+                           f"({native.build_error}): no PNG of the fixture can be decoded")
+    # 7-Scenes' own 480 x 640 when PIL can resize it to the config's
+    # 384 x 512, else frames at 384 x 512 (no resize runs)
+    fh, fw = (480, 640) if have_pil else (DISK_H, DISK_W)
+    work = tempfile.mkdtemp(prefix="unigeo_disk_")
+    summary = {"reader": reader, "pil": have_pil, "frames_hw": [fh, fw]}
+    try:
+        root, cache = os.path.join(work, "7scenes"), os.path.join(work, "lists")
+        t0 = time.perf_counter()
+        write_seven_scenes(root, DISK_FRAMES, fh, fw)
+        log("disk_eval", f"fixture: {DISK_FRAMES} frames {fh} x {fw} in "
+            f"{time.perf_counter() - t0:.2f}s")
+
+        def config_file(name, **model_params):
+            path = os.path.join(work, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(disk_eval_config(root, cache, **model_params), f)
+            return path
+
+        serial_cfg = config_file("serial")
+        text, code = run_cli(["--config", serial_cfg, "--validate-root"])
+        lines = text.splitlines()
+        log("disk_eval", f"--validate-root exit {code}: {json.dumps(lines)}")
+        if not (code == 0 and lines[0].startswith(f"clip reader: {reader}")
+                and lines[1] == "preflight: 7scenes.test — OK"
+                and all(ln.startswith("  ✓ ") for ln in lines[2:]) and len(lines) > 8):
+            raise AssertionError(f"the preflight did not pass every check: {text}")
+
+        outputs = {}
+
+        def cli_run(label, cfg, workers, out_dir=None):
+            out_dir = out_dir or os.path.join(work, label)
+            times = os.path.join(work, f"{label}.jsonl")
+            gc.collect()
+            torch.cuda.synchronize(dev)  # the device's context exists before its stats are reset
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t_run = time.perf_counter()
+            with recorded_outputs(outputs.setdefault(label, {})):
+                text, code = run_cli(["--config", cfg, "--output", out_dir, "--num-workers",
+                                      str(workers), "--clip-times", times])
+            torch.cuda.synchronize()
+            run = {"seconds": time.perf_counter() - t_run, "launches": read_counts(),
+                   "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                   "csv": os.path.join(out_dir, "metrics.csv"), "clips": []}
+            if code is not None or "Averages:" not in text:
+                raise AssertionError(f"{label}: the CLI ended with {code}: {text[-2000:]}")
+            if os.path.exists(times):
+                with open(times) as f:
+                    run["clips"] = [json.loads(line) for line in f]
+            for c in run["clips"]:
+                log("disk_eval", f"{label} clip {c['clip']}: {c['frames']} frames "
+                    f"{c['seconds']:.3f}s {c['fps']:.3f} frames/s")
+            log("disk_eval", f"{label}: {run['seconds']:.2f}s, peak {run['peak_gib']:.2f} GiB, "
+                f"launches {json.dumps(run['launches'])}")
+            return run
+
+        def expect_launches(label, run, packed):
+            want = {name: 0 for name in kernel_wrappers()}
+            want["flash_attention_packed"] = packed
+            if run["launches"] != want:
+                raise AssertionError(f"{label}: launches {run['launches']} != {want}")
+
+        per_clip = predicted_launches(SVD_XT_UNET, SVD_XT_CLIP, DISK_H, DISK_W, DISK_STEPS)
+        unet = DISK_STEPS * unet_kernel_attentions(SVD_XT_UNET, DISK_H, DISK_W)
+        per_pair = unet + 2 * (per_clip - unet)
+        summary["launches_predicted"] = {"per_clip": per_clip, "per_two_window_clip": 2 * per_clip,
+                                         "per_batched_pair": per_pair}
+
+        # prefetch on two threads; every clip's row, the Average, finite
+        prefetch = cli_run("prefetch", serial_cfg, 2)
+        expect_launches("prefetch", prefetch, DISK_CLIPS * per_clip)
+        with open(prefetch["csv"], "rb") as f:
+            csv_bytes = f.read()
+        rows = read_csv_rows(prefetch["csv"])
+        log("disk_eval", f"metrics.csv {json.dumps(csv_bytes.decode())}")
+        names = [r["seq_name"] for r in rows]
+        want_names = [f"{i:03d}_chess_seq-01" for i in range(DISK_CLIPS)] + ["Average"]
+        if names != want_names or len(prefetch["clips"]) != DISK_CLIPS:
+            raise AssertionError(f"rows {names}, timed clips {len(prefetch['clips'])}")
+        if not all(np.isfinite(float(v)) for r in rows for k, v in r.items() if k != "seq_name"):
+            raise AssertionError(f"non-finite metrics: {rows}")
+        for i in range(DISK_CLIPS):
+            check_prediction(f"disk clip {i}", outputs["prefetch"][i], DISK_CLIP, DISK_H, DISK_W)
+
+        # resumed: every clip skipped, nothing launched, the CSV unchanged
+        resumed = cli_run("resumed", serial_cfg, 2, out_dir=os.path.join(work, "prefetch"))
+        with open(prefetch["csv"], "rb") as f:
+            unchanged = f.read() == csv_bytes
+        log("disk_eval", f"resumed: {len(resumed['clips'])} clips run, CSV unchanged {unchanged}")
+        if resumed["clips"] or outputs["resumed"] or not unchanged:
+            raise AssertionError("the resumed run ran a clip or changed the CSV")
+        expect_launches("resumed", resumed, 0)
+
+        # no prefetch: the same bytes
+        serial = cli_run("serial", serial_cfg, 0)
+        expect_launches("serial", serial, DISK_CLIPS * per_clip)
+        with open(serial["csv"], "rb") as f:
+            same = f.read() == csv_bytes
+        log("disk_eval", f"--num-workers 0 CSV byte-identical to --num-workers 2: {same}")
+        if not same:
+            raise AssertionError("the serial run's CSV differs from the prefetch run's")
+
+        # clips_per_step 2: clips 0 and 1 in one batched denoise, clip 2 alone
+        batched = cli_run("batched", config_file("batched", clips_per_step=2), 0)
+        expect_launches("batched", batched, per_pair + per_clip)
+        brows = {r["seq_name"]: r for r in read_csv_rows(batched["csv"])}
+        disparity = lambda run, i: 1.0 / outputs[run][i]["pred_depths"].astype(np.float64) - 0.1
+        x_dev, nearest = {}, {}
+        for i in range(DISK_CLIPS):
+            d = np.abs(disparity("batched", i) - disparity("serial", i))
+            x_dev[i] = {"mean": float(d.mean()), "max": float(d.max())}
+            nearest[i] = min(range(DISK_CLIPS), key=lambda j: np.abs(
+                disparity("batched", i) - disparity("serial", j)).mean())
+        metric_rel = {
+            name: max(abs(float(brows[name][k]) - float(r[k])) / abs(float(r[k]))
+                      for k in EVAL_KEYS)
+            for name, r in ((r["seq_name"], r) for r in rows if r["seq_name"] != "Average")}
+        log("disk_eval", f"batched vs serial: |dx| of x = 1/depth - 0.1 {json.dumps(x_dev)} "
+            f"(mean tol {BATCH_X_MEAN_TOL}), nearest serial clip {json.dumps(nearest)}, "
+            f"metric rel dev {json.dumps(metric_rel)} (tol "
+            f"{EVAL_METRIC_TOL_REL}); clip 2 ran alone through forward_batch, identical to the "
+            f"serial forward: {x_dev[2]['max'] == 0.0}")
+        if not (all(x_dev[i]["mean"] <= BATCH_X_MEAN_TOL and nearest[i] == i
+                    for i in range(DISK_CLIPS))
+                and all(v <= EVAL_METRIC_TOL_REL for v in metric_rel.values())):
+            raise AssertionError(f"the batched denoise is off the serial run: {x_dev} "
+                                 f"{metric_rel}")
+        summary.update(
+            clip_seconds={k: [c["seconds"] for c in run["clips"]]
+                          for k, run in (("prefetch", prefetch), ("serial", serial),
+                                         ("batched", batched))},
+            clip_fps={k: [c["fps"] for c in run["clips"]]
+                      for k, run in (("prefetch", prefetch), ("serial", serial),
+                                     ("batched", batched))},
+            peak_gib={"prefetch": prefetch["peak_gib"], "serial": serial["peak_gib"],
+                      "batched": batched["peak_gib"]},
+            run_seconds={"prefetch": prefetch["seconds"], "serial": serial["seconds"],
+                         "batched": batched["seconds"]},
+            batched_x_dev=x_dev, batched_metric_rel=metric_rel)
+        del outputs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the two-window crossfade on one 45-frame clip, held exactly against
+        # its windows run alone: the same kernels on the same inputs, with
+        # cuDNN's deterministic algorithms
+        ds = get_dataset_cls("sevenScenesDataset")(
+            root=root, clip_length=DISK_FRAMES, clip_overlap=0, input_size=(DISK_H, DISK_W),
+            target_size=(DISK_H, DISK_W), cache_dir=cache)
+        data = ds[0]
+        params = disk_eval_config(root, cache, window_size=DISK_WINDOW,
+                                  overlap=DISK_WINDOW_OVERLAP)["model_params"]
+        model = DepthCrafter(**params, device=dev)
+        pipe = model.pipeline
+
+        # warm times of clips 0 and 1 one by one and as one batched pair (the
+        # CLI runs above met every shape first)
+        ds20 = get_dataset_cls("sevenScenesDataset")(
+            root=root, clip_length=DISK_CLIP, clip_overlap=DISK_OVERLAP,
+            input_size=(DISK_H, DISK_W), target_size=(DISK_H, DISK_W), cache_dir=cache)
+        pair = [ds20[0], ds20[1]]
+        warm = {}
+        for label, run in (("serial", lambda: [model.forward(d) for d in pair]),
+                           ("batched", lambda: model.forward_batch(pair)),
+                           ("batched_again", lambda: model.forward_batch(pair))):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t_pair = time.perf_counter()
+            run()
+            torch.cuda.synchronize(dev)
+            warm[label] = {"seconds": time.perf_counter() - t_pair,
+                           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        log("disk_eval", f"clips 0 and 1, warm: {json.dumps(warm)} ({2 * DISK_CLIP} frames)")
+        summary["warm_pair"] = warm
+        del pair, ds20
+
+        frames = pipe.prepare_clip(data["images"])
+        starts = list(range(0, DISK_FRAMES - DISK_WINDOW_OVERLAP, DISK_WINDOW - DISK_WINDOW_OVERLAP))
+        if starts != [0, 20]:
+            raise AssertionError(f"window starts {starts}")
+        with deterministic_cudnn():
+            reset_counts()
+            t_call = time.perf_counter()
+            decoded = pipe(frames, num_inference_steps=DISK_STEPS, window_size=DISK_WINDOW,
+                           overlap=DISK_WINDOW_OVERLAP, seed=DISK_SEED)
+            torch.cuda.synchronize()
+            call_s, call_counts = time.perf_counter() - t_call, read_counts()
+            wins = []
+            for wi, start in enumerate(starts):
+                noise, aug = pipe.draw_clip_noise(pipe.window_generator(DISK_SEED, wi),
+                                                  DISK_WINDOW, DISK_H, DISK_W)
+                wins.append(pipe.run_window_staged(frames[start:start + DISK_WINDOW], noise,
+                                                   DISK_STEPS, aug_noise=aug))
+        ov = DISK_WINDOW_OVERLAP
+        r = torch.from_numpy(np.linspace(0.0, 1.0, ov, endpoint=False)).to(dev).reshape(-1, 1, 1, 1)
+        blend = ((1.0 - r) * wins[0][-ov:].double() + r * wins[1][:ov].double()).float()
+        max_dev = {
+            "frames_0_19": (decoded[:20] - (wins[0][:20] + 1.0) / 2.0).abs().max().item(),
+            "frames_20_24": (decoded[20:25] - (blend + 1.0) / 2.0).abs().max().item(),
+            "frames_25_44": (decoded[25:] - (wins[1][ov:] + 1.0) / 2.0).abs().max().item(),
+        }
+        exact = {k: v == 0.0 for k, v in max_dev.items()}
+        with deterministic_cudnn():
+            reset_counts()
+            t_fwd = time.perf_counter()
+            out = model.forward(data)
+            torch.cuda.synchronize()
+            fwd_s, fwd_counts = time.perf_counter() - t_fwd, read_counts()
+        check_prediction("windowed forward", out, DISK_FRAMES, DISK_H, DISK_W)
+        exact["forward_is_the_call_postprocessed"] = np.array_equal(
+            out["pred_depths"], model._finalize(decoded, data)["pred_depths"])
+        log("disk_eval", f"two windows of {DISK_WINDOW} (overlap {ov}) on {DISK_FRAMES} frames: "
+            f"__call__ {call_s:.3f}s {DISK_FRAMES / call_s:.3f} frames/s, launches "
+            f"{call_counts['flash_attention_packed']}; forward {fwd_s:.3f}s, launches "
+            f"{fwd_counts['flash_attention_packed']} (predicted {2 * per_clip}); max |dev| "
+            f"{json.dumps(max_dev)}, exact {json.dumps(exact)}")
+        expect_launches("windowed __call__", {"launches": call_counts}, 2 * per_clip)
+        expect_launches("windowed forward", {"launches": fwd_counts}, 2 * per_clip)
+        if not all(exact.values()):
+            raise AssertionError(f"the crossfade is not its windows: {exact}")
+        summary.update(window_call_s=call_s, window_forward_s=fwd_s, window_exact=exact)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("disk_eval", json.dumps(summary))
+    return summary
+
+
 # the training phase: frames per clip, resolution, measured steps after one
 # warm-up step
 TRAIN_FRAMES, TRAIN_H, TRAIN_W, TRAIN_STEPS = 25, 384, 512, 3
@@ -1589,6 +1964,9 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     evaluated = phase_eval(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    phase_disk_eval(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     trained = phase_train(dev)

@@ -85,6 +85,7 @@ wherever the model ran (chip_smoke.py's metrics phase holds the card run's
 CSV against the CPU run's).
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -973,3 +974,133 @@ def test_pcd_metrics_on_the_card_match_the_cpu(cuda):
         assert abs(on_card[key] - on_cpu[key]) <= tol, key
     np.testing.assert_array_equal(on_card["gt_pcd"][0], on_cpu["gt_pcd"][0])
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+# --- the windowed crossfade, the batched denoise and the clip reader -----------------
+
+PIPELINE_TOL_REL = 1e-3  # the tiny f32 pipeline, card against CPU (chip_smoke.py)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms inside the block: by
+    default its heuristics pick, for some of the f32 UNet's convolutions, an
+    algorithm whose sums land in another order from run to run (the same
+    window twice differs by ~5e-6 in its latents), so "the same kernels on
+    the same inputs" holds only under this setting."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+@pytest.fixture()
+def tiny_card_pipeline(cuda):
+    """The tiny f32 pipeline on the card at 128 x 128 (256 latent tokens: the
+    UNet's spatial attentions take the kernel), random weights from a seed."""
+    from unigeo_tpu_torch.models.depthcrafter.pipeline import tiny_pipeline
+
+    pipe = tiny_pipeline(device=cuda, dtype=torch.float32)
+    return pipe.init_random(torch.Generator(device=cuda).manual_seed(3))
+
+
+def test_windowed_call_on_the_card_is_two_windows_crossfaded(tiny_card_pipeline):
+    """t = 6, window 4, overlap 2: windows at 0 and 2, each drawn from its
+    own generator; frames 0-1 are window 0's, 4-5 window 1's 2-3, and 2-3
+    the f64 blend (1 - r) old + r new, r = 0, 0.5, rounded to f32; exact
+    (with cuDNN's deterministic algorithms)."""
+    pipe = tiny_card_pipeline
+    h = w = 128
+    frames = torch.from_numpy(np.random.default_rng(6).random((6, h, w, 3)).astype(np.float32))
+    before = flash_attention_packed.launches
+    with deterministic_cudnn():
+        out = pipe(frames, num_inference_steps=5, window_size=4, overlap=2, seed=7)
+        wins = []
+        for wi, start in enumerate((0, 2)):
+            noise, aug = pipe.draw_clip_noise(pipe.window_generator(7, wi), 4, h, w)
+            wins.append(pipe.run_window_staged(frames[start:start + 4], noise, 5,
+                                               aug_noise=aug).cpu().numpy())
+    assert flash_attention_packed.launches > before and out.device.type == "cuda"
+    r = np.array([0.0, 0.5]).reshape(-1, 1, 1, 1)
+    blend = ((1.0 - r) * wins[0][2:] + r * wins[1][:2]).astype(np.float32)
+    want = (np.concatenate([wins[0][:2], blend, wins[1][2:]]) + 1.0) / 2.0
+    got = out.cpu().numpy()
+    print("max |out - want| per frame", np.abs(got - want).reshape(6, -1).max(1).tolist())
+    assert np.array_equal(got, want)
+
+
+def test_window_on_the_card_is_deterministic(tiny_card_pipeline):
+    """Under cuDNN's deterministic algorithms the same window twice gives
+    the same bits at every stage (encode, denoise, decode): the crossfade's
+    exactness against its windows rests on it.  With the default algorithms
+    the deviation is printed, not held."""
+    pipe = tiny_card_pipeline
+    rng = np.random.default_rng(8)
+    frames = torch.from_numpy(rng.random((4, 128, 128, 3)).astype(np.float32)).to(pipe.device)
+    noise, aug = pipe.draw_clip_noise(torch.Generator(device=pipe.device).manual_seed(1),
+                                      4, 128, 128)
+    nchw = lambda a: a.permute(0, 3, 1, 2)
+
+    def stage_diffs():
+        runs = []
+        for _ in range(2):
+            cond, ctx = pipe._encode_stage(nchw(frames).contiguous(), nchw(aug))
+            x = pipe._denoise_loop(cond[None], ctx[None], nchw(noise)[None], 5)[0]
+            runs.append({"cond": cond, "context": ctx, "latents": x,
+                         "decoded": pipe._decode_stage(x)})
+        return {k: (runs[0][k].float() - runs[1][k].float()).abs().max().item() for k in runs[0]}
+
+    print("default algorithms: stage max |run 1 - run 2|", stage_diffs())
+    with deterministic_cudnn():
+        diffs = stage_diffs()
+    print("deterministic cuDNN: stage max |run 1 - run 2|", diffs)
+    assert all(v == 0.0 for v in diffs.values()), diffs
+
+
+def test_forward_batch_on_the_card_matches_serial(tiny_card_pipeline):
+    """B = 2 through one batched denoise against each clip alone, f32 with
+    TF32 off: decoded frames within the pipeline bound, depths within the
+    adapter's 1e-2 (tests/test_torch_windows.py)."""
+    from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
+
+    pipe = tiny_card_pipeline
+    rng = np.random.default_rng(9)
+    k = np.array([[100.0, 0, 64], [0, 100.0, 64], [0, 0, 1]], np.float32)
+    datas = [{"images": rng.integers(0, 256, (2, 3, 128, 128)).astype(np.uint8),
+              "intrinsics": np.stack([k] * 2)} for _ in range(2)]
+    model = DepthCrafter(pipeline=pipe, clips_per_step=2, seed=5)
+    batched = model.forward_batch(datas)
+    for data, got in zip(datas, batched):
+        want = model.forward(data)
+        rel = np.abs(got["pred_depths"] - want["pred_depths"]).max() / np.abs(
+            want["pred_depths"]).max()
+        assert rel < 1e-2, rel
+    noise, aug = pipe.draw_clip_noise(torch.Generator(device=pipe.device).manual_seed(5),
+                                      2, 128, 128)
+    frames = torch.stack([pipe.prepare_clip(d["images"]) for d in datas])
+    dec = pipe.run_clips_staged(frames, noise.expand(2, *noise.shape), 5,
+                                aug_noise=aug.expand(2, *aug.shape))
+    for i in range(2):
+        one = pipe.run_window_staged(frames[i], noise, 5, aug_noise=aug)
+        assert ((dec[i] - one).abs().max() / one.abs().max()).item() < PIPELINE_TOL_REL
+
+
+def test_native_reader_on_the_card_machine(cuda, tmp_path):
+    """The clip reader builds with the machine's g++ and codec libraries (or
+    the test says why not) and decodes the standard library's PNGs."""
+    from unigeo_tpu_torch import native
+    from unigeo_tpu_torch.tools.disk_fixture import write_png
+
+    if not native.available():
+        pytest.skip(f"the native reader does not build here: {native.build_error}")
+    rng = np.random.default_rng(4)
+    rgb = rng.integers(0, 256, (5, 6, 3), np.uint8)
+    grey = rng.integers(0, 65536, (5, 6), np.uint16)
+    write_png(str(tmp_path / "c.png"), rgb)
+    write_png(str(tmp_path / "d.png"), grey)
+    np.testing.assert_array_equal(native.decode_clip_rgb([str(tmp_path / "c.png")])[0],
+                                  rgb.transpose(2, 0, 1).astype(np.float32))
+    np.testing.assert_array_equal(native.decode_clip_depth([str(tmp_path / "d.png")], 1000.0)[0],
+                                  grey.astype(np.float32) / np.float32(1000.0))

@@ -61,9 +61,12 @@ def test_eval_config_from_yaml_equals_jax(name):
 
 
 def test_registry_resolves_the_port_datasets():
+    from unigeo_tpu_torch.data.loaders import ScannetPPDataset
+
     assert get_dataset_cls("SyntheticBoxDataset") is SyntheticBoxDataset
+    assert get_dataset_cls("ScannetPPDataset") is ScannetPPDataset
     with pytest.raises(KeyError, match="SyntheticBoxDataset"):
-        get_dataset_cls("ScannetPPDataset")
+        get_dataset_cls("NoSuchDataset")
 
 
 @pytest.mark.parametrize("compute", [True, False])

@@ -374,8 +374,10 @@ def test_tiny_depthcrafter_eval_rows_match_jax(shared_tiny_pipeline, tmp_path):
 
 def test_unported_sections_and_options_raise(tmp_path):
     cfg = EvalConfig.from_dict(_identity_config())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        run_evaluation(cfg, save_dir=str(tmp_path), num_workers=2)
+    # prefetch runs: two clips decoded on two threads, scored in order
+    manager = run_evaluation(cfg, save_dir=str(tmp_path / "prefetch"), num_workers=2,
+                             max_clips=2, verbose=False, device="cpu")
+    assert manager.sequence_names == ["000_scene00", "001_scene00"]
     with pytest.raises(NotImplementedError, match="item 12"):
         run_evaluation(cfg, save_dir=str(tmp_path), debug_nans=True)
 
@@ -400,8 +402,6 @@ def test_depthcrafter_constructor_takes_the_config_keys_and_raises_on_unported()
         DepthCrafter(checkpoint_path="weights.npz")
     with pytest.raises(NotImplementedError, match="item 6"):
         DepthCrafter(solver="heun")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        DepthCrafter(clips_per_step=2)
     # without a pipeline: built at the given configs, random weights from
     # the seed (the same seed, the same weights); reference keys ignored
     unet = tiny_unet_config()
@@ -415,10 +415,16 @@ def test_depthcrafter_constructor_takes_the_config_keys_and_raises_on_unported()
     for pa, pb in zip(a.pipeline.unet.parameters(), b.pipeline.unet.parameters()):
         assert torch.equal(pa, pb)
     assert any(p.abs().max() > 0 for p in a.pipeline.unet.parameters())
-    # a window shorter than the clip raises before any work
-    model = DepthCrafter(pipeline=tiny_pipeline(device="cpu"), window_size=2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        model.forward({"images": np.zeros((4, 3, 64, 64), np.uint8)})
+    # clips_per_step is the evaluator's batch
+    assert DepthCrafter(clips_per_step=2, **kwargs).eval_batch_size == 2
+    assert a.eval_batch_size == 1
+    # a window shorter than the clip runs the crossfaded windows
+    pipe = tiny_pipeline(device="cpu").init_random(torch.Generator().manual_seed(0))
+    model = DepthCrafter(pipeline=pipe, window_size=2, overlap=1, num_inference_steps=1)
+    k = np.array([[50.0, 0, 32], [0, 50.0, 32], [0, 0, 1]], np.float32)
+    out = model.forward({"images": np.zeros((4, 3, 64, 64), np.uint8),
+                         "intrinsics": np.stack([k] * 4)})
+    assert out["pred_depths"].shape == (4, 64, 64) and np.isfinite(out["pred_depths"]).all()
 
 
 def test_cli_runs_a_yaml_config_on_the_cpu(tmp_path, capsys):
@@ -433,5 +439,8 @@ def test_cli_runs_a_yaml_config_on_the_cpu(tmp_path, capsys):
                              "--strict"])
     assert len(manager.sequence_names) == 1 and (out / "metrics.csv").exists()
     assert "Averages:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 4"):
+    # the preflight of the config's dataset: its report, exit code 0
+    with pytest.raises(SystemExit) as done:
         eval_cli.main(["--config", str(path), "--validate-root"])
+    assert done.value.code == 0
+    assert "preflight: synthetic_box.test — OK" in capsys.readouterr().out

@@ -132,3 +132,45 @@ def test_evaluator_imports_no_pandas_yaml_pil_or_matplotlib():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+# the modules of the loader, prefetch and batched-denoise slice, which the
+# walk above must find
+LOADER_SLICE_MODULES = [
+    "unigeo_tpu_torch/data/paths.py",
+    "unigeo_tpu_torch/data/exr.py",
+    "unigeo_tpu_torch/data/loaders.py",
+    "unigeo_tpu_torch/data/hypersim.py",
+    "unigeo_tpu_torch/data/preflight.py",
+    "unigeo_tpu_torch/data/prefetch.py",
+    "unigeo_tpu_torch/native/__init__.py",
+    "unigeo_tpu_torch/tools/disk_fixture.py",
+    "unigeo_tpu_torch/models/depthcrafter/pipeline.py",
+    "unigeo_tpu_torch/models/depthcrafter/model.py",
+]
+
+
+@pytest.mark.parametrize("rel", LOADER_SLICE_MODULES)
+def test_loader_slice_modules_are_checked(rel):
+    assert os.path.join(ROOT, rel) in _port_files()
+
+
+def test_loader_slice_imports_no_pil_pandas_h5py_or_yaml():
+    """The card machine may lack all four: the loaders import PIL only to
+    decode or resize, Hypersim pandas and h5py only to read its files, and
+    the registry's disk datasets register without any of them."""
+    mods = [rel[:-3].replace("/", ".").removesuffix(".__init__") for rel in LOADER_SLICE_MODULES]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from unigeo_tpu_torch.registry import get_dataset_cls\n"
+        "get_dataset_cls('sevenScenesDataset'); get_dataset_cls('HyperSimDataset')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'unigeo_tpu', 'PIL', 'pandas', 'h5py', 'yaml'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]

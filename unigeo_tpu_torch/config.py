@@ -4,19 +4,23 @@ The YAML schema is the reference UniGeo one (dataset class name, root,
 h, w, clip_length, clip_overlap, split, model_name, model_params, the
 eval_* sections).  ``EvalConfig.from_dict`` takes it as a dict, so a caller
 without a YAML file or the ``yaml`` package can build one; ``from_yaml``
-imports ``yaml`` only when it is called.
+reads a ``.json`` file with ``json`` and imports ``yaml`` only for YAML.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, List, Optional
 
 
 def load_config(path: str) -> Dict[str, Any]:
-    import yaml
-
+    """A YAML config, or a JSON one (``.json``, read without PyYAML)."""
     with open(path, "r") as f:
+        if path.endswith(".json"):
+            return json.load(f)
+        import yaml
+
         return yaml.safe_load(f)
 
 

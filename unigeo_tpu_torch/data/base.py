@@ -6,10 +6,14 @@ slices each scene into clips (sliding windows, the last one padded by
 repeating its final frame), backprojects depth into OpenGL camera points,
 rebases geometry to the keyview and builds the validity mask.
 
-Files are decoded frame by frame in Python (``PIL`` is imported only where a
-file is decoded); ``_native_clip`` returns None until the C++ clip reader is
-ported with the eval driver.  A ``root`` of None is kept as given: the
-``paths.toml`` root lookup belongs to the disk loaders, not ported yet.
+A whole clip of stock files (PNG / JPEG / WebP RGB, grey PNG depth, RGB
+normal maps) is decoded in one call of the native reader
+(``unigeo_tpu_torch/native``) when it is built; otherwise, and for a
+dataset whose per-frame readers are its own, frame by frame in Python.  The
+stock per-frame readers also try the native reader first, and import
+``PIL`` only for a file it does not take.  Both routes give the same arrays
+bit for bit.  A ``root`` of None is looked up in ``paths.toml``
+(``data/paths.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,24 @@ from unigeo_tpu_torch.ops.backproject import backproject_to_cv_position
 from unigeo_tpu_torch.ops.normals import surface_normals_from_points
 
 
+def _native_decode(kind: str, paths: List[str], depth_scale: float = 1.0):
+    """Stock files of one kind ("rgb", "depth", "normal") decoded by the
+    native reader into one array, or None when the reader is not available
+    or refuses the files."""
+    from unigeo_tpu_torch import native
+
+    if not native.available():
+        return None
+    try:
+        if kind == "rgb":
+            return native.decode_clip_rgb(paths)
+        if kind == "depth":
+            return native.decode_clip_depth(paths, depth_scale)
+        return native.decode_clip_normal(paths)
+    except native.NativeIOError:
+        return None
+
+
 class SceneIndex:
     """Per-scene frame index: paths and cameras, before clip slicing."""
 
@@ -41,11 +63,15 @@ class SceneIndex:
         intrinsics: np.ndarray,  # [N,3,3]
         normal_paths: Optional[Sequence[str]] = None,
     ):
+        # the JAX package's exceptions and messages, which the preflight
+        # report quotes
         n = len(rgb_paths)
-        if len(depth_paths) != n or len(extrinsics) != n or len(intrinsics) != n:
-            raise ValueError("depth paths and cameras must align with the rgb paths")
+        if len(depth_paths) != n:
+            raise AssertionError("depth paths must align with rgb paths")
+        if len(extrinsics) != n or len(intrinsics) != n:
+            raise AssertionError("camera arrays must align with frame lists")
         if normal_paths is not None and len(normal_paths) != n:
-            raise ValueError("normal paths must align with the rgb paths")
+            raise AssertionError()
         self.scene_name = scene_name
         self.rgb_paths = list(rgb_paths)
         self.depth_paths = list(depth_paths)
@@ -93,7 +119,9 @@ class ClipDataset:
     dataset without normal maps gets plane-fit normals of its camera points
     (``compute_normals_if_missing``, default on, as in the JAX package), or
     zeros when that is off.  The RGB-to-depth-resolution resize comes with
-    the disk loaders that need it.
+    ScanNetV2 (``rgb_match_depth_resolution``): its RGB frames are resized
+    to the depth maps' resolution at load, the intrinsics kept (they are the
+    depth sensor's).
     """
 
     base_dataset = "base"
@@ -101,6 +129,7 @@ class ClipDataset:
     depth_scale = 1000.0
     depth_clamp = (1e-3, 20.0)
     native_normals = False
+    rgb_match_depth_resolution = False
 
     def __init__(
         self,
@@ -114,6 +143,10 @@ class ClipDataset:
         compute_normals_if_missing: bool = True,
         **_: Dict,
     ):
+        if root is None:
+            from unigeo_tpu_torch.data.paths import resolve_root
+
+            root = resolve_root(self.base_dataset)
         self.root = root
         self.compute_normals_if_missing = compute_normals_if_missing
         self.split = split
@@ -175,8 +208,15 @@ class ClipDataset:
     def load_scene_index(self, scene_name: str) -> SceneIndex:
         raise NotImplementedError
 
+    # The stock per-frame readers decode through the native reader when it
+    # takes the file (the same values as PIL's, so no PIL is needed where
+    # the reader is built), and through PIL otherwise, with PIL's errors.
+
     def load_image(self, path: str) -> np.ndarray:
         """RGB file -> [3, H, W] float32 0..255."""
+        frame = _native_decode("rgb", [path])
+        if frame is not None:
+            return frame[0]
         from PIL import Image
 
         img = np.asarray(Image.open(path).convert("RGB"), dtype=np.float32)
@@ -184,6 +224,9 @@ class ClipDataset:
 
     def load_depth(self, path: str) -> np.ndarray:
         """Depth file -> [H, W] float32 meters."""
+        frame = _native_decode("depth", [path], self.depth_scale)
+        if frame is not None:
+            return frame[0]
         from PIL import Image
 
         return np.asarray(Image.open(path), dtype=np.float32) / self.depth_scale
@@ -191,6 +234,9 @@ class ClipDataset:
     def load_normal(self, path: str) -> np.ndarray:
         """Normal map file -> [3, H, W] float32 in [-1, 1], OpenGL camera frame;
         zero-vector pixels (all channels < 1e-3) become 0."""
+        frame = _native_decode("normal", [path])
+        if frame is not None:
+            return frame[0]
         from PIL import Image
 
         raw = np.asarray(Image.open(path), dtype=np.float32)
@@ -199,12 +245,31 @@ class ClipDataset:
         normal[invalid] = 0
         return normal.astype(np.float32).transpose(2, 0, 1)
 
+    @staticmethod
+    def _resize_rgb_clip(images: np.ndarray, h: int, w: int) -> np.ndarray:
+        """PIL-bicubic resize of a [Nf,3,H,W] 0-255 float clip to (h, w),
+        applied to the uint8 image (ScanNetV2's RGB to its depth resolution)."""
+        from PIL import Image
+
+        out = []
+        for img in images:
+            pil = Image.fromarray(np.moveaxis(img, 0, -1).astype(np.uint8))
+            out.append(np.asarray(pil.resize((w, h)), dtype=np.float32).transpose(2, 0, 1))
+        return np.stack(out)
+
     # --- clip assembly ----------------------------------------------------
 
     def _native_clip(self, kind: str, paths: List[str]):
         """A whole clip from the native reader, or None for the per-frame
-        Python readers.  The native reader is not ported yet: always None."""
-        return None
+        Python readers: when the reader is not available, when the subclass
+        overrides the stock per-frame reader of ``kind`` (its own format), or
+        when the reader refuses the files."""
+        override = {
+            "rgb": type(self).load_image is not ClipDataset.load_image,
+            "depth": type(self).load_depth is not ClipDataset.load_depth,
+            "normal": type(self).load_normal is not ClipDataset.load_normal,
+        }[kind]
+        return None if override else _native_decode(kind, paths, self.depth_scale)
 
     def __getitem__(self, index: int) -> Dict:
         rec = self.samples[index]
@@ -222,6 +287,10 @@ class ClipDataset:
         depths = self._native_clip("depth", depth_paths)
         if depths is None:
             depths = [self.load_depth(p) for p in depth_paths]
+        if self.rgb_match_depth_resolution:
+            dh, dw = np.asarray(depths[0]).shape[-2:]
+            if images.shape[-2:] != (dh, dw):
+                images = self._resize_rgb_clip(images, dh, dw)
         cam_coord = np.stack(
             [self._depth_to_gl_points(d, intrinsics[k]) for k, d in enumerate(depths)]
         )  # [Nf,3,H,W] OpenGL camera points

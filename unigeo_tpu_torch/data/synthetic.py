@@ -11,6 +11,7 @@ so it needs no files (and no PIL, when ``render_size`` equals the config's
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List
 
 import numpy as np
@@ -157,6 +158,8 @@ class SyntheticBoxDataset(ClipDataset):
     ):
         self.num_scenes = num_scenes
         self.frames_per_scene = frames_per_scene
+        self._frame_cache: Dict[str, tuple] = {}
+        self._cache_lock = threading.Lock()
         self.render_h, self.render_w = render_size
         fx = 0.9 * self.render_w
         self._K = np.array(
@@ -200,20 +203,21 @@ class SyntheticBoxDataset(ClipDataset):
         frame_tokens = [f"{scene_name}:{f}" for f in range(n)]
         return SceneIndex(scene_name, frame_tokens, frame_tokens, extr, intr, frame_tokens)
 
-    # per-frame "files" are rendered on demand and memoized
+    # per-frame "files" are rendered on demand and memoized; prefetch threads
+    # share the cache, so it is read and trimmed under a lock (a render runs
+    # outside it, and two threads may render one frame twice)
     def _render(self, token: str):
-        if not hasattr(self, "_frame_cache"):
-            self._frame_cache = {}
-        if token not in self._frame_cache:
-            scene_name, frame = token.split(":")
-            index = self._scene(scene_name)
-            w2c = index.extrinsics[int(frame)]
-            self._frame_cache[token] = render_box_frame(
-                w2c, self._K, self.render_h, self.render_w
-            )
-            if len(self._frame_cache) > 64:
-                self._frame_cache.pop(next(iter(self._frame_cache)))
-        return self._frame_cache[token]
+        with self._cache_lock:
+            frame = self._frame_cache.get(token)
+        if frame is None:
+            scene_name, index = token.split(":")
+            w2c = self._scene(scene_name).extrinsics[int(index)]
+            frame = render_box_frame(w2c, self._K, self.render_h, self.render_w)
+            with self._cache_lock:
+                self._frame_cache[token] = frame
+                while len(self._frame_cache) > 64:
+                    self._frame_cache.pop(next(iter(self._frame_cache)))
+        return frame
 
     def load_image(self, token: str) -> np.ndarray:
         return self._render(token)[0]

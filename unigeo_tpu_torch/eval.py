@@ -7,19 +7,26 @@ CONFIG is a YAML file (read with PyYAML, imported only then).
 The model and the point-cloud metrics run on ``--device`` (default
 ``cuda``; a missing card is an error, the CPU only when asked for); the
 model is built here from the config's ``model_params`` with that device.
-Flags the port does not support yet
-(``--num-workers`` > 0, ``--debug-nans``, ``--validate-root``) raise with
-their ROADMAP item.
+``--validate-root`` checks the dataset's layout on disk (files, depth scale,
+poses, intrinsics, one sample), prints the report and exits 0 if nothing
+failed, 1 otherwise; ``--num-workers N`` decodes clips ahead on N threads;
+``--clip-times FILE`` appends one JSON line per timed clip (a batch of
+clips through ``forward_batch`` is one line).
+The reader that decodes the stock image files (``native``, the C++ clip
+reader built with g++ on first use, or ``pil``) is printed once.
+``--debug-nans`` raises with its ROADMAP item (not ported yet).
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 from typing import List, Optional
 
 from unigeo_tpu_torch.config import EvalConfig
 from unigeo_tpu_torch.evaluator import run_evaluation
 from unigeo_tpu_torch.registry import get_model_cls
+from unigeo_tpu_torch.utils.profiling import ClipTimer
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -42,16 +49,36 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         default=True, help="score clips on the main thread (debugging)")
     parser.add_argument("--validate-root", action="store_true",
                         help="preflight the dataset layout and exit")
+    parser.add_argument("--clip-times", default=None, metavar="JSONL",
+                        help="append each clip's seconds and frames/s to this JSON-lines file")
     parser.add_argument("--device", default="cuda", help="the model's and the point-cloud metrics' device (cuda or cpu)")
     return parser.parse_args(argv)
 
 
+def validate_root_main(cfg: EvalConfig) -> int:
+    """Print the preflight report of the config's dataset; 0 if it passed."""
+    from unigeo_tpu_torch.data.preflight import format_report, validate_root
+    from unigeo_tpu_torch.registry import get_dataset_cls
+
+    try:
+        dataset = get_dataset_cls(cfg.dataset)(**cfg.dataset_kwargs)
+    except Exception as e:
+        print(f"preflight: {cfg.dataset} — FAILED\n  ✗ construct: {type(e).__name__}: {e}")
+        return 1
+    result = validate_root(dataset)
+    print(format_report(result))
+    return 0 if result["ok"] else 1
+
+
 def main(argv: Optional[List[str]] = None):
+    from unigeo_tpu_torch import native
+
     args = parse_args(argv)
-    if args.validate_root:
-        raise NotImplementedError("--validate-root: the dataset preflight is not ported yet "
-                                  "(ROADMAP queue 1 item 4)")
     cfg = EvalConfig.from_yaml(args.config)
+    reason = f" (the native reader did not build: {native.build_error})" if native.build_error else ""
+    print(f"clip reader: {native.reader_name()}{reason}", flush=True)
+    if args.validate_root:
+        sys.exit(validate_root_main(cfg))
     model = get_model_cls(cfg.model_name)(**{**cfg.model_params, "device": args.device})
     manager = run_evaluation(
         cfg,
@@ -64,6 +91,7 @@ def main(argv: Optional[List[str]] = None):
         num_workers=args.num_workers,
         data_parallel=args.data_parallel,
         async_metrics=args.async_metrics,
+        timer=ClipTimer(jsonl_path=args.clip_times),
         device=args.device,
     )
     print("Averages:")

@@ -14,10 +14,14 @@ As in the JAX package:
   * async metrics: clip i is scored on one worker thread while clip i+1's
     forward runs; the queue holds at most two clips, a worker's error is
     raised before the next forward, and the pool is shut down on every exit;
-  * ``data_parallel`` resolved as there: auto is on only for a model with
-    ``forward_batch`` that asks for a batch (``eval_batch_size`` > 1), and an
-    explicit request for a model without ``forward_batch`` raises.  No port
-    model asks for a batch yet, so every clip runs on its own.
+  * ``num_workers`` > 0: clips are decoded ahead on that many host threads
+    (``data/prefetch.py``), in order;
+  * ``data_parallel`` resolved as there: auto is on for a model with
+    ``forward_batch`` that asks for a batch (``eval_batch_size`` > 1, on one
+    GPU DepthCrafter's ``clips_per_step``), and an explicit request for a
+    model without ``forward_batch`` raises.  Batched clips are handed to
+    ``forward_batch`` ``eval_batch_size`` at a time (the last batch may be
+    short), timed as one block of all their frames, and recorded in order.
 
 The four metric families: depth, normals, point clouds (``eval_pcd``, on
 ``device``: the card unless the caller asks for the CPU) and camera poses
@@ -25,9 +29,8 @@ The four metric families: depth, normals, point clouds (``eval_pcd``, on
 aligned clouds go to ``<save_dir>/pcd_<seq>/{pred,gt}.ply``.
 
 Not ported yet, and raising with their ROADMAP item instead of running
-something else: ``num_workers`` > 0 (queue 1 item 4, prefetch), batches of
-clips (item 5), runs over several processes (item 11) and ``debug_nans``
-(item 12).
+something else: runs over several processes (queue 1 item 11) and
+``debug_nans`` (item 12).
 """
 
 from __future__ import annotations
@@ -48,11 +51,7 @@ from unigeo_tpu_torch.registry import get_dataset_cls, get_model_cls
 from unigeo_tpu_torch.utils.profiling import ClipTimer
 
 
-def _refuse_unported(num_workers: int, debug_nans: bool) -> None:
-    if num_workers > 0:
-        raise NotImplementedError(
-            f"num_workers={num_workers}: clip prefetch is not ported yet "
-            "(ROADMAP queue 1 item 4); use 0")
+def _refuse_unported(debug_nans: bool) -> None:
     if debug_nans:
         raise NotImplementedError("debug_nans is not ported yet (ROADMAP queue 1 item 12)")
     import torch.distributed as dist
@@ -111,9 +110,10 @@ def run_evaluation(
 
     dataset / model: instances to use instead of the config's (the config's
     ``model_params`` build the model otherwise).
+    num_workers: host threads that decode clips ahead (0: on the main thread).
     data_parallel: None = auto (on when the model has ``forward_batch`` and
-        ``eval_batch_size`` > 1, which raises: batches are not ported yet);
-        True for a model without ``forward_batch`` raises.
+        ``eval_batch_size`` > 1); True for a model without ``forward_batch``
+        raises.
     async_metrics: score on one worker thread (default); off scores on the
         main thread (clean stack traces).
     timer: the ``ClipTimer`` that times each forward (a new one by default);
@@ -121,7 +121,7 @@ def run_evaluation(
     device: where the point-cloud metrics run (the card by default, and a
         missing card is an error; "cpu" when asked for).
     """
-    _refuse_unported(num_workers, debug_nans)
+    _refuse_unported(debug_nans)
     os.makedirs(save_dir, exist_ok=True)
     save_path = os.path.join(save_dir, "metrics.csv")
     if dataset is None:
@@ -133,6 +133,12 @@ def run_evaluation(
                else MetricsManager(cfg.metric_names))
     timer = ClipTimer() if timer is None else timer
     n = len(dataset) if max_clips is None else min(max_clips, len(dataset))
+    if num_workers > 0:
+        from unigeo_tpu_torch.data.prefetch import PrefetchLoader
+
+        stream = enumerate(PrefetchLoader(dataset, num_workers=num_workers, indices=range(n)))
+    else:
+        stream = ((i, dataset[i]) for i in range(n))
 
     if data_parallel is None:
         data_parallel = (hasattr(model, "forward_batch")
@@ -140,9 +146,7 @@ def run_evaluation(
     if data_parallel and not hasattr(model, "forward_batch"):
         raise ValueError(
             f"data_parallel requested but {type(model).__name__} has no forward_batch")
-    if data_parallel and getattr(model, "eval_batch_size", 1) > 1:
-        raise NotImplementedError("batches of clips through forward_batch are not ported "
-                                  "yet (ROADMAP queue 1 item 5)")
+    batch_size = max(1, getattr(model, "eval_batch_size", 1)) if data_parallel else 1
 
     def _record(seq: str, data, output) -> None:
         gt_label = prepare_gt_label(data)
@@ -187,9 +191,19 @@ def run_evaluation(
         while record_q and record_q[0].done():
             record_q.popleft().result()
 
+    pending = []  # [(seq, data)] waiting to fill a batch
+
+    def _flush() -> None:
+        if not pending:
+            return
+        with timer.clip(num_frames=sum(len(d["images"]) for _, d in pending)):
+            outputs = model.forward_batch([d for _, d in pending])
+        for (seq, data), output in zip(pending, outputs):
+            _submit_record(seq, data, output)
+        pending.clear()
+
     try:
-        for data_idx in range(n):
-            data = dataset[data_idx]
+        for data_idx, data in stream:
             _check_worker()
             seq = f"{data_idx:03d}_{data['scene_name']}"
             if resume and manager.has_sequence(seq):
@@ -198,9 +212,15 @@ def run_evaluation(
                 validate_sample(data)
             if verbose:
                 print(f"processing seq: {seq}")
+            if batch_size > 1:
+                pending.append((seq, data))
+                if len(pending) >= batch_size:
+                    _flush()
+                continue
             with timer.clip(num_frames=len(data["images"])):
                 output = model.forward(data)
             _submit_record(seq, data, output)
+        _flush()
         while record_q:
             record_q.popleft().result()
     finally:

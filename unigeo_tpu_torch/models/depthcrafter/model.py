@@ -1,7 +1,6 @@
 """DepthCrafter adapter: clip sample -> depth + normals.
 
-Port of ``unigeo_tpu/models/depthcrafter/model.py`` on the whole-clip path
-(window == clip):
+Port of ``unigeo_tpu/models/depthcrafter/model.py``:
 
   input    images [Nf,3,H,W] 0..255 -> frames [Nf,H,W,3] 0..1 (host /255)
   infer    the staged pipeline, 5 Euler steps
@@ -12,8 +11,12 @@ Port of ``unigeo_tpu/models/depthcrafter/model.py`` on the whole-clip path
 
 The noise is drawn on the device from a ``torch.Generator`` seeded with
 ``seed``; ``forward`` also takes explicit draws (parity tests pass the JAX
-package's).  Every clip runs as one window (window == clip, as the eval
-configs run it); windowed clips and ``forward_batch`` are not ported yet.
+package's).  A clip runs as one window (window == clip, as the eval configs
+run it) unless ``window_size`` is shorter than it: then it runs as the
+pipeline's crossfaded windows (``DepthCrafterPipeline.__call__``).
+``forward_batch`` scores equally-shaped clips with one batched denoise
+(``clips_per_step`` at a time, through the evaluator's ``eval_batch_size``);
+the decoded frames stay on the device into the post-processing on every path.
 
 The constructor takes the JAX adapter's keywords, so a config's
 ``model_params`` build it (registered as ``DepthCrafter``).  Without a
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -104,10 +107,6 @@ class DepthCrafter:
                 "solver='heun' is not ported yet (ROADMAP queue 1 item 6); use 'euler'")
         if solver != "euler":
             raise ValueError(f"unknown solver {solver!r}")
-        if clips_per_step > 1:
-            raise NotImplementedError(
-                f"clips_per_step={clips_per_step}: the batched denoise is not ported yet "
-                "(ROADMAP queue 1 item 5)")
         if pipeline is None:
             pipeline = DepthCrafterPipeline(
                 unet_config=unet_config, vae_config=vae_config, clip_config=clip_config,
@@ -120,7 +119,16 @@ class DepthCrafter:
         self.overlap = overlap
         self.window_size = window_size
         self.seed = seed
+        # clips per batched denoise on one GPU (the evaluator's batch)
+        self.clips_per_step = max(1, clips_per_step)
         self.last_stage_ms: Dict[str, float] = {}
+
+    @property
+    def eval_batch_size(self) -> int:
+        """Clips the evaluator hands to ``forward_batch`` at once: on one GPU,
+        ``clips_per_step`` (the data-parallel executor over several GPUs is
+        not ported: ROADMAP queue 1 item 11)."""
+        return self.clips_per_step
 
     def forward(self, data: Dict[str, Any], noise=None, aug_noise=None,
                 time_stages: bool = False) -> Dict[str, Any]:
@@ -128,16 +136,19 @@ class DepthCrafter:
 
         noise [T,h,w,4] / aug_noise [T,H,W,3]: explicit draws; when ``noise``
         is None both are drawn from a generator seeded with ``self.seed``.
-        time_stages: record each stage's ms in ``self.last_stage_ms``.
+        A clip longer than ``window_size`` ignores them: each window draws
+        from ``pipeline.window_generator(self.seed, wi)``.
+        time_stages: record each stage's ms in ``self.last_stage_ms`` (the
+        whole-clip window only).
         """
         images = np.asarray(data["images"])
         t, h, w = images.shape[0], images.shape[2], images.shape[3]
-        if self.window_size and self.window_size < t:
-            raise NotImplementedError(
-                f"window_size={self.window_size} < clip length {t}: the windowed "
-                "crossfade is not ported yet (ROADMAP queue 1 item 5)")
         pipe = self.pipeline
         frames = pipe.prepare_clip(images)
+        if self.window_size and self.window_size < t:
+            decoded = pipe(frames, num_inference_steps=self.num_inference_steps,
+                           window_size=self.window_size, overlap=self.overlap, seed=self.seed)
+            return self._finalize(decoded, data)
         if noise is None:
             gen = torch.Generator(device=pipe.device).manual_seed(self.seed)
             noise, aug_noise = pipe.draw_clip_noise(gen, t, h, w)
@@ -149,9 +160,41 @@ class DepthCrafter:
         )
         if stage_ms is not None:
             self.last_stage_ms = stage_ms
-        intrinsics = torch.from_numpy(np.asarray(data["intrinsics"], np.float32)).to(pipe.device)
-        depths, normals = _postprocess((out + 1.0) / 2.0, intrinsics)
+        return self._finalize((out + 1.0) / 2.0, data)
+
+    def _finalize(self, decoded: torch.Tensor, data: Dict[str, Any]) -> Dict[str, Any]:
+        """decoded [T,H,W,3] 0..1 on the device -> host depths and normals."""
+        intrinsics = torch.from_numpy(np.asarray(data["intrinsics"], np.float32))
+        depths, normals = _postprocess(decoded, intrinsics.to(decoded.device))
         return {
             "pred_depths": depths.cpu().numpy(),
             "pred_normals": normals.cpu().numpy(),
         }
+
+    def forward_batch(self, datas, noise=None, aug_noise=None) -> List[Dict[str, Any]]:
+        """Score a list of clips; equally-shaped whole-clip windows go through
+        one batched denoise (``pipeline.run_clips_staged``).
+
+        Clips of different shapes, and clips longer than ``window_size``, take
+        the serial ``forward``, as in the JAX package.  Every clip gets the
+        draws the serial path makes (one generator seeded with ``seed``, or
+        the explicit noise [T,h,w,4] / aug_noise [T,H,W,3]), broadcast over
+        the batch.
+        """
+        images = [np.asarray(d["images"]) for d in datas]
+        if len({im.shape for im in images}) > 1:
+            return [self.forward(d) for d in datas]
+        t, h, w = images[0].shape[0], images[0].shape[2], images[0].shape[3]
+        if self.window_size and self.window_size < t:
+            return [self.forward(d) for d in datas]
+        pipe = self.pipeline
+        frames = torch.stack([pipe.prepare_clip(im) for im in images])
+        if noise is None:
+            gen = torch.Generator(device=pipe.device).manual_seed(self.seed)
+            noise, aug_noise = pipe.draw_clip_noise(gen, t, h, w)
+        b = len(datas)
+        noise = torch.as_tensor(noise).to(pipe.device).expand(b, *noise.shape)
+        if aug_noise is not None:
+            aug_noise = torch.as_tensor(aug_noise).to(pipe.device).expand(b, *aug_noise.shape)
+        out = pipe.run_clips_staged(frames, noise, self.num_inference_steps, aug_noise=aug_noise)
+        return [self._finalize((out[i] + 1.0) / 2.0, d) for i, d in enumerate(datas)]

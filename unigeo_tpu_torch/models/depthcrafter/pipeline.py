@@ -1,7 +1,7 @@
 """DepthCrafter inference pipeline: VAE encode -> denoise loop -> decode.
 
-Port of ``unigeo_tpu/models/depthcrafter/pipeline.py`` for the whole-clip
-window (window == clip, the path the eval configs use):
+Port of ``unigeo_tpu/models/depthcrafter/pipeline.py``.  One window (a
+whole clip, the path the eval configs use):
 
     frames [T,H,W,3] 0..1
       -> x2-1 -> + noise_aug_strength * aug_noise -> VAE.encode per frame
@@ -15,14 +15,19 @@ Public functions keep the JAX package's NHWC layout; the stages run NCHW
 inside.  The noise comes in as arguments: a torch generator cannot draw the
 JAX package's ``jax.random`` streams, so parity tests pass the JAX draws in
 and production callers draw from a ``torch.Generator`` on the device
-(``draw_clip_noise``).  The windowed crossfade is not ported yet.
+(``draw_clip_noise``).
+
+Longer clips run as overlapping windows crossfaded on the overlap
+(``__call__``), and ``run_clips_staged`` runs B equally-shaped clips with
+one batched denoise loop between per-clip encodes and decodes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -202,6 +207,110 @@ class DepthCrafterPipeline:
         with _timed(stage_ms, "decode", self.device):
             out = self._decode_stage(x)
         return out.permute(0, 2, 3, 1)
+
+    def run_clips_staged(self, frames, noise, num_inference_steps: int, aug_noise=None):
+        """B clips at once: frames [B,T,H,W,3], noise [B,T,h,w,4], aug_noise
+        [B,T,H,W,3] or None -> decoded [B,T,H,W,3] f32.
+
+        Encode and decode run per clip (the decoder is the stage with the
+        largest activations); the denoise loop runs once over all B clips,
+        so every UNet product has B times the rows.  Each clip's group
+        norms and attentions see only that clip, so a clip computes what
+        ``run_window_staged`` computes for it, up to the order of sums the
+        products' kernels choose at the larger M."""
+        # each clip laid out as run_window_staged lays it out: NCHW frames,
+        # and noise in a dense NHWC tensor read through a permuted view
+        nchw = lambda a: a.to(self.device).permute(0, 3, 1, 2).contiguous()
+        encoded = [self._encode_stage(nchw(frames[i]),
+                                      None if aug_noise is None else nchw(aug_noise[i]))
+                   for i in range(frames.shape[0])]
+        cond = torch.stack([c for c, _ in encoded])
+        context = torch.stack([c for _, c in encoded])
+        noise = torch.as_tensor(noise).to(self.device).contiguous().permute(0, 1, 4, 2, 3)
+        x = self._denoise_loop(cond, context, noise, num_inference_steps)
+        return torch.stack([self._decode_stage(xi).permute(0, 2, 3, 1) for xi in x])
+
+    # ------------------------------------------------------------------
+
+    def window_generator(self, seed: int, wi: int) -> torch.Generator:
+        """The generator on the device that draws window ``wi``'s noise when
+        none is given: seeded with the first 8 bytes (big-endian, top bit
+        cleared) of sha256(f"{seed}/{wi}"), so each (seed, window) pair has
+        its own stream, the same on every run."""
+        digest = hashlib.sha256(f"{seed}/{wi}".encode()).digest()
+        return torch.Generator(device=self.device).manual_seed(
+            int.from_bytes(digest[:8], "big") & (2**63 - 1))
+
+    def __call__(
+        self,
+        frames,
+        num_inference_steps: int = 5,
+        window_size: Optional[int] = None,
+        overlap: int = 0,
+        seed: int = 42,
+        window_noise: Optional[Sequence[Tuple[Any, Any]]] = None,
+    ) -> torch.Tensor:
+        """frames [T,H,W,3] 0..1 -> [T,H,W,3] decoded output in 0..1, f32 on
+        the device.
+
+        A clip longer than ``window_size`` runs as windows of that size
+        starting every ``window_size - overlap`` frames (``range(0, t -
+        overlap, stride)``), the last moved back so that it ends at the
+        clip's end (every window is full).  Over the frames a window shares
+        with those already written, the old output ramps 1 -> 0 and the new
+        one 0 -> 1 (``np.linspace(0, 1, ov, endpoint=False)``, blended in
+        f64 as the JAX package's numpy does), and the new window is at full
+        weight after them.
+
+        window_noise: per window, (noise [W,h,w,4], aug_noise [W,H,W,3] or
+        None).  When it is None, window ``wi`` draws both from
+        ``window_generator(seed, wi)`` (noise first); a single window (the
+        whole clip) draws from a generator seeded with ``seed``, as
+        ``DepthCrafter.forward`` does.
+        """
+        frames = torch.as_tensor(frames)
+        t, h, w, _ = frames.shape
+        window_size = window_size or t
+        if window_size >= t:
+            if window_noise is not None:
+                noise, aug = window_noise[0]
+            else:
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+                noise, aug = self.draw_clip_noise(gen, t, h, w)
+            out = self.run_window_staged(frames, torch.as_tensor(noise), num_inference_steps,
+                                         aug_noise=None if aug is None else torch.as_tensor(aug))
+            return (out + 1.0) / 2.0
+
+        stride = window_size - overlap
+        if stride <= 0:
+            raise ValueError(
+                f"overlap ({overlap}) must be smaller than window_size "
+                f"({window_size}) when the clip is longer than one window"
+            )
+        acc = torch.zeros((t, h, w, 3), dtype=torch.float32, device=self.device)
+        prev_end = 0
+        for wi, start in enumerate(range(0, t - overlap, stride)):
+            end = min(start + window_size, t)
+            start = end - window_size  # full windows only (the last one re-covers)
+            if window_noise is not None:
+                noise, aug = window_noise[wi]
+            else:
+                noise, aug = self.draw_clip_noise(self.window_generator(seed, wi),
+                                                  window_size, h, w)
+            out = self.run_window_staged(frames[start:end], torch.as_tensor(noise),
+                                         num_inference_steps,
+                                         aug_noise=None if aug is None else torch.as_tensor(aug))
+            ov = min(prev_end, end) - start  # frames already written
+            if wi > 0 and ov > 0:
+                r = torch.from_numpy(np.linspace(0.0, 1.0, ov, endpoint=False))
+                r = r.to(self.device).reshape(-1, 1, 1, 1)
+                acc[start:start + ov] = ((1.0 - r) * acc[start:start + ov].double()
+                                         + r * out[:ov].double()).float()
+                acc[start + ov:end] = out[ov:]
+            else:
+                acc[start:end] = out
+            prev_end = end
+        return (acc + 1.0) / 2.0
 
 
 @contextlib.contextmanager
