@@ -32,7 +32,10 @@ Phases, each printed on its own flushed line with the seconds since start:
              ragged shapes in bf16 and f32 (the body that ran and its grid,
              max err/limit, kernel events and device / plain / unfused-layers
              ms, the bound, rows past M in a zeroed buffer of whole items
-             held to 0)
+             held to 0); the packed kernel's f32 body at the pointmap
+             shapes ([25, 768, 12, 64] and [1, 768, 8, 64]) against its plain
+             version, with its, the plain version's and SDPA's f32 times
+             and the bound at the f32 rate
   reference  the tiny pipeline in f32 on the card (kernel path) against the
              same weights on the CPU (plain path); then one step of the tiny
              trainer the same way: loss, every gradient, and the AdamW step
@@ -66,6 +69,23 @@ Phases, each printed on its own flushed line with the seconds since start:
              (under cuDNN's deterministic algorithms); the reader that
              decoded, per-clip seconds and frames/s, peak memory, and the
              packed kernel's launches against the prediction on every path
+  svd_family the tiny f32 pipeline on the card against the CPU for Heun,
+             the known-frame denoise (its clamped frames exact on the card),
+             StableNormal and ChronoDepth; then the eval CLI over the
+             7-Scenes fixture (384 x 512, 2 clips of 25 frames) with Heun
+             (DepthCrafter, solver heun), StableNormal, ChronoDepth,
+             DepthAnyVideo and UniGeo (no branch), each on a copy of its
+             configs/ file's model_params at SVD-XT width, all sharing one
+             bf16 pipeline made on the card: per-clip seconds, peak memory,
+             stage ms, and the packed kernel's launches held to the count
+             the configuration predicts (SIBLING_TABLE)
+  pointmap   tiny Spann3R in f32 on the card (the f32 kernel) against the
+             CPU, the camera recovery card against CPU and with TF32 on in
+             the process (the same result: it turns TF32 off inside); then
+             the CLI on a copy of configs/spann3r_7scenes.yaml (2 clips of
+             20, the default Spann3R in f32) and UniGeoCam with its
+             geometry branch at full width on all four metric families
+             (2 clips of 25), the same numbers as svd_family
   train      the port's trainer (unigeo_tpu_torch.train.main) at SVD-XT
              width on synthetic 384 x 512 clips, bf16: one warm-up step and
              three measured steps; losses, step seconds, peak memory, each
@@ -89,6 +109,7 @@ kernels' numbers; the last is the run's summary for the device.
 """
 
 import contextlib
+import copy
 import json
 import math
 import os
@@ -1900,6 +1921,552 @@ def phase_metrics(dev):
     return dict(pcd_s=secs["card"], pcd_cpu_s=secs["cpu"], camera_s=cam_s, pcd=pcd, camera=cam)
 
 
+# --- the SVD-family siblings and the pointmap family ---------------------------
+
+# the launches of the packed kernel each new path makes per clip, as the
+# configuration predicts them (sibling_launches); the same numbers worked out
+# by hand from the code, which the phases also hold
+SIBLING_TABLE = {"heun": 169, "stablenormal": 94, "chronodepth": 433, "depthanyvideo": 217,
+                 "unigeo": 109, "unigeo_branch": 267, "spann3r": 128}
+SIB_CLIP, SIB_OVERLAP, SIB_CLIPS = 25, 5, 2  # the scannetpp configs' clips, over 45 frames
+PM_CLIP, PM_OVERLAP, PM_CLIPS = 20, 5, 2  # spann3r_7scenes.yaml's clips
+# the default Spann3R network (Spann3RNetwork's defaults)
+PM_ENC_DEPTH, PM_DEC_DEPTH = 8, 6
+
+
+def sibling_launches(kind, frames, steps=5, window=10, overlap=5, keyframe_gap=4):
+    """Packed-kernel launches of one clip of ``frames`` frames at DISK_H x
+    DISK_W, from the configuration: every UNet evaluation's spatial
+    attentions, CLIP's blocks and the VAE's mid blocks (encoder per encode,
+    decoder per decode); the pointmap network's self-attentions (encoder
+    layers once over all frames, decoder layers once per frame; its
+    cross-attentions are masked and dense)."""
+    from unigeo_tpu_torch.ops.attention import MIN_KERNEL_SEQ
+
+    unet = unet_kernel_attentions(SVD_XT_UNET, DISK_H, DISK_W)
+    encode = clip_kernel_attentions(SVD_XT_CLIP) + vae_mid_attentions(DISK_H, DISK_W)
+    decode = vae_mid_attentions(DISK_H, DISK_W)
+    tokens = (DISK_H // 16) * (DISK_W // 16)
+    pointmap = (PM_ENC_DEPTH + PM_DEC_DEPTH * frames) if tokens >= MIN_KERNEL_SEQ else 0
+    if kind == "heun":
+        return encode + (2 * steps - 1) * unet + decode
+    if kind == "stablenormal":
+        return encode + steps * unet + decode
+    if kind == "chronodepth":
+        windows = len(range(0, max(frames - overlap, 1), window - overlap))
+        return windows * (encode + steps * unet) + decode
+    if kind == "depthanyvideo":
+        keys = len(set(range(0, frames, keyframe_gap)) | {frames - 1})
+        return (1 if keys == frames else 2) * (encode + steps * unet) + decode
+    if kind == "unigeo":
+        return encode + steps * unet + decode
+    if kind == "unigeo_branch":
+        return encode + steps * unet + decode + pointmap
+    if kind == "spann3r":
+        return pointmap
+    raise ValueError(kind)
+
+
+@contextlib.contextmanager
+def models_given(extra):
+    """Inside the block the eval CLI builds its model with ``extra(name)``'s
+    keywords added (a shared pipeline) and keeps each model it builds."""
+    from unigeo_tpu_torch import eval as eval_cli
+
+    get = eval_cli.get_model_cls
+    built = []
+
+    def factory(name):
+        cls = get(name)
+        return lambda **kw: built.append(cls(**kw, **extra(name))) or built[-1]
+
+    eval_cli.get_model_cls = factory
+    try:
+        yield built
+    finally:
+        eval_cli.get_model_cls = get
+
+
+@contextlib.contextmanager
+def stage_clock():
+    """Inside the block each stage's wall ms (the device synchronised around
+    it) is summed by name: encode, denoise, decode (the pipeline's stages),
+    pointmap_network and camera (Spann3R's network and its camera recovery)."""
+    from unigeo_tpu_torch.models.depthcrafter.pipeline import DepthCrafterPipeline
+    from unigeo_tpu_torch.models.pointmap import adapter
+    from unigeo_tpu_torch.models.pointmap.spann3r import Spann3RNetwork
+
+    sites = [(DepthCrafterPipeline, "_encode_stage", "encode"),
+             (DepthCrafterPipeline, "_denoise_loop", "denoise"),
+             (DepthCrafterPipeline, "_decode_stage", "decode"),
+             (DepthCrafterPipeline, "_decode_frames", "decode"),
+             (Spann3RNetwork, "forward", "pointmap_network"),
+             (adapter, "outputs_from_world_pts", "camera")]
+    ms = {}
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in sites]
+
+    def timed(fn, name):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    for (owner, attr, name), (_, _, fn) in zip(sites, saved):
+        setattr(owner, attr, timed(fn, name))
+    try:
+        yield ms
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def counted_cli(dev, work, label, cfg, extra, clips):
+    """One run of the eval CLI on ``cfg`` (written as JSON) with ``--max-clips
+    clips``, its model given ``extra``'s keywords: seconds, launches, peak
+    GiB, stage ms summed over the run, each clip's seconds, the CSV rows,
+    the models built."""
+    import gc
+
+    path = os.path.join(work, f"{label}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    out_dir, times = os.path.join(work, label), os.path.join(work, f"{label}.jsonl")
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with models_given(extra) as built, stage_clock() as stage_ms:
+        text, code = run_cli(["--config", path, "--output", out_dir, "--max-clips", str(clips),
+                              "--clip-times", times])
+    torch.cuda.synchronize()
+    run = {"seconds": time.perf_counter() - t0, "launches": read_counts(),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "stage_ms": {k: round(v, 2) for k, v in stage_ms.items()}, "models": built}
+    if code is not None or "Averages:" not in text:
+        raise AssertionError(f"{label}: the CLI ended with {code}: {text[-2000:]}")
+    with open(times) as f:
+        run["clip_s"] = [json.loads(line)["seconds"] for line in f]
+    run["rows"] = read_csv_rows(os.path.join(out_dir, "metrics.csv"))
+    return run
+
+
+def hold_run(phase, label, run, cfg, predicted, clips):
+    """The run's rows finite for every metric the config names, one row a
+    clip and the Average; the packed kernel launched as predicted per clip
+    and no other kernel."""
+    names = [n for sec in ("eval_depth", "eval_normal", "eval_pcd", "eval_camera")
+             for n in cfg.get(sec, {}).get("metric_names", [])]
+    rows = run["rows"]
+    if len(rows) != clips + 1 or rows[-1]["seq_name"] != "Average":
+        raise AssertionError(f"{label}: rows {[r['seq_name'] for r in rows]}")
+    bad = [(r["seq_name"], n, r[n]) for r in rows for n in names
+           if not np.isfinite(float(r[n]))]
+    if bad:
+        raise AssertionError(f"{label}: non-finite metrics {bad}")
+    want = {name: 0 for name in kernel_wrappers()}
+    want["flash_attention_packed"] = clips * predicted
+    log(phase, f"{label}: {clips} clips in {run['seconds']:.2f}s, per clip "
+        f"{json.dumps([round(s, 3) for s in run['clip_s']])}s, peak {run['peak_gib']:.2f} GiB, "
+        f"stage_ms (summed over the clips) {json.dumps(run['stage_ms'])}, packed launches "
+        f"{run['launches']['flash_attention_packed']} = {clips} x {predicted} predicted "
+        f"(table {SIBLING_TABLE[label] if label in SIBLING_TABLE else '-'}); Average "
+        f"{json.dumps({n: rows[-1][n] for n in names})}")
+    if run["launches"] != want:
+        raise AssertionError(f"{label}: launches {run['launches']} != {want}")
+
+
+def fixture_config(root, cache, model_name, model_params, sections, clip, overlap):
+    """A config over the 7-Scenes fixture at DISK_H x DISK_W (a dict: the
+    card machine may lack PyYAML), strips off."""
+    return {"dataset": "sevenScenesDataset", "root": root, "h": DISK_H, "w": DISK_W,
+            "clip_length": clip, "clip_overlap": overlap, "split": "test",
+            "dataset_params": {"cache_dir": cache}, "model_name": model_name,
+            "model_params": model_params, **sections, "vis_depth": False}
+
+
+def read_config(name):
+    """A config of configs/ as a dict (PyYAML, which the card machine has;
+    imported here only)."""
+    import yaml
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", name)) as f:
+        return yaml.safe_load(f)
+
+
+SECTIONS = ("eval_depth", "eval_normal", "eval_pcd", "eval_camera")
+
+
+def write_fixture(work):
+    """The 7-Scenes fixture (45 frames) as phase_disk_eval writes it."""
+    from unigeo_tpu_torch.tools.disk_fixture import write_seven_scenes
+
+    try:
+        import PIL  # noqa: F401  (only whether it is there)
+        fh, fw = 480, 640
+    except ImportError:
+        fh, fw = DISK_H, DISK_W
+    root, cache = os.path.join(work, "7scenes"), os.path.join(work, "lists")
+    write_seven_scenes(root, DISK_FRAMES, fh, fw)
+    return root, cache
+
+
+def sibling_reference(dev):
+    """The tiny f32 pipeline at 128 x 128 on the card (the kernel at 256
+    latent tokens) against the same weights on the CPU: Heun's latents,
+    StableNormal's frames and ChronoDepth's depths within REFERENCE_TOL_REL;
+    the known-frame clamp exact on the card."""
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.models.chronodepth import ChronoDepth
+    from unigeo_tpu_torch.models.depthcrafter.pipeline import tiny_pipeline
+    from unigeo_tpu_torch.models.stablenormal import StableNormal
+
+    set_exact_f32()
+    gpu = tiny_pipeline(device=dev, solver="heun").init_random(
+        torch.Generator(device=dev).manual_seed(5))
+    cpu = tiny_pipeline(device="cpu", solver="heun")
+    for m_cpu, m_gpu in zip(cpu.modules(), gpu.modules()):
+        m_cpu.load_state_dict({k: v.cpu() for k, v in m_gpu.state_dict().items()})
+    rng = np.random.default_rng(14)
+    t, h, w = 4, 128, 128
+    cond = torch.from_numpy(rng.standard_normal((1, t, 4, 16, 16)).astype(np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((1, t, 1, 32)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((1, t, 4, 16, 16)).astype(np.float32))
+    rel = lambda a, b: ((a.cpu() - b).abs().max() / b.abs().max()).item()
+    reset_counts()
+    heun = gpu._denoise_loop(cond.to(dev), ctx.to(dev), noise.to(dev), 3)
+    launched = read_counts()["flash_attention_packed"]
+    dev_rel = {"heun": rel(heun, cpu._denoise_loop(cond, ctx, noise, 3))}
+    known = torch.from_numpy(rng.standard_normal((t, 4, 16, 16)).astype(np.float32))
+    mask = torch.tensor([1.0, 1.0, 0.0, 0.0])
+    x = gpu._denoise_stage_known(cond[0].to(dev), ctx[0].to(dev), noise[0].to(dev),
+                                 known.to(dev), mask, 3)
+    exact = bool(torch.equal(x[:2].cpu(), known[:2]))
+    dev_rel["known"] = rel(x, cpu._denoise_stage_known(cond[0], ctx[0], noise[0], known, mask, 3))
+    gpu.solver = cpu.solver = "euler"
+    k = np.array([[100.0, 0, 64], [0, 100.0, 64], [0, 0, 1]], np.float32)
+    data = {"images": rng.integers(0, 256, (t, 3, h, w)).astype(np.uint8),
+            "intrinsics": np.stack([k] * t)}
+    # the same draws on both sides (the two devices' generators differ)
+    draw = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    frame_noise, frame_aug = draw(1, 16, 16, 4), draw(1, h, w, 3)
+    dev_rel["stablenormal"] = rel(
+        StableNormal(pipeline=gpu, num_inference_steps=3)._run_frames(
+            gpu.prepare_clip(data["images"]), frame_noise, frame_aug),
+        StableNormal(pipeline=cpu, num_inference_steps=3)._run_frames(
+            cpu.prepare_clip(data["images"]), frame_noise, frame_aug))
+    kw = dict(num_inference_steps=3, window_size=3, overlap=1)
+    windows = [draw(3, 16, 16, 4), draw(3, 16, 16, 4)]  # starts 0 and 1
+    dev_rel["chronodepth"] = rel(
+        torch.from_numpy(ChronoDepth(_pipeline=gpu, **kw).forward(data, windows)["pred_depths"]),
+        torch.from_numpy(ChronoDepth(_pipeline=cpu, **kw).forward(data, windows)["pred_depths"]))
+    log("svd_family", f"tiny pipeline 4x128x128 f32 card vs CPU rel dev "
+        f"{json.dumps(dev_rel)} (tol {REFERENCE_TOL_REL}); Heun kernel launches {launched}; "
+        f"known frames equal on the card: {exact}")
+    if not (exact and launched > 0 and all(v <= REFERENCE_TOL_REL for v in dev_rel.values())):
+        raise AssertionError(f"sibling reference: {dev_rel}, exact {exact}, launches {launched}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
+def phase_svd_family(dev):
+    """Heun, StableNormal, ChronoDepth, DepthAnyVideo and UniGeoCam (no
+    branch) through the eval CLI over the 7-Scenes fixture at DISK_H x
+    DISK_W, clips of SIB_CLIP, on copies of their configs' model_params at
+    SVD-XT width, sharing one bf16 pipeline made on the card."""
+    from unigeo_tpu_torch.models.depthcrafter.pipeline import DepthCrafterPipeline
+
+    sibling_reference(dev)
+    work = tempfile.mkdtemp(prefix="unigeo_siblings_")
+    summary = {}
+    try:
+        root, cache = write_fixture(work)
+        pipe = DepthCrafterPipeline(unet_config=SVD_XT_UNET, clip_config=SVD_XT_CLIP,
+                                    dtype=torch.bfloat16, device=dev)
+        pipe.init_random(torch.Generator(device=dev).manual_seed(0))
+        heun = copy.copy(pipe)  # the same modules, its own solver
+        heun.solver = "heun"
+        dc = read_config("depthcrafter_7scenes.yaml")
+        cd = read_config("chronodepth_scannetpp.yaml")
+        dav = read_config("depthanyvideo_scannetpp.yaml")
+        sn = read_config("stablenormal_scannetpp.yaml")
+        ug = read_config("unigeo_synthetic.yaml")["model_params"]
+        # the unigeo config's keys at full width: its tiny widths, sizes and
+        # 2 steps dropped, no branch (the pointmap phase runs it)
+        ug_full = {k: v for k, v in ug.items()
+                   if not k.endswith("_config") and not k.startswith("init_")
+                   and k != "num_inference_steps"}
+        ug_full["geometry_branch"] = False
+        sections = lambda c: {s: c[s] for s in SECTIONS if s in c}
+        runs = [
+            ("heun", "DepthCrafter", {**dc["model_params"], "solver": "heun"}, sections(dc),
+             lambda name: {"pipeline": heun}, sibling_launches("heun", SIB_CLIP)),
+            ("stablenormal", "StableNormal", sn["model_params"], sections(sn),
+             lambda name: {"pipeline": pipe},
+             sibling_launches("stablenormal", SIB_CLIP, sn["model_params"]["num_inference_steps"])),
+            ("chronodepth", "ChronoDepth", cd["model_params"], sections(cd),
+             lambda name: {"_pipeline": pipe},
+             sibling_launches("chronodepth", SIB_CLIP, window=cd["model_params"]["window_size"],
+                              overlap=cd["model_params"]["overlap"])),
+            ("depthanyvideo", "DepthAnyVideo", dav["model_params"], sections(dav),
+             lambda name: {"_pipeline": pipe},
+             sibling_launches("depthanyvideo", SIB_CLIP,
+                              keyframe_gap=dav["model_params"]["keyframe_gap"])),
+            ("unigeo", "UniGeo", ug_full, sections(dc), lambda name: {"pipeline": pipe},
+             sibling_launches("unigeo", SIB_CLIP)),
+        ]
+        for label, name, params, secs, extra, predicted in runs:
+            if predicted != SIBLING_TABLE[label]:
+                raise AssertionError(f"{label}: predicted {predicted} != table "
+                                     f"{SIBLING_TABLE[label]}")
+            cfg = fixture_config(root, cache, name, params, secs, SIB_CLIP, SIB_OVERLAP)
+            run = counted_cli(dev, work, label, cfg, extra, SIB_CLIPS)
+            hold_run("svd_family", label, run, cfg, predicted, SIB_CLIPS)
+            model = run.pop("models")[0]
+            used = getattr(model, "pipeline", None) or model.pipe
+            if used.unet is not pipe.unet:
+                raise AssertionError(f"{label}: the model did not use the shared pipeline")
+            summary[label] = {k: run[k] for k in ("seconds", "clip_s", "peak_gib", "stage_ms")}
+            summary[label]["launches_per_clip"] = predicted
+            del model, used, run
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("svd_family", json.dumps(summary))
+    return summary
+
+
+def pointmap_reference(dev):
+    """Spann3R (tiny widths, RoPE100 + DPT) in f32 at 192 x 256 (192 tokens,
+    the f32 kernel) on the card against the CPU within 1e-4 relative, and
+    the camera recovery on a scene with known cameras, card against CPU:
+    rotations within 1e-3 degree, translations within 1e-3 of their norm
+    (tests/test_torch_cuda.py's bounds)."""
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.models.camera_solver import solve_depth_and_camera_from_pointmaps
+    from unigeo_tpu_torch.models.pointmap.spann3r import Spann3R, tiny_spann3r_config
+
+    set_exact_f32()
+    cfg = dict(tiny_spann3r_config(), pos_embed="RoPE100", qkv_bias=True, norm_context=True,
+               head_type="dpt")
+    card = Spann3R(network_config=cfg, device=dev, seed=3)
+    cpu = Spann3R(network_config=cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.network.state_dict().items()})
+    rng = np.random.default_rng(15)
+    frames = torch.from_numpy(rng.random((3, 192, 256, 3)).astype(np.float32))
+    reset_counts()
+    with torch.no_grad():
+        pts, _ = card.network(frames.to(dev))
+        launched = read_counts()["flash_attention_packed"]
+        ref, _ = cpu.network(frames)
+    net_rel = ((pts.cpu() - ref).abs().max() / ref.abs().max()).item()
+    h, w = 48, 64
+    uu, vv = np.meshgrid(np.arange(w), np.arange(h), indexing="xy")
+    world = []
+    for i in range(3):
+        depth = 2.0 + rng.uniform(0, 0.5, (h, w))
+        cam = np.stack([(uu - w / 2) * depth / 50.0, (vv - h / 2) * depth / 50.0, depth], -1)
+        theta = rng.normal(0, 0.05, 3) * (i > 0)
+        kx = np.array([[0, -theta[2], theta[1]], [theta[2], 0, -theta[0]],
+                       [-theta[1], theta[0], 0]])
+        r = np.eye(3) + kx + kx @ kx / 2.0  # near a rotation; the solver projects
+        u, _, vt = np.linalg.svd(r)
+        r = u @ vt
+        t = rng.normal(0, 0.2, 3) * (i > 0)
+        world.append(((cam.reshape(-1, 3) - t) @ r).reshape(h, w, 3))
+    world = torch.from_numpy(np.stack(world).astype(np.float32))
+    _, ext_c, _ = solve_depth_and_camera_from_pointmaps(world.to(dev))
+    _, ext_h, _ = solve_depth_and_camera_from_pointmaps(world)
+    # again with TF32 on in the process, as a caller may leave it: the
+    # solver turns it off inside (device.exact_f32), so the same result
+    from unigeo_tpu_torch.models import camera_solver
+
+    seen, solve = [], camera_solver.solve_pnp_batch
+
+    def solve_seen(*args, **kwargs):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        return solve(*args, **kwargs)
+
+    camera_solver.solve_pnp_batch = solve_seen
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        _, ext_tf, _ = camera_solver.solve_depth_and_camera_from_pointmaps(world.to(dev))
+        after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        camera_solver.solve_pnp_batch = solve
+        set_exact_f32()
+    tf_dev = (ext_tf - ext_c).abs().max().item()
+    d = ext_c[:, :3, :3].cpu().double() @ ext_h[:, :3, :3].double().transpose(1, 2)
+    angle = float(np.degrees(2 * np.arcsin(np.clip(
+        (d - torch.eye(3, dtype=torch.float64)).norm(dim=(1, 2)).max().item()
+        / (2 * np.sqrt(2)), 0, 1))))
+    t_rel = ((ext_c[1:, :3, 3].cpu() - ext_h[1:, :3, 3]).norm(dim=-1)
+             / ext_h[1:, :3, 3].norm(dim=-1)).max().item()
+    log("pointmap", f"tiny Spann3R 3x192x256 f32 card vs CPU rel dev {net_rel:.3e} (tol 1e-4), "
+        f"f32 kernel launches {launched}; camera recovery card vs CPU: rotation "
+        f"{angle:.3e} deg (tol 1e-3), translation rel {t_rel:.3e} (tol 1e-3); with TF32 on in "
+        f"the process: flags inside the solver (matmul, cudnn) {seen}, after it {after}, "
+        f"extrinsics max |dev| from the TF32-off run {tf_dev:.3e} (tol 1e-6)")
+    if not (net_rel <= 1e-4 and launched == 2 + 2 * 3 and angle <= 1e-3 and t_rel <= 1e-3
+            and seen == [(False, False)] and after == (True, True) and tf_dev <= 1e-6):
+        raise AssertionError(f"pointmap reference: {net_rel} {launched} {angle} {t_rel} "
+                             f"{seen} {after} {tf_dev}")
+
+
+def phase_pointmap(dev):
+    """spann3r_7scenes.yaml's copy (clips of 20, the default Spann3R widths
+    in f32) through the eval CLI over the 7-Scenes fixture, then UniGeoCam
+    with its geometry branch at full width on all four metric families
+    (clips of 25), both with TF32 off (phase_reference turned it off)."""
+    from unigeo_tpu_torch.models.depthcrafter.pipeline import DepthCrafterPipeline
+
+    pointmap_reference(dev)
+    work = tempfile.mkdtemp(prefix="unigeo_pointmap_")
+    summary = {}
+    try:
+        root, cache = write_fixture(work)
+        sp = read_config("spann3r_7scenes.yaml")
+        sp_secs = {s: sp[s] for s in SECTIONS if s in sp}
+        cfg = fixture_config(root, cache, "Spann3R", sp["model_params"], sp_secs, PM_CLIP,
+                             PM_OVERLAP)
+        predicted = sibling_launches("spann3r", PM_CLIP)
+        if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+            raise AssertionError("TF32 is on for the pointmap phase's f32 runs")
+        run = counted_cli(dev, work, "spann3r", cfg, lambda name: {}, PM_CLIPS)
+        hold_run("pointmap", "spann3r", run, cfg, predicted, PM_CLIPS)
+        net = run.pop("models")[0].network
+        summary["spann3r"] = {k: run[k] for k in ("seconds", "clip_s", "peak_gib",
+                                                   "stage_ms")}
+        summary["spann3r"]["launches_per_clip"] = predicted
+        summary["spann3r"]["params"] = sum(p.numel() for p in net.parameters())
+        if (next(net.parameters()).dtype != torch.float32
+                or len(net.encoder.blocks.layers) != PM_ENC_DEPTH):
+            raise AssertionError("Spann3R is not the default network in f32")
+        del net, run
+        summary["spann3r_dtypes"] = spann3r_f32_vs_bf16(dev, root, cache, sp)
+        # UniGeoCam with the branch: the unigeo config's keys at full width
+        ug = read_config("unigeo_synthetic.yaml")
+        params = {k: v for k, v in ug["model_params"].items()
+                  if not k.endswith("_config") and not k.startswith("init_")
+                  and k != "num_inference_steps"}
+        secs = {s: ug[s] for s in SECTIONS if s in ug}
+        secs["eval_pcd"] = dict(secs["eval_pcd"], pcd_downsample_num=10000)
+        pipe = DepthCrafterPipeline(unet_config=SVD_XT_UNET, clip_config=SVD_XT_CLIP,
+                                    dtype=torch.bfloat16, device=dev)
+        pipe.init_random(torch.Generator(device=dev).manual_seed(0))
+        cfg = fixture_config(root, cache, "UniGeoCam", params, secs, SIB_CLIP, SIB_OVERLAP)
+        predicted = sibling_launches("unigeo_branch", SIB_CLIP)
+        run = counted_cli(dev, work, "unigeo_branch", cfg, lambda name: {"pipeline": pipe},
+                          SIB_CLIPS)
+        hold_run("pointmap", "unigeo_branch", run, cfg, predicted, SIB_CLIPS)
+        families = [s for s in SECTIONS if s in secs]
+        if len(families) != 4:
+            raise AssertionError(f"unigeo_branch scored {families}")
+        summary["unigeo_branch"] = {k: run[k] for k in ("seconds", "clip_s", "peak_gib",
+                                                         "stage_ms")}
+        summary["unigeo_branch"]["launches_per_clip"] = predicted
+        summary["unigeo_branch"]["average"] = run["rows"][-1]
+        del run, pipe
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("pointmap", json.dumps(summary))
+    return summary
+
+
+def spann3r_f32_vs_bf16(dev, root, cache, sp):
+    """One 20-frame fixture clip through the config's Spann3R in f32 and in
+    bf16 (``compute_dtype``, the same weights): warm seconds, launches of
+    each body, the bf16 world points' deviation from the f32 ones; then the
+    f32 forward under torch.profiler."""
+    from unigeo_tpu_torch.models.pointmap.spann3r import Spann3R
+    from unigeo_tpu_torch.registry import get_dataset_cls
+
+    ds = get_dataset_cls("sevenScenesDataset")(
+        root=root, clip_length=PM_CLIP, clip_overlap=PM_OVERLAP, input_size=(DISK_H, DISK_W),
+        target_size=(DISK_H, DISK_W), cache_dir=cache)
+    data = ds[0]
+    f32 = Spann3R(**sp["model_params"], device=dev)
+    bf16 = Spann3R(**sp["model_params"], compute_dtype="bfloat16", device=dev)
+    bf16.load_state_dict(f32.network.state_dict())
+    out, res = {}, {}
+    for label, model in (("f32", f32), ("bf16", bf16)):
+        model.forward_tensors(data)  # first call at the shapes
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out[label] = model.forward_tensors(data)
+        torch.cuda.synchronize()
+        res[label] = {"seconds": time.perf_counter() - t0,
+                      "launches": read_counts()["flash_attention_packed"]}
+    pts32, pts16 = out["f32"]["pred_world_pts"], out["bf16"]["pred_world_pts"]
+    res["bf16_world_pts_rel_dev"] = ((pts16 - pts32).abs().max() / pts32.abs().max()).item()
+    res["bf16_world_pts_mean_rel_dev"] = ((pts16 - pts32).abs().mean()
+                                          / pts32.abs().mean()).item()
+    log("pointmap", f"Spann3R (spann3r_7scenes.yaml's network) one {PM_CLIP}-frame clip, warm: "
+        f"{json.dumps(res)}")
+    if not (res["f32"]["launches"] == res["bf16"]["launches"] == sibling_launches(
+            "spann3r", PM_CLIP) and np.isfinite(res["bf16_world_pts_rel_dev"])):
+        raise AssertionError(f"Spann3R f32 / bf16: {res}")
+    res["profile_f32"] = profile_device(
+        "pointmap", lambda: f32.forward_tensors(data),
+        {"flash_kernel": "flash_packed", "conv": "conv", "gemm": "gemm", "elementwise":
+         "elementwise"})
+    del f32, bf16, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def f32_bound(b, s, h, d):
+    """The f32 forward's bound: 4 B H S^2 D operations at the CUDA cores'
+    f32 rate, q, k, v read and o written once in f32."""
+    flops = 4.0 * b * h * s * s * d
+    nbytes = 4.0 * b * h * d * 4 * s
+    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# the f32 body's shapes on the pointmap path at 384 x 512 (768 tokens):
+# Spann3R's encoder over UniGeoCam's 25 frames, its decoder per frame
+F32_POINTMAP_SHAPES = [("pointmap_encoder", 25, 768, 12, 64), ("pointmap_decoder", 1, 768, 8, 64)]
+
+
+def phase_kernel_f32_pointmap(dev):
+    """The packed kernel's f32 (CUDA-core) body at the pointmap shapes
+    against its plain version (F32_OUT_TOL), its time, the plain version's,
+    SDPA's in f32 (TF32 off) and the bound."""
+    import torch.nn.functional as F
+
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.ops.attention import attention_packed_reference, flash_attention_packed
+
+    set_exact_f32()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rows = []
+    for name, b, s, h, d in F32_POINTMAP_SHAPES:
+        q, k, v = (torch.randn((b, s, h * d), generator=gen, device=dev) for _ in range(3))
+        out = flash_attention_packed(q, k, v, h)
+        err = (out - attention_packed_reference(q, k, v, h)).abs().max().item()
+        if not err <= F32_OUT_TOL:
+            raise AssertionError(f"{name}: f32 kernel vs plain max abs err {err}")
+        split = lambda x: x.view(b, s, h, d).transpose(1, 2)
+        ms = time_ms(lambda: flash_attention_packed(q, k, v, h), 20)
+        plain_ms = time_ms(lambda: attention_packed_reference(q, k, v, h), 20)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v)), 20)
+        bms, by = f32_bound(b, s, h, d)
+        rows.append(dict(shape=name, b=b, s=s, h=h, d=d, dtype="float32", max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
+        log("kernel", f"f32 {name} [B={b},S={s},H={h},D={d}] max_abs_err={err:.3e} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA f32) "
+            f"bound_ms={bms:.5f} ({by})")
+        del q, k, v, out
+    torch.cuda.empty_cache()
+    return rows
+
+
 def summarize(name, source, replaces, rows, launches, extra=None):
     """One entry of the kernels line: sums over the shapes, each shape below.
     The sums are over the rows given, all at KERNEL_BATCH (the batch-25 rows
@@ -1956,6 +2523,7 @@ def main():
     ln_rows = phase_kernel_ln_dense(dev)
     train_rows = phase_kernel_train(dev)
     fwd25 = kernel_forward_batch25(dev)
+    f32_rows = phase_kernel_f32_pointmap(dev)
     torch.cuda.synchronize()
     phase_reference(dev)
     phase_reference_train(dev)
@@ -1967,6 +2535,12 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     phase_disk_eval(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    siblings = phase_svd_family(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    siblings.update(phase_pointmap(dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     trained = phase_train(dev)
@@ -2004,6 +2578,10 @@ def main():
                   "unigeo_tpu/ops/attention.py:298", rows, launches,
                   {"launches_train": trained["launches"]["flash_attention_packed"],
                    "launches_train_per_step": per_step["flash_attention_packed"],
+                   "launches_per_clip_new_paths": {k: v["launches_per_clip"]
+                                                   for k, v in siblings.items()
+                                                   if "launches_per_clip" in v},
+                   "f32_pointmap_shapes": f32_rows,
                    **forward25("packed")}),
         summarize("flash_attention_headsplit", src + "flash_attention_packed.cu",
                   "unigeo_tpu/ops/attention.py:163", headsplit_rows,

@@ -1104,3 +1104,95 @@ def test_native_reader_on_the_card_machine(cuda, tmp_path):
                                   rgb.transpose(2, 0, 1).astype(np.float32))
     np.testing.assert_array_equal(native.decode_clip_depth([str(tmp_path / "d.png")], 1000.0)[0],
                                   grey.astype(np.float32) / np.float32(1000.0))
+
+
+# --- the SVD-family and Spann3R slice ------------------------------------------
+
+
+@pytest.mark.parametrize("b,s,h,d", [(25, 768, 12, 64), (1, 768, 8, 64)])
+def test_f32_kernel_at_the_pointmap_shapes(cuda, b, s, h, d):
+    """The f32 (CUDA-core) body at Spann3R's encoder (25 frames, 12 heads)
+    and decoder (one frame, 8 heads) self-attention shapes at 384 x 512
+    (768 tokens): within 1e-5 of the plain version (f32 in both)."""
+    q, k, v = _qkv(b, s, s, h, d, torch.float32, cuda, seed=11)
+    before = flash_attention_packed.launches
+    out = flash_attention_packed(q, k, v, h)
+    assert flash_attention_packed.launches == before + 1
+    err = (out - attention_packed_reference(q, k, v, h)).abs().max().item()
+    print(f"[{b},{s},{h},{d}] f32 max abs err {err:.3e}")
+    assert err < 1e-5
+
+
+def test_known_frame_clamp_is_exact_on_the_card(tiny_card_pipeline):
+    """Frames with mask 1 come out of ``_denoise_stage_known`` equal to the
+    known latents bit for bit on the card, and the others do not."""
+    pipe = tiny_card_pipeline
+    rng = np.random.default_rng(9)
+    frames = torch.from_numpy(rng.random((4, 3, 128, 128)).astype(np.float32)).to(pipe.device)
+    gen = torch.Generator(device=pipe.device).manual_seed(2)
+    noise = torch.randn((4, 4, 16, 16), generator=gen, device=pipe.device)
+    known = torch.randn((4, 4, 16, 16), generator=gen, device=pipe.device)
+    cond, ctx = pipe._encode_stage(frames, None)
+    before = flash_attention_packed.launches
+    x = pipe._denoise_stage_known(cond, ctx, noise, known, torch.tensor([1.0, 1.0, 0.0, 0.0]), 3)
+    assert flash_attention_packed.launches > before
+    assert torch.equal(x[:2], known[:2]) and not torch.allclose(x[2:], known[2:], atol=1e-3)
+
+
+def _rotation(rotvec):
+    """Rodrigues: a rotation matrix from an axis-angle vector (f64)."""
+    theta = np.linalg.norm(rotvec)
+    kx, ky, kz = rotvec / theta
+    kmat = np.array([[0, -kz, ky], [kz, 0, -kx], [-ky, kx, 0]])
+    return np.eye(3) + np.sin(theta) * kmat + (1 - np.cos(theta)) * kmat @ kmat
+
+
+def test_spann3r_on_the_card_matches_the_cpu(cuda):
+    """Spann3R in f32 (TF32 off): the card's network (the f32 flash kernel on
+    its 192-token self-attentions) against the same weights on the CPU,
+    points and confidence within 1e-4 relative (the network's f32 sums in
+    other orders, as the CPU parity with JAX); then the camera recovery on a
+    scene whose cameras are known, card against CPU: rotations within 1e-3
+    degree and translations within 1e-3 of their norm (cuSOLVER's eigh and
+    SVD for LAPACK's; tests/test_torch_pointmap.py holds the CPU against JAX
+    to the same), depths within 1e-3 relative."""
+    from unigeo_tpu_torch.models.camera_solver import solve_depth_and_camera_from_pointmaps
+    from unigeo_tpu_torch.models.pointmap.spann3r import Spann3R, tiny_spann3r_config
+
+    cfg = dict(tiny_spann3r_config(), pos_embed="RoPE100", qkv_bias=True, norm_context=True,
+               head_type="dpt")
+    card = Spann3R(network_config=cfg, device=cuda, seed=3)
+    cpu = Spann3R(network_config=cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.network.state_dict().items()})
+    frames = torch.from_numpy(np.random.default_rng(12).random((3, 192, 256, 3)).astype(np.float32))
+    before = flash_attention_packed.launches
+    with torch.no_grad():
+        pts, conf = card.network(frames.to(cuda))
+    assert flash_attention_packed.launches - before == 2 + 2 * 3  # encoder, decoder per frame
+    with torch.no_grad():
+        ref_pts, ref_conf = cpu.network(frames)
+    rel = lambda a, b: ((a.cpu() - b).abs().max() / b.abs().max()).item()
+    print("points rel dev", rel(pts, ref_pts), "conf rel dev", rel(conf, ref_conf))
+    assert rel(pts, ref_pts) < 1e-4 and rel(conf, ref_conf) < 1e-4
+
+    rng = np.random.default_rng(13)
+    h, w, f = 48, 64, 3
+    uu, vv = np.meshgrid(np.arange(w), np.arange(h), indexing="xy")
+    world = []
+    for i in range(f):
+        depth = 2.0 + rng.uniform(0, 0.5, (h, w))
+        cam = np.stack([(uu - w / 2) * depth / 50.0, (vv - h / 2) * depth / 50.0, depth], -1)
+        r = np.eye(3) if i == 0 else _rotation(rng.normal(0, 0.05, 3))
+        t = np.zeros(3) if i == 0 else rng.normal(0, 0.2, 3)
+        world.append(((cam.reshape(-1, 3) - t) @ r).reshape(h, w, 3))
+    world = torch.from_numpy(np.stack(world).astype(np.float32))
+    cam_c, ext_c, _ = solve_depth_and_camera_from_pointmaps(world.to(cuda))
+    cam_h, ext_h, _ = solve_depth_and_camera_from_pointmaps(world)
+    d = ext_c[:, :3, :3].cpu().double() @ ext_h[:, :3, :3].double().transpose(1, 2)
+    angle = np.degrees(2 * np.arcsin(np.clip(
+        (d - torch.eye(3, dtype=torch.float64)).norm(dim=(1, 2)).numpy() / (2 * np.sqrt(2)), 0, 1)))
+    t_dev = (ext_c[:, :3, 3].cpu() - ext_h[:, :3, 3]).norm(dim=-1)
+    print("rotation deg", angle.tolist(), "translation dev", t_dev.tolist())
+    assert (angle < 1e-3).all()
+    assert (t_dev[1:] < 1e-3 * ext_h[1:, :3, 3].norm(dim=-1)).all()
+    assert rel(cam_c[..., 2], cam_h[..., 2]) < 1e-3

@@ -400,8 +400,6 @@ def test_depthcrafter_constructor_takes_the_config_keys_and_raises_on_unported()
     assert get_model_cls("DepthCrafter") is DepthCrafter
     with pytest.raises(NotImplementedError, match="item 9"):
         DepthCrafter(checkpoint_path="weights.npz")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        DepthCrafter(solver="heun")
     # without a pipeline: built at the given configs, random weights from
     # the seed (the same seed, the same weights); reference keys ignored
     unet = tiny_unet_config()
@@ -410,6 +408,10 @@ def test_depthcrafter_constructor_takes_the_config_keys_and_raises_on_unported()
                   device="cpu", seed=3, checkpoint_path=None, overlap=25,
                   model_dir="/nowhere", unet_path="/nowhere", pre_train_path="/nowhere",
                   scheduler_config={"sigma_max": 700.0, "unknown": 1}, init_height=64)
+    # Heun builds its pipeline with that solver; an unknown solver raises
+    assert DepthCrafter(solver="heun", **kwargs).pipeline.solver == "heun"
+    with pytest.raises(ValueError, match="unknown solver 'rk4'"):
+        DepthCrafter(solver="rk4", **kwargs)
     a, b = DepthCrafter(**kwargs), DepthCrafter(**kwargs)
     assert a.pipeline.dtype == torch.bfloat16 and a.pipeline.device.type == "cpu"
     for pa, pb in zip(a.pipeline.unet.parameters(), b.pipeline.unet.parameters()):

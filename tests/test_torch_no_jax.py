@@ -155,6 +155,46 @@ def test_loader_slice_modules_are_checked(rel):
     assert os.path.join(ROOT, rel) in _port_files()
 
 
+# the modules of the SVD-family and Spann3R slice, which the walk above must find
+SIBLING_SLICE_MODULES = [
+    "unigeo_tpu_torch/models/stablenormal.py",
+    "unigeo_tpu_torch/models/chronodepth.py",
+    "unigeo_tpu_torch/models/depthanyvideo.py",
+    "unigeo_tpu_torch/models/unigeo_cam.py",
+    "unigeo_tpu_torch/models/camera_solver.py",
+    "unigeo_tpu_torch/models/pointmap/__init__.py",
+    "unigeo_tpu_torch/models/pointmap/network.py",
+    "unigeo_tpu_torch/models/pointmap/dpt.py",
+    "unigeo_tpu_torch/models/pointmap/adapter.py",
+    "unigeo_tpu_torch/models/pointmap/spann3r.py",
+    "unigeo_tpu_torch/ops/rope.py",
+]
+
+
+@pytest.mark.parametrize("rel", SIBLING_SLICE_MODULES)
+def test_sibling_slice_modules_are_checked(rel):
+    assert os.path.join(ROOT, rel) in _port_files()
+
+
+def test_every_new_model_name_resolves_without_jax_yaml_or_pil():
+    """The six names of the SVD-family and Spann3R slice resolve through the
+    port's registry, importing neither JAX nor the JAX package, PyYAML or PIL."""
+    code = (
+        "import sys\n"
+        "from unigeo_tpu_torch.registry import get_model_cls\n"
+        "for n in ('UniGeoCam', 'UniGeo', 'StableNormal', 'ChronoDepth', 'DepthAnyVideo',\n"
+        "          'Spann3R'):\n"
+        "    get_model_cls(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'flax', 'unigeo_tpu', 'yaml', 'PIL'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 def test_loader_slice_imports_no_pil_pandas_h5py_or_yaml():
     """The card machine may lack all four: the loaders import PIL only to
     decode or resize, Hypersim pandas and h5py only to read its files, and

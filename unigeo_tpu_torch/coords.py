@@ -9,6 +9,7 @@ for the metrics are OpenCV, except normals, which stay OpenGL on both sides.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 OPENGL_TO_OPENCV = np.array(
     [[1.0, 0.0, 0.0, 0.0],
@@ -39,8 +40,16 @@ def convert_pose_gl_cv(pose: np.ndarray) -> np.ndarray:
     return f @ pose @ f
 
 
-def se3_inverse(pose: np.ndarray) -> np.ndarray:
-    """[R t; 0 1]^-1 = [R^T -R^T t; 0 1] for [..., 4, 4]."""
+def se3_inverse(pose):
+    """[R t; 0 1]^-1 = [R^T -R^T t; 0 1] for [..., 4, 4], numpy or torch
+    (on the tensor's device, the product elementwise, so in f32 whatever
+    the TF32 flags)."""
+    if isinstance(pose, torch.Tensor):
+        rt = pose[..., :3, :3].transpose(-1, -2)
+        top = torch.cat([rt, -(rt * pose[..., None, :3, 3]).sum(-1, keepdim=True)], dim=-1)
+        bottom = torch.zeros_like(pose[..., :1, :])
+        bottom[..., 0, 3] = 1.0
+        return torch.cat([top, bottom], dim=-2)
     r = pose[..., :3, :3]
     t = pose[..., :3, 3:]
     rt = np.swapaxes(r, -1, -2)

@@ -7,6 +7,8 @@ the card, and a missing card is an error: nothing falls back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 PRODUCTION_DTYPE = torch.bfloat16
@@ -27,3 +29,17 @@ def set_exact_f32() -> None:
     card is f32 when it is compared with a reference."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """TF32 off for matmuls and cuDNN convolutions inside the block, the
+    caller's flags restored after it: the geometry that must stay f32
+    (camera solver, focal, world points) whatever the process has set."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    set_exact_f32()
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn

@@ -3,7 +3,7 @@
 Port of ``unigeo_tpu/models/depthcrafter/model.py``:
 
   input    images [Nf,3,H,W] 0..255 -> frames [Nf,H,W,3] 0..1 (host /255)
-  infer    the staged pipeline, 5 Euler steps
+  infer    the staged pipeline, 5 Euler (or Heun) steps
   postproc mean over the decoded channels -> min-max over the whole clip ->
            depth = 1/(x + 0.1)
   output   backproject with the GT intrinsics -> 5x5 plane-fit normals ->
@@ -22,8 +22,9 @@ The constructor takes the JAX adapter's keywords, so a config's
 ``model_params`` build it (registered as ``DepthCrafter``).  Without a
 ``pipeline`` it builds one at the given (default SVD-XT) configs, in bf16 on
 ``device``, with random weights made there from a generator seeded with
-``seed``.  What is not ported raises, naming its ROADMAP item, instead of
-doing something else.
+``seed``; ``solver`` is that pipeline's (a given pipeline keeps its own, as
+in the JAX package).  What is not ported raises, naming its ROADMAP item,
+instead of doing something else.
 """
 
 from __future__ import annotations
@@ -35,24 +36,43 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from unigeo_tpu_torch.device import PRODUCTION_DTYPE
-from unigeo_tpu_torch.models.depthcrafter.pipeline import DepthCrafterPipeline
-from unigeo_tpu_torch.models.depthcrafter.scheduler import EulerDiscreteConfig
+from unigeo_tpu_torch.models.depthcrafter.pipeline import (
+    DepthCrafterPipeline,
+    random_pipeline,
+    refuse_checkpoint,
+)
+from unigeo_tpu_torch.models.depthcrafter.scheduler import SOLVERS, EulerDiscreteConfig
 from unigeo_tpu_torch.ops.backproject import backproject_to_cv_position
 from unigeo_tpu_torch.ops.normals import surface_normals_from_points
 from unigeo_tpu_torch.registry import MODELS
 
 
-def _postprocess(decoded: torch.Tensor, intrinsics: torch.Tensor):
-    """decoded [Nf,H,W,3] 0..1 -> (depths [Nf,H,W], normals_gl [Nf,H,W,3])."""
+def minmax_inverse_depth(decoded: torch.Tensor) -> torch.Tensor:
+    """decoded [Nf,H,W,3] 0..1 -> depths [Nf,H,W]: the channel mean, min-max
+    over the whole clip, depth = 1/(x + 0.1)."""
     res = decoded.float().mean(dim=-1)
     rmin, rmax = res.min(), res.max()
     res = (res - rmin) / torch.clamp(rmax - rmin, min=1e-8)
-    depths = 1.0 / (res + 0.1)
-    pts = backproject_to_cv_position(depths, intrinsics.float())
-    normals_cv = surface_normals_from_points(pts)
-    sign = torch.tensor([1.0, -1.0, -1.0], device=normals_cv.device)
-    return depths, normals_cv * sign
+    return 1.0 / (res + 0.1)
+
+
+def normals_from_depths(depths: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
+    """depths [Nf,H,W] + K [Nf,3,3] -> OpenGL normals [Nf,H,W,3]: backproject,
+    5x5 plane fit, flip y and z."""
+    normals_cv = surface_normals_from_points(backproject_to_cv_position(depths,
+                                                                        intrinsics.float()))
+    return normals_cv * torch.tensor([1.0, -1.0, -1.0], device=normals_cv.device)
+
+
+def _postprocess(decoded: torch.Tensor, intrinsics: torch.Tensor):
+    """decoded [Nf,H,W,3] 0..1 -> (depths [Nf,H,W], normals_gl [Nf,H,W,3])."""
+    depths = minmax_inverse_depth(decoded)
+    return depths, normals_from_depths(depths, intrinsics)
+
+
+def intrinsics_of(data: Dict[str, Any], device) -> torch.Tensor:
+    """data["intrinsics"] as an f32 tensor [Nf,3,3] on ``device``."""
+    return torch.from_numpy(np.asarray(data["intrinsics"], np.float32)).to(device)
 
 
 def scheduler_config_of(cfg) -> Optional[EulerDiscreteConfig]:
@@ -98,22 +118,13 @@ class DepthCrafter:
         plus the ``device`` of a pipeline built here (in bf16, as the JAX
         adapter builds it).  ``init_*`` size the JAX package's parameter
         init; the port's random weights do not depend on them."""
-        if checkpoint_path:
-            raise NotImplementedError(
-                f"checkpoint_path={checkpoint_path!r}: checkpoint IO is not ported yet "
-                "(ROADMAP queue 1 item 9); leave it null for random weights")
-        if solver == "heun":
-            raise NotImplementedError(
-                "solver='heun' is not ported yet (ROADMAP queue 1 item 6); use 'euler'")
-        if solver != "euler":
+        refuse_checkpoint(checkpoint_path)
+        if solver not in SOLVERS:
             raise ValueError(f"unknown solver {solver!r}")
         if pipeline is None:
-            pipeline = DepthCrafterPipeline(
-                unet_config=unet_config, vae_config=vae_config, clip_config=clip_config,
-                scheduler_config=scheduler_config_of(scheduler_config), dtype=PRODUCTION_DTYPE,
-                device=device,
-            )
-            pipeline.init_random(torch.Generator(device=pipeline.device).manual_seed(seed))
+            pipeline = random_pipeline(
+                unet_config, vae_config, clip_config, seed=seed, device=device,
+                scheduler_config=scheduler_config_of(scheduler_config), solver=solver)
         self.pipeline = pipeline
         self.num_inference_steps = num_inference_steps
         self.overlap = overlap
@@ -164,8 +175,7 @@ class DepthCrafter:
 
     def _finalize(self, decoded: torch.Tensor, data: Dict[str, Any]) -> Dict[str, Any]:
         """decoded [T,H,W,3] 0..1 on the device -> host depths and normals."""
-        intrinsics = torch.from_numpy(np.asarray(data["intrinsics"], np.float32))
-        depths, normals = _postprocess(decoded, intrinsics.to(decoded.device))
+        depths, normals = _postprocess(decoded, intrinsics_of(data, decoded.device))
         return {
             "pred_depths": depths.cpu().numpy(),
             "pred_normals": normals.cpu().numpy(),

@@ -8,7 +8,7 @@ whole clip, the path the eval configs use):
          -> conditioning latents (UNSCALED)
       -> CLIP-embed per frame -> context [T,1,1024]
       -> x = noise * sqrt(sigma_max^2 + 1)
-      -> Euler over the Karras sigmas with EDM v-prediction
+      -> Euler (or Heun) over the Karras sigmas with EDM v-prediction
       -> VAE.decode(x / 0.18215) -> [T,H,W,3] in about [-1, 1]
 
 Public functions keep the JAX package's NHWC layout; the stages run NCHW
@@ -19,7 +19,10 @@ and production callers draw from a ``torch.Generator`` on the device
 
 Longer clips run as overlapping windows crossfaded on the overlap
 (``__call__``), and ``run_clips_staged`` runs B equally-shaped clips with
-one batched denoise loop between per-clip encodes and decodes.
+one batched denoise loop between per-clip encodes and decodes.  The SVD
+siblings use two more stages: ``_denoise_stage_known`` (frames clamped to
+known latents, ChronoDepth and DepthAnyVideo) and ``_decode_frames`` (N
+independent frames, StableNormal).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch.nn as nn
 
 from unigeo_tpu_torch.device import PRODUCTION_DTYPE, resolve_device
 from unigeo_tpu_torch.models.depthcrafter.scheduler import (
+    SOLVERS,
     EulerDiscreteConfig,
     EulerDiscreteScheduler,
 )
@@ -84,7 +88,11 @@ class DepthCrafterPipeline:
         motion_bucket_id: float = 127.0,
         noise_aug_strength: float = 0.02,
         scheduler_config: Optional[EulerDiscreteConfig] = None,
+        solver: str = "euler",
     ):
+        if solver not in SOLVERS:
+            raise ValueError(f"unknown solver {solver!r}")
+        self.solver = solver
         self.device = resolve_device(device)
         self.dtype = dtype
         # built on the meta device and then given storage where they run, so
@@ -162,9 +170,19 @@ class DepthCrafterPipeline:
         return cond, context
 
     @torch.no_grad()
-    def _denoise_loop(self, cond, context, noise, num_inference_steps: int):
-        """Euler over B clips: cond [B,T,4,h,w], context [B,T,1,C], noise
-        [B,T,4,h,w] -> denoised latents [B,T,4,h,w] in f32."""
+    def _denoise_loop(self, cond, context, noise, num_inference_steps: int,
+                      known=None, mask_t=None):
+        """B clips: cond [B,T,4,h,w], context [B,T,1,C], noise [B,T,4,h,w]
+        -> denoised latents [B,T,4,h,w] in f32, by ``self.solver``.
+
+        Heun (pipeline.py:263-275 of the JAX package) is a trapezoidal
+        corrector with a second UNet evaluation at sigma_next over steps
+        0..n-2; the last step (sigma_next = 0) is plain Euler, so n steps
+        take 2n - 1 evaluations.
+
+        known [B,T,4,h,w] and mask_t [T] (``_denoise_stage_known``): Euler
+        with the frames of mask_t > 0 set to known + sigma * noise before
+        every UNet evaluation and to known (sigma = 0) after the last step."""
         b, t = cond.shape[:2]
         sigmas = self.scheduler.inference_sigmas(num_inference_steps)
         timesteps = self.scheduler.timesteps_for_sigmas(sigmas[:-1])
@@ -172,21 +190,63 @@ class DepthCrafterPipeline:
         added = torch.from_numpy(np.repeat(self.added_time_ids, b, axis=0)).to(self.device)
         cond_flat = cond.reshape(b * t, *cond.shape[2:])
         ctx_flat = context.reshape(b * t, *context.shape[2:])
-        for i in range(num_inference_steps):
-            sigma, sigma_next = float(sigmas[i]), float(sigmas[i + 1])
+
+        def denoised_at(x, i):
+            """One UNet evaluation -> the EDM-denoised estimate at sigmas[i]."""
+            sigma = float(sigmas[i])
             x_in = self.scheduler.scale_model_input(x, sigma).to(self.dtype)
             unet_in = torch.cat([x_in.reshape(b * t, *x_in.shape[2:]), cond_flat], dim=1)
             ts = torch.full((b,), float(timesteps[i]), device=self.device)
             v = self.unet(unet_in, ts, ctx_flat, added, t).float().reshape(x.shape)
-            denoised = self.scheduler.denoised_from_v(x, v, sigma)
-            x = self.scheduler.euler_step(x, denoised, sigma, sigma_next)
+            return self.scheduler.denoised_from_v(x, v, sigma)
+
+        if known is not None:
+            m = (mask_t > 0).to(self.device).reshape(1, t, 1, 1, 1)
+            clamp = lambda x, sigma: torch.where(m, known + sigma * noise, x)
+            for i in range(num_inference_steps):
+                sigma, sigma_next = float(sigmas[i]), float(sigmas[i + 1])
+                x = clamp(x, sigma)
+                x = self.scheduler.euler_step(x, denoised_at(x, i), sigma, sigma_next)
+            return clamp(x, 0.0)
+        n_euler = num_inference_steps
+        if self.solver == "heun":
+            n_euler = 1
+            for i in range(num_inference_steps - 1):
+                sigma, sigma_next = float(sigmas[i]), float(sigmas[i + 1])
+                dt = sigma_next - sigma
+                d1 = (x - denoised_at(x, i)) / sigma
+                x_pred = x + d1 * dt
+                d2 = (x_pred - denoised_at(x_pred, i + 1)) / sigma_next
+                x = x + 0.5 * (d1 + d2) * dt
+        for i in range(num_inference_steps - n_euler, num_inference_steps):
+            sigma, sigma_next = float(sigmas[i]), float(sigmas[i + 1])
+            x = self.scheduler.euler_step(x, denoised_at(x, i), sigma, sigma_next)
         return x
+
+    @torch.no_grad()
+    def _denoise_stage_known(self, cond, context, noise, known, mask_t,
+                             num_inference_steps: int):
+        """One clip, Euler, frames with mask_t[f] > 0 clamped to ``known``
+        re-noised to the current sigma (pipeline.py:300-346 of the JAX
+        package): cond / noise / known [T,4,h,w], context [T,1,C], mask_t [T]
+        -> [T,4,h,w] f32.  ``noise`` is the window's N(0, 1) draw, which
+        also starts x; clamped frames come out equal to ``known``, and an
+        all-zero mask is the Euler loop."""
+        return self._denoise_loop(cond[None], context[None], noise[None], num_inference_steps,
+                                  known=known[None].float(), mask_t=mask_t)[0]
 
     @torch.no_grad()
     def _decode_stage(self, latents):
         """[T,4,h,w] -> [T,3,H,W] f32."""
         t = latents.shape[0]
         return self.vae.decode(latents.to(self.dtype), t).float()
+
+    @torch.no_grad()
+    def _decode_frames(self, latents):
+        """[N,4,h,w] -> [N,3,H,W] f32, as N independent frames: the decoder
+        with num_frames = 1, so its temporal mixing never couples them
+        (pipeline.py:357-370 of the JAX package)."""
+        return self.vae.decode(latents.to(self.dtype), 1).float()
 
     def run_window_staged(self, frames, noise, num_inference_steps: int,
                           aug_noise=None, stage_ms: Optional[Dict[str, float]] = None):
@@ -313,6 +373,26 @@ class DepthCrafterPipeline:
         return (acc + 1.0) / 2.0
 
 
+def random_pipeline(unet_config=None, vae_config=None, clip_config=None, seed: int = 0,
+                    dtype: torch.dtype = PRODUCTION_DTYPE, device="cuda",
+                    **kwargs) -> DepthCrafterPipeline:
+    """A pipeline at the given (default SVD-XT) configs, in ``dtype`` on
+    ``device``, with random weights made there from a generator seeded with
+    ``seed`` (the SVD-family adapters' default when given no pipeline)."""
+    pipe = DepthCrafterPipeline(unet_config=unet_config, vae_config=vae_config,
+                                clip_config=clip_config, dtype=dtype, device=device, **kwargs)
+    return pipe.init_random(torch.Generator(device=pipe.device).manual_seed(seed))
+
+
+def refuse_checkpoint(checkpoint_path) -> None:
+    """Checkpoint IO is ROADMAP queue 1 item 9: a path raises instead of
+    running on random weights."""
+    if checkpoint_path:
+        raise NotImplementedError(
+            f"checkpoint_path={checkpoint_path!r}: checkpoint IO is not ported yet "
+            "(ROADMAP queue 1 item 9); leave it null for random weights")
+
+
 @contextlib.contextmanager
 def _timed(out: Optional[Dict[str, float]], name: str, device: torch.device):
     """Record the wall ms of the block under ``name`` in ``out`` (the device
@@ -329,7 +409,7 @@ def _timed(out: Optional[Dict[str, float]], name: str, device: torch.device):
     out[name] = (time.perf_counter() - t0) * 1e3
 
 
-def tiny_pipeline(device="cuda", dtype=torch.float32) -> DepthCrafterPipeline:
+def tiny_pipeline(device="cuda", dtype=torch.float32, solver: str = "euler") -> DepthCrafterPipeline:
     """A miniature pipeline (the JAX package's tiny configs), weights unset."""
     from unigeo_tpu_torch.models.depthcrafter.unet import tiny_unet_config
     from unigeo_tpu_torch.models.depthcrafter.vae import tiny_vae_config
@@ -342,4 +422,5 @@ def tiny_pipeline(device="cuda", dtype=torch.float32) -> DepthCrafterPipeline:
         clip_config=dict(tiny_clip_config(), projection_dim=unet_cfg["cross_attention_dim"]),
         dtype=dtype,
         device=device,
+        solver=solver,
     )

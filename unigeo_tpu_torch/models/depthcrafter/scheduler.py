@@ -5,6 +5,10 @@ timestep tables are the same numpy code (Karras ramp, rho 7, between the
 config's sigma_max 700 and sigma_min 0.002, terminated by 0; continuous
 c_noise = 0.25 ln sigma); the per-step arithmetic works on tensors or floats.
 
+``SOLVERS`` are the samplers the pipeline's denoise loop takes: "euler"
+(``euler_step`` every step) and "heun" (the JAX package's trapezoidal
+corrector, ``pipeline.py::_denoise_loop``).
+
 The training side (``add_noise``, ``v_target``, ``train_timesteps``) serves
 ``parallel/trainer.py``: sigma is a tensor there, one per clip.
 """
@@ -17,6 +21,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+SOLVERS = ("euler", "heun")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,6 +24,7 @@ from unigeo_tpu_torch.ops.attention import (
     use_packed_attention,
 )
 from unigeo_tpu_torch.ops.geglu import GegluFFN, geglu_ffn, use_fused_geglu
+from unigeo_tpu_torch.ops.rope import apply_rope_2d, rope_2d_cos_sin
 
 
 def sinusoidal_embedding(
@@ -98,8 +99,34 @@ def attend(q, k, v, num_heads: int, head_dim: int):
     return attention_packed_reference(q, k, v, num_heads, scale, upcast=False)
 
 
+def masked_attention(q, k, v, ctx_mask, num_heads: int, head_dim: int):
+    """Dense attention over packed [B, S, H*D] q, k, v in which keys with
+    ctx_mask [Sk] or [B, Sk] false (or 0) get no weight, with the JAX
+    package's formula (layers.py:139-154): logits -1e30 where masked,
+    p = exp(logits - max), out = p v / max(sum p, 1e-30).  It never reaches
+    a kernel (the flash kernels take no key mask); the ring-memory contexts
+    it serves are a few thousand keys."""
+    b, s, inner = q.shape
+    sk = k.shape[1]
+    qh = q.reshape(b, s, num_heads, head_dim)
+    kh = k.reshape(b, sk, num_heads, head_dim)
+    vh = v.reshape(b, sk, num_heads, head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * head_dim**-0.5
+    valid = torch.as_tensor(ctx_mask, device=q.device).bool().reshape(-1, sk).expand(b, sk)
+    logits = torch.where(valid[:, None, None, :], logits, torch.full_like(logits, -1e30))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    denom = p.sum(-1, keepdim=True).clamp_min(1e-30).transpose(1, 2)
+    return (torch.einsum("bhqk,bkhd->bqhd", p, vh) / denom).reshape(b, s, inner)
+
+
 class Attention(nn.Module):
-    """Multi-head attention over [B, S, C] with an optional cross context."""
+    """Multi-head attention over [B, S, C] with an optional cross context.
+
+    ``rope_freq`` (the pointmap backbones' 2D RoPE base): q is rotated by
+    ``pos`` and k by ``ctx_pos`` (``pos`` for self-attention) before the
+    dispatch, as layers.py:122-137 of the JAX package does.  ``ctx_mask``
+    sends the call to ``masked_attention``; everything else goes through
+    ``attend``."""
 
     def __init__(
         self,
@@ -109,10 +136,12 @@ class Attention(nn.Module):
         context_dim: Optional[int] = None,
         qkv_bias: bool = False,
         out_bias: bool = True,
+        rope_freq: Optional[float] = None,
     ):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = head_dim or query_dim // num_heads
+        self.rope_freq = rope_freq
         inner = self.head_dim * num_heads
         ctx = context_dim or query_dim
         self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias)
@@ -120,7 +149,13 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(ctx, inner, bias=qkv_bias)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, bias=out_bias)])
 
-    def forward(self, x, context=None):
+    def _rope(self, t, pos):
+        b, s, inner = t.shape
+        cos, sin = rope_2d_cos_sin(self.head_dim, pos, self.rope_freq, t.dtype)
+        th = t.reshape(b, s, self.num_heads, self.head_dim)
+        return apply_rope_2d(th, cos, sin).reshape(b, s, inner)
+
+    def forward(self, x, context=None, pos=None, ctx_pos=None, ctx_mask=None):
         b, s, c = x.shape
         if context is not None and context.shape[1] == 1:
             # single-key cross-attention: softmax over one logit is 1, so
@@ -130,7 +165,15 @@ class Attention(nn.Module):
             return out.expand(b, s, out.shape[-1])
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
-        out = attend(q, k, v, self.num_heads, self.head_dim)
+        if self.rope_freq is not None and pos is not None:
+            q = self._rope(q, pos)
+            kpos = pos if context is None else ctx_pos
+            if kpos is not None:
+                k = self._rope(k, kpos)
+        if ctx_mask is not None:
+            out = masked_attention(q, k, v, ctx_mask, self.num_heads, self.head_dim)
+        else:
+            out = attend(q, k, v, self.num_heads, self.head_dim)
         return self.to_out[0](out)
 
 

@@ -46,7 +46,12 @@ def get_dataset_cls(name: str) -> type:
 
 def get_model_cls(name: str) -> type:
     # the self-registering model modules
+    import unigeo_tpu_torch.models.chronodepth  # noqa: F401
+    import unigeo_tpu_torch.models.depthanyvideo  # noqa: F401
     import unigeo_tpu_torch.models.depthcrafter.model  # noqa: F401
     import unigeo_tpu_torch.models.identity  # noqa: F401
+    import unigeo_tpu_torch.models.pointmap.spann3r  # noqa: F401
+    import unigeo_tpu_torch.models.stablenormal  # noqa: F401
+    import unigeo_tpu_torch.models.unigeo_cam  # noqa: F401
 
     return MODELS.get(name)

@@ -12,6 +12,15 @@ uses, or a shape that differs raises.
 
 The input is a nested dict of numpy (or array-like) leaves, as
 ``DepthCrafterPipeline.init_params`` of the JAX package makes it.
+
+The pointmap networks (``pointmap_state_dict``) keep the JAX package's own
+module names, so their rule is structural: ``blocks.layers.N.`` picks layer
+N of the scan-stacked ``blocks/layers/block`` leaves (the Spann3R memory
+step's leaves are broadcast over the frames, not stacked), ``to_out.0`` is
+flax's ``to_out``, and each leaf's layout follows its torch module: Linear
+[in, out] -> [out, in], Conv2d HWIO -> OIHW, and ConvTranspose2d HWIO ->
+[in, out, kh, kw] spatially flipped (flax's transposed conv correlates the
+dilated input with the kernel as stored, torch's with it flipped).
 """
 
 from __future__ import annotations
@@ -156,23 +165,25 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[Tuple[str, ...], Any]:
 
 
 def state_dict_from_flax(flax_params: Mapping[str, Any], module: nn.Module,
-                         path_fn) -> Dict[str, torch.Tensor]:
+                         path_fn, layout_fn=to_torch_layout) -> Dict[str, torch.Tensor]:
     """One component's flax tree -> a state dict with ``module``'s keys.
 
-    ``path_fn``: ``unet_flax_path``, ``vae_flax_path`` or ``clip_flax_path``.
+    ``path_fn``: ``unet_flax_path``, ``vae_flax_path``, or one that returns
+    (flax path, layer index or None) as ``clip_flax_path`` does;
+    ``layout_fn(key, arr)`` turns a leaf into the torch layout.
     Raises on a missing leaf, a left-over leaf or a shape mismatch."""
     flat = _flatten(flax_params)
     used: Dict[Tuple[str, ...], set] = {}
     out: Dict[str, torch.Tensor] = {}
     for key, ref in module.state_dict().items():
         found = path_fn(key)
-        path, idx = found if path_fn is clip_flax_path else (found, None)
+        path, idx = found if isinstance(found[0], tuple) else (found, None)
         if path not in flat:
             raise KeyError(f"{key}: no flax leaf {'/'.join(path)}")
         arr = np.asarray(flat[path])
         if idx is not None:
             arr = arr[idx]
-        arr = to_torch_layout(key, arr)
+        arr = layout_fn(key, arr)
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: flax {arr.shape} vs port {tuple(ref.shape)}")
         used.setdefault(path, set()).add(idx)
@@ -194,3 +205,52 @@ def pipeline_state_dicts(params: Mapping[str, Any], pipeline):
         state_dict_from_flax(params["vae"], pipeline.vae, vae_flax_path),
         state_dict_from_flax(params["clip"], pipeline.clip, clip_flax_path),
     )
+
+
+# --- the pointmap networks -----------------------------------------------------
+
+_STACKED_LAYER = re.compile(r"^(.*\.)?blocks\.layers\.(\d+)\.(.*)$")
+
+
+def pointmap_flax_path(key: str, module_types: Mapping[str, type]):
+    """(flax path, layer index or None) of a pointmap network's key;
+    ``module_types`` maps each key to its torch module's type."""
+    name = re.sub(r"(^|\.)to_out\.0\.", r"\1to_out.", key)
+    idx = None
+    m = _STACKED_LAYER.match(name)
+    if m:
+        name = f"{m.group(1) or ''}blocks.layers.block.{m.group(3)}"
+        idx = int(m.group(2))
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "scale" if module_types[key] is nn.LayerNorm else "kernel"
+    return tuple(parts), idx
+
+
+def pointmap_layout(key: str, arr: np.ndarray, module_types: Mapping[str, type]) -> np.ndarray:
+    if not key.endswith(".weight"):
+        return arr
+    kind = module_types[key]
+    if kind is nn.Linear:
+        return arr.T
+    if kind is nn.Conv2d:
+        return np.transpose(arr, (3, 2, 0, 1))
+    if kind is nn.ConvTranspose2d:
+        return np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+    return arr
+
+
+def pointmap_state_dict(flax_params: Mapping[str, Any], network: nn.Module):
+    """A JAX pointmap network's params (``network.init``'s tree, with or
+    without its "params" level) -> a strict state dict for the port's
+    network of the same configuration (e.g. ``Spann3RNetwork``)."""
+    if set(flax_params) == {"params"}:
+        flax_params = flax_params["params"]
+    module_types = {}
+    for name, mod in network.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            module_types[f"{name}.{pname}" if name else pname] = type(mod)
+    return state_dict_from_flax(
+        flax_params, network,
+        lambda key: pointmap_flax_path(key, module_types),
+        lambda key, arr: pointmap_layout(key, arr, module_types))
