@@ -32,10 +32,14 @@ Phases, each printed on its own flushed line with the seconds since start:
              ragged shapes in bf16 and f32 (the body that ran and its grid,
              max err/limit, kernel events and device / plain / unfused-layers
              ms, the bound, rows past M in a zeroed buffer of whole items
-             held to 0); the packed kernel's f32 body at the pointmap
-             shapes ([25, 768, 12, 64] and [1, 768, 8, 64]) against its plain
-             version, with its, the plain version's and SDPA's f32 times
-             and the bound at the f32 rate
+             held to 0); the packed kernel's f32 body at d = 64 (the
+             register-tiled flash_packed_f32reg_kernel, asserted by name) at
+             the pointmap shapes ([25, 768, 12, 64], Spann3R's own [20, 768,
+             12, 64] and [1, 768, 8, 64]) against its plain version, with its
+             events and device ms, the plain version's and SDPA's f32 times,
+             the bound at the f32 rate, and the earlier CUDA-core body's
+             times at d = 64 (a copy of the sources built with the f32
+             switch skipping the new body)
   reference  the tiny pipeline in f32 on the card (kernel path) against the
              same weights on the CPU (plain path); then one step of the tiny
              trainer the same way: loss, every gradient, and the AdamW step
@@ -83,7 +87,9 @@ Phases, each printed on its own flushed line with the seconds since start:
              CPU, the camera recovery card against CPU and with TF32 on in
              the process (the same result: it turns TF32 off inside); then
              the CLI on a copy of configs/spann3r_7scenes.yaml (2 clips of
-             20, the default Spann3R in f32) and UniGeoCam with its
+             20, the default Spann3R in f32; one warm clip under
+             torch.profiler gives the f32 flash device ms per clip, every
+             launch on the register-tiled body) and UniGeoCam with its
              geometry branch at full width on all four metric families
              (2 clips of 25), the same numbers as svd_family
   train      the port's trainer (unigeo_tpu_torch.train.main) at SVD-XT
@@ -113,6 +119,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1130,6 +1137,7 @@ def profile_device(phase, run, groups):
         ms = sum(r[1] for r in kernels if key in r[0])
         summary[f"{label}_ms"] = round(ms, 2)
         summary[f"{label}_share_of_device"] = round(ms / max(device_ms, 1e-9), 4)
+        summary[f"{label}_launches"] = sum(r[2] for r in kernels if key in r[0])
     summary["top_kernels"] = [[name[:90], round(ms, 2), n] for name, ms, n in kernels[:12]]
     summary["annotated_ranges"] = [[name[:90], round(ms, 2), n] for name, ms, n in ranges[:4]]
     summary["top_ops"] = [[name, shapes, round(ms, 2), n] for name, shapes, ms, n in ops[:12]]
@@ -2413,8 +2421,19 @@ def spann3r_f32_vs_bf16(dev, root, cache, sp):
         raise AssertionError(f"Spann3R f32 / bf16: {res}")
     res["profile_f32"] = profile_device(
         "pointmap", lambda: f32.forward_tensors(data),
-        {"flash_kernel": "flash_packed", "conv": "conv", "gemm": "gemm", "elementwise":
-         "elementwise"})
+        {"flash_kernel": "flash_packed", "f32reg": "flash_packed_f32reg_kernel", "conv": "conv",
+         "gemm": "gemm", "elementwise": "elementwise"})
+    # the f32 flash device ms of one clip: every launch on the register-tiled
+    # body
+    prof = res["profile_f32"]
+    res["f32_flash_device_ms_per_clip"] = prof["flash_kernel_ms"]
+    log("pointmap", f"f32 flash device ms per {PM_CLIP}-frame clip "
+        f"{prof['flash_kernel_ms']} in {prof['flash_kernel_launches']} launches "
+        f"({prof['f32reg_launches']} on flash_packed_f32reg_kernel), device "
+        f"{prof['device_ms']} ms, wall {prof['wall_ms']} ms, busy share "
+        f"{prof['device_busy_share']}")
+    if not prof["f32reg_launches"] == prof["flash_kernel_launches"] > 0:
+        raise AssertionError(f"Spann3R f32 profile: {prof}")
     del f32, bf16, out
     torch.cuda.empty_cache()
     return res
@@ -2430,20 +2449,33 @@ def f32_bound(b, s, h, d):
 
 
 # the f32 body's shapes on the pointmap path at 384 x 512 (768 tokens):
-# Spann3R's encoder over UniGeoCam's 25 frames, its decoder per frame
-F32_POINTMAP_SHAPES = [("pointmap_encoder", 25, 768, 12, 64), ("pointmap_decoder", 1, 768, 8, 64)]
-
-
+# Spann3R's encoder over UniGeoCam's 25 frames and over its own clips of 20,
+# its decoder per frame
+F32_POINTMAP_SHAPES = [("pointmap_encoder", 25, 768, 12, 64),
+                       ("spann3r_encoder", 20, 768, 12, 64),
+                       ("pointmap_decoder", 1, 768, 8, 64)]
 def phase_kernel_f32_pointmap(dev):
-    """The packed kernel's f32 (CUDA-core) body at the pointmap shapes
-    against its plain version (F32_OUT_TOL), its time, the plain version's,
-    SDPA's in f32 (TF32 off) and the bound."""
+    """The packed kernel's f32 body at d = 64 (register-tiled, by kernel
+    name) at the pointmap shapes against its plain version (F32_OUT_TOL),
+    its events and device ms (torch.profiler), the plain version's, SDPA's
+    in f32 (TF32 off; events and device ms) and the bound; beside them the
+    earlier CUDA-core body at d = 64 (flash_packed_kernel<64, 64, 16>, built
+    from a copy of the sources whose f32 switch skips the new body:
+    forward_variants' ``earlier_d64``), held to the same limit and timed
+    on the same inputs (``earlier_ms``, ``earlier_device_ms``)."""
     import torch.nn.functional as F
 
     from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.ops import attention
     from unigeo_tpu_torch.ops.attention import attention_packed_reference, flash_attention_packed
+    from unigeo_tpu_torch.tools.forward_variants import (F32_VARIANTS, build_variants,
+                                                         profile_device_ms, profile_flash)
 
     set_exact_f32()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        earlier_lib = build_variants(["earlier_d64"], root, F32_VARIANTS)["earlier_d64"]
+    log("kernel", f"the earlier f32 body's copy built in {time.perf_counter() - t0:.2f}s")
     gen = torch.Generator(device=dev).manual_seed(16)
     rows = []
     for name, b, s, h, d in F32_POINTMAP_SHAPES:
@@ -2453,15 +2485,32 @@ def phase_kernel_f32_pointmap(dev):
         if not err <= F32_OUT_TOL:
             raise AssertionError(f"{name}: f32 kernel vs plain max abs err {err}")
         split = lambda x: x.view(b, s, h, d).transpose(1, 2)
-        ms = time_ms(lambda: flash_attention_packed(q, k, v, h), 20)
+        kern = lambda: flash_attention_packed(q, k, v, h)
+        sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
+        ms = time_ms(kern, 20)
+        body, device_ms = profile_flash(kern, 20)
+        if "flash_packed_f32reg_kernel" not in body:
+            raise AssertionError(f"{name}: the f32 forward at d = 64 ran {body}")
         plain_ms = time_ms(lambda: attention_packed_reference(q, k, v, h), 20)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v)), 20)
+        lib_ms, lib_device_ms = time_ms(sdpa, 20), profile_device_ms(sdpa, 20)
+        earlier = lambda: attention._launch(earlier_lib, q, k, v, h, d**-0.5)
+        earlier_err = (earlier() - out).abs().max().item()
+        earlier_body, earlier_device_ms = profile_flash(earlier, 20)
+        if not (earlier_err <= F32_OUT_TOL and "flash_packed_kernel<" in earlier_body):
+            raise AssertionError(f"{name}: the earlier f32 body {earlier_body} differs from "
+                                 f"the new one by {earlier_err}")
         bms, by = f32_bound(b, s, h, d)
+        body_name = lambda key: re.search(r"flash_\w+<[^>]*>", key).group(0)
         rows.append(dict(shape=name, b=b, s=s, h=h, d=d, dtype="float32", max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by))
-        log("kernel", f"f32 {name} [B={b},S={s},H={h},D={d}] max_abs_err={err:.3e} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA f32) "
-            f"bound_ms={bms:.5f} ({by})")
+                         body=body_name(body), ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, library_device_ms=lib_device_ms, bound_ms=bms,
+                         bound_by=by, earlier_body=body_name(earlier_body),
+                         earlier_ms=time_ms(earlier, 20), earlier_device_ms=earlier_device_ms))
+        log("kernel", f"f32 {name} [B={b},S={s},H={h},D={d}] body {rows[-1]['body']} "
+            f"max_abs_err={err:.3e} kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} device {lib_device_ms:.4f} "
+            f"(SDPA f32) bound_ms={bms:.5f} ({by}); earlier body {rows[-1]['earlier_body']} "
+            f"{rows[-1]['earlier_ms']:.4f} ms, device {earlier_device_ms:.4f}")
         del q, k, v, out
     torch.cuda.empty_cache()
     return rows

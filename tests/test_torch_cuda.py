@@ -117,6 +117,7 @@ from unigeo_tpu_torch.ops.ln_qkv import ln_dense, ln_dense_error_limit, ln_dense
 pytestmark = pytest.mark.cuda
 
 LSE_TOL = 1e-4  # the logsumexp, both dtypes (see above)
+F32_OUT_TOL = 1e-5  # the f32 forward's output (see above)
 
 
 @pytest.fixture()
@@ -151,6 +152,16 @@ def _err_over_limit(out, q, k, v, h):
         (2, 257, 257, 4, 80),
         (1, 200, 150, 1, 32),
         (1, 96, 77, 1, 512),
+        # d = 64, the register-tiled body: ragged Sq and Sk (one partial key
+        # tile; 257: the last tile holds one key; Sq below a block), the
+        # pointmap shapes at small batch (the encoder unsplit, 12 heads) and
+        # the decoder's single batch (its keys split over 4 blocks)
+        (2, 70, 100, 3, 64),
+        (1, 257, 257, 2, 64),
+        (2, 130, 61, 2, 64),
+        (1, 5, 300, 4, 64),
+        (2, 768, 768, 12, 64),
+        (1, 768, 768, 8, 64),
     ],
 )
 def test_kernel_matches_plain_f32(cuda, b, sq, sk, h, d):
@@ -256,6 +267,37 @@ PLANTED_FAULTS = {
         "flash_attention_packed.cu",
         "(int64_t)h * kW5D + kW5Half * c,",
         "(int64_t)h * kW5D + kW5Half * (c ^ 1),",
+    ),
+    # forward, f32 body at d = 64: the eighth key tile's scores become
+    # -inf, so it adds to neither O nor l; the ring still hands it over
+    "f32reg_drop_key_tile": (
+        "flash_attention_packed.cu",
+        "    // the online softmax in log2 units; keys past Sk (the ragged last\n",
+        "    if (t0 + it == 7)\n"
+        "      for (auto& row : s)\n"
+        "        for (float& x : row) x = -INFINITY;\n"
+        "    // the online softmax in log2 units; keys past Sk (the ragged last\n",
+    ),
+    # forward, f32 body: the last tile's select goes, so the copies' zero
+    # key rows past Sk score 0 instead of -inf
+    "f32reg_no_ragged_mask": (
+        "flash_attention_packed.cu",
+        "s[i][j] = cl + 8 * j < lim ? s[i][j] : -INFINITY;",
+        "s[i][j] = lim > 0 ? s[i][j] : -INFINITY;",
+    ),
+    # forward, f32 body: O is not rescaled by alpha when the running max
+    # rises (l still is)
+    "f32reg_no_rescale": (
+        "flash_attention_packed.cu",
+        "for (int c = 0; c < 8; ++c) acc[i][c] *= alpha[i];",
+        "for (int c = 0; c < 8; ++c) acc[i][c] *= 1.f;",
+    ),
+    # forward, f32 body split over a cluster: the merge takes block 0's
+    # partial O in place of block 1's (its m and l stay block 1's)
+    "f32reg_merge_twice": (
+        "flash_attention_packed.cu",
+        "sm90::ld_cluster_f32x4(part + r * kRegD + x, sp);",
+        "sm90::ld_cluster_f32x4(part + r * kRegD + x, sp == 1 ? 0 : sp);",
     ),
     # backward: the tensor-core dk/dv kernel skips its eighth query tile
     # (the ring still hands the tile over, but it adds nothing to dk, dv)
@@ -415,6 +457,15 @@ def faulty_libraries(tmp_path_factory):
         ("skip_query_tile", 2, 3072, 5, 64),
         ("dq_no_ragged_mask", 2, 257, 4, 64),
         ("dv_no_transpose", 2, 3072, 5, 64),
+        # the f32 body at d = 64 (held to F32_OUT_TOL): Spann3R's encoder
+        # at batch 2 (unsplit, 12 key tiles), its decoder (keys split over 4
+        # blocks), and S = 257 (the last key tile holds one key and 63 zero
+        # rows; split over 4 blocks)
+        ("f32reg_drop_key_tile", 2, 768, 12, 64),
+        ("f32reg_drop_key_tile", 1, 768, 8, 64),
+        ("f32reg_no_ragged_mask", 2, 257, 4, 64),
+        ("f32reg_no_rescale", 2, 768, 12, 64),
+        ("f32reg_merge_twice", 1, 768, 8, 64),
         # GEGLU at (M, C) = (b * s, h * d): the UNet's stage 0 (the fused
         # pass, where h lives in shared memory), stage 2 and its ragged mid
         # block (two passes; M = 1200, 18.75 row blocks, three hidden splits
@@ -437,6 +488,8 @@ def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
     lib = faulty_libraries[fault]
     if PLANTED_FAULTS[fault][0] == "geglu_ffn.cu":
         return _geglu_planted(cuda, lib, fault, m=b * s, c=h * d)
+    if fault.startswith("f32reg_"):
+        return _f32_planted(cuda, lib, fault, b, s, h, d)
     q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, cuda, seed=5)
     if fault.startswith("lse_"):
         # the lse entry point: max of the output's err/limit and the lse's
@@ -460,6 +513,26 @@ def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
     print(f"planted {fault} [B={b},S={s},H={h},D={d}]: max err/limit "
           f"kernel {good:.3f}, faulty copy {bad:.3f}", flush=True)
     assert good <= 1.0 and bad >= 3.0, (good, bad)
+
+
+def _f32_ratio(out, q, k, v, h):
+    """max |out - plain| / F32_OUT_TOL (inf where out is not finite)."""
+    torch.cuda.synchronize()
+    err = (out - attention_packed_reference(q, k, v, h)).abs().max().item()
+    return err / F32_OUT_TOL if np.isfinite(err) else float("inf")
+
+
+def _f32_planted(cuda, lib, fault, b, s, h, d):
+    """The f32 body passes F32_OUT_TOL and its faulty copy misses it by 3x,
+    through the packed and the lse entry points."""
+    q, k, v = _qkv(b, s, s, h, d, torch.float32, cuda, seed=5)
+    good = _f32_ratio(flash_attention_packed(q, k, v, h), q, k, v, h)
+    bad = _f32_ratio(attention._launch(lib, q, k, v, h, d**-0.5), q, k, v, h)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=cuda)
+    bad_lse = _f32_ratio(attention._launch(lib, q, k, v, h, d**-0.5, lse=lse), q, k, v, h)
+    print(f"planted {fault} [B={b},S={s},H={h},D={d}]: max err/1e-5 "
+          f"kernel {good:.3f}, faulty copy {bad:.3f} (lse entry {bad_lse:.3f})", flush=True)
+    assert good <= 1.0 and bad >= 3.0 and bad_lse >= 3.0, (good, bad, bad_lse)
 
 
 def _fwd_lse_ratio(out, lse, q, k, v, h):
@@ -507,6 +580,87 @@ def test_fwd_kernels_are_bitwise_reproducible(cuda, b, sq, sk, h, d):
         assert torch.equal(x, y)
 
 
+def _f32reg_launches(fn):
+    """The f32 forward kernels ``fn()`` launched, by torch.profiler: [(name,
+    template arguments or None for the earlier body)]."""
+    import re
+
+    from unigeo_tpu_torch.tools.forward_variants import _profiled_kernels
+
+    found = []
+    for e in _profiled_kernels(fn, 1):
+        if "flash_" in e.key:
+            m = re.search(r"f32reg_kernel<(\d+), (\d+), (\d+)>", e.key)
+            found.append((e.key, tuple(int(x) for x in m.groups()) if m else None))
+    return found
+
+
+@pytest.mark.parametrize("b,sq,sk,h", [(2, 768, 768, 12), (1, 768, 768, 8), (2, 130, 61, 2)])
+def test_f32_d64_runs_the_register_tiled_body_bitwise(cuda, b, sq, sk, h):
+    """f32 at d = 64: the packed, head-split and lse entries run
+    flash_{packed,headsplit,fwd_lse}_f32reg_kernel<kWarps, kStages, kSplit>
+    (by the profiler's kernel names), whose grid gives every SM a block
+    where the items allow (the decoder's 96 items of 64 rows do not: its
+    keys split over a cluster); two launches give the same bits."""
+    q, k, v = _qkv(b, sq, sk, h, 64, torch.float32, cuda, seed=23)
+    heads = lambda x: x.view(b, x.shape[1], h, 64)
+    run = lambda: (flash_attention_packed(q, k, v, h), *flash_attention_fwd_lse(q, k, v, h),
+                   flash_attention(heads(q), heads(k), heads(v)).reshape(q.shape))
+    launched = _f32reg_launches(run)
+    names = " ".join(name for name, _ in launched)
+    for entry in ("flash_packed_f32reg_kernel", "flash_fwd_lse_f32reg_kernel",
+                  "flash_headsplit_f32reg_kernel"):
+        assert entry in names, launched
+    assert all(args is not None for _, args in launched), launched
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    warps, _, split = launched[0][1]
+    items = -(-sq // (16 * warps)) * h * b
+    if sk > 64:  # more than one key tile: the plan can fill the card
+        assert items * split >= min(sms, 4 * items), (launched, sms)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_f32_other_widths_keep_the_earlier_body(cuda):
+    """f32 at d = 32 and 80 runs flash_packed_kernel<BQ, BK, NCOL> as before;
+    f32 at d = 64 with rows not aligned to 16 bytes is refused (the wrapper
+    raises, and the library refuses the launch: no other body is tried)."""
+    for d in (32, 80):
+        q, k, v = _qkv(1, 200, 150, 2, d, torch.float32, cuda, seed=24)
+        launched = _f32reg_launches(lambda: flash_attention_packed(q, k, v, 2))
+        assert [args for _, args in launched] == [None], launched
+        assert "flash_packed_kernel<" in launched[0][0], launched
+    b, s, h, d = 1, 150, 2, 64
+    q, k, v = _qkv(b, s, s, h, d, torch.float32, cuda, seed=25)
+    shift = lambda x: torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(b, s, h * d)
+    qs, ks, vs = shift(q), shift(k), shift(v)
+    assert qs.is_contiguous() and qs.data_ptr() % 16 != 0
+    with pytest.raises(ValueError):
+        flash_attention_packed(qs, ks, vs, h)
+    with pytest.raises(RuntimeError):
+        attention._launch(_build.load_library(), qs, ks, vs, h, d**-0.5)
+
+
+def test_f32_d64_body_compiles_to_fma_and_16_byte_loads(cuda):
+    """What ptxas and cuobjdump show of every f32reg kernel
+    (tools/kernel_report.py): no spill (0 bytes, no local loads or stores),
+    no tensor-core instruction (so no TF32 product), f32 FMAs, 16-byte
+    shared loads (LDS.128) and cp.async copies (LDGSTS)."""
+    from unigeo_tpu_torch.tools import kernel_report
+
+    kernels = kernel_report.main(["--match", "f32reg"])["kernels"]
+    assert len(kernels) >= 3, kernels
+    for name, rep in kernels.items():
+        sass = rep["sass"]
+        assert rep["spill_stores"] == rep["spill_loads"] == 0, (name, rep)
+        assert sass.get("LDL", 0) == sass.get("STL", 0) == 0, (name, rep)
+        assert sass.get("tensor_core", 0) == 0, (name, rep)
+        assert sass.get("FFMA", 0) > 0 and sass.get("LDS.128", 0) > 0, (name, rep)
+        assert sass.get("LDGSTS", 0) > 0, (name, rep)
+
+
 def test_bf16_forward_switch_refuses_without_fallback(cuda):
     """The bf16 forward's switch by head width: at d = 64, 80 and 512 the
     wgmma bodies refuse rows that are not contiguous [B, S, H*D] (their
@@ -551,6 +705,11 @@ FWD_LSE_CASES = [
     (torch.float32, 2, 70, 100, 3, 8),
     (torch.float32, 2, 257, 100, 4, 64),
     (torch.float32, 1, 96, 77, 1, 512),
+    # the f32 body at d = 64: unsplit, split over 2 and over 4 blocks
+    (torch.float32, 2, 768, 768, 12, 64),
+    (torch.float32, 2, 130, 61, 2, 64),
+    (torch.float32, 1, 257, 257, 2, 64),
+    (torch.float32, 1, 768, 768, 8, 64),
     (torch.bfloat16, 2, 70, 100, 3, 16),
     (torch.bfloat16, 2, 130, 61, 2, 64),
     (torch.bfloat16, 2, 257, 257, 4, 80),

@@ -41,9 +41,9 @@
 // and accumulator, one key tile at a time in shared memory), and in bf16
 // both products run on the tensor cores, f32 accumulate.
 //
-// Three block layouts, chosen by dtype and, in bf16, by head width in one
-// switch (dispatch_bf16); every bf16 body is Hopper's TMA and wgmma
-// (blocks from sm90.cuh):
+// Four block layouts, chosen by dtype and by head width, one switch per
+// dtype (dispatch_bf16, dispatch_f32); every bf16 body is Hopper's TMA and
+// wgmma (blocks from sm90.cuh):
 //
 // * bf16, D in {16, 64, 80} (the UNet's 64, CLIP's 80, and 16 for small
 //   checks): flash_{packed,headsplit,fwd_lse}_wgmma_kernel<D>.  At most one
@@ -90,14 +90,26 @@
 //   launches give the same bits.  Other bf16 widths, rows not contiguous
 //   [B, S, H*D] and rows not aligned to 16 bytes are refused with
 //   cudaErrorInvalidValue; no width is sent to another body.
-// * f32 (flash_{packed,headsplit,fwd_lse}_kernel), any D up to 512: CUDA-core FMAs, the
-//   reference numerics for f32 checks on the card.  256 threads own BQ query
-//   rows; TPR = 256 / BQ lanes of a warp share a row, each holding BK / TPR
-//   scores and NCOL accumulator columns; row max and sum are butterfly
-//   shuffles within the row's lanes.
+// * f32, D = 64 (Spann3R's and UniGeoCam's pointmap path):
+//   flash_{packed,headsplit,fwd_lse}_f32reg_kernel<kWarps, kStages, kSplit>,
+//   register-tiled FMAs on the CUDA cores fed by a cp.async ring
+//   (see its section below).  The f32 work is 4*B*H*Sq*Sk*D operations at
+//   the CUDA cores' 67 TF/s against 4*B*H*D*(2*Sq + 2*Sk) bytes: at Sq = Sk
+//   = 768 (768 tokens of a 384 x 512 frame) 192 operations per byte, far
+//   above the 20 at which the FMA units rather than memory bound it.  What
+//   held the earlier body to 15% of that rate was shared memory: one load
+//   per FMA.  This body loads 16 bytes for 10.7 FMAs.  Rows must be aligned
+//   to 16 bytes (else the launch is refused).
+// * f32, any other D up to 512 (the checks' 8, 10, 32, 80 and 512, the tiny
+//   pointmap configs' 24 and 32): flash_{packed,headsplit,fwd_lse}_kernel,
+//   CUDA-core FMAs.  256 threads own BQ query rows; TPR = 256 / BQ lanes of
+//   a warp share a row, each holding BK / TPR scores and NCOL accumulator
+//   columns; row max and sum are butterfly shuffles within the row's lanes.
 //     D <= 64:  BQ = 64, BK = 64, NCOL = 16
 //     D <= 128: BQ = 64, BK = 64, NCOL = 32
 //     D <= 512: BQ = 16, BK = 32, NCOL = 32 (~166 KB of shared memory)
+//   Both f32 bodies are exact f32 (no TF32 anywhere): the reference
+//   numerics for f32 checks on the card.
 //
 // All: keys past Sk (the ragged edge, e.g. 257 CLIP tokens) get zero
 // weight; query rows past Sq are computed on zeros and not stored (nor is
@@ -300,29 +312,14 @@ cudaError_t launch(Entry entry, const void* q, const void* k, const void* v, voi
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_f32(Entry entry, const void* q, const void* k, const void* v, void* o,
-                         float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
-                         int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
-                         int B, int Sq, int Sk, int H, int D, float scale,
-                         cudaStream_t stream) {
-  if (D <= 64)
-    return launch<64, 64, 16>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-                              o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
-  if (D <= 128)
-    return launch<64, 64, 32>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-                              o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
-  return launch<16, 32, 32>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-                            o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
-}
-
 // 16-byte tile loads need 16-byte-aligned rows: pointers, strides and the
-// head offset all multiples of 8 bf16
+// head offset all multiples of 16 bytes (`per16` elements: 8 bf16, 4 f32)
 bool aligned16(const void* q, const void* k, const void* v, const void* o,
                int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
-               int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss) {
+               int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss, int per16) {
   const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
   const int64_t strides = q_sb | q_ss | k_sb | k_ss | v_sb | v_ss | o_sb | o_ss;
-  return (ptrs % 16) == 0 && (strides % 8) == 0;
+  return (ptrs % 16) == 0 && (strides % per16) == 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -941,6 +938,349 @@ __global__ void __launch_bounds__(kW5Threads, 1)
   flash_wgmma512_block<true>(UNIGEO_WG_ARGS);
 }
 
+// ---------------------------------------------------------------------------
+// f32 at D = 64 (Spann3R's and UniGeoCam's pointmap path): a register-tiled
+// CUDA-core body fed by a cp.async ring, flash_{packed,headsplit,
+// fwd_lse}_f32reg_kernel<kWarps, kStages, kSplit>.  Exact f32: every
+// product and sum is an f32 FMA or add on the CUDA cores (no tensor core, so
+// no TF32), the exponentials the SFU's ex2 in log2 units.
+//
+// A block owns kRows = 16 kWarps query rows of one (batch, head); a warp
+// owns 16 rows whole, so the softmax and P stay inside the warp.  Lane
+// (rg, cl) = (lane / 8, lane % 8) holds rows rg + 4i (i < kRegTM = 4) of
+// its warp's, the scores of keys cl + 8j (j < 8) of each 64-key tile, and
+// the output columns [4cl, 4cl + 4) and [32 + 4cl, 36 + 4cl).  (8 rows a
+// lane need more than 255 registers and spill.)
+//
+// * S = q k^T reads q and k as they lie (rows of 64 f32, 68 apart in shared
+//   memory) in 16-byte loads along d: for 4 d at a time, 4 q loads and 8 k
+//   loads feed 128 FMAs (10.7 per load).  The 68-float pitch puts rows 1 apart 4 banks apart, so the
+//   8 keys a quarter-warp reads and the 4 rows a warp reads at once fall in
+//   distinct banks; the other lanes read the same addresses (broadcasts).
+//   No transpose is needed: a d-major copy would feed the same FMAs per
+//   load.
+// * The row max is three shuffles within the row's 8 lanes; l is kept per
+//   lane (its keys' share) and summed over the 8 lanes once, at the end.
+// * P goes through a warp's own [64][16] buffer in shared memory: a lane
+//   stores its 4 rows of key kk as one 16-byte slot, which the row group's
+//   lanes read back, one load per key; the slots are XOR-swizzled by kk
+//   (p_offset), so the 8 stores of a quarter-warp fall in distinct banks.
+// * O += P v: per key, one load of P and 2 of v (16 bytes each, the 8 lanes
+//   of a row group 128 contiguous bytes) feed 32 FMAs.
+//
+// The copies: every thread issues 16-byte cp.async (L2 only) for its share
+// of q (once) and of each k and v tile into a ring of kStages slots, one
+// commit group per tile; at tile it a thread waits for its own group, one
+// __syncthreads makes every thread's copies visible and frees the slot of
+// tile it - 1, which then takes tile it + kStages - 1 while tile it is
+// computed.  cp.async and not the TMA: the TMA's boxes cannot give q and k
+// the 68-float pitch that spreads rows over the banks (its swizzles exist
+// for 16-bit tensor-core tiles), and a padded box row is refused.  Rows past
+// Sk (Sq) are zero-filled by the copy; the last key tile, when Sk is
+// ragged, selects -inf for them, and query rows past Sq are computed on
+// zeros and not stored, nor is their lse.
+//
+// kSplit > 1 (few items, the decoder's [1, 768, 8, 64]): the key tiles are
+// split over the kSplit blocks of a cluster (block r takes tiles
+// [r n / kSplit, (r + 1) n / kSplit)), each keeps its partial (m, l, acc)
+// in its shared memory, and after a cluster barrier block r merges rows
+// [r kRows / kSplit, (r + 1) kRows / kSplit) from all the blocks' shared
+// memory in rank order (M = max m_s, w_s = 2^(m_s - M), O = sum w_s acc_s /
+// sum w_s l_s): no atomics and a fixed order, so two launches give the same
+// bits.
+// ---------------------------------------------------------------------------
+
+constexpr int kRegD = 64;              // the body's head width
+constexpr int kRegPitch = kRegD + 4;   // q and k rows in shared memory, floats
+constexpr int kRegTM = 4;              // a lane's query rows
+constexpr int kRegBK = 64;             // keys of a tile
+// the products' loops unrolled by 4 steps of 4 d (S) and by 16 keys (P v):
+// the loop bodies stay small enough for the instruction caches
+constexpr int kRegUnrollD = 4, kRegUnrollK = 16;
+
+template <int kWarps, int kStages, int kSplit>
+struct RegShape {
+  static constexpr int kWarpRows = 4 * kRegTM;  // a warp's query rows: kRegTM a lane
+  static constexpr int kRows = kWarpRows * kWarps;  // query rows of a block
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kTN = kRegBK / 8;         // a lane's keys of a tile
+  static constexpr int kQFloats = kRows * kRegPitch;
+  static constexpr int kSlotFloats = kRegBK * kRegPitch + kRegBK * kRegD;  // k, then v
+  static constexpr int kPFloats = kRegBK * kWarpRows;  // a warp's P buffer
+  static constexpr int kFloats = kQFloats + kStages * kSlotFloats + kWarps * kPFloats;
+  // blocks an SM holds by shared memory (227 KB, 1 KB reserved a block),
+  // at most 4; the launch bounds hold registers to what that many need
+  static constexpr int kBlocksPerSm =
+      232448 / (kFloats * 4 + 1024) < 4 ? 232448 / (kFloats * 4 + 1024) : 4;
+  // the merge's partials (acc [kRows][64], m, l) over the ring's slots
+  static constexpr int kMergeFloats = kRows * (kRegD + 2);
+  static_assert(kRegTM == 4, "a lane's rows of a key fill one 16-byte slot of P");
+  static_assert(kStages >= 2, "a ring of at least two slots");
+  static_assert(kSplit == 1 || kSplit == 2 || kSplit == 4, "clusters of 1, 2 or 4");
+  static_assert(kRows % kSplit == 0 && kMergeFloats <= kStages * kSlotFloats, "merge space");
+  static_assert(kRows * 16 % kThreads == 0 && kRegBK * 16 % kThreads == 0, "whole copies");
+};
+
+// rows [r0, r0 + R) of one head's rows `src` (row stride ss floats) into
+// shared `dst` at `pitch` floats a row, 16 bytes per copy; rows at or past
+// `lim` are zero-filled (r0 < lim, so row r0 is a valid address)
+template <int R, int kThreads>
+__device__ __forceinline__ void copy_rows(float* dst, int pitch, const float* src, int64_t ss,
+                                          int r0, int lim, int tid) {
+#pragma unroll
+  for (int n = 0; n < R * 16 / kThreads; ++n) {
+    const int c = tid + n * kThreads, r = c / 16, x = 4 * (c % 16);
+    const bool ok = r0 + r < lim;
+    sm90::cp_async16(dst + r * pitch + x, src + (int64_t)(ok ? r0 + r : r0) * ss + x, ok);
+  }
+}
+
+// The float offset in a warp's P buffer (4 float4 slots a key, one per row
+// group) of key kk's slot of row group rg, XORed with a pattern of kk that
+// spreads a quarter-warp's 8 keys (cl + 8j) over distinct banks (two keys
+// share a 128-byte row of the buffer)
+__device__ __forceinline__ int p_offset(int kk, int rg) {
+  return 16 * kk + 4 * (rg ^ ((kk >> 1) & 3));
+}
+
+// the body of the three f32reg kernels; kLse: write the row logsumexp
+template <int kWarps, int kStages, int kSplit, bool kLse>
+__device__ __forceinline__ void flash_f32reg_block(UNIGEO_F32_PARAMS) {
+  using Shape = RegShape<kWarps, kStages, kSplit>;
+  constexpr int BQ = Shape::kRows, NT = Shape::kThreads, TN = Shape::kTN, P = kRegPitch;
+  constexpr int kTM = kRegTM, kBK = kRegBK;
+  extern __shared__ __align__(16) float f32reg_smem[];
+  float* qs = f32reg_smem;                          // [BQ][68]
+  float* ring = qs + Shape::kQFloats;               // kStages x (k [kBK][68], v [kBK][64])
+  float* ps = ring + kStages * Shape::kSlotFloats;  // kWarps x [kBK][16]
+
+  const float scale_log2 = scale;  // the launch passes scale * log2 e
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = lane / 8, cl = lane % 8;
+  const int split = kSplit > 1 ? (int)sm90::cluster_rank() : 0;
+  const int q0 = blockIdx.x / kSplit * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int n_all = (Sk + kBK - 1) / kBK;
+  const int t0 = split * n_all / kSplit, n_tiles = (split + 1) * n_all / kSplit - t0;
+  const bool ragged = Sk % kBK != 0;
+
+  const float* qb = q + b * q_sb + (int64_t)h * kRegD;
+  const float* kb = k + b * k_sb + (int64_t)h * kRegD;
+  const float* vb = v + b * v_sb + (int64_t)h * kRegD;
+  const auto issue = [&](int it) {  // tile t0 + it into its slot
+    float* slot = ring + it % kStages * Shape::kSlotFloats;
+    const int k0 = (t0 + it) * kBK;
+    copy_rows<kBK, NT>(slot, P, kb, k_ss, k0, Sk, tid);
+    copy_rows<kBK, NT>(slot + kBK * P, kRegD, vb, v_ss, k0, Sk, tid);
+  };
+  copy_rows<BQ, NT>(qs, P, qb, q_ss, q0, Sq, tid);  // q joins tile 0's group
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < n_tiles) issue(it);
+    sm90::cp_async_commit();
+  }
+
+  const int row0 = warp * Shape::kWarpRows + rg;  // this lane's rows: row0 + 4i
+  float* pw = ps + warp * Shape::kPFloats;
+  float acc[kTM][8], m[kTM], l[kTM];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    sm90::cp_async_wait<kStages - 2>();  // this thread's copies of tile it
+    __syncthreads();                     // everyone's; and tile it - 1 is consumed
+    if (it + kStages - 1 < n_tiles) issue(it + kStages - 1);
+    sm90::cp_async_commit();  // (empty past the last tile: the count stays uniform)
+    const float* ks = ring + it % kStages * Shape::kSlotFloats;
+    const float* vs = ks + kBK * P;
+
+    // S = q k^T for rows row0 + 4i and keys cl + 8j
+    float s[kTM][TN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+#pragma unroll (kRegUnrollD)
+    for (int dc = 0; dc < kRegD; dc += 4) {
+      float4 qv[kTM];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (row0 + 4 * i) * P + dc);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(ks + (cl + 8 * j) * P + dc);
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+        }
+      }
+    }
+
+    // the online softmax in log2 units; keys past Sk (the ragged last
+    // tile's zero rows) score -inf
+    if (ragged && t0 + it == n_all - 1) {
+      const int lim = Sk - (t0 + it) * kBK;
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) s[i][j] = cl + 8 * j < lim ? s[i][j] : -INFINITY;
+    }
+    float alpha[kTM];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < TN; ++j) mx = fmaxf(mx, s[i][j]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx * scale_log2);  // finite: each tile has a key
+      alpha[i] = exp2_approx(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        s[i][j] = exp2_approx(fmaf(s[i][j], scale_log2, -m_new));
+        l[i] += s[i][j];
+      }
+    }
+
+    // P into the warp's buffer: key kk's rows row0 + 4i in one slot
+    __syncwarp();  // the warp's lanes have read the previous tile's P
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      *reinterpret_cast<float4*>(pw + p_offset(cl + 8 * j, rg)) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncwarp();
+
+    // O = alpha O + P v
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] *= alpha[i];
+    const float* vc = vs + 4 * cl;
+    static_assert(kRegUnrollK % 8 == 0, "P's slot pattern repeats every 8 keys");
+#pragma unroll (kRegUnrollK)
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 p = *reinterpret_cast<const float4*>(pw + p_offset(kk, rg));
+      const float pr[kTM] = {p.x, p.y, p.z, p.w};
+      const float4 va = *reinterpret_cast<const float4*>(vc + kk * kRegD);
+      const float4 vb4 = *reinterpret_cast<const float4*>(vc + kk * kRegD + 32);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        acc[i][0] = fmaf(pr[i], va.x, acc[i][0]);
+        acc[i][1] = fmaf(pr[i], va.y, acc[i][1]);
+        acc[i][2] = fmaf(pr[i], va.z, acc[i][2]);
+        acc[i][3] = fmaf(pr[i], va.w, acc[i][3]);
+        acc[i][4] = fmaf(pr[i], vb4.x, acc[i][4]);
+        acc[i][5] = fmaf(pr[i], vb4.y, acc[i][5]);
+        acc[i][6] = fmaf(pr[i], vb4.z, acc[i][6]);
+        acc[i][7] = fmaf(pr[i], vb4.w, acc[i][7]);
+      }
+    }
+  }
+
+  // l over the row's 8 lanes
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+  }
+  float* lse_h = kLse ? lse + ((int64_t)b * gridDim.y + h) * Sq : nullptr;  // this head's rows
+  if constexpr (kSplit == 1) {
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int row = q0 + row0 + 4 * i;
+      if (row >= Sq) continue;
+      const float inv = 1.f / l[i];
+      float* orow = o + b * o_sb + row * o_ss + (int64_t)h * kRegD + 4 * cl;
+      *reinterpret_cast<float4*>(orow) =
+          make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
+      *reinterpret_cast<float4*>(orow + 32) =
+          make_float4(acc[i][4] * inv, acc[i][5] * inv, acc[i][6] * inv, acc[i][7] * inv);
+      if (kLse && cl == 0) lse_h[row] = kLn2 * (m[i] + log2f(l[i]));
+    }
+  } else {
+    // the partials over the ring (every copy has landed and been read)
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+    float* part = ring;                     // acc [BQ][64]
+    float* part_m = part + BQ * kRegD;      // m [BQ]
+    float* part_l = part_m + BQ;            // l [BQ]
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int r = row0 + 4 * i;
+      *reinterpret_cast<float4*>(part + r * kRegD + 4 * cl) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(part + r * kRegD + 32 + 4 * cl) =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      if (cl == 0) {
+        part_m[r] = m[i];
+        part_l[r] = l[i];
+      }
+    }
+    sm90::cluster_sync();  // every block's partials are written
+    constexpr int R = BQ / kSplit;  // rows this block merges
+    static_assert(R * 16 % NT == 0, "whole merge steps");
+#pragma unroll
+    for (int n = 0; n < R * 16 / NT; ++n) {
+      const int c = tid + n * NT;
+      const int r = split * R + c / 16, x = 4 * (c % 16), row = q0 + r;
+      float ms[kSplit], mx = -INFINITY;
+#pragma unroll
+      for (int sp = 0; sp < kSplit; ++sp) {
+        ms[sp] = sm90::ld_cluster_f32(part_m + r, sp);
+        mx = fmaxf(mx, ms[sp]);
+      }
+      float lsum = 0.f;
+      float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int sp = 0; sp < kSplit; ++sp) {  // rank order
+        const float w = exp2_approx(ms[sp] - mx);
+        const float4 a = sm90::ld_cluster_f32x4(part + r * kRegD + x, sp);
+        lsum = fmaf(w, sm90::ld_cluster_f32(part_l + r, sp), lsum);
+        y = make_float4(fmaf(w, a.x, y.x), fmaf(w, a.y, y.y), fmaf(w, a.z, y.z),
+                        fmaf(w, a.w, y.w));
+      }
+      if (row < Sq) {
+        const float inv = 1.f / lsum;
+        *reinterpret_cast<float4*>(o + b * o_sb + row * o_ss + (int64_t)h * kRegD + x) =
+            make_float4(y.x * inv, y.y * inv, y.z * inv, y.w * inv);
+        if (kLse && x == 0) lse_h[row] = kLn2 * (mx + log2f(lsum));
+      }
+    }
+    sm90::cluster_sync();  // no block leaves while another reads its partials
+  }
+}
+
+// one kernel per entry point, so a profile tells them apart by name; the
+// scale arrives in log2 units (scale * log2 e)
+template <int kWarps, int kStages, int kSplit>
+__global__ void __launch_bounds__(32 * kWarps, (RegShape<kWarps, kStages, kSplit>::kBlocksPerSm))
+    flash_packed_f32reg_kernel(UNIGEO_F32_PARAMS) {
+  flash_f32reg_block<kWarps, kStages, kSplit, false>(UNIGEO_F32_ARGS);
+}
+
+template <int kWarps, int kStages, int kSplit>
+__global__ void __launch_bounds__(32 * kWarps, (RegShape<kWarps, kStages, kSplit>::kBlocksPerSm))
+    flash_headsplit_f32reg_kernel(UNIGEO_F32_PARAMS) {
+  flash_f32reg_block<kWarps, kStages, kSplit, false>(UNIGEO_F32_ARGS);
+}
+
+template <int kWarps, int kStages, int kSplit>
+__global__ void __launch_bounds__(32 * kWarps, (RegShape<kWarps, kStages, kSplit>::kBlocksPerSm))
+    flash_fwd_lse_f32reg_kernel(UNIGEO_F32_PARAMS) {
+  flash_f32reg_block<kWarps, kStages, kSplit, true>(UNIGEO_F32_ARGS);
+}
+
 // q, k, v and o contiguous [B, S, H*D] (the tensor maps and the stores
 // assume it)
 bool packed_contiguous(int64_t hd, int Sq, int Sk, int64_t q_sb, int64_t q_ss, int64_t k_sb,
@@ -1028,7 +1368,7 @@ cudaError_t dispatch_bf16(Entry entry, const void* q, const void* k, const void*
                           int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                           int B, int Sq, int Sk, int H, int D, float scale,
                           cudaStream_t stream) {
-  if (!aligned16(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss))
+  if (!aligned16(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, 8))
     return cudaErrorInvalidValue;
 #define UNIGEO_WG(DD)                                                                    \
   case DD:                                                                               \
@@ -1045,6 +1385,95 @@ cudaError_t dispatch_bf16(Entry entry, const void* q, const void* k, const void*
       return cudaErrorInvalidValue;
   }
 #undef UNIGEO_WG
+}
+
+// The f32 body at D = 64: blocks of kRegWarps warps (16 query rows each),
+// 64-key tiles in a ring of kRegStages slots; where the items of one block
+// each do not give every SM one, the keys split over clusters of 2 or 4
+// blocks (launch_f32_d64).  The measured choices of
+// tools/forward_variants.py --f32.
+constexpr int kRegWarps = 4, kRegStages = 2;
+
+template <int kSplit>
+cudaError_t launch_f32reg(Entry entry, const void* q, const void* k, const void* v, void* o,
+                          float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                          int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss, int B,
+                          int Sq, int Sk, int H, float scale, cudaStream_t stream) {
+  using Shape = RegShape<kRegWarps, kRegStages, kSplit>;
+  auto kern = entry == kFwdLse      ? flash_fwd_lse_f32reg_kernel<kRegWarps, kRegStages, kSplit>
+              : entry == kHeadsplit ? flash_headsplit_f32reg_kernel<kRegWarps, kRegStages, kSplit>
+                                    : flash_packed_f32reg_kernel<kRegWarps, kRegStages, kSplit>;
+  constexpr size_t smem = Shape::kFloats * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((Sq + Shape::kRows - 1) / Shape::kRows * kSplit, H, B);
+  cfg.blockDim = dim3(Shape::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kSplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kSplit > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const float*>(q),
+                           static_cast<const float*>(k), static_cast<const float*>(v),
+                           static_cast<float*>(o), lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                           o_sb, o_ss, Sq, Sk, kRegD, scale * kLog2e);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// the plan at D = 64: one block an item where the items give every SM one
+// (or there is a single key tile); else the keys split over clusters of 2,
+// or of 4 where two would still leave SMs idle and there are 4 key tiles
+// or more
+cudaError_t launch_f32_d64(Entry entry, const void* q, const void* k, const void* v, void* o,
+                           float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                           int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss, int B,
+                           int Sq, int Sk, int H, float scale, cudaStream_t stream) {
+  if (!aligned16(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, 4))
+    return cudaErrorInvalidValue;
+  int dev, sms;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  constexpr int rows = RegShape<kRegWarps, kRegStages, 1>::kRows;
+  const int64_t items = (int64_t)((Sq + rows - 1) / rows) * H * B;
+  const int n_tiles = (Sk + kRegBK - 1) / kRegBK;
+#define UNIGEO_REG(KS)                                                                   \
+  launch_f32reg<KS>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, \
+                    B, Sq, Sk, H, scale, stream)
+  if (items >= sms || n_tiles < 2) return UNIGEO_REG(1);
+  if (2 * items >= sms || n_tiles < 4) return UNIGEO_REG(2);
+  return UNIGEO_REG(4);
+#undef UNIGEO_REG
+}
+
+// The f32 forward's one switch by head width: D = 64 (the pointmap path)
+// goes to the register-tiled body, which takes rows aligned to 16 bytes
+// (else the launch is refused); every other width up to 512 (the checks'
+// 8, 10, 32, 80 and 512, the tiny pointmap configs' 24 and 32) to
+// flash_f32_block as before.  No width is sent to another body.
+cudaError_t dispatch_f32(Entry entry, const void* q, const void* k, const void* v, void* o,
+                         float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                         int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
+                         int B, int Sq, int Sk, int H, int D, float scale,
+                         cudaStream_t stream) {
+  if (D == kRegD)
+    return launch_f32_d64(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
+                          o_ss, B, Sq, Sk, H, scale, stream);
+  if (D <= 64)
+    return launch<64, 64, 16>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                              o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
+  if (D <= 128)
+    return launch<64, 64, 32>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                              o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
+  return launch<16, 32, 32>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                            o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
 }
 
 }  // namespace

@@ -17,8 +17,11 @@
 // * setmaxnreg, to move registers from a producer warpgroup to consumers;
 // * named barriers (bar.sync / bar.arrive), to order warpgroups' turns;
 // * thread-block clusters: the block's rank, the cluster barrier, an
-//   mbarrier arrival on another block's barrier, and the TMA load that
-//   multicasts one tile to every block of a cluster.
+//   mbarrier arrival on another block's barrier, the TMA load that
+//   multicasts one tile to every block of a cluster, and loads from another
+//   block's shared memory;
+// * cp.async: 16-byte copies from device to shared memory by each thread,
+//   zero-filling rows past an edge, in commit groups.
 //
 // Layouts.  A tile of R rows of W bf16 (row bytes 2W = 128 with the 128-byte
 // swizzle, 64 with the 64-byte one, 32 with the 32-byte one), loaded by the
@@ -232,6 +235,49 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank
       "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
       "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
       ::"r"(smem_u32(bar)), "r"(rank) : "memory");
+}
+
+// the f32 (4 f32) at `p`'s offset in the shared memory of block `rank` of
+// the cluster (after a cluster_sync that follows the peer's stores)
+__device__ __forceinline__ float ld_cluster_f32(const float* p, uint32_t rank) {
+  float v;
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %1, %2;\n"
+      "ld.shared::cluster.f32 %0, [remote];\n}\n"
+      : "=f"(v) : "r"(smem_u32(p)), "r"(rank) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f32x4(const float* p, uint32_t rank) {
+  float4 v;
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %4, %5;\n"
+      "ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [remote];\n}\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(smem_u32(p)), "r"(rank) : "memory");
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// device: cp.async
+// ---------------------------------------------------------------------------
+
+// 16 bytes from device memory `src` to shared `dst` (both 16-byte aligned),
+// through L2 only; where !ok nothing is read and `dst` gets zeros (`src`
+// must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+// closes this thread's group of copies issued since the last commit
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -54,8 +54,10 @@ MIN_KERNEL_SEQ = 128  # same threshold as unigeo_tpu's use_packed_attention
 # head widths of the bf16 tensor-core forward: UNet 64, CLIP 80, VAE 512, and
 # 16 for small checks (TMA + wgmma bodies: 64-row consumers at 16, 64 and 80,
 # a column-split pair of consumers at 512); f32 takes any width up to 512
-# (CUDA cores)
+# (CUDA cores: the register-tiled body at the pointmap path's 64, which
+# takes rows aligned to 16 bytes, the earlier body at every other width)
 BF16_HEAD_WIDTHS = (16, 64, 80, 512)
+F32_TILED_HEAD_WIDTH = 64
 # the backward kernels: bf16 at the UNet's 64 (and 16 for small checks),
 # f32 at any width up to 128
 BWD_BF16_HEAD_WIDTHS = (16, 64)
@@ -128,12 +130,14 @@ def _check_kernel_input(q, k, v, d: int):
         raise ValueError(f"kernel takes head widths up to 512, not {d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel takes contiguous q, k, v")
-    if q.dtype == torch.bfloat16:
-        if d not in BF16_HEAD_WIDTHS:
-            raise ValueError(f"bf16 kernel takes head widths {BF16_HEAD_WIDTHS}, not {d}")
-        # 16-byte tile loads (rows and head offsets are then multiples of 8)
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("bf16 kernel takes rows aligned to 16 bytes")
+    if q.dtype == torch.bfloat16 and d not in BF16_HEAD_WIDTHS:
+        raise ValueError(f"bf16 kernel takes head widths {BF16_HEAD_WIDTHS}, not {d}")
+    # 16-byte tile loads (rows and head offsets are then multiples of 16
+    # bytes): every bf16 body and the f32 body at d = 64
+    if (q.dtype == torch.bfloat16 or d == F32_TILED_HEAD_WIDTH) and any(
+        t.data_ptr() % 16 for t in (q, k, v)
+    ):
+        raise ValueError(f"{q.dtype} kernel at d = {d} takes rows aligned to 16 bytes")
 
 
 def use_packed_attention() -> bool:

@@ -14,8 +14,18 @@ torch.profiler (``device_ms``).  The variants are the design choices of the
 
     python -m unigeo_tpu_torch.tools.forward_variants [--variants a,b,...]
 
+With ``--f32`` the variants are ``F32_VARIANTS``, those of the f32 body at
+d = 64 (block rows, ring depth, unrolls; and the earlier CUDA-core body at
+d = 64), at the pointmap path's shapes ``F32_SHAPES`` in f32 (TF32
+off), each held against the plain version within F32_OUT_TOL = 1e-5 on the
+batch entries 0, 1 and the last, with the kernel's name and SDPA's f32
+time beside them:
+
+    python -m unigeo_tpu_torch.tools.forward_variants --f32 [--variants a,b,...]
+
 It prints one JSON object: per variant and shape ``ms``, ``device_ms``,
-``max_err_over_limit``; and the card's name.  It needs the card and nvcc.
+``max_err_over_limit`` (in f32 the max abs error over 1e-5) and, in f32,
+``kernel``; and the card's name.  It needs the card and nvcc.
 """
 
 from __future__ import annotations
@@ -53,6 +63,26 @@ VARIANTS = {
     "clip_block_k128": [(_SRC, "static constexpr int kBlockK = D == 80 ? 64 : 128;",
                          "static constexpr int kBlockK = 128;")],
 }
+_REG = "constexpr int kRegWarps = 4, kRegStages = 2;"
+F32_VARIANTS = {
+    "built": [],
+    # the earlier CUDA-core body (flash_*_kernel<64, 64, 16>) at d = 64
+    "earlier_d64": [(_SRC, "  if (D == kRegD)\n    return launch_f32_d64(",
+                     "  if (false)\n    return launch_f32_d64(")],
+    # block rows (eight warps: one block an SM) and ring depth
+    "warps8": [(_SRC, _REG, "constexpr int kRegWarps = 8, kRegStages = 2;")],
+    "stages3": [(_SRC, _REG, "constexpr int kRegWarps = 4, kRegStages = 3;")],
+    # the products' loops unrolled whole, or by half as much
+    "full_unroll": [(_SRC, "constexpr int kRegUnrollD = 4, kRegUnrollK = 16;",
+                     "constexpr int kRegUnrollD = 16, kRegUnrollK = 64;")],
+    "half_unroll": [(_SRC, "constexpr int kRegUnrollD = 4, kRegUnrollK = 16;",
+                     "constexpr int kRegUnrollD = 2, kRegUnrollK = 8;")],
+}
+# Spann3R's encoder over UniGeoCam's 25 frames and over its own 20, its
+# decoder per frame (768 tokens of 384 x 512)
+F32_SHAPES = [("pointmap_encoder", 25, 768, 12), ("spann3r_encoder", 20, 768, 12),
+              ("pointmap_decoder", 1, 768, 8)]
+F32_OUT_TOL = 1e-5
 SHAPES = [("unet_stage0", 3072, 5, 64), ("unet_stage1", 768, 10, 64),
           ("unet_stage2", 192, 20, 64), ("vae_mid", 3072, 1, 512), ("clip_vit_h", 257, 16, 80)]
 BATCH = 25
@@ -147,12 +177,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from unigeo_tpu_torch.ops.attention import attention_packed_reference, bf16_error_limit
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--variants", default=",".join(VARIANTS),
-                    help="comma-separated names from VARIANTS")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated names from VARIANTS (F32_VARIANTS with --f32)")
+    ap.add_argument("--f32", action="store_true", help="the f32 body at d = 64")
     args = ap.parse_args(argv)
-    names = args.variants.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("forward_variants needs an NVIDIA GPU")
+    if args.f32:
+        return main_f32(args.variants.split(",") if args.variants else list(F32_VARIANTS))
+    names = args.variants.split(",") if args.variants else list(VARIANTS)
     dev = torch.device("cuda:0")
     result = {"device": torch.cuda.get_device_name(0), "batch": BATCH, "variants": {}}
     with tempfile.TemporaryDirectory() as root:
@@ -173,6 +206,46 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     ms=events_ms(fn, ITERS), device_ms=profile_flash(fn, ITERS)[1],
                     max_err_over_limit=ratio)
             del q, k, v, ref, limit
+            torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+    return result
+
+
+def main_f32(names: List[str]) -> dict:
+    """The f32 body's variants at F32_SHAPES (see the module's note)."""
+    import torch.nn.functional as F
+
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.ops import attention
+    from unigeo_tpu_torch.ops.attention import attention_packed_reference
+
+    set_exact_f32()
+    dev = torch.device("cuda:0")
+    result = {"device": torch.cuda.get_device_name(0), "dtype": "float32", "variants": {},
+              "library_ms": {}}
+    with tempfile.TemporaryDirectory() as root:
+        libs = build_variants(names, root, F32_VARIANTS)
+        for name, b, s, h in F32_SHAPES:
+            d = 64
+            rng = np.random.default_rng(s + b)
+            q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h * d), dtype=np.float32))
+                       .to(dev) for _ in range(3))
+            idx = sorted({0, min(1, b - 1), b - 1})
+            ref = attention_packed_reference(q[idx], k[idx], v[idx], h)
+            split = lambda x: x.view(b, s, h, d).transpose(1, 2)
+            sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
+            result["library_ms"][name] = dict(ms=events_ms(sdpa, ITERS),
+                                              device_ms=profile_device_ms(sdpa, ITERS))
+            for var in names:
+                fn = lambda: attention._launch(libs[var], q, k, v, h, d**-0.5)
+                out = fn()
+                torch.cuda.synchronize()
+                err = (out[idx] - ref).abs().max().item()
+                kernel, device_ms = profile_flash(fn, ITERS)
+                result["variants"].setdefault(var, {})[name] = dict(
+                    ms=events_ms(fn, ITERS), device_ms=device_ms,
+                    max_err_over_limit=err / F32_OUT_TOL, kernel=kernel)
+            del q, k, v, ref
             torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)
     return result
