@@ -35,7 +35,10 @@ Phases, each printed on its own flushed line with the seconds since start:
              held to 0); the packed kernel's f32 body at d = 64 (the
              register-tiled flash_packed_f32reg_kernel, asserted by name) at
              the pointmap shapes ([25, 768, 12, 64], Spann3R's own [20, 768,
-             12, 64] and [1, 768, 8, 64]) against its plain version, with its
+             12, 64] and [1, 768, 8, 64], Dust3R's [20, 768, 16, 64] and [19,
+             768, 12, 64], VideoDepthAnything's [25, 972, 16, 64] and Cut3R's
+             frame-to-state [1, 768 queries, 64 keys, 8, 64]) against its
+             plain version, with its
              events and device ms, the plain version's and SDPA's f32 times,
              the bound at the f32 rate, and the earlier CUDA-core body's
              times at d = 64 (a copy of the sources built with the f32
@@ -92,6 +95,18 @@ Phases, each printed on its own flushed line with the seconds since start:
              launch on the register-tiled body) and UniGeoCam with its
              geometry branch at full width on all four metric families
              (2 clips of 25), the same numbers as svd_family
+  pointmap_models
+             Dust3R, Cut3R (RoPE100 + DPT) and VideoDepthAnything at tiny
+             widths in f32 on the card against the CPU; then the CLI over
+             the 7-Scenes fixture, one clip each, in f32: Dust3R and Cut3R on
+             copies of configs/{dust3r,cut3r}_7scenes.yaml (clips of 20, their
+             full networks), VideoDepthAnything with
+             configs/vda_scannetpp.yaml's network (ViT-L, patch 14, clips of
+             25): per-clip seconds, peak memory, stage ms, the packed kernel's
+             launches held to the count the configuration predicts
+             (POINTMAP_TABLE), every scored metric finite, and one more clip
+             of each under torch.profiler with every flash launch on the
+             register-tiled f32 body
   train      the port's trainer (unigeo_tpu_torch.train.main) at SVD-XT
              width on synthetic 384 x 512 clips, bf16: one warm-up step and
              three measured steps; losses, step seconds, peak memory, each
@@ -1107,12 +1122,23 @@ def profile_device(phase, run, groups):
     device ms and share of each group of kernels (``groups``: label -> a
     substring of the kernel names), the device's busy share of the wall, the
     device time of annotated ranges such as the optimizer step, and the
-    operators that launch the most device time, by input shape."""
+    operators that launch the most device time, by input shape.  A warm-up
+    step (one small kernel) comes first, and PROFILE_PAD_KERNELS spin
+    kernels open the recorded window: a trace can lose the first records of
+    its window (a prefix of a clip's kernels, on the card), and the pad
+    takes that loss in their place.  The pad's kernels are left out of
+    every sum; ``pad_kernels_recorded`` counts those the trace kept."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+                 record_shapes=True, schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(PROFILE_PAD_KERNELS):
+            torch.cuda._sleep(PROFILE_PAD_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1123,6 +1149,8 @@ def profile_device(phase, run, groups):
                bool(getattr(e, "is_user_annotation", False)))
               for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    pad = sum(r[2] for r in device if PAD_KERNEL in r[0])
+    device = [r for r in device if PAD_KERNEL not in r[0]]
     kernels = sorted((r[:3] for r in device if not r[3]), key=lambda r: -r[1])
     ranges = sorted((r[:3] for r in device if r[3]), key=lambda r: -r[1])
     device_ms = sum(r[1] for r in kernels)
@@ -1132,7 +1160,8 @@ def profile_device(phase, run, groups):
            and e.key not in ("aten::copy_", "aten::to", "aten::_to_copy")]
     ops.sort(key=lambda r: -r[2])
     summary = {"wall_ms": round(wall_ms, 2), "device_ms": round(device_ms, 2),
-               "device_busy_share": round(device_ms / wall_ms, 4)}
+               "device_busy_share": round(device_ms / wall_ms, 4),
+               "pad_kernels_recorded": pad}
     for label, key in groups.items():
         ms = sum(r[1] for r in kernels if key in r[0])
         summary[f"{label}_ms"] = round(ms, 2)
@@ -1144,6 +1173,10 @@ def profile_device(phase, run, groups):
     log(phase, json.dumps(summary))
     return summary
 
+
+# the spin kernels that open a profiled window (profile_device): about
+# 0.5 ms each on the card; the name torch.cuda._sleep's kernel has
+PROFILE_PAD_KERNELS, PROFILE_PAD_CYCLES, PAD_KERNEL = 300, 1_000_000, "spin_kernel"
 
 # the eval phase: frames per clip, resolution, Euler steps, clips scored
 EVAL_FRAMES, EVAL_H, EVAL_W, EVAL_STEPS, EVAL_CLIPS = 25, 384, 512, 5, 2
@@ -1999,9 +2032,14 @@ def models_given(extra):
 def stage_clock():
     """Inside the block each stage's wall ms (the device synchronised around
     it) is summed by name: encode, denoise, decode (the pipeline's stages),
-    pointmap_network and camera (Spann3R's network and its camera recovery)."""
+    pointmap_network and camera (the Spann3R, Dust3R and Cut3R networks and
+    the camera recovery), vda_network and postprocess (VideoDepthAnything's
+    network and its depth and normals)."""
+    from unigeo_tpu_torch.models import vda
     from unigeo_tpu_torch.models.depthcrafter.pipeline import DepthCrafterPipeline
     from unigeo_tpu_torch.models.pointmap import adapter
+    from unigeo_tpu_torch.models.pointmap.cut3r import Cut3RNetwork
+    from unigeo_tpu_torch.models.pointmap.dust3r import Dust3RNetwork
     from unigeo_tpu_torch.models.pointmap.spann3r import Spann3RNetwork
 
     sites = [(DepthCrafterPipeline, "_encode_stage", "encode"),
@@ -2009,6 +2047,10 @@ def stage_clock():
              (DepthCrafterPipeline, "_decode_stage", "decode"),
              (DepthCrafterPipeline, "_decode_frames", "decode"),
              (Spann3RNetwork, "forward", "pointmap_network"),
+             (Dust3RNetwork, "forward", "pointmap_network"),
+             (Cut3RNetwork, "forward", "pointmap_network"),
+             (vda.VDANetwork, "forward", "vda_network"),
+             (vda, "postprocess", "postprocess"),
              (adapter, "outputs_from_world_pts", "camera")]
     ms = {}
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in sites]
@@ -2083,7 +2125,7 @@ def hold_run(phase, label, run, cfg, predicted, clips):
         f"{json.dumps([round(s, 3) for s in run['clip_s']])}s, peak {run['peak_gib']:.2f} GiB, "
         f"stage_ms (summed over the clips) {json.dumps(run['stage_ms'])}, packed launches "
         f"{run['launches']['flash_attention_packed']} = {clips} x {predicted} predicted "
-        f"(table {SIBLING_TABLE[label] if label in SIBLING_TABLE else '-'}); Average "
+        f"(table {({**SIBLING_TABLE, **POINTMAP_TABLE}).get(label, '-')}); Average "
         f"{json.dumps({n: rows[-1][n] for n in names})}")
     if run["launches"] != want:
         raise AssertionError(f"{label}: launches {run['launches']} != {want}")
@@ -2439,21 +2481,196 @@ def spann3r_f32_vs_bf16(dev, root, cache, sp):
     return res
 
 
-def f32_bound(b, s, h, d):
-    """The f32 forward's bound: 4 B H S^2 D operations at the CUDA cores'
-    f32 rate, q, k, v read and o written once in f32."""
-    flops = 4.0 * b * h * s * s * d
-    nbytes = 4.0 * b * h * d * 4 * s
+# the packed kernel's launches per clip on the Dust3R, Cut3R and
+# VideoDepthAnything paths at DISK_H x DISK_W (pointmap_launches), worked out
+# by hand: Dust3R 24 encoder + 12 layers x 2 streams x (self + cross); Cut3R
+# 8 encoder + 20 frames x 6 layers x (self + cross), its state blocks' 64
+# queries on the plain version; VideoDepthAnything 24 encoder, its temporal
+# blocks' 25 queries on the plain version
+POINTMAP_TABLE = {"dust3r": 72, "cut3r": 248, "vda": 24}
+VDA_CLIP = 25  # vda_scannetpp.yaml's clips
+POINTMAP_MODELS = (("dust3r", "Dust3R", "dust3r_7scenes.yaml", PM_CLIP),
+                   ("cut3r", "Cut3R", "cut3r_7scenes.yaml", PM_CLIP),
+                   ("vda", "VideoDepthAnything", "vda_scannetpp.yaml", VDA_CLIP))
+
+
+def network_args(cls, model_params):
+    """A network's arguments: ``cls``'s defaults under the config's
+    network_config."""
+    import inspect
+
+    args = {k: p.default for k, p in inspect.signature(cls.__init__).parameters.items()
+            if p.default is not inspect.Parameter.empty}
+    args.update(model_params.get("network_config") or {})
+    return args
+
+
+def pointmap_launches(kind, model_params, frames):
+    """Packed-kernel launches of one clip of ``frames`` frames at DISK_H x
+    DISK_W, from the config: every attention whose queries number at least
+    MIN_KERNEL_SEQ, once per call.  Dust3R: the encoder's layers once over
+    all frames, each entangled layer's two streams' self- and
+    cross-attention once over the pairs; Cut3R: the encoder, then per frame
+    each decoder layer's self- and cross-attention (the frame's tokens) and
+    its two state blocks' (the state tokens); VideoDepthAnything: the
+    encoder, then the four temporal blocks over the frame axis (``frames``
+    queries)."""
+    from unigeo_tpu_torch.models.pointmap.cut3r import Cut3RNetwork
+    from unigeo_tpu_torch.models.pointmap.dust3r import Dust3RNetwork
+    from unigeo_tpu_torch.models.vda import VDANetwork
+    from unigeo_tpu_torch.ops.attention import MIN_KERNEL_SEQ
+
+    cls = {"dust3r": Dust3RNetwork, "cut3r": Cut3RNetwork, "vda": VDANetwork}[kind]
+    a = network_args(cls, model_params)
+    p = a["patch_size"]
+    tokens = (DISK_H // p) * (DISK_W // p) + (1 if a.get("use_class_token") else 0)
+    big = int(tokens >= MIN_KERNEL_SEQ)
+    if kind == "dust3r":
+        return big * (a["enc_depth"] + a["dec_depth"] * 2 * 2)
+    if kind == "cut3r":
+        state = int(a["num_state_tokens"] >= MIN_KERNEL_SEQ)
+        return big * a["enc_depth"] + frames * (big * a["dec_depth"] * 2 + state * 2 * 2)
+    return big * a["depth"] + int(frames >= MIN_KERNEL_SEQ) * 4
+
+
+def pointmap_models_reference(dev):
+    """Dust3R, Cut3R (both RoPE100 + DPT) and VideoDepthAnything at tiny
+    widths in f32 at 192 x 256 (192 tokens: the f32 kernel) on the card
+    against the same weights on the CPU, every output within 1e-4 of the
+    reference's largest magnitude; the kernel's launches as the tiny
+    configs predict."""
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.models.pointmap.adapter import init_network_
+    from unigeo_tpu_torch.models.pointmap.cut3r import Cut3RNetwork, tiny_cut3r_config
+    from unigeo_tpu_torch.models.pointmap.dust3r import Dust3RNetwork, tiny_dust3r_config
+    from unigeo_tpu_torch.models.vda import VDANetwork, tiny_vda_config
+
+    set_exact_f32()
+    rope = dict(pos_embed="RoPE100", qkv_bias=True, norm_context=True, head_type="dpt")
+    frames = torch.from_numpy(np.random.default_rng(17).random((3, 192, 256, 3))
+                              .astype(np.float32))
+    # (label, network, its call, launches: encoder + decoder as in pointmap_launches)
+    cases = [("dust3r", Dust3RNetwork(**tiny_dust3r_config(), **rope),
+              lambda net, f: net(f[:1], f[1:]), 2 + 2 * 4),
+             ("cut3r", Cut3RNetwork(**tiny_cut3r_config(), **rope), lambda net, f: net(f),
+              2 + 3 * 2 * 2),
+             ("vda", VDANetwork(**tiny_vda_config()), lambda net, f: net(f), 4)]
+    flat = lambda out: (list(out.values()) if isinstance(out, dict)
+                        else list(out) if isinstance(out, tuple) else [out])
+    res = {}
+    for label, cpu_net, run, want in cases:
+        init_network_(cpu_net.eval().requires_grad_(False), torch.Generator().manual_seed(3))
+        card = copy.deepcopy(cpu_net).to(dev)
+        reset_counts()
+        with torch.no_grad():
+            outs = flat(run(card, frames.to(dev)))
+            launched = read_counts()["flash_attention_packed"]
+            refs = flat(run(cpu_net, frames))
+        rel = max(((o.cpu() - r).abs().max() / r.abs().max()).item() for o, r in zip(outs, refs))
+        res[label] = {"rel_dev": rel, "launches": launched, "predicted": want}
+        if not (rel <= 1e-4 and launched == want):
+            raise AssertionError(f"{label} reference: {res[label]}")
+    log("pointmap_models", f"tiny networks 3x192x256 f32 card vs CPU (tol 1e-4): "
+        f"{json.dumps(res)}")
+
+
+def phase_pointmap_models(dev):
+    """Dust3R and Cut3R (their 7-Scenes configs' model_params: clips of 20)
+    and VideoDepthAnything (vda_scannetpp.yaml's network: ViT-L, patch 14,
+    clips of 25) through the eval CLI over the 7-Scenes fixture, one clip
+    each, in f32 with TF32 off: per-clip seconds, peak memory, stage ms, the
+    packed kernel's launches held to pointmap_launches and POINTMAP_TABLE,
+    every metric the config scores finite; then one more clip of each under
+    torch.profiler: every flash launch on the register-tiled f32 body."""
+    from unigeo_tpu_torch.registry import get_dataset_cls
+    from unigeo_tpu_torch.tools.forward_variants import PROFILE_ATTEMPTS
+
+    pointmap_models_reference(dev)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on for the pointmap models' f32 runs")
+    work = tempfile.mkdtemp(prefix="unigeo_pointmap_models_")
+    summary = {}
+    try:
+        root, cache = write_fixture(work)
+        for label, name, config, clip in POINTMAP_MODELS:
+            conf = read_config(config)
+            predicted = pointmap_launches(label, conf["model_params"], clip)
+            if predicted != POINTMAP_TABLE[label]:
+                raise AssertionError(f"{label}: predicted {predicted} != table "
+                                     f"{POINTMAP_TABLE[label]}")
+            secs = {s: conf[s] for s in SECTIONS if s in conf}
+            cfg = fixture_config(root, cache, name, conf["model_params"], secs, clip, PM_OVERLAP)
+            run = counted_cli(dev, work, label, cfg, lambda name: {}, 1)
+            hold_run("pointmap_models", label, run, cfg, predicted, 1)
+            model = run.pop("models")[0]
+            if next(model.network.parameters()).dtype != torch.float32:
+                raise AssertionError(f"{label}: the network is not f32")
+            data = get_dataset_cls("sevenScenesDataset")(
+                root=root, clip_length=clip, clip_overlap=PM_OVERLAP,
+                input_size=(DISK_H, DISK_W), target_size=(DISK_H, DISK_W), cache_dir=cache)[0]
+            # every flash launch the profiler records must be on the f32
+            # body; a trace that recorded fewer launches than the counts
+            # (the profiler drops kernels at times) is taken again
+            for attempt in range(1, PROFILE_ATTEMPTS + 1):
+                reset_counts()
+                prof = profile_device("pointmap_models", lambda: model.forward_tensors(data),
+                                      {"flash_kernel": "flash_packed",
+                                       "f32reg": "flash_packed_f32reg_kernel", "conv": "conv",
+                                       "gemm": "gemm", "elementwise": "elementwise"})
+                counted = read_counts()["flash_attention_packed"]
+                if counted != predicted:
+                    raise AssertionError(f"{label}: {counted} launches in the profiled clip")
+                if prof["f32reg_launches"] != prof["flash_kernel_launches"]:
+                    raise AssertionError(f"{label}: a flash launch off the f32 body {prof}")
+                if prof["flash_kernel_launches"] == predicted:
+                    break
+                log("pointmap_models", f"{label}: trace {attempt} recorded "
+                    f"{prof['flash_kernel_launches']} of the {counted} flash launches counted")
+            else:
+                raise AssertionError(f"{label}: profiled flash launches "
+                                     f"{prof['flash_kernel_launches']} != {predicted} in "
+                                     f"{PROFILE_ATTEMPTS} traces {prof}")
+            summary[label] = {k: run[k] for k in ("seconds", "clip_s", "peak_gib", "stage_ms")}
+            summary[label].update(
+                launches_per_clip=predicted, params=sum(p.numel() for p in model.network.parameters()),
+                families=[s for s in SECTIONS if s in secs], average=run["rows"][-1],
+                f32_flash_device_ms_per_clip=prof["flash_kernel_ms"],
+                profiled_device_ms=prof["device_ms"], profiled_wall_ms=prof["wall_ms"],
+                device_busy_share=prof["device_busy_share"])
+            del model, run, data
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("pointmap_models", json.dumps(summary))
+    return summary
+
+
+def f32_bound(b, sq, sk, h, d):
+    """The f32 forward's bound: 4 B H Sq Sk D operations at the CUDA cores'
+    f32 rate, q and k, v read and o written once in f32 (4 B H D (2 Sq +
+    2 Sk) bytes)."""
+    flops = 4.0 * b * h * sq * sk * d
+    nbytes = 4.0 * b * h * d * (2 * sq + 2 * sk)
     t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-# the f32 body's shapes on the pointmap path at 384 x 512 (768 tokens):
-# Spann3R's encoder over UniGeoCam's 25 frames and over its own clips of 20,
-# its decoder per frame
-F32_POINTMAP_SHAPES = [("pointmap_encoder", 25, 768, 12, 64),
-                       ("spann3r_encoder", 20, 768, 12, 64),
-                       ("pointmap_decoder", 1, 768, 8, 64)]
+# the f32 body's shapes (name, B, Sq, Sk, H, D) on the pointmap paths at 384 x
+# 512 (768 tokens at patch 16, 972 at patch 14): Spann3R's encoder over
+# UniGeoCam's 25 frames and over its own clips of 20, its decoder per frame;
+# Dust3R's encoder over a 20-frame clip and its decoder over the 19 pairs;
+# VideoDepthAnything's encoder over 25 frames (972 = 15 x 64 + 12: ragged
+# rows and keys); Cut3R's frame tokens reading its 64 state tokens (one key
+# tile)
+F32_POINTMAP_SHAPES = [("pointmap_encoder", 25, 768, 768, 12, 64),
+                       ("spann3r_encoder", 20, 768, 768, 12, 64),
+                       ("pointmap_decoder", 1, 768, 768, 8, 64),
+                       ("dust3r_encoder", 20, 768, 768, 16, 64),
+                       ("dust3r_decoder", 19, 768, 768, 12, 64),
+                       ("vda_encoder", 25, 972, 972, 16, 64),
+                       ("cut3r_state_cross", 1, 768, 64, 8, 64)]
+
+
 def phase_kernel_f32_pointmap(dev):
     """The packed kernel's f32 body at d = 64 (register-tiled, by kernel
     name) at the pointmap shapes against its plain version (F32_OUT_TOL),
@@ -2478,13 +2695,14 @@ def phase_kernel_f32_pointmap(dev):
     log("kernel", f"the earlier f32 body's copy built in {time.perf_counter() - t0:.2f}s")
     gen = torch.Generator(device=dev).manual_seed(16)
     rows = []
-    for name, b, s, h, d in F32_POINTMAP_SHAPES:
-        q, k, v = (torch.randn((b, s, h * d), generator=gen, device=dev) for _ in range(3))
+    for name, b, sq, sk, h, d in F32_POINTMAP_SHAPES:
+        q = torch.randn((b, sq, h * d), generator=gen, device=dev)
+        k, v = (torch.randn((b, sk, h * d), generator=gen, device=dev) for _ in range(2))
         out = flash_attention_packed(q, k, v, h)
         err = (out - attention_packed_reference(q, k, v, h)).abs().max().item()
         if not err <= F32_OUT_TOL:
             raise AssertionError(f"{name}: f32 kernel vs plain max abs err {err}")
-        split = lambda x: x.view(b, s, h, d).transpose(1, 2)
+        split = lambda x: x.view(b, x.shape[1], h, d).transpose(1, 2)
         kern = lambda: flash_attention_packed(q, k, v, h)
         sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
         ms = time_ms(kern, 20)
@@ -2499,14 +2717,15 @@ def phase_kernel_f32_pointmap(dev):
         if not (earlier_err <= F32_OUT_TOL and "flash_packed_kernel<" in earlier_body):
             raise AssertionError(f"{name}: the earlier f32 body {earlier_body} differs from "
                                  f"the new one by {earlier_err}")
-        bms, by = f32_bound(b, s, h, d)
+        bms, by = f32_bound(b, sq, sk, h, d)
         body_name = lambda key: re.search(r"flash_\w+<[^>]*>", key).group(0)
-        rows.append(dict(shape=name, b=b, s=s, h=h, d=d, dtype="float32", max_abs_err=err,
+        rows.append(dict(shape=name, b=b, sq=sq, sk=sk, h=h, d=d, dtype="float32",
+                         max_abs_err=err,
                          body=body_name(body), ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, library_device_ms=lib_device_ms, bound_ms=bms,
                          bound_by=by, earlier_body=body_name(earlier_body),
                          earlier_ms=time_ms(earlier, 20), earlier_device_ms=earlier_device_ms))
-        log("kernel", f"f32 {name} [B={b},S={s},H={h},D={d}] body {rows[-1]['body']} "
+        log("kernel", f"f32 {name} [B={b},Sq={sq},Sk={sk},H={h},D={d}] body {rows[-1]['body']} "
             f"max_abs_err={err:.3e} kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} device {lib_device_ms:.4f} "
             f"(SDPA f32) bound_ms={bms:.5f} ({by}); earlier body {rows[-1]['earlier_body']} "
@@ -2590,6 +2809,9 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     siblings.update(phase_pointmap(dev))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    siblings.update(phase_pointmap_models(dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     trained = phase_train(dev)

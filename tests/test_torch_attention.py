@@ -11,6 +11,8 @@ order of the sums differs (the JAX reference and kernel are chunked online
 softmaxes, the port's plain version is one dense softmax).
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,8 @@ order 5), 2e-5.  ``FlashAttentionPacked`` on the CPU against
 ``torch.autograd.grad`` through ``attention_packed_reference``: 1e-5.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import numpy as np
 import pytest
 import torch

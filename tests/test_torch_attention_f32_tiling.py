@@ -25,6 +25,8 @@ miss the output limit by 3x or more: a dropped key tile, no ragged mask, no
 alpha rescale, and a merge that takes one block's partial twice.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import functools
 import math
 

@@ -21,6 +21,8 @@ weight 2^-m each, and the output fails the limit: the CPU twin of the
 planted fault ``wgmma_no_ragged_mask`` in tests/test_torch_cuda.py.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import functools
 import math
 

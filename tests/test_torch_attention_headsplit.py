@@ -14,6 +14,8 @@ sides with only the order of the sums differing (the JAX reference is a
 chunked online softmax, the port's plain version one dense softmax).
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

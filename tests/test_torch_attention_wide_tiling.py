@@ -29,6 +29,8 @@ a consumer's own partial back (S = S_c + S_c, the twin of
 ``trade_reads_own_partial``; by at least 3x).
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import functools
 import math
 

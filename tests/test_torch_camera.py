@@ -30,6 +30,8 @@ Tolerances:
   tests/test_torch_eval.py); the evo scraping equal.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import os
 
 import jax.numpy as jnp

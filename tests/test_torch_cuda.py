@@ -1355,3 +1355,87 @@ def test_spann3r_on_the_card_matches_the_cpu(cuda):
     assert (angle < 1e-3).all()
     assert (t_dev[1:] < 1e-3 * ext_h[1:, :3, 3].norm(dim=-1)).all()
     assert rel(cam_c[..., 2], cam_h[..., 2]) < 1e-3
+
+
+# --- the Dust3R, Cut3R and VideoDepthAnything slice --------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("sq,sk", [(768, 64), (64, 768)])
+def test_forward_with_fewer_or_more_keys_than_queries(cuda, dtype, sq, sk):
+    """Cut3R's frame tokens reading its 64 state tokens (768 queries, one key
+    tile: no key split) and the converse (64 queries, 768 keys), at 8 heads
+    of 64: f32 on the register-tiled body within 1e-5 of the plain version,
+    bf16 (``compute_dtype: bfloat16``) on the wgmma body within the bf16
+    limit."""
+    torch_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    q, k, v = _qkv(1, sq, sk, 8, 64, torch_dtype, cuda, seed=31)
+    out = flash_attention_packed(q, k, v, 8)
+    if dtype == "f32":
+        launched = _f32reg_launches(lambda: flash_attention_packed(q, k, v, 8))
+        assert launched and all(a is not None for _, a in launched), launched
+        err = (out - attention_packed_reference(q, k, v, 8)).abs().max().item()
+        print(f"[1,{sq}->{sk},8,64] f32 max abs err {err:.3e} body {launched[0][0][:60]}")
+        assert err < 1e-5
+    else:
+        ratio = _err_over_limit(out, q, k, v, 8)
+        print(f"[1,{sq}->{sk},8,64] bf16 err/limit {ratio:.3f}")
+        assert ratio <= 1.0
+
+
+@pytest.mark.parametrize("b,sq,sk,h", [(20, 768, 768, 16), (19, 768, 768, 12),
+                                       (25, 972, 972, 16)])
+def test_f32_kernel_at_the_new_pointmap_shapes(cuda, b, sq, sk, h):
+    """Dust3R's encoder over 20 frames and its decoder over 19 pairs, and
+    VideoDepthAnything's encoder over 25 frames at patch 14 (972 = 15 x 64
+    + 12 tokens: ragged rows and keys), on the register-tiled body within
+    1e-5 of the plain version."""
+    q, k, v = _qkv(b, sq, sk, h, 64, torch.float32, cuda, seed=32)
+    out = flash_attention_packed(q, k, v, h)
+    err = (out - attention_packed_reference(q, k, v, h)).abs().max().item()
+    print(f"[{b},{sq},{h},64] f32 max abs err {err:.3e}")
+    assert err < 1e-5
+
+
+def _tiny_pointmap_networks():
+    from unigeo_tpu_torch.models.pointmap.cut3r import Cut3RNetwork, tiny_cut3r_config
+    from unigeo_tpu_torch.models.pointmap.dust3r import Dust3RNetwork, tiny_dust3r_config
+    from unigeo_tpu_torch.models.vda import VDANetwork, tiny_vda_config
+
+    rope = dict(pos_embed="RoPE100", qkv_bias=True, norm_context=True, head_type="dpt")
+    # (network, its call on frames, launches: the encoder's layers, then as
+    # chip_smoke.pointmap_launches counts them over three frames)
+    return {"dust3r": (Dust3RNetwork(**tiny_dust3r_config(), **rope),
+                       lambda net, f: net(f[:1], f[1:]), 2 + 2 * 4),
+            "cut3r": (Cut3RNetwork(**tiny_cut3r_config(), **rope), lambda net, f: net(f),
+                      2 + 3 * 2 * 2),
+            "vda": (VDANetwork(**tiny_vda_config()), lambda net, f: net(f), 4)}
+
+
+@pytest.mark.parametrize("name", ["dust3r", "cut3r", "vda"])
+def test_pointmap_slice_networks_on_the_card_match_the_cpu(cuda, name):
+    """The tiny networks in f32 (TF32 off) at 192 x 256 (192 tokens: the f32
+    kernel): the card against the same weights on the CPU, every output
+    within 1e-4 of the reference's largest magnitude (the networks' f32 sums
+    in other orders, as the CPU parity with JAX)."""
+    import copy
+
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.models.pointmap.adapter import init_network_
+
+    set_exact_f32()
+    cpu_net, run, want = _tiny_pointmap_networks()[name]
+    init_network_(cpu_net.eval().requires_grad_(False), torch.Generator().manual_seed(4))
+    card = copy.deepcopy(cpu_net).to(cuda)
+    frames = torch.from_numpy(np.random.default_rng(14).random((3, 192, 256, 3))
+                              .astype(np.float32))
+    flat = lambda out: (list(out.values()) if isinstance(out, dict)
+                        else list(out) if isinstance(out, tuple) else [out])
+    before = flash_attention_packed.launches
+    with torch.no_grad():
+        outs = flat(run(card, frames.to(cuda)))
+        assert flash_attention_packed.launches - before == want
+        refs = flat(run(cpu_net, frames))
+    rels = [((o.cpu() - r).abs().max() / r.abs().max()).item() for o, r in zip(outs, refs)]
+    print(name, "rel dev", rels)
+    assert max(rels) < 1e-4

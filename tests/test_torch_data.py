@@ -3,6 +3,8 @@
 slicer, the experiment config and the dataset registry.  All numpy on both
 sides, so equality is exact (``np.array_equal``)."""
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import dataclasses
 import os
 

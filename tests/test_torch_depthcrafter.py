@@ -21,6 +21,8 @@ Tolerances (relative to the largest magnitude of the reference):
     degree.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import math
 
 import numpy as np

@@ -53,6 +53,8 @@
   config on the CPU.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import json
 import math
 import os

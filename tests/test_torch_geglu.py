@@ -22,6 +22,8 @@ Tolerances:
     terms of such differences.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

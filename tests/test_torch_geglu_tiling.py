@@ -38,6 +38,8 @@ row of its items) and of ``geglu_no_ragged_mask`` (the down pass does)
 write them, which the card tests count as failing the limit outright.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import numpy as np
 import pytest
 import torch

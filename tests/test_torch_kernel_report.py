@@ -2,6 +2,8 @@
 cuobjdump's text, on excerpts in their formats (the tool itself needs nvcc
 and runs on the machine with the card: tests/test_torch_cuda.py)."""
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import pytest
 
 from unigeo_tpu_torch.tools.kernel_report import ptxas_info, sass_counts, template_args

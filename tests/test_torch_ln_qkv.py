@@ -23,6 +23,8 @@ Tolerances:
   the JAX reference).
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import contextlib
 import io
 import json

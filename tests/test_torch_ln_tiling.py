@@ -22,6 +22,8 @@ each row normalized with the statistics of another row of its block, fails
 the limit by at least 3x.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import numpy as np
 import pytest
 import torch

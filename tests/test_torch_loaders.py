@@ -24,6 +24,8 @@ sample's camera points, rotated by the JAX sample's poses) and the two fits
 to a median angle under 1 degree; every other key stays exact.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import json
 
 import numpy as np

@@ -8,6 +8,8 @@ that ``tools/disk_fixture.py`` encodes with the standard library read back
 equal in PIL, and the port's 7-Scenes loader over them equals the JAX one.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import os
 import subprocess
 import sys

@@ -4,6 +4,8 @@ chip_smoke.py names them in an import.  Nor does an import load ``yaml`` or
 ``PIL``, which the card machine does not have: the training path imports
 them only where a YAML file is read or an image file decoded or resized."""
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import os
 import re
 import subprocess
@@ -174,6 +176,40 @@ SIBLING_SLICE_MODULES = [
 @pytest.mark.parametrize("rel", SIBLING_SLICE_MODULES)
 def test_sibling_slice_modules_are_checked(rel):
     assert os.path.join(ROOT, rel) in _port_files()
+
+
+# the modules of the Dust3R, Cut3R and VideoDepthAnything slice, which the
+# walk above must find
+POINTMAP_SLICE_MODULES = [
+    "unigeo_tpu_torch/models/posecodec.py",
+    "unigeo_tpu_torch/models/pointmap/dust3r.py",
+    "unigeo_tpu_torch/models/pointmap/cut3r.py",
+    "unigeo_tpu_torch/models/vda.py",
+]
+
+
+@pytest.mark.parametrize("rel", POINTMAP_SLICE_MODULES)
+def test_pointmap_slice_modules_are_checked(rel):
+    assert os.path.join(ROOT, rel) in _port_files()
+
+
+def test_pointmap_slice_names_resolve_without_jax_yaml_or_pil():
+    """Dust3R, Cut3R and VideoDepthAnything resolve through the port's
+    registry to the port's classes, importing neither JAX nor the JAX
+    package, PyYAML or PIL."""
+    code = (
+        "import sys\n"
+        "from unigeo_tpu_torch.registry import get_model_cls\n"
+        "for n in ('Dust3R', 'Cut3R', 'VideoDepthAnything'):\n"
+        "    assert get_model_cls(n).__module__.startswith('unigeo_tpu_torch.'), n\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'flax', 'unigeo_tpu', 'yaml', 'PIL'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 def test_every_new_model_name_resolves_without_jax_yaml_or_pil():

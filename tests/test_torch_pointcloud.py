@@ -38,6 +38,8 @@ Tolerances (u = 2^-24, the f32 unit roundoff):
   round-off; the normal consistencies within 1e-4.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -24,7 +24,14 @@ Tolerances, relative to the reference's largest magnitude unless said:
     degree, translations and depths at 1e-2 relative, normals by mean angle
     under 0.5 degree; the conditioned scene above is where the solver is
     held tightly.
+
+The JAX Spann3R network of each mode is built once per worker
+(``jax_spann3r``) and shared by the network, adapter and bridge tests.
 """
+
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
+import functools
 
 import numpy as np
 import pytest
@@ -293,18 +300,29 @@ MODES = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def jax_spann3r(mode):
+    """The mode's JAX Spann3RNetwork on three frames: (config, params,
+    frames, points, confidence), its init and apply jitted (the persistent
+    compile cache serves later runs) and built once per worker for every
+    test that needs them."""
+    from unigeo_tpu.models.pointmap.spann3r import Spann3RNetwork as JNet, tiny_spann3r_config
+
+    cfg = dict(tiny_spann3r_config(), **MODES[mode])
+    frames = jnp.asarray(_frames(3))
+    jnet = JNet(**cfg)
+    params = jax.device_get(jax.jit(jnet.init)(jax.random.PRNGKey(0), frames))
+    ref_pts, ref_conf = jax.device_get(jax.jit(jnet.apply)(params, frames))
+    return cfg, params, np.asarray(frames), ref_pts, ref_conf
+
+
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_spann3r_network_matches_jax(mode):
     """Three frames through a two-slot ring: frame 2 overwrites frame 0's slot."""
-    from unigeo_tpu.models.pointmap.spann3r import Spann3RNetwork as JNet, tiny_spann3r_config
     from unigeo_tpu_torch.models.pointmap.spann3r import Spann3RNetwork
 
-    cfg = dict(tiny_spann3r_config(), **MODES[mode])
+    cfg, params, frames, ref_pts, ref_conf = jax_spann3r(mode)
     assert cfg["memory_frames"] == 2
-    frames = _frames(3)
-    jnet = JNet(**cfg)
-    params = jnet.init(jax.random.PRNGKey(0), jnp.asarray(frames))
-    ref_pts, ref_conf = jnet.apply(params, jnp.asarray(frames))
     net = loaded(Spann3RNetwork(**cfg), params)
     with torch.no_grad():
         pts, conf = net(t_(frames))
@@ -313,7 +331,8 @@ def test_spann3r_network_matches_jax(mode):
 
 def test_empty_ring_slots_take_no_attention():
     """Frame 0's output is the same whatever the ring's capacity."""
-    from unigeo_tpu_torch.models.pointmap.spann3r import Spann3RNetwork, init_network_
+    from unigeo_tpu_torch.models.pointmap.adapter import init_network_
+    from unigeo_tpu_torch.models.pointmap.spann3r import Spann3RNetwork
 
     cfg = dict(enc_width=32, enc_depth=1, enc_heads=2, dec_width=32, dec_depth=1, dec_heads=2)
     net2 = init_network_(Spann3RNetwork(memory_frames=2, **cfg), torch.Generator().manual_seed(0))
@@ -333,11 +352,16 @@ def _clip(t=3):
 
 @pytest.fixture(scope="module")
 def spann3r_pair():
-    from unigeo_tpu.models.pointmap.spann3r import Spann3R as JSpann3R, tiny_spann3r_config
+    """The JAX adapter on jax_spann3r's params (its network's init handed
+    them) and the port's with the same weights."""
+    from unigeo_tpu.models.pointmap.spann3r import Spann3R as JSpann3R
+    from unigeo_tpu.models.pointmap.spann3r import Spann3RNetwork as JNet
     from unigeo_tpu_torch.models.pointmap.spann3r import Spann3R
 
-    cfg = dict(tiny_spann3r_config(), **MODES["rope_dpt"])
-    jmodel = JSpann3R(network_config=cfg, init_height=H, init_width=W, init_frames=2)
+    cfg, params, _, _, _ = jax_spann3r("rope_dpt")
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(JNet, "init", lambda self, *a, **k: params)
+        jmodel = JSpann3R(network_config=cfg, init_height=H, init_width=W, init_frames=2)
     model = Spann3R(network_config=cfg, device="cpu")
     model.load_state_dict(pointmap_state_dict(jax.device_get(jmodel.params), model.network))
     return jmodel, model
@@ -390,11 +414,9 @@ def test_spann3r_adapter_dtypes(spann3r_pair, monkeypatch):
 
 
 def test_weight_bridge_is_strict():
-    from unigeo_tpu.models.pointmap.spann3r import Spann3RNetwork as JNet, tiny_spann3r_config
     from unigeo_tpu_torch.models.pointmap.spann3r import Spann3RNetwork
 
-    cfg = dict(tiny_spann3r_config(), **MODES["rope_dpt"])
-    params = jax.device_get(JNet(**cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, H, W, 3))))
+    cfg, params, _, _, _ = jax_spann3r("rope_dpt")
     net = Spann3RNetwork(**cfg)
     sd = pointmap_state_dict(params, net)
     # layer i of a stacked leaf, the memory step's leaves unstacked
@@ -418,7 +440,9 @@ def test_weight_bridge_is_strict():
         pointmap_state_dict(edited(lambda p: enc(p)["norm"].update(extra=np.zeros(3))), net)
     with pytest.raises(ValueError, match="flax"):
         pointmap_state_dict(edited(lambda p: enc(p)["norm"].update(scale=np.zeros(63))), net)
-    # a deeper JAX stack than the port's: its third layer is left over
-    deeper = JNet(**dict(cfg, enc_depth=3)).init(jax.random.PRNGKey(0), jnp.zeros((1, H, W, 3)))
+    # a deeper JAX stack than the port's (a third encoder layer stacked on
+    # the two): its third layer is left over
+    deeper = edited(lambda p: enc(p)["blocks"].update(layers=jax.tree_util.tree_map(
+        lambda a: np.concatenate([a, a[:1]]), enc(p)["blocks"]["layers"])))
     with pytest.raises(KeyError, match="left over"):
-        pointmap_state_dict(jax.device_get(deeper), net)
+        pointmap_state_dict(deeper, net)

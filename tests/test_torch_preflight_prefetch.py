@@ -14,6 +14,8 @@ prefetch against the JAX package's, on the CPU.
   ``num_workers=0`` writes, byte for byte.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import os
 
 import numpy as np

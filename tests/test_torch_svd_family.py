@@ -30,6 +30,8 @@ in f32 on the tiny pipeline (the JAX weights carried over by
   under 0.1 degree, as StableNormal's.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import copy
 
 import numpy as np

@@ -4,6 +4,8 @@ ROADMAP item: checkpoint IO (queue 1 item 9), the other trainer families
 dataset or a model is built, so the test takes well under a second and
 imports no JAX."""
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import pytest
 
 from unigeo_tpu_torch import train

@@ -30,6 +30,8 @@ matmuls and reductions differs):
     update computed in another order).
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import numpy as np
 import pytest
 import torch

@@ -29,6 +29,8 @@ package on the CPU in f32.
   so what differs is the metric code's round-off).
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import copy
 import os
 

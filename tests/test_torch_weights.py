@@ -8,6 +8,8 @@
   that convert_svd's rules were written for.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import copy
 
 import numpy as np

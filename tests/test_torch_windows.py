@@ -16,6 +16,8 @@ port (``clips_per_step`` 2 against 1): the CSV rows within
 and 3 pixels' share on the threshold shares.
 """
 
+import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
+
 import numpy as np
 import pytest
 import torch

@@ -1,3 +1,3 @@
 """The pointmap family (port of ``unigeo_tpu/models/pointmap``): the shared
-ViT encoder / decoder / heads, the DPT head, the camera-recovery adapter and
-Spann3R."""
+ViT encoder / decoder / heads, the DPT head, the camera-recovery adapter,
+Spann3R, Dust3R and Cut3R."""

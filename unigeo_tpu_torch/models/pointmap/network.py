@@ -1,7 +1,8 @@
 """Shared backbone of the feed-forward pointmap regressors (CroCo/DUSt3R
 lineage), port of ``unigeo_tpu/models/pointmap/network.py``: a ViT patch
 encoder, a decoder whose blocks self-attend within a frame and
-cross-attend to context tokens, and a linear patch head (points + confidence).
+cross-attend to context tokens, a linear patch head (points + confidence)
+and the pose head (a pooled 7-DoF absT_quaR encoding, in f32).
 
 Module names follow the JAX package's flax tree (``patch_embed.proj``,
 ``blocks.layers.N.attn.to_q``, ``proj_in``, ``norm``), so
@@ -15,6 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from unigeo_tpu_torch.models.vit import PatchEmbed, ScannedViTBlocks, sincos_2d_pos_embed
 from unigeo_tpu_torch.ops.rope import grid_positions
@@ -113,3 +115,22 @@ class PointmapHead(nn.Module):
         out = self.proj(tokens).reshape(b, gh, gw, p, p, 4)
         out = out.permute(0, 1, 3, 2, 4, 5).reshape(b, gh * p, gw * p, 4)
         return _points_and_conf(out)
+
+
+class PoseHead(nn.Module):
+    """Mean-pooled tokens -> fc1 (256), gelu, fc2 (7): the absT_quaR encoding
+    with (1, 0, 0, 0) added to the quaternion, normalised (floor 1e-8).  The
+    gelu is the tanh form, flax's ``nn.gelu`` default."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.fc1 = nn.Linear(width, 256)
+        self.fc2 = nn.Linear(256, 7)
+
+    def forward(self, tokens):
+        # the bias and what follows in f32, as the JAX package's f32 constant
+        # promotes a bf16 encoding
+        enc = self.fc2(F.gelu(self.fc1(tokens.mean(dim=1)), approximate="tanh")).float()
+        quat = enc[..., 3:] + torch.tensor([1.0, 0.0, 0.0, 0.0], device=enc.device)
+        quat = quat / torch.linalg.vector_norm(quat, dim=-1, keepdim=True).clamp_min(1e-8)
+        return torch.cat([enc[..., :3], quat], dim=-1)

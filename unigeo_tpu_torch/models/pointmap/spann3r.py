@@ -23,7 +23,6 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 
-from unigeo_tpu_torch.device import resolve_device
 from unigeo_tpu_torch.models.pointmap import adapter
 from unigeo_tpu_torch.models.pointmap.dpt import DPTPointmapHead
 from unigeo_tpu_torch.models.pointmap.network import (
@@ -115,25 +114,10 @@ class Spann3RNetwork(nn.Module):
         return self.head(torch.stack(ys), grid)
 
 
-def init_network_(network: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights in place with the JAX package's initialisers
-    (lecun-normal kernels, zero biases, unit LayerNorm scales); a transposed
-    conv's fan-in is in_channels x kh x kw, as flax counts it."""
-    from unigeo_tpu_torch.models.depthcrafter.pipeline import init_random_
-
-    init_random_(network, generator)
-    with torch.no_grad():
-        for mod in network.modules():
-            if isinstance(mod, nn.ConvTranspose2d):
-                w = mod.weight  # [in, out, kh, kw]
-                w.normal_(0.0, (w.shape[0] * w.shape[2] * w.shape[3]) ** -0.5,
-                          generator=generator)
-                mod.bias.zero_()
-    return network
-
-
 @MODELS.register("Spann3R")
-class Spann3R(adapter.BatchedPointmapForward):
+class Spann3R(adapter.RandomInitAdapter):
+    network_cls = Spann3RNetwork
+
     def __init__(
         self,
         network_config: Optional[Dict[str, Any]] = None,
@@ -154,42 +138,13 @@ class Spann3R(adapter.BatchedPointmapForward):
         """The JAX adapter's keywords and the ``device`` the network is built
         on.  ``init_*`` size the JAX package's parameter init; the port's
         random weights do not depend on them."""
-        if checkpoint_path:
-            raise NotImplementedError(
-                f"checkpoint_path={checkpoint_path!r}: checkpoint IO is not ported yet "
-                "(ROADMAP queue 1 item 9); leave it null for random weights")
-        self.device = resolve_device(device)
-        self.compute_dtype = adapter.resolve_compute_dtype(compute_dtype)
-        self.transfer_dtype = adapter.resolve_transfer_dtype(transfer_dtype)
-        with torch.device("meta"):
-            self.network = Spann3RNetwork(**(network_config or {}))
-        self.network.to_empty(device=self.device).eval().requires_grad_(False)
-        init_network_(self.network, torch.Generator(device=self.device).manual_seed(seed))
-        self._cast()
-
-    def _cast(self):
-        if self.compute_dtype is not None:
-            self.network.to(self.compute_dtype)
-
-    def load_state_dict(self, state_dict) -> "Spann3R":
-        """Load the network's weights strictly (e.g. from
-        ``utils/weights.py::pointmap_state_dict``), at the compute dtype."""
-        self.network.load_state_dict(state_dict, strict=True)
-        self._cast()
-        return self
+        self._build(network_config, checkpoint_path, seed, compute_dtype, transfer_dtype, device)
 
     @torch.no_grad()
     def forward_tensors(self, data: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One clip -> the output dict as f32 tensors on the device."""
-        raw = torch.from_numpy(adapter.raw_clip(data)).to(self.device)
-        frames = adapter.frames_from_raw(raw)
-        if self.compute_dtype is not None:
-            frames = frames.to(self.compute_dtype)
-        pts, conf = self.network(frames)
+        pts, conf = self.network(self.frames(data))
         return adapter.outputs_from_world_pts(pts.float(), conf.float())
-
-    def forward(self, data: Dict[str, Any]) -> Dict[str, Any]:
-        return adapter.fetch_outputs(self.forward_tensors(data), self.transfer_dtype)
 
 
 def tiny_spann3r_config():

@@ -50,8 +50,11 @@ def get_model_cls(name: str) -> type:
     import unigeo_tpu_torch.models.depthanyvideo  # noqa: F401
     import unigeo_tpu_torch.models.depthcrafter.model  # noqa: F401
     import unigeo_tpu_torch.models.identity  # noqa: F401
+    import unigeo_tpu_torch.models.pointmap.cut3r  # noqa: F401
+    import unigeo_tpu_torch.models.pointmap.dust3r  # noqa: F401
     import unigeo_tpu_torch.models.pointmap.spann3r  # noqa: F401
     import unigeo_tpu_torch.models.stablenormal  # noqa: F401
     import unigeo_tpu_torch.models.unigeo_cam  # noqa: F401
+    import unigeo_tpu_torch.models.vda  # noqa: F401
 
     return MODELS.get(name)

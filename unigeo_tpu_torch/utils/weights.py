@@ -15,8 +15,11 @@ The input is a nested dict of numpy (or array-like) leaves, as
 
 The pointmap networks (``pointmap_state_dict``) keep the JAX package's own
 module names, so their rule is structural: ``blocks.layers.N.`` picks layer
-N of the scan-stacked ``blocks/layers/block`` leaves (the Spann3R memory
-step's leaves are broadcast over the frames, not stacked), ``to_out.0`` is
+N of the scan-stacked ``blocks/layers/block`` leaves, Dust3R's
+``decoder.layers.N.block1.`` (``block2.``) layer N of
+``decoder/layers/block1`` (the Spann3R memory step's and the Cut3R
+recurrent step's leaves are broadcast over the frames, not stacked; the
+learned tables keep their flax names), ``to_out.0`` is
 flax's ``to_out``, and each leaf's layout follows its torch module: Linear
 [in, out] -> [out, in], Conv2d HWIO -> OIHW, and ConvTranspose2d HWIO ->
 [in, out, kh, kw] spatially flipped (flax's transposed conv correlates the
@@ -210,6 +213,8 @@ def pipeline_state_dicts(params: Mapping[str, Any], pipeline):
 # --- the pointmap networks -----------------------------------------------------
 
 _STACKED_LAYER = re.compile(r"^(.*\.)?blocks\.layers\.(\d+)\.(.*)$")
+# Dust3R's entangled decoder: both streams' blocks stacked over depth
+_ENTANGLED_LAYER = re.compile(r"^(.*\.)?decoder\.layers\.(\d+)\.(block[12]\..*)$")
 
 
 def pointmap_flax_path(key: str, module_types: Mapping[str, type]):
@@ -218,9 +223,13 @@ def pointmap_flax_path(key: str, module_types: Mapping[str, type]):
     name = re.sub(r"(^|\.)to_out\.0\.", r"\1to_out.", key)
     idx = None
     m = _STACKED_LAYER.match(name)
+    e = _ENTANGLED_LAYER.match(name)
     if m:
         name = f"{m.group(1) or ''}blocks.layers.block.{m.group(3)}"
         idx = int(m.group(2))
+    elif e:
+        name = f"{e.group(1) or ''}decoder.layers.{e.group(3)}"
+        idx = int(e.group(2))
     parts = name.split(".")
     if parts[-1] == "weight":
         parts[-1] = "scale" if module_types[key] is nn.LayerNorm else "kernel"
@@ -243,7 +252,8 @@ def pointmap_layout(key: str, arr: np.ndarray, module_types: Mapping[str, type])
 def pointmap_state_dict(flax_params: Mapping[str, Any], network: nn.Module):
     """A JAX pointmap network's params (``network.init``'s tree, with or
     without its "params" level) -> a strict state dict for the port's
-    network of the same configuration (e.g. ``Spann3RNetwork``)."""
+    network of the same configuration (``Spann3RNetwork``, ``Dust3RNetwork``,
+    ``Cut3RNetwork``, ``VDANetwork``)."""
     if set(flax_params) == {"params"}:
         flax_params = flax_params["params"]
     module_types = {}
