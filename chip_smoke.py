@@ -36,13 +36,11 @@ Phases, each printed on its own flushed line with the seconds since start:
              register-tiled flash_packed_f32reg_kernel, asserted by name) at
              the pointmap shapes ([25, 768, 12, 64], Spann3R's own [20, 768,
              12, 64] and [1, 768, 8, 64], Dust3R's [20, 768, 16, 64] and [19,
-             768, 12, 64], VideoDepthAnything's [25, 972, 16, 64] and Cut3R's
-             frame-to-state [1, 768 queries, 64 keys, 8, 64]) against its
-             plain version, with its
-             events and device ms, the plain version's and SDPA's f32 times,
-             the bound at the f32 rate, and the earlier CUDA-core body's
-             times at d = 64 (a copy of the sources built with the f32
-             switch skipping the new body)
+             768, 12, 64], VideoDepthAnything's [25, 972, 16, 64], Cut3R's
+             frame-to-state [1, 768 queries, 64 keys, 8, 64] and Aether's
+             DiT [1, 3072, 12, 64]) against its plain version, with its
+             events and device ms, the plain version's and SDPA's f32 times
+             and the bound at the f32 rate
   reference  the tiny pipeline in f32 on the card (kernel path) against the
              same weights on the CPU (plain path); then one step of the tiny
              trainer the same way: loss, every gradient, and the AdamW step
@@ -107,6 +105,20 @@ Phases, each printed on its own flushed line with the seconds since start:
              (POINTMAP_TABLE), every scored metric finite, and one more clip
              of each under torch.profiler with every flash launch on the
              register-tiled f32 body
+  aether     a small Aether (tools/aether_check.py: 8 frames at 128 x
+             128, 256 DiT tokens at d = 64, the f32 kernel) in f32 on the
+             card against the same weights on the CPU, its constant leaves
+             perturbed (adaLN-zero would make the DiT's output 0), all
+             five outputs held (the normals by angle); then the CLI over the 7-Scenes
+             fixture with configs/aether_scannetpp.yaml's network (a DiT of
+             width 768, depth 16, 12 heads over 3072 tokens; the causal VAE
+             at 8x space, 4x time; 4 steps), one clip of 16 in f32: per-clip
+             seconds, peak memory, parameters, stage ms (encode, denoise,
+             decode, pose), the packed kernel's launches held to the count
+             the configuration predicts (aether_launches), every metric of
+             the four families finite, and one more clip under
+             torch.profiler with every flash launch on the register-tiled
+             f32 body, its device ms by group and busy share
   train      the port's trainer (unigeo_tpu_torch.train.main) at SVD-XT
              width on synthetic 384 x 512 clips, bf16: one warm-up step and
              three measured steps; losses, step seconds, peak memory, each
@@ -2034,8 +2046,9 @@ def stage_clock():
     it) is summed by name: encode, denoise, decode (the pipeline's stages),
     pointmap_network and camera (the Spann3R, Dust3R and Cut3R networks and
     the camera recovery), vda_network and postprocess (VideoDepthAnything's
-    network and its depth and normals)."""
-    from unigeo_tpu_torch.models import vda
+    network and its depth and normals), and Aether's encode, denoise (the
+    flow sampler), decode and pose (the host's recovery from the raymaps)."""
+    from unigeo_tpu_torch.models import aether, vda
     from unigeo_tpu_torch.models.depthcrafter.pipeline import DepthCrafterPipeline
     from unigeo_tpu_torch.models.pointmap import adapter
     from unigeo_tpu_torch.models.pointmap.cut3r import Cut3RNetwork
@@ -2051,7 +2064,11 @@ def stage_clock():
              (Cut3RNetwork, "forward", "pointmap_network"),
              (vda.VDANetwork, "forward", "vda_network"),
              (vda, "postprocess", "postprocess"),
-             (adapter, "outputs_from_world_pts", "camera")]
+             (adapter, "outputs_from_world_pts", "camera"),
+             (aether.AetherNetwork, "encode", "encode"),
+             (aether.AetherNetwork, "sample", "denoise"),
+             (aether.AetherNetwork, "decode", "decode"),
+             (aether, "poses_from_raymaps", "pose")]
     ms = {}
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in sites]
 
@@ -2121,11 +2138,12 @@ def hold_run(phase, label, run, cfg, predicted, clips):
         raise AssertionError(f"{label}: non-finite metrics {bad}")
     want = {name: 0 for name in kernel_wrappers()}
     want["flash_attention_packed"] = clips * predicted
+    table = {**SIBLING_TABLE, **POINTMAP_TABLE, "aether": AETHER_LAUNCHES}.get(label, "-")
     log(phase, f"{label}: {clips} clips in {run['seconds']:.2f}s, per clip "
         f"{json.dumps([round(s, 3) for s in run['clip_s']])}s, peak {run['peak_gib']:.2f} GiB, "
         f"stage_ms (summed over the clips) {json.dumps(run['stage_ms'])}, packed launches "
         f"{run['launches']['flash_attention_packed']} = {clips} x {predicted} predicted "
-        f"(table {({**SIBLING_TABLE, **POINTMAP_TABLE}).get(label, '-')}); Average "
+        f"(table {table}); Average "
         f"{json.dumps({n: rows[-1][n] for n in names})}")
     if run["launches"] != want:
         raise AssertionError(f"{label}: launches {run['launches']} != {want}")
@@ -2574,6 +2592,49 @@ def pointmap_models_reference(dev):
         f"{json.dumps(res)}")
 
 
+def fixture_clip(root, cache, clip, overlap):
+    """The 7-Scenes fixture's first clip at DISK_H x DISK_W."""
+    from unigeo_tpu_torch.registry import get_dataset_cls
+
+    return get_dataset_cls("sevenScenesDataset")(
+        root=root, clip_length=clip, clip_overlap=overlap, input_size=(DISK_H, DISK_W),
+        target_size=(DISK_H, DISK_W), cache_dir=cache)[0]
+
+
+# profile_device's kernel groups of the f32 model clips; Aether's split
+# cuDNN's convolutions (implicit-GEMM forward kernels) from cuBLAS's GEMMs,
+# which "gemm" alone lumps together
+F32_CLIP_GROUPS = {"flash_kernel": "flash_packed", "f32reg": "flash_packed_f32reg_kernel",
+                   "conv": "conv", "gemm": "gemm", "elementwise": "elementwise"}
+AETHER_GROUPS = {"flash_kernel": "flash_packed", "f32reg": "flash_packed_f32reg_kernel",
+                 "conv_fprop": "fprop_implicit_gemm", "gemm": "xmma_gemm",
+                 "elementwise": "elementwise"}
+
+
+def profiled_f32_clip(phase, label, model, data, predicted, groups=F32_CLIP_GROUPS):
+    """One more clip of ``model`` under torch.profiler (profile_device, by
+    ``groups``): every flash launch the profiler records must be on the
+    register-tiled f32 body, and the wrappers must count ``predicted``; a
+    trace that recorded fewer launches than the counts (the profiler drops
+    kernels at times) is taken again, up to PROFILE_ATTEMPTS times."""
+    from unigeo_tpu_torch.tools.forward_variants import PROFILE_ATTEMPTS
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        reset_counts()
+        prof = profile_device(phase, lambda: model.forward_tensors(data), groups)
+        counted = read_counts()["flash_attention_packed"]
+        if counted != predicted:
+            raise AssertionError(f"{label}: {counted} launches in the profiled clip")
+        if prof["f32reg_launches"] != prof["flash_kernel_launches"]:
+            raise AssertionError(f"{label}: a flash launch off the f32 body {prof}")
+        if prof["flash_kernel_launches"] == predicted:
+            return prof
+        log(phase, f"{label}: trace {attempt} recorded {prof['flash_kernel_launches']} of "
+            f"the {counted} flash launches counted")
+    raise AssertionError(f"{label}: profiled flash launches {prof['flash_kernel_launches']} != "
+                         f"{predicted} in {PROFILE_ATTEMPTS} traces {prof}")
+
+
 def phase_pointmap_models(dev):
     """Dust3R and Cut3R (their 7-Scenes configs' model_params: clips of 20)
     and VideoDepthAnything (vda_scannetpp.yaml's network: ViT-L, patch 14,
@@ -2582,9 +2643,6 @@ def phase_pointmap_models(dev):
     packed kernel's launches held to pointmap_launches and POINTMAP_TABLE,
     every metric the config scores finite; then one more clip of each under
     torch.profiler: every flash launch on the register-tiled f32 body."""
-    from unigeo_tpu_torch.registry import get_dataset_cls
-    from unigeo_tpu_torch.tools.forward_variants import PROFILE_ATTEMPTS
-
     pointmap_models_reference(dev)
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 is on for the pointmap models' f32 runs")
@@ -2605,31 +2663,8 @@ def phase_pointmap_models(dev):
             model = run.pop("models")[0]
             if next(model.network.parameters()).dtype != torch.float32:
                 raise AssertionError(f"{label}: the network is not f32")
-            data = get_dataset_cls("sevenScenesDataset")(
-                root=root, clip_length=clip, clip_overlap=PM_OVERLAP,
-                input_size=(DISK_H, DISK_W), target_size=(DISK_H, DISK_W), cache_dir=cache)[0]
-            # every flash launch the profiler records must be on the f32
-            # body; a trace that recorded fewer launches than the counts
-            # (the profiler drops kernels at times) is taken again
-            for attempt in range(1, PROFILE_ATTEMPTS + 1):
-                reset_counts()
-                prof = profile_device("pointmap_models", lambda: model.forward_tensors(data),
-                                      {"flash_kernel": "flash_packed",
-                                       "f32reg": "flash_packed_f32reg_kernel", "conv": "conv",
-                                       "gemm": "gemm", "elementwise": "elementwise"})
-                counted = read_counts()["flash_attention_packed"]
-                if counted != predicted:
-                    raise AssertionError(f"{label}: {counted} launches in the profiled clip")
-                if prof["f32reg_launches"] != prof["flash_kernel_launches"]:
-                    raise AssertionError(f"{label}: a flash launch off the f32 body {prof}")
-                if prof["flash_kernel_launches"] == predicted:
-                    break
-                log("pointmap_models", f"{label}: trace {attempt} recorded "
-                    f"{prof['flash_kernel_launches']} of the {counted} flash launches counted")
-            else:
-                raise AssertionError(f"{label}: profiled flash launches "
-                                     f"{prof['flash_kernel_launches']} != {predicted} in "
-                                     f"{PROFILE_ATTEMPTS} traces {prof}")
+            data = fixture_clip(root, cache, clip, PM_OVERLAP)
+            prof = profiled_f32_clip("pointmap_models", label, model, data, predicted)
             summary[label] = {k: run[k] for k in ("seconds", "clip_s", "peak_gib", "stage_ms")}
             summary[label].update(
                 launches_per_clip=predicted, params=sum(p.numel() for p in model.network.parameters()),
@@ -2643,6 +2678,109 @@ def phase_pointmap_models(dev):
         shutil.rmtree(work, ignore_errors=True)
     log("pointmap_models", json.dumps(summary))
     return summary
+
+
+# Aether on configs/aether_scannetpp.yaml's clips (16, overlap 4) at DISK_H x
+# DISK_W, and the packed kernel's launches per clip worked out by hand: the
+# DiT's one sequence of 4 latent frames x 24 x 32 patches = 3072 tokens
+# attends once in each of 16 blocks at each of 4 steps
+AETHER_CLIP, AETHER_OVERLAP, AETHER_LAUNCHES = 16, 4, 64
+
+
+def aether_launches(model_params, frames, h=DISK_H, w=DISK_W):
+    """Packed-kernel launches of one Aether clip of ``frames`` frames at h x
+    w, from the config: the DiT's sequence of ceil(T / ct) (h / cs / p)
+    (w / cs / p) tokens, once per block per step where it holds
+    MIN_KERNEL_SEQ tokens or more."""
+    from unigeo_tpu_torch.models.aether import Aether, AetherDiT, CausalVAE3D
+    from unigeo_tpu_torch.ops.attention import MIN_KERNEL_SEQ
+
+    dit = network_args(AetherDiT, model_params)
+    vae = network_args(CausalVAE3D, {"network_config": model_params.get("vae_config")})
+    steps = model_params.get("num_steps", network_args(Aether, {})["num_steps"])
+    ct, cs, p = 2 ** sum(map(bool, vae["temporal_down"])), 2 ** len(vae["mults"]), dit["patch"]
+    tokens = -(-frames // ct) * (h // cs // p) * (w // cs // p)
+    return int(tokens >= MIN_KERNEL_SEQ) * dit["depth"] * steps
+
+
+def aether_reference(dev):
+    """The small Aether of tools/aether_check.py (256 DiT tokens on the f32
+    kernel, 2 steps) in f32 on the card against the same weights on the
+    CPU, its constant leaves perturbed, both given one noise draw: depths,
+    raymaps, world points and poses within 1e-4 of the reference's largest
+    magnitude; normals by angle, the median within 0.05 degree and the
+    mean within twice the mean turn that one f32 step of depth noise gives
+    the CPU's normals (aether_check.within_limits: the plane fit's
+    round-off turns some pixels far, ROADMAP queue 3 item 5); the kernel's
+    launches as predicted."""
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.tools import aether_check
+
+    set_exact_f32()
+    network_config, vae_config = aether_check.kernel_path_configs()
+    kw = dict(network_config=network_config, vae_config=vae_config,
+              num_steps=aether_check.STEPS)
+    want = aether_launches(kw, aether_check.FRAMES, aether_check.SIDE, aether_check.SIDE)
+    reset_counts()
+    devs, launched = aether_check.run_on_both(
+        dev, 5, 18, 19, count=lambda: read_counts()["flash_attention_packed"])
+    res = {"deviations": devs, "launches": launched, "predicted": want}
+    log("aether", f"kernel-path Aether {aether_check.FRAMES}x{aether_check.SIDE}x"
+        f"{aether_check.SIDE} f32 card vs CPU (tol {aether_check.REL_TOL} relative; normals: "
+        f"median {aether_check.NORMAL_DEG_TOL} deg, mean {aether_check.NORMAL_FLOOR_FACTOR} x "
+        f"the round-off floor): {json.dumps(res)}")
+    if not (aether_check.within_limits(devs) and launched == want == aether_check.LAUNCHES):
+        raise AssertionError(f"aether reference: {res}")
+
+
+def phase_aether(dev):
+    """Aether with configs/aether_scannetpp.yaml's model_params (a DiT of
+    width 768, depth 16, 12 heads; 4 steps; the VAE at cs 8, ct 4) through
+    the eval CLI over the 7-Scenes fixture, one clip of 16, in f32 with TF32
+    off: per-clip seconds, peak memory, parameters, stage ms, the packed
+    kernel's launches held to aether_launches and AETHER_LAUNCHES, every
+    metric of the four families finite; then one more clip under
+    torch.profiler with every flash launch on the register-tiled f32 body,
+    device ms by group and the busy share."""
+    aether_reference(dev)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on for Aether's f32 run")
+    work = tempfile.mkdtemp(prefix="unigeo_aether_")
+    try:
+        root, cache = write_fixture(work)
+        conf = read_config("aether_scannetpp.yaml")
+        predicted = aether_launches(conf["model_params"], AETHER_CLIP)
+        if predicted != AETHER_LAUNCHES:
+            raise AssertionError(f"aether: predicted {predicted} != {AETHER_LAUNCHES}")
+        secs = {s: conf[s] for s in SECTIONS if s in conf}
+        if len(secs) != len(SECTIONS):
+            raise AssertionError(f"aether: the config scores {sorted(secs)}")
+        cfg = fixture_config(root, cache, "Aether", conf["model_params"], secs, AETHER_CLIP,
+                             AETHER_OVERLAP)
+        run = counted_cli(dev, work, "aether", cfg, lambda name: {}, 1)
+        hold_run("aether", "aether", run, cfg, predicted, 1)
+        model = run.pop("models")[0]
+        if {p.dtype for p in model.network.parameters()} != {torch.float32}:
+            raise AssertionError("aether: the network is not f32")
+        data = fixture_clip(root, cache, AETHER_CLIP, AETHER_OVERLAP)
+        prof = profiled_f32_clip("aether", "aether", model, data, predicted, AETHER_GROUPS)
+        summary = {k: run[k] for k in ("seconds", "clip_s", "peak_gib", "stage_ms")}
+        summary.update(
+            launches_per_clip=predicted,
+            params=sum(p.numel() for p in model.network.parameters()),
+            dit_params=sum(p.numel() for p in model.network.dit.parameters()),
+            families=list(secs), average=run["rows"][-1],
+            f32_flash_device_ms_per_clip=prof["flash_kernel_ms"],
+            **{f"{g}_device_ms": prof[f"{g}_ms"]
+               for g in ("conv_fprop", "gemm", "elementwise")},
+            profiled_device_ms=prof["device_ms"], profiled_wall_ms=prof["wall_ms"],
+            device_busy_share=prof["device_busy_share"])
+        del model, run, data
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("aether", json.dumps(summary))
+    return {"aether": summary}
 
 
 def f32_bound(b, sq, sk, h, d):
@@ -2661,38 +2799,33 @@ def f32_bound(b, sq, sk, h, d):
 # Dust3R's encoder over a 20-frame clip and its decoder over the 19 pairs;
 # VideoDepthAnything's encoder over 25 frames (972 = 15 x 64 + 12: ragged
 # rows and keys); Cut3R's frame tokens reading its 64 state tokens (one key
-# tile)
+# tile); Aether's DiT over a 16-frame clip (4 latent frames of 24 x 32
+# patches in one sequence)
 F32_POINTMAP_SHAPES = [("pointmap_encoder", 25, 768, 768, 12, 64),
                        ("spann3r_encoder", 20, 768, 768, 12, 64),
                        ("pointmap_decoder", 1, 768, 768, 8, 64),
                        ("dust3r_encoder", 20, 768, 768, 16, 64),
                        ("dust3r_decoder", 19, 768, 768, 12, 64),
                        ("vda_encoder", 25, 972, 972, 16, 64),
-                       ("cut3r_state_cross", 1, 768, 64, 8, 64)]
+                       ("cut3r_state_cross", 1, 768, 64, 8, 64),
+                       ("aether_dit", 1, 3072, 3072, 12, 64)]
 
 
 def phase_kernel_f32_pointmap(dev):
     """The packed kernel's f32 body at d = 64 (register-tiled, by kernel
     name) at the pointmap shapes against its plain version (F32_OUT_TOL),
     its events and device ms (torch.profiler), the plain version's, SDPA's
-    in f32 (TF32 off; events and device ms) and the bound; beside them the
-    earlier CUDA-core body at d = 64 (flash_packed_kernel<64, 64, 16>, built
-    from a copy of the sources whose f32 switch skips the new body:
-    forward_variants' ``earlier_d64``), held to the same limit and timed
-    on the same inputs (``earlier_ms``, ``earlier_device_ms``)."""
+    in f32 (TF32 off; events and device ms) and the bound.  The earlier
+    CUDA-core body at d = 64 is timed beside it by ``python -m
+    unigeo_tpu_torch.tools.forward_variants --f32`` (``earlier_d64``), not
+    here: its second build of the kernels does not fit the smoke's time."""
     import torch.nn.functional as F
 
     from unigeo_tpu_torch.device import set_exact_f32
-    from unigeo_tpu_torch.ops import attention
     from unigeo_tpu_torch.ops.attention import attention_packed_reference, flash_attention_packed
-    from unigeo_tpu_torch.tools.forward_variants import (F32_VARIANTS, build_variants,
-                                                         profile_device_ms, profile_flash)
+    from unigeo_tpu_torch.tools.forward_variants import profile_device_ms, profile_flash
 
     set_exact_f32()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as root:
-        earlier_lib = build_variants(["earlier_d64"], root, F32_VARIANTS)["earlier_d64"]
-    log("kernel", f"the earlier f32 body's copy built in {time.perf_counter() - t0:.2f}s")
     gen = torch.Generator(device=dev).manual_seed(16)
     rows = []
     for name, b, sq, sk, h, d in F32_POINTMAP_SHAPES:
@@ -2711,25 +2844,17 @@ def phase_kernel_f32_pointmap(dev):
             raise AssertionError(f"{name}: the f32 forward at d = 64 ran {body}")
         plain_ms = time_ms(lambda: attention_packed_reference(q, k, v, h), 20)
         lib_ms, lib_device_ms = time_ms(sdpa, 20), profile_device_ms(sdpa, 20)
-        earlier = lambda: attention._launch(earlier_lib, q, k, v, h, d**-0.5)
-        earlier_err = (earlier() - out).abs().max().item()
-        earlier_body, earlier_device_ms = profile_flash(earlier, 20)
-        if not (earlier_err <= F32_OUT_TOL and "flash_packed_kernel<" in earlier_body):
-            raise AssertionError(f"{name}: the earlier f32 body {earlier_body} differs from "
-                                 f"the new one by {earlier_err}")
         bms, by = f32_bound(b, sq, sk, h, d)
         body_name = lambda key: re.search(r"flash_\w+<[^>]*>", key).group(0)
         rows.append(dict(shape=name, b=b, sq=sq, sk=sk, h=h, d=d, dtype="float32",
                          max_abs_err=err,
                          body=body_name(body), ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, library_device_ms=lib_device_ms, bound_ms=bms,
-                         bound_by=by, earlier_body=body_name(earlier_body),
-                         earlier_ms=time_ms(earlier, 20), earlier_device_ms=earlier_device_ms))
+                         bound_by=by))
         log("kernel", f"f32 {name} [B={b},Sq={sq},Sk={sk},H={h},D={d}] body {rows[-1]['body']} "
             f"max_abs_err={err:.3e} kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} device {lib_device_ms:.4f} "
-            f"(SDPA f32) bound_ms={bms:.5f} ({by}); earlier body {rows[-1]['earlier_body']} "
-            f"{rows[-1]['earlier_ms']:.4f} ms, device {earlier_device_ms:.4f}")
+            f"(SDPA f32) bound_ms={bms:.5f} ({by})")
         del q, k, v, out
     torch.cuda.empty_cache()
     return rows
@@ -2812,6 +2937,9 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     siblings.update(phase_pointmap_models(dev))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    siblings.update(phase_aether(dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     trained = phase_train(dev)
@@ -2905,6 +3033,7 @@ def main():
     for k in kernels:
         if not k["launches"] > 0:
             raise AssertionError(f"{k['name']} was not launched on its main path")
+    log("done", "every phase passed (the seconds since start are the whole run's)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -463,6 +463,8 @@ def faulty_libraries(tmp_path_factory):
         # rows; split over 4 blocks)
         ("f32reg_drop_key_tile", 2, 768, 12, 64),
         ("f32reg_drop_key_tile", 1, 768, 8, 64),
+        # Aether's DiT: one sequence of 3072 tokens (48 key tiles, unsplit)
+        ("f32reg_drop_key_tile", 1, 3072, 12, 64),
         ("f32reg_no_ragged_mask", 2, 257, 4, 64),
         ("f32reg_no_rescale", 2, 768, 12, 64),
         ("f32reg_merge_twice", 1, 768, 8, 64),
@@ -1384,11 +1386,12 @@ def test_forward_with_fewer_or_more_keys_than_queries(cuda, dtype, sq, sk):
 
 
 @pytest.mark.parametrize("b,sq,sk,h", [(20, 768, 768, 16), (19, 768, 768, 12),
-                                       (25, 972, 972, 16)])
+                                       (25, 972, 972, 16), (1, 3072, 3072, 12)])
 def test_f32_kernel_at_the_new_pointmap_shapes(cuda, b, sq, sk, h):
-    """Dust3R's encoder over 20 frames and its decoder over 19 pairs, and
+    """Dust3R's encoder over 20 frames and its decoder over 19 pairs,
     VideoDepthAnything's encoder over 25 frames at patch 14 (972 = 15 x 64
-    + 12 tokens: ragged rows and keys), on the register-tiled body within
+    + 12 tokens: ragged rows and keys), and Aether's DiT over a 16-frame
+    clip (one sequence of 3072 tokens), on the register-tiled body within
     1e-5 of the plain version."""
     q, k, v = _qkv(b, sq, sk, h, 64, torch.float32, cuda, seed=32)
     out = flash_attention_packed(q, k, v, h)
@@ -1439,3 +1442,22 @@ def test_pointmap_slice_networks_on_the_card_match_the_cpu(cuda, name):
     rels = [((o.cpu() - r).abs().max() / r.abs().max()).item() for o, r in zip(outs, refs)]
     print(name, "rel dev", rels)
     assert max(rels) < 1e-4
+
+
+def test_aether_on_the_card_matches_the_cpu(cuda):
+    """The small Aether of chip_smoke.py's aether phase
+    (tools/aether_check.py: 8 frames at 128 x 128, 256 DiT tokens at
+    d = 64, 2 steps) in f32 with TF32 off, its constant leaves perturbed,
+    one noise draw given to both: the card's depths, raymaps, world points
+    and poses within 1e-4 of the CPU's largest magnitude, its normals by
+    angle (median within 0.05 degree, mean within twice the CPU's round-off
+    floor: aether_check.within_limits says why), the DiT's 2 x 2
+    attentions on the f32 kernel."""
+    from unigeo_tpu_torch.tools import aether_check
+
+    set_exact_f32()
+    devs, launched = aether_check.run_on_both(cuda, 6, 20, 21,
+                                              count=lambda: flash_attention_packed.launches)
+    print("aether deviations", devs)
+    assert launched == aether_check.LAUNCHES == 4
+    assert aether_check.within_limits(devs), devs

@@ -46,6 +46,7 @@ def get_dataset_cls(name: str) -> type:
 
 def get_model_cls(name: str) -> type:
     # the self-registering model modules
+    import unigeo_tpu_torch.models.aether  # noqa: F401
     import unigeo_tpu_torch.models.chronodepth  # noqa: F401
     import unigeo_tpu_torch.models.depthanyvideo  # noqa: F401
     import unigeo_tpu_torch.models.depthcrafter.model  # noqa: F401

@@ -24,6 +24,12 @@ flax's ``to_out``, and each leaf's layout follows its torch module: Linear
 [in, out] -> [out, in], Conv2d HWIO -> OIHW, and ConvTranspose2d HWIO ->
 [in, out, kh, kw] spatially flipped (flax's transposed conv correlates the
 dilated input with the kernel as stored, torch's with it flipped).
+
+Aether (``aether_state_dicts``) goes through the same rules, with three
+of its own: the DiT's ``stack.blocks.N.`` picks layer N of the scan-stacked
+``stack/blocks/block`` leaves, GroupNorm leaves sit under flax's
+``GroupNorm_0`` level, and Conv3d kernels [kt, kh, kw, in, out] become
+[out, in, kt, kh, kw].
 """
 
 from __future__ import annotations
@@ -185,6 +191,8 @@ def state_dict_from_flax(flax_params: Mapping[str, Any], module: nn.Module,
             raise KeyError(f"{key}: no flax leaf {'/'.join(path)}")
         arr = np.asarray(flat[path])
         if idx is not None:
+            if idx >= arr.shape[0]:
+                raise KeyError(f"{key}: no layer {idx} in flax {'/'.join(path)} {arr.shape}")
             arr = arr[idx]
         arr = layout_fn(key, arr)
         if tuple(arr.shape) != tuple(ref.shape):
@@ -215,24 +223,33 @@ def pipeline_state_dicts(params: Mapping[str, Any], pipeline):
 _STACKED_LAYER = re.compile(r"^(.*\.)?blocks\.layers\.(\d+)\.(.*)$")
 # Dust3R's entangled decoder: both streams' blocks stacked over depth
 _ENTANGLED_LAYER = re.compile(r"^(.*\.)?decoder\.layers\.(\d+)\.(block[12]\..*)$")
+# Aether's DiT: its scan's leaves under stack/blocks/block, stacked over depth
+_DIT_LAYER = re.compile(r"^(.*\.)?stack\.blocks\.(\d+)\.(.*)$")
 
 
 def pointmap_flax_path(key: str, module_types: Mapping[str, type]):
-    """(flax path, layer index or None) of a pointmap network's key;
-    ``module_types`` maps each key to its torch module's type."""
+    """(flax path, layer index or None) of a pointmap network's or Aether's
+    key; ``module_types`` maps each key to its torch module's type."""
     name = re.sub(r"(^|\.)to_out\.0\.", r"\1to_out.", key)
     idx = None
     m = _STACKED_LAYER.match(name)
     e = _ENTANGLED_LAYER.match(name)
+    d = _DIT_LAYER.match(name)
     if m:
         name = f"{m.group(1) or ''}blocks.layers.block.{m.group(3)}"
         idx = int(m.group(2))
     elif e:
         name = f"{e.group(1) or ''}decoder.layers.{e.group(3)}"
         idx = int(e.group(2))
+    elif d:
+        name = f"{d.group(1) or ''}stack.blocks.block.{d.group(3)}"
+        idx = int(d.group(2))
     parts = name.split(".")
-    if parts[-1] == "weight":
-        parts[-1] = "scale" if module_types[key] is nn.LayerNorm else "kernel"
+    kind = module_types[key]
+    if issubclass(kind, nn.GroupNorm):  # flax's GroupNorm inside the wrapper
+        parts[-1:] = ["GroupNorm_0", "scale" if parts[-1] == "weight" else "bias"]
+    elif parts[-1] == "weight":
+        parts[-1] = "scale" if kind is nn.LayerNorm else "kernel"
     return tuple(parts), idx
 
 
@@ -246,6 +263,8 @@ def pointmap_layout(key: str, arr: np.ndarray, module_types: Mapping[str, type])
         return np.transpose(arr, (3, 2, 0, 1))
     if kind is nn.ConvTranspose2d:
         return np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+    if kind is nn.Conv3d:
+        return np.transpose(arr, (4, 3, 0, 1, 2))
     return arr
 
 
@@ -264,3 +283,24 @@ def pointmap_state_dict(flax_params: Mapping[str, Any], network: nn.Module):
         flax_params, network,
         lambda key: pointmap_flax_path(key, module_types),
         lambda key, arr: pointmap_layout(key, arr, module_types))
+
+
+# --- Aether ---------------------------------------------------------------------
+
+
+def aether_state_dicts(vae_params: Optional[Mapping[str, Any]],
+                       dit_params: Optional[Mapping[str, Any]], model) -> Dict[str, torch.Tensor]:
+    """The JAX Aether's VAE and DiT params (``init``'s trees, with or without
+    their "params" level) -> one strict state dict for ``model``: the port's
+    ``AetherNetwork`` (or an adapter holding one as ``network``), or with
+    ``dit_params`` None a ``CausalVAE3D``, or with ``vae_params`` None an
+    ``AetherDiT``."""
+    strip = lambda p: p["params"] if p is not None and set(p) == {"params"} else p
+    vae_params, dit_params = strip(vae_params), strip(dit_params)
+    if vae_params is None:
+        tree = dict(dit_params)
+    else:
+        tree = dict(vae_params)
+        if dit_params is not None:
+            tree["dit"] = dit_params
+    return pointmap_state_dict(tree, getattr(model, "network", model))
