@@ -40,7 +40,14 @@ Phases, each printed on its own flushed line with the seconds since start:
              frame-to-state [1, 768 queries, 64 keys, 8, 64] and Aether's
              DiT [1, 3072, 12, 64]) against its plain version, with its
              events and device ms, the plain version's and SDPA's f32 times
-             and the bound at the f32 rate
+             and the bound at the f32 rate; the f32 backward pair (dq,
+             dk/dv on the CUDA-core body, by kernel name) at the f32
+             training shapes (Aether's DiT, Spann3R's encoder and decoder,
+             Dust3R's encoder and decoder on its 16-frame training clip,
+             VideoDepthAnything's encoder,
+             Cut3R's frame-to-state cross-attention) held elementwise to
+             the plain version's limits, with events and device ms, the
+             plain versions', SDPA's f32 backward and the bounds
   reference  the tiny pipeline in f32 on the card (kernel path) against the
              same weights on the CPU (plain path); then one step of the tiny
              trainer the same way: loss, every gradient, and the AdamW step
@@ -77,7 +84,7 @@ Phases, each printed on its own flushed line with the seconds since start:
   svd_family the tiny f32 pipeline on the card against the CPU for Heun,
              the known-frame denoise (its clamped frames exact on the card),
              StableNormal and ChronoDepth; then the eval CLI over the
-             7-Scenes fixture (384 x 512, 2 clips of 25 frames) with Heun
+             7-Scenes fixture (384 x 512, one clip of 25 frames) with Heun
              (DepthCrafter, solver heun), StableNormal, ChronoDepth,
              DepthAnyVideo and UniGeo (no branch), each on a copy of its
              configs/ file's model_params at SVD-XT width, all sharing one
@@ -87,12 +94,12 @@ Phases, each printed on its own flushed line with the seconds since start:
   pointmap   tiny Spann3R in f32 on the card (the f32 kernel) against the
              CPU, the camera recovery card against CPU and with TF32 on in
              the process (the same result: it turns TF32 off inside); then
-             the CLI on a copy of configs/spann3r_7scenes.yaml (2 clips of
+             the CLI on a copy of configs/spann3r_7scenes.yaml (one clip of
              20, the default Spann3R in f32; one warm clip under
              torch.profiler gives the f32 flash device ms per clip, every
              launch on the register-tiled body) and UniGeoCam with its
              geometry branch at full width on all four metric families
-             (2 clips of 25), the same numbers as svd_family
+             (one clip of 25), the same numbers as svd_family
   pointmap_models
              Dust3R, Cut3R (RoPE100 + DPT) and VideoDepthAnything at tiny
              widths in f32 on the card against the CPU; then the CLI over
@@ -119,9 +126,23 @@ Phases, each printed on its own flushed line with the seconds since start:
              the four families finite, and one more clip under
              torch.profiler with every flash launch on the register-tiled
              f32 body, its device ms by group and busy share
+  train_models
+             the port's trainer (unigeo_tpu_torch.train.main) at the full
+             width of spann3r_7scenes.yaml, dust3r_7scenes.yaml,
+             cut3r_7scenes.yaml, vda_scannetpp.yaml and aether_scannetpp.yaml
+             in f32 with TF32 off over the 7-Scenes fixture, two steps of
+             one clip each (Dust3R's cut to 16 frames): losses finite, step
+             seconds, peak memory held under 90% of the card, the fwd_lse /
+             dq / dk-dv launches of every step held to the count the
+             configuration predicts; Aether saves its full-width
+             checkpoint, which Aether(checkpoint_path=...) loads with every
+             output of a clip bitwise equal to the trained module's; then
+             one step of ChronoDepth's branch (direct-depth targets) at
+             SVD-XT width in bf16 on a 25-frame clip
   train      the port's trainer (unigeo_tpu_torch.train.main) at SVD-XT
              width on synthetic 384 x 512 clips, bf16: one warm-up step and
-             three measured steps; losses, step seconds, peak memory, each
+             two measured steps, no checkpoint saved; losses, step
+             seconds, peak memory, each
              kernel's launches per step against the configuration's count,
              and a gradient on every spatial to_q
   tool       the port's LayerNorm -> dense ablation
@@ -136,11 +157,14 @@ Phases, each printed on its own flushed line with the seconds since start:
              of pcd_evaluation and camera_pose_evaluation, and the card's
              metrics against the CPU's
 
-It exits non-zero, and prints no result, when there is no CUDA device or
-when any phase fails.  The second-last line is one JSON object with the
+The 7-Scenes fixture is written once a run and read by every phase that
+runs the CLI over it; svd_family and the UniGeoCam branch score one clip
+of each model.  It exits non-zero, and prints no result, when there is no
+CUDA device or when any phase fails.  The second-last line is one JSON object with the
 kernels' numbers; the last is the run's summary for the device.
 """
 
+import atexit
 import contextlib
 import copy
 import json
@@ -1490,7 +1514,6 @@ def phase_disk_eval(dev):
     from unigeo_tpu_torch import native
     from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
     from unigeo_tpu_torch.registry import get_dataset_cls
-    from unigeo_tpu_torch.tools.disk_fixture import write_seven_scenes
 
     try:
         import PIL  # noqa: F401  (only whether it is there)
@@ -1503,17 +1526,10 @@ def phase_disk_eval(dev):
     if not have_pil and reader != "native":
         raise RuntimeError("this machine has neither PIL nor a native clip reader it can build "
                            f"({native.build_error}): no PNG of the fixture can be decoded")
-    # 7-Scenes' own 480 x 640 when PIL can resize it to the config's
-    # 384 x 512, else frames at 384 x 512 (no resize runs)
-    fh, fw = (480, 640) if have_pil else (DISK_H, DISK_W)
+    root, cache = shared_fixture()
     work = tempfile.mkdtemp(prefix="unigeo_disk_")
-    summary = {"reader": reader, "pil": have_pil, "frames_hw": [fh, fw]}
+    summary = {"reader": reader, "pil": have_pil, "frames_hw": list(_FIXTURE["hw"])}
     try:
-        root, cache = os.path.join(work, "7scenes"), os.path.join(work, "lists")
-        t0 = time.perf_counter()
-        write_seven_scenes(root, DISK_FRAMES, fh, fw)
-        log("disk_eval", f"fixture: {DISK_FRAMES} frames {fh} x {fw} in "
-            f"{time.perf_counter() - t0:.2f}s")
 
         def config_file(name, **model_params):
             path = os.path.join(work, f"{name}.json")
@@ -1667,8 +1683,7 @@ def phase_disk_eval(dev):
         pair = [ds20[0], ds20[1]]
         warm = {}
         for label, run in (("serial", lambda: [model.forward(d) for d in pair]),
-                           ("batched", lambda: model.forward_batch(pair)),
-                           ("batched_again", lambda: model.forward_batch(pair))):
+                           ("batched", lambda: model.forward_batch(pair))):
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             t_pair = time.perf_counter()
@@ -1733,7 +1748,7 @@ def phase_disk_eval(dev):
 
 # the training phase: frames per clip, resolution, measured steps after one
 # warm-up step
-TRAIN_FRAMES, TRAIN_H, TRAIN_W, TRAIN_STEPS = 25, 384, 512, 3
+TRAIN_FRAMES, TRAIN_H, TRAIN_W, TRAIN_STEPS = 25, 384, 512, 2
 
 
 def phase_train(dev):
@@ -1764,8 +1779,9 @@ def phase_train(dev):
     log_dir = tempfile.mkdtemp(prefix="unigeo_train_logs_")
     t0 = time.perf_counter()
     try:
-        out = train.main(["--steps", str(1 + TRAIN_STEPS), "--log-dir", log_dir],
-                         config=config, on_step=on_step)
+        # no checkpoint: the SVD-XT state is about 4.5 GB
+        out = train.main(["--steps", str(1 + TRAIN_STEPS), "--log-dir", log_dir,
+                          "--ckpt-every", "0"], config=config, on_step=on_step)
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
     torch.cuda.synchronize()
@@ -1799,7 +1815,9 @@ def phase_train(dev):
     measured = steps[1:]
     losses = [r["loss"] for r in measured]
     step_s = [r["seconds"] for r in measured]
+    batch_s = out["batch_seconds"][1:]
     log("train", f"{TRAIN_STEPS} steps after warm-up: losses {losses} step_s {step_s} "
+        f"batch_s {[round(x, 3) for x in batch_s]} (its encodes; the target's in f32) "
         f"mean_step_s {sum(step_s) / len(step_s):.3f} frames {TRAIN_FRAMES} "
         f"{TRAIN_H}x{TRAIN_W}, UNet params {n_params / 1e9:.3f} B, peak_mem_gib "
         f"{peak_gib:.2f} of {card_gib:.2f}, whole phase {total_s:.1f}s")
@@ -1817,10 +1835,17 @@ def phase_train(dev):
         raise AssertionError(f"self-attention to_q without a gradient: {no_grad}")
     if peak_gib > 0.9 * card_gib:
         raise AssertionError(f"peak {peak_gib:.2f} GiB leaves less than 10% of {card_gib:.2f}")
-    result = dict(losses=losses, step_s=step_s, peak_mem_gib=peak_gib, frames=TRAIN_FRAMES,
-                  launches=counts, launches_per_step=per_step)
+    result = dict(losses=losses, step_s=step_s, batch_s=batch_s, peak_mem_gib=peak_gib,
+                  frames=TRAIN_FRAMES, launches=counts, launches_per_step=per_step)
     del to_q
     batch = train.build_batch_diffusion([out["dataset"][0]], out["pipe"])
+    # one batch's device time: CLIP and the VAE's bf16 encode of the frames,
+    # and the f32 encode of the depth target (its mid attention at d = 512
+    # on the f32 forward's CUDA-core body)
+    bprof = profile_device("profile", lambda: train.build_batch_diffusion(
+        [out["dataset"][0]], out["pipe"]),
+        {"flash": "flash_", "conv_fprop": "fprop", "elementwise": "elementwise"})
+    result.update(batch_device_ms=bprof["device_ms"], batch_flash_device_ms=bprof["flash_ms"])
     prof = profile_device("profile", lambda: out["trainer"].train_step(batch),
                           {"flash_fwd_lse": "flash_fwd_lse", "flash_bwd_dq": "bwd_dq",
                            "flash_bwd_dkv": "bwd_dkv"})
@@ -1981,8 +2006,10 @@ def phase_metrics(dev):
 # by hand from the code, which the phases also hold
 SIBLING_TABLE = {"heun": 169, "stablenormal": 94, "chronodepth": 433, "depthanyvideo": 217,
                  "unigeo": 109, "unigeo_branch": 267, "spann3r": 128}
-SIB_CLIP, SIB_OVERLAP, SIB_CLIPS = 25, 5, 2  # the scannetpp configs' clips, over 45 frames
-PM_CLIP, PM_OVERLAP, PM_CLIPS = 20, 5, 2  # spann3r_7scenes.yaml's clips
+# the scannetpp configs' clips, over 45 frames; one clip a model, which
+# leaves the smoke's time for the training phase of the f32 families
+SIB_CLIP, SIB_OVERLAP, SIB_CLIPS = 25, 5, 1
+PM_CLIP, PM_OVERLAP, PM_CLIPS = 20, 5, 1  # spann3r_7scenes.yaml's clips, one scored
 # the default Spann3R network (Spann3RNetwork's defaults)
 PM_ENC_DEPTH, PM_DEC_DEPTH = 8, 6
 
@@ -2170,18 +2197,31 @@ def read_config(name):
 SECTIONS = ("eval_depth", "eval_normal", "eval_pcd", "eval_camera")
 
 
-def write_fixture(work):
-    """The 7-Scenes fixture (45 frames) as phase_disk_eval writes it."""
+_FIXTURE = {}
+
+
+def shared_fixture():
+    """(root, sample-list cache) of the 7-Scenes fixture, DISK_FRAMES frames:
+    7-Scenes' own 480 x 640 when PIL can resize it to DISK_H x DISK_W, else
+    frames at DISK_H x DISK_W (no resize runs).  Written once a run into a
+    temporary directory removed at exit; every phase reads it (the sample
+    lists are cached per clip length and overlap)."""
     from unigeo_tpu_torch.tools.disk_fixture import write_seven_scenes
 
-    try:
-        import PIL  # noqa: F401  (only whether it is there)
-        fh, fw = 480, 640
-    except ImportError:
-        fh, fw = DISK_H, DISK_W
-    root, cache = os.path.join(work, "7scenes"), os.path.join(work, "lists")
-    write_seven_scenes(root, DISK_FRAMES, fh, fw)
-    return root, cache
+    if "dirs" not in _FIXTURE:
+        try:
+            import PIL  # noqa: F401  (only whether it is there)
+            fh, fw = 480, 640
+        except ImportError:
+            fh, fw = DISK_H, DISK_W
+        work = tempfile.mkdtemp(prefix="unigeo_fixture_")
+        atexit.register(shutil.rmtree, work, True)
+        root, cache = os.path.join(work, "7scenes"), os.path.join(work, "lists")
+        t0 = time.perf_counter()
+        write_seven_scenes(root, DISK_FRAMES, fh, fw)
+        log("fixture", f"{DISK_FRAMES} frames {fh} x {fw} in {time.perf_counter() - t0:.2f}s")
+        _FIXTURE["dirs"], _FIXTURE["hw"] = (root, cache), (fh, fw)
+    return _FIXTURE["dirs"]
 
 
 def sibling_reference(dev):
@@ -2253,7 +2293,7 @@ def phase_svd_family(dev):
     work = tempfile.mkdtemp(prefix="unigeo_siblings_")
     summary = {}
     try:
-        root, cache = write_fixture(work)
+        root, cache = shared_fixture()
         pipe = DepthCrafterPipeline(unet_config=SVD_XT_UNET, clip_config=SVD_XT_CLIP,
                                     dtype=torch.bfloat16, device=dev)
         pipe.init_random(torch.Generator(device=dev).manual_seed(0))
@@ -2396,7 +2436,7 @@ def phase_pointmap(dev):
     work = tempfile.mkdtemp(prefix="unigeo_pointmap_")
     summary = {}
     try:
-        root, cache = write_fixture(work)
+        root, cache = shared_fixture()
         sp = read_config("spann3r_7scenes.yaml")
         sp_secs = {s: sp[s] for s in SECTIONS if s in sp}
         cfg = fixture_config(root, cache, "Spann3R", sp["model_params"], sp_secs, PM_CLIP,
@@ -2649,7 +2689,7 @@ def phase_pointmap_models(dev):
     work = tempfile.mkdtemp(prefix="unigeo_pointmap_models_")
     summary = {}
     try:
-        root, cache = write_fixture(work)
+        root, cache = shared_fixture()
         for label, name, config, clip in POINTMAP_MODELS:
             conf = read_config(config)
             predicted = pointmap_launches(label, conf["model_params"], clip)
@@ -2747,7 +2787,7 @@ def phase_aether(dev):
         raise AssertionError("TF32 is on for Aether's f32 run")
     work = tempfile.mkdtemp(prefix="unigeo_aether_")
     try:
-        root, cache = write_fixture(work)
+        root, cache = shared_fixture()
         conf = read_config("aether_scannetpp.yaml")
         predicted = aether_launches(conf["model_params"], AETHER_CLIP)
         if predicted != AETHER_LAUNCHES:
@@ -2781,6 +2821,176 @@ def phase_aether(dev):
         shutil.rmtree(work, ignore_errors=True)
     log("aether", json.dumps(summary))
     return {"aether": summary}
+
+
+# the training phase of the f32 families (train_models): (label, model name,
+# config, frames of the one clip each step trains on); each step launches
+# fwd_lse, dq and dk/dv as often as the eval forward launches the packed
+# kernel on a clip of those frames (train_launches), the table's counts at
+# the configs' clips.  Dust3R's 20-frame clip is cut to 16, the 90% of the
+# card that train_family holds every family to being what forces it: at 20
+# frames its step peaked at 70.7-75.9 of 79.2 GiB with allocator retries (a
+# failed cudaMalloc, the cache freed, the malloc tried again), at 18 at 72.6
+# GiB, 4 GiB over a frame's share (cuDNN's workspace turns on the batch), so
+# 17 would stand within one workspace of the limit
+DUST3R_TRAIN_CLIP = 16
+TRAIN_MODELS = (("spann3r", "Spann3R", "spann3r_7scenes.yaml", PM_CLIP),
+                ("dust3r", "Dust3R", "dust3r_7scenes.yaml", DUST3R_TRAIN_CLIP),
+                ("cut3r", "Cut3R", "cut3r_7scenes.yaml", PM_CLIP),
+                ("vda", "VideoDepthAnything", "vda_scannetpp.yaml", VDA_CLIP),
+                ("aether", "Aether", "aether_scannetpp.yaml", AETHER_CLIP))
+TRAIN_MODELS_TABLE = {"spann3r": 128, "dust3r": 72, "cut3r": 248, "vda": 24, "aether": 16}
+TRAIN_MODELS_STEPS = 2
+
+
+def train_launches(label, model_params, frames):
+    """fwd_lse (and dq, dk/dv) launches of one training step on a clip of
+    ``frames``: the eval forward's packed launches per clip, Aether's for
+    one evaluation of the DiT (the forward's are per sampling step)."""
+    if label == "spann3r":
+        return sibling_launches("spann3r", frames)
+    if label == "aether":
+        steps = model_params.get("num_steps", 4)
+        return aether_launches(model_params, frames) // steps
+    return pointmap_launches(label, model_params, frames)
+
+
+def aether_checkpoint_reloaded(dev, out, model_params, data):
+    """The trained Aether's checkpoint (its {"vae", "dit"} layout) loaded by
+    the eval adapter through checkpoint_path: every output of one clip
+    bitwise equal to the trained module's in memory (cuDNN's deterministic
+    algorithms on both)."""
+    from unigeo_tpu_torch.models.aether import Aether
+
+    path = out["checkpoints"][-1]
+    trained = out["model"]
+    trained.network.requires_grad_(False)
+    t0 = time.perf_counter()
+    loaded = Aether(**dict(model_params, checkpoint_path=path), device=dev)
+    load_s = time.perf_counter() - t0
+    with deterministic_cudnn():
+        a, b = trained.forward_tensors(data), loaded.forward_tensors(data)
+    torch.cuda.synchronize()
+    equal = {k: torch.equal(a[k], b[k]) for k in a}
+    res = {"checkpoint_bytes": os.path.getsize(path), "load_s": load_s,
+           "bitwise_equal": equal,
+           "changed_by_training": not torch.equal(
+               trained.network.dit.final_proj.weight,
+               torch.zeros_like(trained.network.dit.final_proj.weight))}
+    log("train_models", f"aether checkpoint {os.path.basename(path)} "
+        f"{res['checkpoint_bytes'] / 2**20:.1f} MiB, loaded by Aether(checkpoint_path=...) "
+        f"in {load_s:.2f}s: outputs bitwise equal to the trained module's {json.dumps(equal)}")
+    if not (all(equal.values()) and res["changed_by_training"]):
+        raise AssertionError(f"aether checkpoint reload: {res}")
+    del loaded, a, b
+    return res
+
+
+def train_family(dev, label, name, cfg, steps, extra_args, predicted):
+    """``steps`` steps of train.main on ``cfg``: the losses, step seconds,
+    peak GiB and allocator retries, each step's launches held to
+    ``predicted`` (kernel name -> count; the rest 0) and the peak to 90% of
+    the card, as phase_train holds the SVD-XT trainer's."""
+    import gc
+
+    from unigeo_tpu_torch import train
+
+    counts = []
+
+    def on_step(step, loss, seconds):
+        counts.append(read_counts())
+        reset_counts()
+
+    log_dir = tempfile.mkdtemp(prefix="unigeo_train_logs_")
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = train.main(["--steps", str(steps), "--log-dir", log_dir, *extra_args], config=cfg,
+                         on_step=on_step)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    want = {k: predicted.get(k, 0) for k in kernel_wrappers()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the allocator's retries: a cudaMalloc that failed, its cache freed
+    # (device-wide synchronisations) and the malloc tried again
+    retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0) - retries
+    card = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    row = {"frames": cfg["clip_length"], "losses": out["losses"],
+           "step_s": out["step_seconds"], "batch_s": out["batch_seconds"], "peak_gib": peak,
+           "held_before_gib": held, "alloc_retries": retries,
+           "params": sum(p.numel() for p in out["trainer"].params),
+           "launches_per_step": predicted, "phase_s": time.perf_counter() - t0}
+    log("train_models", f"{label}: {steps} steps on {row['frames']} frames, {row['params'] / 1e6:.1f} M "
+        f"trained parameters, losses {out['losses']}, step_s "
+        f"{[round(x, 3) for x in out['step_seconds']]} (batches "
+        f"{[round(x, 3) for x in out['batch_seconds']]}), peak {peak:.2f} of {card:.2f} GiB "
+        f"({held:.2f} held before; {retries} allocator retries), "
+        f"launches per step {json.dumps([{k: v for k, v in c.items() if v} for c in counts])} "
+        f"(predicted {json.dumps(predicted)}), {row['phase_s']:.1f}s in all")
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"{label}: non-finite training loss {out['losses']}")
+    if counts != [want] * steps:
+        raise AssertionError(f"{label}: launches per step {counts} != {want}")
+    if peak > 0.9 * card:
+        raise AssertionError(f"{label}: peak {peak:.2f} GiB leaves less than 10% of {card:.2f}")
+    return out, row
+
+
+def phase_train_models(dev):
+    """train.main at each TRAIN_MODELS config's full width in f32 with TF32
+    off over the 7-Scenes fixture, TRAIN_MODELS_STEPS steps of one clip
+    (the f32 trainers: the forward with lse, dq and dk/dv on the f32 bodies
+    at every attention of 128 queries or more; each config's clip in full
+    but Dust3R's, DUST3R_TRAIN_CLIP); Aether saves its checkpoint at full
+    width, which its eval adapter reloads (bitwise-equal outputs);
+    then one step of the ChronoDepth branch (direct-depth targets, the bf16
+    SVD-XT pipeline) on a 25-frame clip."""
+    from unigeo_tpu_torch.device import set_exact_f32
+
+    set_exact_f32()
+    root, cache = shared_fixture()
+    work = tempfile.mkdtemp(prefix="unigeo_train_models_")
+    summary = {}
+    kernels = ("flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    try:
+        for label, name, config, frames in TRAIN_MODELS:
+            mp = read_config(config)["model_params"]
+            n = train_launches(label, mp, frames)
+            cfg = fixture_config(root, cache, name, mp, {}, frames, 0)
+            save = label == "aether"
+            ckpt = ["--ckpt-dir", os.path.join(work, label),
+                    "--ckpt-every", str(TRAIN_MODELS_STEPS if save else 0)]
+            out, row = train_family(dev, label, name, cfg, TRAIN_MODELS_STEPS, ckpt,
+                                    {k: n for k in kernels})
+            row["table"] = TRAIN_MODELS_TABLE[label]
+            if save:
+                row.update(aether_checkpoint_reloaded(
+                    dev, out, mp, fixture_clip(root, cache, frames, 0)))
+            summary[label] = row
+            del out
+        # the SVD branch's direct-depth trainer at SVD-XT width, bf16
+        mp = read_config("chronodepth_scannetpp.yaml")["model_params"]
+        cfg = fixture_config(root, cache, "ChronoDepth", mp, {}, SIB_CLIP, 0)
+        unet = unet_kernel_attentions(SVD_XT_UNET, DISK_H, DISK_W)
+        per_step = {k: unet for k in kernels}
+        per_step["flash_attention_packed"] = (clip_kernel_attentions(SVD_XT_CLIP)
+                                              + 2 * vae_mid_attentions(DISK_H, DISK_W))
+        out, row = train_family(dev, "chronodepth", "ChronoDepth", cfg, 1,
+                                ["--ckpt-every", "0"], per_step)
+        summary["chronodepth"] = row
+        del out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log("train_models", json.dumps(summary))
+    return summary
 
 
 def f32_bound(b, sq, sk, h, d):
@@ -2860,6 +3070,121 @@ def phase_kernel_f32_pointmap(dev):
     return rows
 
 
+# the f32 backward pair's shapes (name, B, Sq, Sk, H, D) on the training
+# paths of the f32 families at 384 x 512: Aether's DiT, Spann3R's encoder
+# and decoder, Dust3R's encoder and decoder (its training clip of
+# DUST3R_TRAIN_CLIP frames), VideoDepthAnything's encoder and Cut3R's
+# frame-to-state cross-attention (64 keys: one ragged key tile)
+F32_BWD_SHAPES = [("aether_dit", 1, 3072, 3072, 12, 64),
+                  ("spann3r_encoder", 20, 768, 768, 12, 64),
+                  ("dust3r_encoder", DUST3R_TRAIN_CLIP, 768, 768, 16, 64),
+                  ("dust3r_decoder", DUST3R_TRAIN_CLIP - 1, 768, 768, 12, 64),
+                  ("vda_encoder", 25, 972, 972, 16, 64),
+                  ("pointmap_decoder", 1, 768, 768, 8, 64),
+                  ("cut3r_state_cross", 1, 768, 64, 8, 64)]
+
+
+def bwd_device_ms(fn, iters, part):
+    """(the one backward kernel whose name holds ``part`` that ``iters``
+    calls of ``fn`` launched, its mean device ms per launch)."""
+    from unigeo_tpu_torch.tools.forward_variants import _profiled_kernels
+
+    found = [e for e in _profiled_kernels(fn, iters) if part in e.key]
+    if len(found) != 1:
+        raise AssertionError(f"{iters} calls launched {[(e.key, e.count) for e in found]}")
+    return found[0].key, found[0].self_device_time_total / 1e3 / found[0].count
+
+
+def phase_kernel_f32_bwd(dev):
+    """The backward pair in f32 (dq, dk/dv: ``bwd_{dq,dkv}_f32_kernel``, by
+    name) at F32_BWD_SHAPES, from the fwd_lse kernel's out and lse, held
+    elementwise against the plain version (grad_error_limits: in f32 each
+    version sums the last product in its own order, n 2^-24 T, plus the
+    error F of S and dP carried through), with events and device ms, the
+    plain versions' and SDPA's f32 backward (TF32 off; one call computing
+    dq, dk and dv) and the bounds: dq 6, dk/dv 8 B H Sq Sk D operations at
+    the f32 rate, the pair 14."""
+    import torch.nn.functional as F
+
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.ops.attention import (
+        _bwd_plain,
+        _delta,
+        attention_bwd_reference,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd_lse,
+        grad_error_limits,
+    )
+    from unigeo_tpu_torch.tools.forward_variants import profile_device_ms
+
+    set_exact_f32()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+    for name, b, sq, sk, h, d in F32_BWD_SHAPES:
+        mk = lambda s_: torch.randn((b, s_, h * d), generator=gen, device=dev)
+        q, k, v, dout = mk(sq), mk(sk), mk(sk), mk(sq)
+        out, lse = flash_attention_fwd_lse(q, k, v, h)
+        grads = flash_attention_bwd(q, k, v, out, lse, dout, h)
+        torch.cuda.synchronize()
+        refs = attention_bwd_reference(q, k, v, out, lse, dout, h)
+        limits = grad_error_limits(q, k, v, out, lse, dout, h, refs)
+        errs = [(g - r).abs() for g, r in zip(grads, refs)]
+        ratios = [(e / lim).max().item() for e, lim in zip(errs, limits)]
+        if not max(ratios) <= 1.0:
+            raise AssertionError(f"f32 bwd {name}: max err/limit dq, dk, dv {ratios}")
+        del refs, limits
+        torch.cuda.empty_cache()
+        delta = _delta(out, dout, h)
+        scale = d**-0.5
+        iters = 10
+        dq_fn = lambda: flash_attention_bwd_dq(q, k, v, dout, lse, delta, h)
+        dkv_fn = lambda: flash_attention_bwd_dkv(q, k, v, dout, lse, delta, h)
+        dq_body, dq_dev = bwd_device_ms(dq_fn, iters, "bwd_dq")
+        dkv_body, dkv_dev = bwd_device_ms(dkv_fn, iters, "bwd_dkv")
+        if "f32" not in dq_body or "f32" not in dkv_body:
+            raise AssertionError(f"f32 bwd {name}: ran {dq_body}, {dkv_body}")
+        split = lambda x, s_: x.view(b, s_, h, d).transpose(1, 2)
+        qs, ks, vs = (split(x, s_).detach().requires_grad_()
+                      for x, s_ in ((q, sq), (k, sk), (v, sk)))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
+        sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), split(dout, sq),
+                                               retain_graph=True)
+        bounds = train_bounds(torch.float32, b, sq, sk, h, d)
+        row = dict(
+            shape=name, b=b, sq=sq, sk=sk, h=h, d=d, dtype="float32",
+            dq_body=dq_body[:60], dkv_body=dkv_body[:60],
+            max_err_over_limit_dq=ratios[0], max_err_over_limit_dkv=max(ratios[1:]),
+            max_abs_err_dq=errs[0].max().item(),
+            max_abs_err_dkv=max(errs[1].max().item(), errs[2].max().item()),
+            dq_ms=time_ms(dq_fn, iters), dkv_ms=time_ms(dkv_fn, iters),
+            dq_device_ms=dq_dev, dkv_device_ms=dkv_dev,
+            dq_plain_ms=time_ms(lambda: _bwd_plain(q, k, v, dout, lse, delta, h, scale,
+                                                   ("dq",)), 3),
+            dkv_plain_ms=time_ms(lambda: _bwd_plain(q, k, v, dout, lse, delta, h, scale,
+                                                    ("dk", "dv")), 3),
+            library_bwd_ms=time_ms(sdpa_bwd, iters),
+            library_bwd_device_ms=profile_device_ms(sdpa_bwd, iters),
+            dq_bound_ms=bounds["bwd_dq"][0], dkv_bound_ms=bounds["bwd_dkv"][0],
+            bound_by=bounds["bwd_dkv"][1])
+        row["pair_ms"] = row["dq_ms"] + row["dkv_ms"]
+        row["pair_device_ms"] = dq_dev + dkv_dev
+        row["pair_bound_ms"] = row["dq_bound_ms"] + row["dkv_bound_ms"]
+        rows.append(row)
+        log("kernel", f"f32 bwd {name} [B={b},Sq={sq},Sk={sk},H={h},D={d}] {dq_body[:40]} / "
+            f"{dkv_body[:40]}: max_err/limit dq={ratios[0]:.3f} dk={ratios[1]:.3f} "
+            f"dv={ratios[2]:.3f} dq_ms={row['dq_ms']:.4f} ({dq_dev:.4f}) dkv_ms="
+            f"{row['dkv_ms']:.4f} ({dkv_dev:.4f}) pair {row['pair_ms']:.4f} ({row['pair_device_ms']:.4f}) "
+            f"plain dq={row['dq_plain_ms']:.3f} dkv={row['dkv_plain_ms']:.3f} "
+            f"SDPA f32 bwd {row['library_bwd_ms']:.4f} ({row['library_bwd_device_ms']:.4f}) "
+            f"bound dq={row['dq_bound_ms']:.4f} dkv={row['dkv_bound_ms']:.4f} pair="
+            f"{row['pair_bound_ms']:.4f} ({row['bound_by']})")
+        del q, k, v, dout, out, lse, grads, errs, delta, sdpa_out, qs, ks, vs
+        torch.cuda.empty_cache()
+    return rows
+
+
 def summarize(name, source, replaces, rows, launches, extra=None):
     """One entry of the kernels line: sums over the shapes, each shape below.
     The sums are over the rows given, all at KERNEL_BATCH (the batch-25 rows
@@ -2917,6 +3242,7 @@ def main():
     train_rows = phase_kernel_train(dev)
     fwd25 = kernel_forward_batch25(dev)
     f32_rows = phase_kernel_f32_pointmap(dev)
+    f32_bwd_rows = phase_kernel_f32_bwd(dev)
     torch.cuda.synchronize()
     phase_reference(dev)
     phase_reference_train(dev)
@@ -2942,6 +3268,9 @@ def main():
     siblings.update(phase_aether(dev))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    trained_models = phase_train_models(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     trained = phase_train(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2952,6 +3281,8 @@ def main():
     src = "unigeo_tpu_torch/csrc/"
     per_step = trained["launches_per_step"]
     b25 = train_rows["batch25"]
+    # launches per training step on the paths this slice added, by family
+    new_paths = {label: row["launches_per_step"] for label, row in trained_models.items()}
 
     def batch25(*keys):
         """The batch-25 rows' fields ``keys`` (with the shape), per shape."""
@@ -3000,11 +3331,16 @@ def main():
                   "unigeo_tpu/ops/attention.py:529", train_rows["fwd_lse"],
                   trained["launches"]["flash_attention_fwd_lse"],
                   {"launches_per_step": per_step["flash_attention_fwd_lse"],
+                   "launches_per_step_new_paths": {
+                       k: v["flash_attention_fwd_lse"] for k, v in new_paths.items()},
                    **forward25("fwd_lse")}),
         summarize("flash_attention_bwd_dq", src + "flash_attention_bwd.cu",
                   "unigeo_tpu/ops/attention.py:582", train_rows["bwd_dq"],
                   trained["launches"]["flash_attention_bwd_dq"],
                   {"launches_per_step": per_step["flash_attention_bwd_dq"],
+                   "launches_per_step_new_paths": {
+                       k: v["flash_attention_bwd_dq"] for k, v in new_paths.items()},
+                   "f32_training_shapes": f32_bwd_rows,
                    "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)",
                    "batch25_shapes": batch25("dq_ms", "library_bwd_ms", "dq_bound_ms",
                                              "max_err_over_limit_dq", "max_abs_err_dq",
@@ -3013,6 +3349,9 @@ def main():
                   "unigeo_tpu/ops/attention.py:582", train_rows["bwd_dkv"],
                   trained["launches"]["flash_attention_bwd_dkv"],
                   {"launches_per_step": per_step["flash_attention_bwd_dkv"],
+                   "launches_per_step_new_paths": {
+                       k: v["flash_attention_bwd_dkv"] for k, v in new_paths.items()},
+                   "f32_training_shapes": f32_bwd_rows,
                    "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)",
                    "batch25_shapes": batch25("dkv_ms", "library_bwd_ms", "dkv_bound_ms",
                                              "max_err_over_limit_dkv", "max_abs_err_dkv",

@@ -439,7 +439,7 @@ def test_adapter_contract_on_its_own_noise():
     assert model.eval_batch_size == 1 and len(model.forward_batch([data, data])) == 2
 
 
-def test_adapter_keys_device_and_dtypes(monkeypatch):
+def test_adapter_keys_device_and_dtypes(monkeypatch, tmp_path):
     from unigeo_tpu_torch.models.aether import Aether
     from unigeo_tpu_torch.registry import get_model_cls
 
@@ -449,8 +449,16 @@ def test_adapter_keys_device_and_dtypes(monkeypatch):
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Aether(**kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Aether(**kw, checkpoint_path="aether.ckpt", device="cpu")
+    # a checkpoint in the {"vae", "dit"} layout loads, the DiT's zero init
+    # skipped (its trained output projection kept)
+    from unigeo_tpu_torch.utils.checkpoint import save_params
+
+    src = Aether(**kw, seed=5, device="cpu")
+    torch.nn.init.normal_(src.network.dit.final_proj.weight)
+    save_params(Aether.checkpoint_of(src.network), str(tmp_path / "aether.ckpt"))
+    loaded = Aether(**kw, checkpoint_path=str(tmp_path / "aether.ckpt"), device="cpu")
+    ref = src.network.state_dict()
+    assert all(torch.equal(v, ref[k]) for k, v in loaded.network.state_dict().items())
     model = Aether(**kw, compute_dtype="bfloat16", transfer_dtype="float16", init_height=64,
                    init_frames=4, model_dir="unused", device="cpu")
     assert {p.dtype for p in model.network.parameters()} == {torch.bfloat16}

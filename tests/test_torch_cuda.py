@@ -322,6 +322,33 @@ PLANTED_FAULTS = {
         "sm90::wgmma_rs<D, 1>(acc_v, pa[i], Tile::mnmajor(dos, i), 1);",
         "sm90::wgmma_rs<D, 0>(acc_v, pa[i], Tile::mnmajor(dos, i), 1);",
     ),
+    # f32 backward (the CUDA-core pair): the dq kernel's eighth key tile
+    # gets P = 0, so it adds nothing to dq
+    "f32_bwd_dq_drop_key_tile": (
+        "flash_attention_bwd.cu",
+        "const float p = k0 + kk < Sk ? expf(sc[j] * scale - lse_r) : 0.f;",
+        "const float p = k0 + kk < Sk && k0 != 7 * kF32Tile ? expf(sc[j] * scale - lse_r)"
+        " : 0.f;",
+    ),
+    # f32 backward: the dk/dv kernel's query mask goes, so the rows past Sq
+    # (clamped copies of the last query row) add to dk and dv
+    "f32_bwd_dkv_no_ragged_mask": (
+        "flash_attention_bwd.cu",
+        "const float p = q0 + qi < Sq ? expf(sc[j] * scale - lses[qi]) : 0.f;",
+        "const float p = expf(sc[j] * scale - lses[qi]);",
+    ),
+    # f32 backward: delta = rowsum(dO * O) taken as 0 by the dq kernel, and
+    # by the dk/dv kernel
+    "f32_bwd_dq_delta_zero": (
+        "flash_attention_bwd.cu",
+        "const float lse_r = lse[rid], delta_r = delta[rid];",
+        "const float lse_r = lse[rid], delta_r = 0.f;",
+    ),
+    "f32_bwd_dkv_delta_zero": (
+        "flash_attention_bwd.cu",
+        "      deltas[i] = deltab[s];\n",
+        "      deltas[i] = 0.f;\n",
+    ),
     # GEGLU: the third hidden tile's h is zero, so it adds nothing to the
     # down-projection (the ring still hands the tile over)
     "geglu_skip_hidden_tile": (
@@ -515,6 +542,43 @@ def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
     print(f"planted {fault} [B={b},S={s},H={h},D={d}]: max err/limit "
           f"kernel {good:.3f}, faulty copy {bad:.3f}", flush=True)
     assert good <= 1.0 and bad >= 3.0, (good, bad)
+
+
+@pytest.mark.parametrize(
+    "fault,b,sq,sk,h,d",
+    [
+        # the f32 training paths: Spann3R's encoder at batch 2 and Aether's
+        # DiT (12 and 48 key tiles); VideoDepthAnything's 972 tokens (15
+        # query tiles and 12 rows: a ragged query edge); Cut3R's frame-to-
+        # state cross-attention (768 queries, 64 keys)
+        ("f32_bwd_dq_drop_key_tile", 2, 768, 768, 12, 64),
+        ("f32_bwd_dq_drop_key_tile", 1, 3072, 3072, 12, 64),
+        ("f32_bwd_dkv_no_ragged_mask", 2, 972, 972, 16, 64),
+        ("f32_bwd_dq_delta_zero", 1, 768, 64, 8, 64),
+        ("f32_bwd_dq_delta_zero", 2, 768, 768, 12, 64),
+        ("f32_bwd_dkv_delta_zero", 1, 768, 64, 8, 64),
+        ("f32_bwd_dkv_delta_zero", 2, 972, 972, 16, 64),
+    ],
+)
+def test_f32_bwd_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, sq, sk, h, d):
+    """The f32 backward pair passes its limits (grad_error_limits in f32)
+    at the training shapes, and a copy with a planted fault fails them by at
+    least 3x.  Cut3R's [1, 768 -> 64, 8, 64] has no ragged edge for the
+    64-row tiles (12 query tiles, one key tile), so the dk/dv kernel's query
+    mask is held at VideoDepthAnything's 972 tokens."""
+    lib = faulty_libraries[fault]
+    q, k, v = _qkv(b, sq, sk, h, d, torch.float32, cuda, seed=5)
+    out, lse, dout = _fwd_and_dout(q, k, v, h, seed=6)
+    delta = _delta(out, dout, h)
+    good = max(_grad_ratios(flash_attention_bwd(q, k, v, out, lse, dout, h),
+                            q, k, v, out, lse, dout, h))
+    bad_dq = attention._launch_bwd_dq(lib, q, k, v, dout, lse, delta, h, d**-0.5)
+    bad_dk, bad_dv = attention._launch_bwd_dkv(lib, q, k, v, dout, lse, delta, h, d**-0.5)
+    ratios = _grad_ratios((bad_dq, bad_dk, bad_dv), q, k, v, out, lse, dout, h)
+    bad = max(r if np.isfinite(r) else float("inf") for r in ratios)
+    print(f"planted {fault} [B={b},Sq={sq},Sk={sk},H={h},D={d}]: max err/limit "
+          f"kernel {good:.3f}, faulty copy {bad:.3f} (dq, dk, dv {ratios})", flush=True)
+    assert good <= 1.0 and bad >= 3.0, (good, ratios)
 
 
 def _f32_ratio(out, q, k, v, h):

@@ -188,7 +188,7 @@ def test_cut3r_network_matches_jax(networks):
     assert ours["pose_enc"].shape == (3, 7) and ours["self_pts"].shape == (3, H, W, 3)
 
 
-def test_cut3r_adapter_matches_jax(monkeypatch):
+def test_cut3r_adapter_matches_jax(monkeypatch, tmp_path):
     from unigeo_tpu.models.pointmap.cut3r import Cut3R as JCut3R, Cut3RNetwork as JNet
     from unigeo_tpu_torch.models.pointmap.cut3r import Cut3R
 
@@ -209,8 +209,13 @@ def test_cut3r_adapter_matches_jax(monkeypatch):
     cos = (ours["pred_normals"].astype(np.float64) * ref["pred_normals"]).sum(-1)
     assert np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))).mean() < 0.05
     assert model.eval_batch_size == 1
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Cut3R(checkpoint_path="cut3r.pth", device="cpu")
+    # the network's checkpoint loads back into an adapter with equal outputs
+    from unigeo_tpu_torch.utils.checkpoint import save_params
+
+    save_params(model.network.state_dict(), str(tmp_path / "cut3r.ckpt"))
+    again = Cut3R(network_config=cfg, checkpoint_path=str(tmp_path / "cut3r.ckpt"),
+                  device="cpu").forward(data)
+    assert all(np.array_equal(again[k], ours[k]) for k in ours)
 
 
 def test_cut3r_weight_bridge_is_strict(networks):

@@ -400,8 +400,22 @@ def test_depthcrafter_constructor_takes_the_config_keys_and_raises_on_unported()
     from unigeo_tpu_torch.registry import get_model_cls
 
     assert get_model_cls("DepthCrafter") is DepthCrafter
-    with pytest.raises(NotImplementedError, match="item 9"):
-        DepthCrafter(checkpoint_path="weights.npz")
+    # a checkpoint path: the pipeline's weights from the {"unet", "vae",
+    # "clip"} checkpoint, at bf16
+    import tempfile
+
+    from unigeo_tpu_torch.utils.checkpoint import save_params
+
+    unet = tiny_unet_config()
+    cfgs = dict(unet_config=unet, vae_config=tiny_vae_config(),
+                clip_config=dict(tiny_clip_config(), projection_dim=unet["cross_attention_dim"]))
+    src = tiny_pipeline(device="cpu").init_random(torch.Generator().manual_seed(4))
+    with tempfile.TemporaryDirectory() as d:
+        save_params(src.checkpoint(), os.path.join(d, "svd.ckpt"))
+        loaded = DepthCrafter(checkpoint_path=os.path.join(d, "svd.ckpt"), device="cpu", **cfgs)
+    for m, ref in zip(loaded.pipeline.modules(), src.modules()):
+        ref = ref.state_dict()
+        assert all(torch.equal(v, ref[k].to(torch.bfloat16)) for k, v in m.state_dict().items())
     # without a pipeline: built at the given configs, random weights from
     # the seed (the same seed, the same weights); reference keys ignored
     unet = tiny_unet_config()

@@ -65,6 +65,12 @@ TRAINING_MODULES = [
     "unigeo_tpu_torch/data/transforms.py",
     "unigeo_tpu_torch/data/synthetic.py",
     "unigeo_tpu_torch/utils/writers.py",
+    # checkpoint IO and the other trainer families
+    "unigeo_tpu_torch/utils/checkpoint.py",
+    "unigeo_tpu_torch/data/collate.py",
+    "unigeo_tpu_torch/data/augmentations.py",
+    "unigeo_tpu_torch/models/pointmap/losses.py",
+    "unigeo_tpu_torch/tools/convert_checkpoint.py",
 ]
 
 

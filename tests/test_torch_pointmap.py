@@ -385,10 +385,10 @@ def test_spann3r_adapter_matches_jax(spann3r_pair):
     assert len(outs) == 2 and np.array_equal(outs[1]["pred_depths"], ours["pred_depths"])
 
 
-def test_spann3r_adapter_dtypes(spann3r_pair, monkeypatch):
+def test_spann3r_adapter_dtypes(spann3r_pair, monkeypatch, tmp_path):
     """bf16 compute (argument or UNIGEO_COMPUTE_DTYPE) keeps the geometry f32;
-    an f16 transfer widens the bulky fields back to f32; unknown values and
-    a checkpoint raise."""
+    an f16 transfer widens the bulky fields back to f32; unknown values
+    raise; an f32 checkpoint loads at the compute dtype."""
     from unigeo_tpu_torch.models.pointmap import adapter
     from unigeo_tpu_torch.models.pointmap.spann3r import Spann3R, tiny_spann3r_config
 
@@ -409,8 +409,15 @@ def test_spann3r_adapter_dtypes(spann3r_pair, monkeypatch):
         adapter.resolve_compute_dtype("float16")
     with pytest.raises(ValueError):
         adapter.resolve_transfer_dtype("bfloat16")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Spann3R(checkpoint_path="spann3r.pth", device="cpu")
+    from unigeo_tpu_torch.utils.checkpoint import save_params
+
+    save_params(model.network.state_dict(), str(tmp_path / "spann3r.ckpt"))
+    bf = Spann3R(network_config=jax_spann3r("rope_dpt")[0],
+                 checkpoint_path=str(tmp_path / "spann3r.ckpt"), compute_dtype="bfloat16",
+                 device="cpu")
+    ref = model.network.state_dict()
+    assert all(torch.equal(v, ref[k].to(torch.bfloat16))
+               for k, v in bf.network.state_dict().items())
 
 
 def test_weight_bridge_is_strict():

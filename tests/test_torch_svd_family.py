@@ -244,7 +244,8 @@ def test_unigeo_cam_without_branch_matches_jax(shared_tiny_pipeline):
 def test_adapters_build_bf16_pipelines_and_share_a_given_one():
     """Without a pipeline each adapter builds one in bf16 on its device, with
     random weights from its seed; a given pipeline is used as it is; a
-    checkpoint raises with its ROADMAP item; every name resolves."""
+    checkpoint's weights load, at bf16, into the pipeline built; every name
+    resolves."""
     from unigeo_tpu_torch.models.depthcrafter.unet import tiny_unet_config
     from unigeo_tpu_torch.models.depthcrafter.vae import tiny_vae_config
     from unigeo_tpu_torch.models.vit import tiny_clip_config
@@ -255,6 +256,15 @@ def test_adapters_build_bf16_pipelines_and_share_a_given_one():
                 clip_config=dict(tiny_clip_config(), projection_dim=unet["cross_attention_dim"]),
                 device="cpu")
     shared = tiny_pipeline(device="cpu")
+    import os
+    import tempfile
+
+    from unigeo_tpu_torch.utils.checkpoint import save_params
+
+    src = tiny_pipeline(device="cpu").init_random(torch.Generator().manual_seed(9))
+    ckpt_dir = tempfile.TemporaryDirectory()
+    ckpt = os.path.join(ckpt_dir.name, "svd.ckpt")
+    save_params(src.checkpoint(), ckpt)
     for name, attr, given in (("StableNormal", "pipeline", "pipeline"),
                               ("ChronoDepth", "pipe", "_pipeline"),
                               ("DepthAnyVideo", "pipe", "_pipeline"),
@@ -265,6 +275,10 @@ def test_adapters_build_bf16_pipelines_and_share_a_given_one():
         assert built.dtype == torch.bfloat16 and built.device.type == "cpu", name
         assert any(p.abs().max() > 0 for p in built.unet.parameters()), name
         assert getattr(cls(**{given: shared}), attr) is shared, name
-        with pytest.raises(NotImplementedError, match="item 9"):
-            cls(checkpoint_path="weights.npz", **{given: shared})
+        loaded = getattr(cls(checkpoint_path=ckpt, **cfgs), attr)
+        assert loaded.dtype == torch.bfloat16, name
+        ref = src.unet.state_dict()
+        assert all(torch.equal(v, ref[k].to(torch.bfloat16))
+                   for k, v in loaded.unet.state_dict().items()), name
+    ckpt_dir.cleanup()
     assert get_model_cls("UniGeo") is get_model_cls("UniGeoCam")

@@ -1,7 +1,6 @@
 """The port's training CLI refuses what it has not ported, naming its
-ROADMAP item: checkpoint IO (queue 1 item 9), the other trainer families
-(item 10) and the device mesh (item 11).  Each refusal comes before the
-dataset or a model is built, so the test takes well under a second and
+ROADMAP item: the device mesh (queue 1 item 11).  The refusal comes before
+the dataset or a model is built, so the test takes well under a second and
 imports no JAX."""
 
 import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
@@ -16,9 +15,7 @@ CONFIG = dict(dataset="SyntheticBoxDataset", root=None, h=64, w=64, clip_length=
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--ckpt-dir", "ckpt"], "item 9"),
     (["--mesh", "1,1,1"], "item 11"),
-    (["--model", "Cut3R"], "item 10"),
 ])
 def test_train_cli_refuses_unported_options_naming_their_item(capsys, extra, item):
     with pytest.raises(SystemExit) as exc:

@@ -13,7 +13,8 @@
   (``FlashAttentionPacked``, plain versions on the CPU) against JAX autodiff
   through ``attention_reference``.
 * The loss falls over repeated steps on one batch.
-* ``train.main`` runs two steps of a tiny synthetic config on the CPU.
+* ``train.main`` runs two steps of a tiny synthetic config on the CPU and
+  saves the final state.
 
 Tolerances (f32 on both sides; only the order of sums in the convolutions,
 matmuls and reductions differs):
@@ -243,7 +244,8 @@ def test_train_main_runs_on_the_cpu(tmp_path):
         dataset_params=dict(render_size=[128, 128], num_scenes=1, frames_per_scene=4),
     )
     out = train.main(["--device", "cpu", "--tiny", "--steps", "2",
-                      "--log-dir", str(tmp_path)], config=config)
+                      "--log-dir", str(tmp_path), "--ckpt-dir", str(tmp_path / "ckpts")],
+                     config=config)
     assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
     assert (tmp_path / "events.jsonl").exists()
     unet = out["trainer"].unet
@@ -253,7 +255,8 @@ def test_train_main_runs_on_the_cpu(tmp_path):
     # VAE and CLIP stay frozen
     pipe = out["pipe"]
     assert not any(p.requires_grad for m in (pipe.vae, pipe.clip) for p in m.parameters())
-    # the other trainer families, checkpoints and the mesh are refused
-    for extra in (["--model", "Cut3R"], ["--ckpt-dir", str(tmp_path)], ["--mesh", "1,1,1"]):
-        with pytest.raises(SystemExit):
-            train.main(["--device", "cpu", "--steps", "1", *extra], config=config)
+    # the final state is saved (fewer steps than --ckpt-every); the mesh
+    # is still refused
+    assert out["checkpoints"] == [str(tmp_path / "ckpts" / "state-iter-000000002")]
+    with pytest.raises(SystemExit):
+        train.main(["--device", "cpu", "--steps", "1", "--mesh", "1,1,1"], config=config)

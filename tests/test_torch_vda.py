@@ -160,7 +160,7 @@ def port_adapter(jmodel, **kw):
     return model
 
 
-def test_vda_adapter_matches_jax(monkeypatch):
+def test_vda_adapter_matches_jax(monkeypatch, tmp_path):
     jmodel = jax_adapter(monkeypatch, "dinov2")
     data = _clip(5)
     monkeypatch.setenv("UNIGEO_COMPUTE_DTYPE", "bfloat16")  # ignored, as by the JAX adapter
@@ -174,8 +174,14 @@ def test_vda_adapter_matches_jax(monkeypatch):
     assert rel_dev(ours["pred_depths"], ref["pred_depths"]) < 1e-4
     assert mean_angle_deg(ours["pred_normals"], ref["pred_normals"]) < 0.05
     assert model.eval_batch_size == 1 and len(model.forward_batch([data, data])) == 2
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_adapter(jmodel, checkpoint_path="vda.pth")
+    # the network's checkpoint loads back into an adapter with equal outputs
+    from unigeo_tpu_torch.models.vda import VideoDepthAnything
+    from unigeo_tpu_torch.utils.checkpoint import save_params
+
+    save_params(model.network.state_dict(), str(tmp_path / "vda.ckpt"))
+    again = VideoDepthAnything(network_config=MODES["dinov2"][0], device="cpu",
+                               checkpoint_path=str(tmp_path / "vda.ckpt")).forward(data)
+    assert all(np.array_equal(again[k], ours[k]) for k in ours)
 
 
 def test_vda_weight_bridge_is_strict():

@@ -473,7 +473,22 @@ class Aether(adapter.RandomInitAdapter):
         self.num_steps, self.seed = int(num_steps), seed
         self._build(dict(vae_config=vae_config, network_config=network_config),
                     checkpoint_path, seed, compute_dtype, transfer_dtype, device)
-        self.network.dit.zero_init_()
+        if not checkpoint_path:
+            self.network.dit.zero_init_()
+
+    @staticmethod
+    def state_dict_of(params):
+        """The checkpoint layout {"vae", "dit"} (the JAX adapter's) -> the
+        network's state dict, the DiT's keys under ``dit.``."""
+        if set(params) != {"vae", "dit"}:
+            raise KeyError(f"checkpoint keys {sorted(params)}, Aether loads ['dit', 'vae']")
+        return {**params["vae"], **{f"dit.{k}": v for k, v in params["dit"].items()}}
+
+    @staticmethod
+    def checkpoint_of(network: nn.Module):
+        sd = network.state_dict()
+        return {"vae": {k: v for k, v in sd.items() if not k.startswith("dit.")},
+                "dit": network.dit.state_dict()}
 
     def denoise(self, raw: torch.Tensor, noise: Optional[torch.Tensor] = None):
         """raw [T, 3, H, W] 0..255 on the device -> (decoded frames [T, 3, H,

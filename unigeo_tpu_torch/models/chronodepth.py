@@ -26,8 +26,7 @@ import torch
 from unigeo_tpu_torch.models.depthcrafter.model import intrinsics_of, normals_from_depths
 from unigeo_tpu_torch.models.depthcrafter.pipeline import (
     DepthCrafterPipeline,
-    random_pipeline,
-    refuse_checkpoint,
+    adapter_pipeline,
 )
 from unigeo_tpu_torch.registry import MODELS
 
@@ -73,9 +72,8 @@ class ChronoDepth:
         """The JAX adapter's keywords (a given ``_pipeline`` is used as it is)
         and the ``device`` of a pipeline built here (in ``dtype``, random
         weights from seed 0 as the JAX adapter's lazy init)."""
-        refuse_checkpoint(checkpoint_path)
-        self.pipe = _pipeline or random_pipeline(
-            unet_config, vae_config, clip_config, seed=0, dtype=DTYPES[dtype], device=device)
+        self.pipe = adapter_pipeline(_pipeline, checkpoint_path, unet_config, vae_config,
+                                     clip_config, seed=0, dtype=DTYPES[dtype], device=device)
         self.num_inference_steps = num_inference_steps
         self.window_size = window_size
         self.overlap = overlap

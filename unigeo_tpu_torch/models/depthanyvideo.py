@@ -26,8 +26,7 @@ from unigeo_tpu_torch.models.chronodepth import (
 from unigeo_tpu_torch.models.depthcrafter.model import intrinsics_of
 from unigeo_tpu_torch.models.depthcrafter.pipeline import (
     DepthCrafterPipeline,
-    random_pipeline,
-    refuse_checkpoint,
+    adapter_pipeline,
 )
 from unigeo_tpu_torch.registry import MODELS
 
@@ -50,9 +49,8 @@ class DepthAnyVideo:
         device="cuda",
         **_: Dict,
     ):
-        refuse_checkpoint(checkpoint_path)
-        self.pipe = _pipeline or random_pipeline(
-            unet_config, vae_config, clip_config, seed=0, dtype=DTYPES[dtype], device=device)
+        self.pipe = adapter_pipeline(_pipeline, checkpoint_path, unet_config, vae_config,
+                                     clip_config, seed=0, dtype=DTYPES[dtype], device=device)
         self.num_inference_steps = num_inference_steps
         self.keyframe_gap = max(1, keyframe_gap)
         self.seed = seed

@@ -21,9 +21,11 @@ the decoded frames stay on the device into the post-processing on every path.
 The constructor takes the JAX adapter's keywords, so a config's
 ``model_params`` build it (registered as ``DepthCrafter``).  Without a
 ``pipeline`` it builds one at the given (default SVD-XT) configs, in bf16 on
-``device``, with random weights made there from a generator seeded with
-``seed``; ``solver`` is that pipeline's (a given pipeline keeps its own, as
-in the JAX package).  What is not ported raises, naming its ROADMAP item,
+``device``, with the weights of ``checkpoint_path`` (the {"unet", "vae",
+"clip"} layout of ``utils/checkpoint.py``) or random ones made there from a
+generator seeded with ``seed``; ``solver`` is that pipeline's (a given
+pipeline keeps its own, as in the JAX package, and takes the checkpoint's
+weights when a path is given).  What is not ported raises, naming its ROADMAP item,
 instead of doing something else.
 """
 
@@ -38,8 +40,7 @@ import torch
 
 from unigeo_tpu_torch.models.depthcrafter.pipeline import (
     DepthCrafterPipeline,
-    random_pipeline,
-    refuse_checkpoint,
+    adapter_pipeline,
 )
 from unigeo_tpu_torch.models.depthcrafter.scheduler import SOLVERS, EulerDiscreteConfig
 from unigeo_tpu_torch.ops.backproject import backproject_to_cv_position
@@ -118,14 +119,12 @@ class DepthCrafter:
         plus the ``device`` of a pipeline built here (in bf16, as the JAX
         adapter builds it).  ``init_*`` size the JAX package's parameter
         init; the port's random weights do not depend on them."""
-        refuse_checkpoint(checkpoint_path)
         if solver not in SOLVERS:
             raise ValueError(f"unknown solver {solver!r}")
-        if pipeline is None:
-            pipeline = random_pipeline(
-                unet_config, vae_config, clip_config, seed=seed, device=device,
-                scheduler_config=scheduler_config_of(scheduler_config), solver=solver)
-        self.pipeline = pipeline
+        kwargs = {} if pipeline is not None else dict(
+            scheduler_config=scheduler_config_of(scheduler_config), solver=solver)
+        self.pipeline = adapter_pipeline(pipeline, checkpoint_path, unet_config, vae_config,
+                                         clip_config, seed=seed, device=device, **kwargs)
         self.num_inference_steps = num_inference_steps
         self.overlap = overlap
         self.window_size = window_size

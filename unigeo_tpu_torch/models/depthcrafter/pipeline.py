@@ -73,6 +73,10 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+# the checkpoint layout: one state dict per module, upstream key names
+CHECKPOINT_KEYS = ("unet", "vae", "clip")
+
+
 class DepthCrafterPipeline:
     """The three SVD modules on one device at one dtype, and the staged
     whole-clip forward."""
@@ -120,9 +124,41 @@ class DepthCrafterPipeline:
     def load_state_dicts(self, unet_sd, vae_sd, clip_sd) -> "DepthCrafterPipeline":
         """Load the three state dicts strictly (upstream key names), casting
         every float tensor to the pipeline dtype."""
-        for m, sd in zip(self.modules(), (unet_sd, vae_sd, clip_sd)):
-            m.load_state_dict(sd, strict=True)
+        from unigeo_tpu_torch.utils.checkpoint import load_strict
+
+        for name, m, sd in zip(CHECKPOINT_KEYS, self.modules(), (unet_sd, vae_sd, clip_sd)):
+            load_strict(m, sd, f"the {name} state dict")
         return self.cast_params_to_dtype()
+
+    def load_checkpoint(self, path: str) -> "DepthCrafterPipeline":
+        """The {"unet", "vae", "clip"} checkpoint at ``path`` (what the
+        diffusion trainer saves and ``tools/convert_checkpoint.py`` writes),
+        read straight onto the pipeline's device and loaded strictly."""
+        from unigeo_tpu_torch.utils.checkpoint import load_params
+
+        params = load_params(path, self.device)
+        if set(params) != set(CHECKPOINT_KEYS):
+            raise KeyError(f"{path}: checkpoint keys {sorted(params)}, the SVD pipeline "
+                           f"loads {list(CHECKPOINT_KEYS)}")
+        return self.load_state_dicts(*(params[k] for k in CHECKPOINT_KEYS))
+
+    def checkpoint(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The pipeline's weights in the checkpoint layout."""
+        return {name: m.state_dict() for name, m in zip(CHECKPOINT_KEYS, self.modules())}
+
+    def encode_target(self, frames: torch.Tensor) -> torch.Tensor:
+        """Training-target latents: ``vae.encode_scaled`` of f32 frames [T, 3,
+        H, W] in [-1, 1], computed in f32 with the encoder's and quant_conv's
+        weights upcast from the pipeline dtype: what flax computes for an f32
+        input against bf16 parameters (the JAX VAE sets no module dtype)."""
+        vae = self.vae
+
+        def f32_call(module, x):
+            params = {k: p.float() for k, p in module.named_parameters()}
+            return torch.func.functional_call(module, params, (x,))
+
+        moments = f32_call(vae.quant_conv, f32_call(vae.encoder, frames.float()))
+        return moments[:, : vae.latent_channels] * vae.scaling_factor
 
     def cast_params_to_dtype(self) -> "DepthCrafterPipeline":
         """Every float parameter at the compute dtype (pipeline.py:144-161):
@@ -373,24 +409,24 @@ class DepthCrafterPipeline:
         return (acc + 1.0) / 2.0
 
 
-def random_pipeline(unet_config=None, vae_config=None, clip_config=None, seed: int = 0,
-                    dtype: torch.dtype = PRODUCTION_DTYPE, device="cuda",
-                    **kwargs) -> DepthCrafterPipeline:
-    """A pipeline at the given (default SVD-XT) configs, in ``dtype`` on
-    ``device``, with random weights made there from a generator seeded with
-    ``seed`` (the SVD-family adapters' default when given no pipeline)."""
-    pipe = DepthCrafterPipeline(unet_config=unet_config, vae_config=vae_config,
-                                clip_config=clip_config, dtype=dtype, device=device, **kwargs)
-    return pipe.init_random(torch.Generator(device=pipe.device).manual_seed(seed))
-
-
-def refuse_checkpoint(checkpoint_path) -> None:
-    """Checkpoint IO is ROADMAP queue 1 item 9: a path raises instead of
-    running on random weights."""
+def adapter_pipeline(pipeline: Optional[DepthCrafterPipeline] = None, checkpoint_path=None,
+                     unet_config=None, vae_config=None, clip_config=None, seed: int = 0,
+                     dtype: torch.dtype = PRODUCTION_DTYPE, device="cuda",
+                     **kwargs) -> DepthCrafterPipeline:
+    """The pipeline an SVD-family adapter runs: ``pipeline`` as it is, or one
+    built at the given (default SVD-XT) configs in ``dtype`` on ``device``;
+    its weights loaded from ``checkpoint_path`` when one is given (into a
+    given pipeline too, as the JAX adapters load it), else, when built here,
+    random ones made on the device from a generator seeded with ``seed``."""
+    if pipeline is None:
+        pipeline = DepthCrafterPipeline(unet_config=unet_config, vae_config=vae_config,
+                                        clip_config=clip_config, dtype=dtype, device=device,
+                                        **kwargs)
+        if not checkpoint_path:
+            pipeline.init_random(torch.Generator(device=pipeline.device).manual_seed(seed))
     if checkpoint_path:
-        raise NotImplementedError(
-            f"checkpoint_path={checkpoint_path!r}: checkpoint IO is not ported yet "
-            "(ROADMAP queue 1 item 9); leave it null for random weights")
+        pipeline.load_checkpoint(checkpoint_path)
+    return pipeline
 
 
 @contextlib.contextmanager

@@ -5,9 +5,10 @@ on the device; the host sees the clip once on the way in (``raw_clip``) and
 the output dict once on the way out (``fetch_outputs``).
 
 ``RandomInitAdapter`` is the construction the port's pointmap-family
-adapters share: the network built on the device with random weights from a
-generator seeded with ``seed`` (checkpoints are ROADMAP queue 1 item 9),
-cast to the compute dtype, loadable from the weight bridge.
+adapters and Aether share: the network built on the device with the weights
+of ``checkpoint_path`` (``utils/checkpoint.py``; what the family's trainer
+saves) or random ones from a generator seeded with ``seed``, cast to the
+compute dtype, loadable from the weight bridge.
 """
 
 from __future__ import annotations
@@ -128,6 +129,19 @@ def init_network_(network: nn.Module, generator: torch.Generator) -> nn.Module:
     return network
 
 
+def build_network(network_cls: type, network_config, device, seed: Optional[int] = 0):
+    """``network_cls(**network_config)`` built on the meta device and given
+    storage on ``device``, f32: random weights there from a generator seeded
+    with ``seed`` (the JAX package's ``init(PRNGKey(seed))``), or none
+    (uninitialised, to be loaded) when ``seed`` is None."""
+    with torch.device("meta"):
+        network = network_cls(**(network_config or {}))
+    network.to_empty(device=device)
+    if seed is not None:
+        init_network_(network, torch.Generator(device=device).manual_seed(seed))
+    return network
+
+
 class RandomInitAdapter(BatchedPointmapForward):
     """``network`` built from ``network_cls(**network_config)`` on the
     device, random weights drawn from a generator there, cast to the compute
@@ -141,20 +155,32 @@ class RandomInitAdapter(BatchedPointmapForward):
 
     def _build(self, network_config, checkpoint_path, seed, compute_dtype, transfer_dtype,
                device):
-        if checkpoint_path:
-            raise NotImplementedError(
-                f"checkpoint_path={checkpoint_path!r}: checkpoint IO is not ported yet "
-                "(ROADMAP queue 1 item 9); leave it null for random weights")
         self.device = resolve_device(device)
         self.compute_dtype = self.transfer_dtype = None
         if self.takes_dtypes:
             self.compute_dtype = resolve_compute_dtype(compute_dtype)
             self.transfer_dtype = resolve_transfer_dtype(transfer_dtype)
-        with torch.device("meta"):
-            self.network = self.network_cls(**(network_config or {}))
-        self.network.to_empty(device=self.device).eval().requires_grad_(False)
-        init_network_(self.network, torch.Generator(device=self.device).manual_seed(seed))
+        self.network = build_network(self.network_cls, network_config, self.device,
+                                     None if checkpoint_path else seed)
+        self.network.eval().requires_grad_(False)
+        if checkpoint_path:
+            from unigeo_tpu_torch.utils.checkpoint import load_params, load_strict
+
+            load_strict(self.network,
+                        self.state_dict_of(load_params(checkpoint_path, self.device)),
+                        checkpoint_path)
         self._cast()
+
+    @staticmethod
+    def state_dict_of(params):
+        """The network's state dict in a checkpoint's layout (the network's
+        own state dict here; Aether's is {"vae", "dit"})."""
+        return params
+
+    @staticmethod
+    def checkpoint_of(network: nn.Module):
+        """Inverse of ``state_dict_of``: what the family's trainer saves."""
+        return network.state_dict()
 
     def _cast(self):
         if self.compute_dtype is not None:
@@ -163,7 +189,9 @@ class RandomInitAdapter(BatchedPointmapForward):
     def load_state_dict(self, state_dict) -> "RandomInitAdapter":
         """Load the network's weights strictly (e.g. from
         ``utils/weights.py::pointmap_state_dict``), at the compute dtype."""
-        self.network.load_state_dict(state_dict, strict=True)
+        from unigeo_tpu_torch.utils.checkpoint import load_strict
+
+        load_strict(self.network, state_dict, "the state dict")
         self._cast()
         return self
 

@@ -1,0 +1,50 @@
+"""Training objectives of the pointmap family, port of
+``unigeo_tpu/models/pointmap/losses.py``.
+
+DUSt3R / Spann3R-lineage confidence-weighted 3D regression: both clouds are
+scaled by their mean distance to the origin over valid pixels, the
+per-pixel Euclidean error is weighted by the predicted confidence, and a
+-alpha log(conf) term keeps the confidences honest.  The masked means are
+the metrics' (summed in f64, returned in the input's dtype).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from unigeo_tpu_torch.metrics._masked import masked_mean
+from unigeo_tpu_torch.models.posecodec import camera_to_pose_encoding
+
+
+def normalize_by_avg_dis(pts: torch.Tensor, valid: torch.Tensor, eps: float = 1e-8):
+    """(pts / factor, factor): the mean distance to the origin over valid
+    pixels.  pts [..., H, W, 3], valid [..., H, W]."""
+    factor = masked_mean(torch.linalg.vector_norm(pts, dim=-1), valid.to(pts.dtype))
+    return pts / factor.clamp_min(eps), factor
+
+
+def pointmap_regression_loss(pred_pts, gt_pts, valid, pred_conf=None, alpha: float = 0.2,
+                             normalize: bool = True):
+    """Confidence-weighted regression loss (a scalar).  pred_pts / gt_pts
+    [..., H, W, 3], valid [..., H, W], pred_conf [..., H, W] (>= 1 by the
+    heads' construction) or None for the unweighted mean error."""
+    v = valid.float()
+    if normalize:
+        pred_pts, _ = normalize_by_avg_dis(pred_pts, v)
+        gt_pts, _ = normalize_by_avg_dis(gt_pts, v)
+    err = torch.linalg.vector_norm(pred_pts - gt_pts, dim=-1)
+    if pred_conf is None:
+        return masked_mean(err, v)
+    conf = pred_conf.clamp_min(1.0 + 1e-6)
+    return masked_mean(conf * err - alpha * torch.log(conf), v)
+
+
+def pose_loss(pred_enc, gt_c2w, trans_weight: float = 1.0, rot_weight: float = 1.0):
+    """L1 on the 7-DoF pose encoding against the ground truth's, the
+    quaternions sign-aligned first (a double cover)."""
+    gt_enc = camera_to_pose_encoding(gt_c2w)
+    sign = torch.sign((pred_enc[..., 3:] * gt_enc[..., 3:]).sum(-1, keepdim=True))
+    sign = torch.where(sign == 0, torch.ones_like(sign), sign)
+    t_l1 = (pred_enc[..., :3] - gt_enc[..., :3]).abs().mean()
+    q_l1 = (pred_enc[..., 3:] - sign * gt_enc[..., 3:]).abs().mean()
+    return trans_weight * t_l1 + rot_weight * q_l1

@@ -11,8 +11,8 @@ still take softmax mass).  Depths and cameras are then recovered from the
 pointmaps (``adapter.outputs_from_world_pts``).
 
 The adapter (registered as ``Spann3R``) builds its network on the device
-with random weights from a generator seeded with ``seed`` (checkpoints are
-ROADMAP queue 1 item 9), computes in f32 unless ``compute_dtype`` (or
+with the weights of ``checkpoint_path`` or random ones from a generator
+seeded with ``seed``, computes in f32 unless ``compute_dtype`` (or
 ``UNIGEO_COMPUTE_DTYPE``) says bfloat16, and runs the geometry in f32.
 """
 
@@ -53,8 +53,8 @@ class MemoryStep(nn.Module):
 
     def forward(self, carry, tok, pos, ctx_pos):
         """carry (memory [M*N, C], mask [M*N], slot), tok [N, C_enc] ->
-        (carry, decoder tokens [N, C] or (tokens, hooks)).  The memory and
-        its mask are written in place."""
+        (carry, decoder tokens [N, C] or (tokens, hooks)): the new frame's
+        tokens written into the memory's oldest slot."""
         mem, mem_mask, slot = carry
         n = tok.shape[0]
         ctx = torch.cat([self.memory_proj(tok), mem * mem_mask.to(mem.dtype)[:, None]], dim=0)
@@ -65,8 +65,10 @@ class MemoryStep(nn.Module):
         else:
             dec, hooks = out[0], None
         start = (slot % self.memory_frames) * n
-        mem[start:start + n] = dec
-        mem_mask[start:start + n] = 1.0
+        # out of place, so that autograd keeps the memory each step read
+        mem = mem.slice_scatter(dec, start=start, end=start + n)
+        mem_mask = mem_mask.slice_scatter(torch.ones_like(mem_mask[:n]), start=start,
+                                          end=start + n)
         return (mem, mem_mask, slot + 1), ((dec, hooks) if self.return_hooks else dec)
 
 

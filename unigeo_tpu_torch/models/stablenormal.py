@@ -24,8 +24,7 @@ import torch
 
 from unigeo_tpu_torch.models.depthcrafter.pipeline import (
     DepthCrafterPipeline,
-    random_pipeline,
-    refuse_checkpoint,
+    adapter_pipeline,
 )
 from unigeo_tpu_torch.registry import MODELS
 
@@ -56,9 +55,8 @@ class StableNormal:
     ):
         """The JAX adapter's keywords and the ``device`` of a pipeline built
         here (bf16, random weights from ``seed``)."""
-        refuse_checkpoint(checkpoint_path)
-        self.pipeline = pipeline or random_pipeline(unet_config, vae_config, clip_config,
-                                                    seed=seed, device=device)
+        self.pipeline = adapter_pipeline(pipeline, checkpoint_path, unet_config, vae_config,
+                                         clip_config, seed=seed, device=device)
         self.num_inference_steps = num_inference_steps
         self.seed = seed
 

@@ -32,8 +32,7 @@ from unigeo_tpu_torch.metrics.alignment import lstsq_scale_shift
 from unigeo_tpu_torch.models.depthcrafter.model import intrinsics_of, minmax_inverse_depth
 from unigeo_tpu_torch.models.depthcrafter.pipeline import (
     DepthCrafterPipeline,
-    random_pipeline,
-    refuse_checkpoint,
+    adapter_pipeline,
 )
 from unigeo_tpu_torch.models.stablenormal import normals_from_decoded
 from unigeo_tpu_torch.ops.backproject import backproject_to_cv_position
@@ -65,9 +64,8 @@ class UniGeoCam:
         """The JAX adapter's keywords and the ``device`` of the pipeline and
         pointmap network built here (random weights from ``seed``, and seed
         0 for the network, as the JAX adapter's)."""
-        refuse_checkpoint(checkpoint_path)
-        self.pipeline = pipeline or random_pipeline(unet_config, vae_config, clip_config,
-                                                    seed=seed, device=device)
+        self.pipeline = adapter_pipeline(pipeline, checkpoint_path, unet_config, vae_config,
+                                         clip_config, seed=seed, device=device)
         self.num_inference_steps = num_inference_steps
         self.seed = seed
         self.pointmap = None
