@@ -3018,17 +3018,24 @@ F32_POINTMAP_SHAPES = [("pointmap_encoder", 25, 768, 768, 12, 64),
                        ("dust3r_decoder", 19, 768, 768, 12, 64),
                        ("vda_encoder", 25, 972, 972, 16, 64),
                        ("cut3r_state_cross", 1, 768, 64, 8, 64),
-                       ("aether_dit", 1, 3072, 3072, 12, 64)]
+                       ("aether_dit", 1, 3072, 3072, 12, 64),
+                       # the DepthCrafter trainer's f32 target encode: the
+                       # VAE mid block's one head over 25 frames' 48 x 64
+                       # latents (the earlier CUDA-core body, the one f32 width not 64
+                       # on a path)
+                       ("depthcrafter_vae_mid", 25, 3072, 3072, 1, 512)]
+F32_WIDE_ITERS = 3  # the d 512 row's calls a timing (about 0.12 s each)
 
 
 def phase_kernel_f32_pointmap(dev):
-    """The packed kernel's f32 body at d = 64 (register-tiled, by kernel
-    name) at the pointmap shapes against its plain version (F32_OUT_TOL),
-    its events and device ms (torch.profiler), the plain version's, SDPA's
-    in f32 (TF32 off; events and device ms) and the bound.  The earlier
-    CUDA-core body at d = 64 is timed beside it by ``python -m
-    unigeo_tpu_torch.tools.forward_variants --f32`` (``earlier_d64``), not
-    here: its second build of the kernels does not fit the smoke's time."""
+    """The packed kernel's f32 bodies (by kernel name: register-tiled at
+    d = 64, the earlier flash_packed_kernel at d = 512) at the f32 paths' shapes
+    against the plain version (F32_OUT_TOL), their events and device ms
+    (torch.profiler), the plain version's, SDPA's in f32 (TF32 off; events
+    and device ms) and the bound.  The earlier CUDA-core body at d = 64 is
+    timed beside it by ``python -m unigeo_tpu_torch.tools.forward_variants
+    --f32`` (``earlier_d64``), not here: its second build of the kernels
+    does not fit the smoke's time."""
     import torch.nn.functional as F
 
     from unigeo_tpu_torch.device import set_exact_f32
@@ -3048,12 +3055,14 @@ def phase_kernel_f32_pointmap(dev):
         split = lambda x: x.view(b, x.shape[1], h, d).transpose(1, 2)
         kern = lambda: flash_attention_packed(q, k, v, h)
         sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
-        ms = time_ms(kern, 20)
-        body, device_ms = profile_flash(kern, 20)
-        if "flash_packed_f32reg_kernel" not in body:
-            raise AssertionError(f"{name}: the f32 forward at d = 64 ran {body}")
-        plain_ms = time_ms(lambda: attention_packed_reference(q, k, v, h), 20)
-        lib_ms, lib_device_ms = time_ms(sdpa, 20), profile_device_ms(sdpa, 20)
+        iters = 20 if d == 64 else F32_WIDE_ITERS
+        ms = time_ms(kern, iters)
+        body, device_ms = profile_flash(kern, iters)
+        want = "flash_packed_f32reg_kernel" if d == 64 else "flash_packed_kernel<"
+        if want not in body:
+            raise AssertionError(f"{name}: the f32 forward at d = {d} ran {body}")
+        plain_ms = time_ms(lambda: attention_packed_reference(q, k, v, h), iters)
+        lib_ms, lib_device_ms = time_ms(sdpa, iters), profile_device_ms(sdpa, iters)
         bms, by = f32_bound(b, sq, sk, h, d)
         body_name = lambda key: re.search(r"flash_\w+<[^>]*>", key).group(0)
         rows.append(dict(shape=name, b=b, sq=sq, sk=sk, h=h, d=d, dtype="float32",
@@ -3096,9 +3105,11 @@ def bwd_device_ms(fn, iters, part):
 
 
 def phase_kernel_f32_bwd(dev):
-    """The backward pair in f32 (dq, dk/dv: ``bwd_{dq,dkv}_f32_kernel``, by
-    name) at F32_BWD_SHAPES, from the fwd_lse kernel's out and lse, held
-    elementwise against the plain version (grad_error_limits: in f32 each
+    """The backward pair in f32 (dq, dk/dv: ``bwd_{dq,dkv}_f32reg_kernel``,
+    by name, with the cluster split the host plan picked, held to
+    ``attention.f32_bwd_split``) at F32_BWD_SHAPES, from the fwd_lse
+    kernel's out and lse, held elementwise against the plain version
+    (grad_error_limits: in f32 each
     version sums the last product in its own order, n 2^-24 T, plus the
     error F of S and dP carried through), with events and device ms, the
     plain versions' and SDPA's f32 backward (TF32 off; one call computing
@@ -3111,6 +3122,7 @@ def phase_kernel_f32_bwd(dev):
         _bwd_plain,
         _delta,
         attention_bwd_reference,
+        f32_bwd_split,
         flash_attention_bwd,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
@@ -3143,8 +3155,13 @@ def phase_kernel_f32_bwd(dev):
         dkv_fn = lambda: flash_attention_bwd_dkv(q, k, v, dout, lse, delta, h)
         dq_body, dq_dev = bwd_device_ms(dq_fn, iters, "bwd_dq")
         dkv_body, dkv_dev = bwd_device_ms(dkv_fn, iters, "bwd_dkv")
-        if "f32" not in dq_body or "f32" not in dkv_body:
-            raise AssertionError(f"f32 bwd {name}: ran {dq_body}, {dkv_body}")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = {}
+        for part, body in (("dq", dq_body), ("dkv", dkv_body)):
+            m = re.search(rf"bwd_{part}_f32reg_kernel<(\d+), (\d+), (\d+)>", body)
+            if m is None or int(m.group(3)) != f32_bwd_split(b, sq, sk, h, part == "dkv", sms):
+                raise AssertionError(f"f32 bwd {name}: ran {dq_body}, {dkv_body}")
+            splits[part] = int(m.group(3))
         split = lambda x, s_: x.view(b, s_, h, d).transpose(1, 2)
         qs, ks, vs = (split(x, s_).detach().requires_grad_()
                       for x, s_ in ((q, sq), (k, sk), (v, sk)))
@@ -3154,7 +3171,9 @@ def phase_kernel_f32_bwd(dev):
         bounds = train_bounds(torch.float32, b, sq, sk, h, d)
         row = dict(
             shape=name, b=b, sq=sq, sk=sk, h=h, d=d, dtype="float32",
-            dq_body=dq_body[:60], dkv_body=dkv_body[:60],
+            dq_body=re.search(r"bwd_\w+<[^>]*>", dq_body).group(0),
+            dkv_body=re.search(r"bwd_\w+<[^>]*>", dkv_body).group(0),
+            dq_split=splits["dq"], dkv_split=splits["dkv"],
             max_err_over_limit_dq=ratios[0], max_err_over_limit_dkv=max(ratios[1:]),
             max_abs_err_dq=errs[0].max().item(),
             max_abs_err_dkv=max(errs[1].max().item(), errs[2].max().item()),
@@ -3172,8 +3191,8 @@ def phase_kernel_f32_bwd(dev):
         row["pair_device_ms"] = dq_dev + dkv_dev
         row["pair_bound_ms"] = row["dq_bound_ms"] + row["dkv_bound_ms"]
         rows.append(row)
-        log("kernel", f"f32 bwd {name} [B={b},Sq={sq},Sk={sk},H={h},D={d}] {dq_body[:40]} / "
-            f"{dkv_body[:40]}: max_err/limit dq={ratios[0]:.3f} dk={ratios[1]:.3f} "
+        log("kernel", f"f32 bwd {name} [B={b},Sq={sq},Sk={sk},H={h},D={d}] {row['dq_body']} / "
+            f"{row['dkv_body']}: max_err/limit dq={ratios[0]:.3f} dk={ratios[1]:.3f} "
             f"dv={ratios[2]:.3f} dq_ms={row['dq_ms']:.4f} ({dq_dev:.4f}) dkv_ms="
             f"{row['dkv_ms']:.4f} ({dkv_dev:.4f}) pair {row['pair_ms']:.4f} ({row['pair_device_ms']:.4f}) "
             f"plain dq={row['dq_plain_ms']:.3f} dkv={row['dkv_plain_ms']:.3f} "

@@ -65,7 +65,9 @@ skips the fifth 16-column k-step of S (d = 80), or, at d = 512, adds a
 consumer's own partial scores twice or stores each consumer's output half
 at the other's columns (forward), skips one query tile of dk/dv,
 drops the ragged last key tile of dq or reads dv's B operand without
-wgmma's transpose bit (backward), zeroes one hidden tile's h, swaps value
+wgmma's transpose bit (backward; and in f32 at d = 64 drops dq's eighth key
+tile, loses dk/dv's ragged query tile, takes delta as 0 in either kernel or
+adds one block's partial twice in a cluster's merge), zeroes one hidden tile's h, swaps value
 and gate, drops the ragged-row guard of the output (fused and two-pass) or
 of the h scratch (rows past M must stay unwritten: their limit is 0),
 leaves a consumer's half of h unwritten, reads the h buffer of the tile
@@ -322,32 +324,41 @@ PLANTED_FAULTS = {
         "sm90::wgmma_rs<D, 1>(acc_v, pa[i], Tile::mnmajor(dos, i), 1);",
         "sm90::wgmma_rs<D, 0>(acc_v, pa[i], Tile::mnmajor(dos, i), 1);",
     ),
-    # f32 backward (the CUDA-core pair): the dq kernel's eighth key tile
-    # gets P = 0, so it adds nothing to dq
+    # f32 backward at d = 64 (the register-tiled pair): the dq kernel's
+    # eighth key tile gets P = 0, so it adds nothing to dq (the ring still
+    # hands the tile over)
     "f32_bwd_dq_drop_key_tile": (
         "flash_attention_bwd.cu",
-        "const float p = k0 + kk < Sk ? expf(sc[j] * scale - lse_r) : 0.f;",
-        "const float p = k0 + kk < Sk && k0 != 7 * kF32Tile ? expf(sc[j] * scale - lse_r)"
-        " : 0.f;",
+        "const float p = exp2_approx(fmaf(s[i][j], scale_log2, -lse2[i]));",
+        "const float p = t0 + it == 7 ? 0.f : exp2_approx(fmaf(s[i][j], scale_log2, -lse2[i]));",
     ),
-    # f32 backward: the dk/dv kernel's query mask goes, so the rows past Sq
-    # (clamped copies of the last query row) add to dk and dv
+    # f32 backward: the dk/dv kernel loses its ragged query edge: its loop
+    # stops at the last whole query tile, so the queries of the partial tile
+    # never reach dk and dv (dropping the query mask alone is no fault: the
+    # copies' zero query rows add P^T 0 to dv and dS^T = 0 to dk)
     "f32_bwd_dkv_no_ragged_mask": (
         "flash_attention_bwd.cu",
-        "const float p = q0 + qi < Sq ? expf(sc[j] * scale - lses[qi]) : 0.f;",
-        "const float p = expf(sc[j] * scale - lses[qi]);",
+        "const int n_all = (Sq + kBwdBK - 1) / kBwdBK;",
+        "const int n_all = Sq / kBwdBK;",
     ),
     # f32 backward: delta = rowsum(dO * O) taken as 0 by the dq kernel, and
     # by the dk/dv kernel
     "f32_bwd_dq_delta_zero": (
         "flash_attention_bwd.cu",
-        "const float lse_r = lse[rid], delta_r = delta[rid];",
-        "const float lse_r = lse[rid], delta_r = 0.f;",
+        "dlt[i] = ok ? delta_bh[row] * scale : 0.f;",
+        "dlt[i] = 0.f;",
     ),
     "f32_bwd_dkv_delta_zero": (
         "flash_attention_bwd.cu",
-        "      deltas[i] = deltab[s];\n",
-        "      deltas[i] = 0.f;\n",
+        "dl[j] = ok ? delta_bh[qi] * scale : 0.f;",
+        "dl[j] = 0.f;",
+    ),
+    # f32 backward split over a cluster (both kernels): the merge adds block
+    # 0's partial in place of block 1's
+    "f32_bwd_merge_twice": (
+        "flash_attention_bwd.cu",
+        "const float4 a = sm90::ld_cluster_f32x4(part + r * kBwdD + x, sp);",
+        "const float4 a = sm90::ld_cluster_f32x4(part + r * kBwdD + x, sp == 1 ? 0 : sp);",
     ),
     # GEGLU: the third hidden tile's h is zero, so it adds nothing to the
     # down-projection (the ring still hands the tile over)
@@ -439,8 +450,10 @@ PLANTED_FAULTS = {
 @pytest.fixture(scope="module")
 def faulty_libraries(tmp_path_factory):
     """One library per planted fault, built from a copy of every kernel
-    source with one of them mutated, in a temporary directory; the nvcc runs
-    go in parallel."""
+    source with one of them mutated, in a temporary directory; the builds
+    go in parallel, as many at once as the host has cores (each runs one
+    nvcc per source at once: every build at once left each nvcc so small a
+    share of the cores that the slowest passed its time limit)."""
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
@@ -458,7 +471,7 @@ def faulty_libraries(tmp_path_factory):
         (work / fname).write_text(text.replace(anchor, faulty))
         cu = sorted(str(p) for p in work.glob("*.cu"))
         jobs[name] = (cu, str(work / "libfaulty.so"))
-    with ThreadPoolExecutor(len(jobs)) as pool:
+    with ThreadPoolExecutor(min(len(jobs), os.cpu_count() or 1)) as pool:
         list(pool.map(lambda j: _build.compile_library(*j), jobs.values()))
     return {name: _build.open_library(out) for name, (_, out) in jobs.items()}
 
@@ -548,9 +561,11 @@ def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
     "fault,b,sq,sk,h,d",
     [
         # the f32 training paths: Spann3R's encoder at batch 2 and Aether's
-        # DiT (12 and 48 key tiles); VideoDepthAnything's 972 tokens (15
-        # query tiles and 12 rows: a ragged query edge); Cut3R's frame-to-
-        # state cross-attention (768 queries, 64 keys)
+        # DiT (12 and 48 key tiles, unsplit); VideoDepthAnything's 972 tokens
+        # (15 query tiles and 12 rows: a ragged query edge); Cut3R's frame-
+        # to-state cross-attention (768 queries, 64 keys: dk/dv's query
+        # tiles split over 8 blocks); the decoders' [1, 768, 8, 64] (both
+        # kernels split over 2 blocks)
         ("f32_bwd_dq_drop_key_tile", 2, 768, 768, 12, 64),
         ("f32_bwd_dq_drop_key_tile", 1, 3072, 3072, 12, 64),
         ("f32_bwd_dkv_no_ragged_mask", 2, 972, 972, 16, 64),
@@ -558,6 +573,8 @@ def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
         ("f32_bwd_dq_delta_zero", 2, 768, 768, 12, 64),
         ("f32_bwd_dkv_delta_zero", 1, 768, 64, 8, 64),
         ("f32_bwd_dkv_delta_zero", 2, 972, 972, 16, 64),
+        ("f32_bwd_merge_twice", 1, 768, 768, 8, 64),
+        ("f32_bwd_merge_twice", 1, 768, 64, 8, 64),
     ],
 )
 def test_f32_bwd_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, sq, sk, h, d):
@@ -565,7 +582,7 @@ def test_f32_bwd_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, sq
     at the training shapes, and a copy with a planted fault fails them by at
     least 3x.  Cut3R's [1, 768 -> 64, 8, 64] has no ragged edge for the
     64-row tiles (12 query tiles, one key tile), so the dk/dv kernel's query
-    mask is held at VideoDepthAnything's 972 tokens."""
+    edge is held at VideoDepthAnything's 972 tokens."""
     lib = faulty_libraries[fault]
     q, k, v = _qkv(b, sq, sk, h, d, torch.float32, cuda, seed=5)
     out, lse, dout = _fwd_and_dout(q, k, v, h, seed=6)
@@ -646,16 +663,20 @@ def test_fwd_kernels_are_bitwise_reproducible(cuda, b, sq, sk, h, d):
         assert torch.equal(x, y)
 
 
-def _f32reg_launches(fn):
-    """The f32 forward kernels ``fn()`` launched, by torch.profiler: [(name,
-    template arguments or None for the earlier body)]."""
+def _f32reg_launches(fn, part="flash_", iters=5):
+    """The kernels whose names hold ``part`` (the f32 forward's by default,
+    ``bwd_`` the backward's) that ``iters`` calls of ``fn()`` launched, by
+    torch.profiler: [(name, template arguments of an f32reg body or None)].
+    A trace can lose the first records of its window (a one-call window
+    came back empty or without its second kernel on the card): over
+    several calls every kernel a call launches is still seen."""
     import re
 
     from unigeo_tpu_torch.tools.forward_variants import _profiled_kernels
 
     found = []
-    for e in _profiled_kernels(fn, 1):
-        if "flash_" in e.key:
+    for e in _profiled_kernels(fn, iters):
+        if part in e.key:
             m = re.search(r"f32reg_kernel<(\d+), (\d+), (\d+)>", e.key)
             found.append((e.key, tuple(int(x) for x in m.groups()) if m else None))
     return found
@@ -709,15 +730,17 @@ def test_f32_other_widths_keep_the_earlier_body(cuda):
         attention._launch(_build.load_library(), qs, ks, vs, h, d**-0.5)
 
 
-def test_f32_d64_body_compiles_to_fma_and_16_byte_loads(cuda):
-    """What ptxas and cuobjdump show of every f32reg kernel
-    (tools/kernel_report.py): no spill (0 bytes, no local loads or stores),
-    no tensor-core instruction (so no TF32 product), f32 FMAs, 16-byte
-    shared loads (LDS.128) and cp.async copies (LDGSTS)."""
+@pytest.mark.parametrize("source,count", [("flash_attention_packed.cu", 3),
+                                          ("flash_attention_bwd.cu", 2)])
+def test_f32_d64_body_compiles_to_fma_and_16_byte_loads(cuda, source, count):
+    """What ptxas and cuobjdump show of every f32reg kernel of the forward
+    and of the backward pair (tools/kernel_report.py): no spill (0 bytes, no
+    local loads or stores), no tensor-core instruction (so no TF32 product),
+    f32 FMAs, 16-byte shared loads (LDS.128) and cp.async copies (LDGSTS)."""
     from unigeo_tpu_torch.tools import kernel_report
 
-    kernels = kernel_report.main(["--match", "f32reg"])["kernels"]
-    assert len(kernels) >= 3, kernels
+    kernels = kernel_report.main(["--source", source, "--match", "f32reg"])["kernels"]
+    assert len(kernels) >= count, kernels
     for name, rep in kernels.items():
         sass = rep["sass"]
         assert rep["spill_stores"] == rep["spill_loads"] == 0, (name, rep)
@@ -806,6 +829,12 @@ BWD_CASES = [
     (torch.float32, 2, 70, 100, 3, 16),
     (torch.float32, 2, 257, 100, 4, 64),
     (torch.float32, 1, 100, 1, 2, 64),
+    # f32 at d = 64 (the register-tiled pair): both sides ragged, a single
+    # query block with three of its four warps past Sq, and Cut3R's 64 state
+    # keys (dk/dv's query tiles split over 8 blocks)
+    (torch.float32, 2, 130, 61, 2, 64),
+    (torch.float32, 1, 5, 300, 4, 64),
+    (torch.float32, 1, 768, 64, 8, 64),
     (torch.float32, 1, 200, 150, 1, 128),
     (torch.bfloat16, 2, 70, 100, 3, 16),
     (torch.bfloat16, 1, 200, 150, 1, 64),
@@ -848,11 +877,20 @@ def test_bwd_kernels_match_plain_bf16_main_path_shapes(cuda, b, s, h, d):
     assert max(ratios) <= 1.0, ratios
 
 
-@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 3072, 3072, 5, 64), (2, 257, 100, 4, 16)])
-def test_bwd_kernels_are_bitwise_reproducible(cuda, b, sq, sk, h, d):
-    """Every output element is written by one block, once: two launches on
-    the same inputs give the same bits."""
-    q, k, v = _qkv(b, sq, sk, h, d, torch.bfloat16, cuda, seed=17)
+@pytest.mark.parametrize(
+    "dtype,b,sq,sk,h,d",
+    [(torch.bfloat16, 2, 3072, 3072, 5, 64), (torch.bfloat16, 2, 257, 100, 4, 16),
+     # f32 at d = 64: both kernels split over a cluster (the decoders'
+     # shape), dk/dv split over 8 blocks (Cut3R's 64 state keys), and
+     # VideoDepthAnything's ragged 972 tokens unsplit
+     (torch.float32, 1, 768, 768, 8, 64), (torch.float32, 1, 768, 64, 8, 64),
+     (torch.float32, 2, 972, 972, 16, 64)],
+)
+def test_bwd_kernels_are_bitwise_reproducible(cuda, dtype, b, sq, sk, h, d):
+    """Every output element is written by one block, once (a split's
+    partials added in rank order): two launches on the same inputs give the
+    same bits."""
+    q, k, v = _qkv(b, sq, sk, h, d, dtype, cuda, seed=17)
     out, lse, dout = _fwd_and_dout(q, k, v, h, seed=18)
     delta = _delta(out, dout, h)
     first = (flash_attention_bwd_dq(q, k, v, dout, lse, delta, h),
@@ -900,10 +938,48 @@ def test_bwd_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):  # non-contiguous dO
         flash_attention_bwd(q, k, v, out, lse, wide[:, :, : dout.shape[2]], 2)
     b, s, h, d = 1, 150, 2, 64
-    q, k, v, out, lse, dout = args(b, s, h, d, torch.bfloat16)
     shift = lambda x: torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(b, s, h * d)
-    with pytest.raises(ValueError):  # rows not aligned to 16 bytes
-        flash_attention_bwd(shift(q), shift(k), shift(v), shift(out), lse, shift(dout), h)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, out, lse, dout = args(b, s, h, d, dtype)
+        qs, ks, vs, dos = shift(q), shift(k), shift(v), shift(dout)
+        assert qs.is_contiguous() and qs.data_ptr() % 16 != 0
+        with pytest.raises(ValueError):  # rows not aligned to 16 bytes
+            flash_attention_bwd(qs, ks, vs, shift(out), lse, dos, h)
+        if dtype == torch.float32:
+            # the f32 d = 64 bodies refuse the launch too: no other body is tried
+            delta = _delta(out, dout, h)
+            lib = _build.load_library()
+            with pytest.raises(RuntimeError):
+                attention._launch_bwd_dq(lib, qs, ks, vs, dos, lse, delta, h, d**-0.5)
+            with pytest.raises(RuntimeError):
+                attention._launch_bwd_dkv(lib, qs, ks, vs, dos, lse, delta, h, d**-0.5)
+
+
+@pytest.mark.parametrize("b,sq,sk,h", [(2, 768, 768, 12), (1, 768, 768, 8), (1, 768, 64, 8),
+                                       (2, 130, 61, 2)])
+def test_f32_bwd_d64_runs_the_register_tiled_bodies(cuda, b, sq, sk, h):
+    """f32 at d = 64: the pair runs bwd_dq_f32reg_kernel and
+    bwd_dkv_f32reg_kernel (by the profiler's kernel names), split over a
+    cluster where the items leave SMs without a block (the plan,
+    ``attention.f32_bwd_split`` at this card's SMs); at d = 32 the earlier
+    bwd_{dq,dkv}_f32_kernel<NCOL> run as before."""
+    q, k, v = _qkv(b, sq, sk, h, 64, torch.float32, cuda, seed=26)
+    out, lse, dout = _fwd_and_dout(q, k, v, h, seed=27)
+    launched = _f32reg_launches(lambda: flash_attention_bwd(q, k, v, out, lse, dout, h), "bwd_")
+    names = {("dkv" if "bwd_dkv" in name else "dq"): (name, args) for name, args in launched}
+    assert len(launched) == 2 and set(names) == {"dq", "dkv"}, launched
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for part in ("dq", "dkv"):
+        name, args = names[part]
+        assert f"bwd_{part}_f32reg_kernel" in name, launched
+        assert args[0] * 16 == attention.BWD_F32_BLOCK_ROWS, launched
+        assert args[2] == attention.f32_bwd_split(b, sq, sk, h, part == "dkv", sms), (
+            part, launched, sms)
+    q, k, v = _qkv(1, 200, 150, 2, 32, torch.float32, cuda, seed=28)
+    out, lse, dout = _fwd_and_dout(q, k, v, 2, seed=29)
+    launched = _f32reg_launches(lambda: flash_attention_bwd(q, k, v, out, lse, dout, 2), "bwd_")
+    assert [args for _, args in launched] == [None, None], launched
+    assert all("f32_kernel<" in name for name, _ in launched), launched
 
 
 # --- the head-split forward ---------------------------------------------------

@@ -50,10 +50,11 @@ def test_sass_counts_the_f32_body_instructions():
     counts = sass_counts(SASS, "f32reg")
     assert list(counts) == [F32REG]
     assert counts[F32REG] == {"LDGSTS": 1, "LDS": 2, "LDS.128": 1, "FFMA": 2, "MUFU": 1,
-                              "MUFU.EX2": 1, "SHFL": 1, "STS": 1, "STS.128": 1, "BAR": 1}
+                              "MUFU.EX2": 1, "SHFL": 1, "STS": 1, "STS.128": 1, "BAR": 1,
+                              "total": 10}
 
 
-@pytest.mark.parametrize("match,expected", [("wgmma", {"tensor_core": 1, "STL": 1}),
+@pytest.mark.parametrize("match,expected", [("wgmma", {"tensor_core": 1, "STL": 1, "total": 2}),
                                             ("no_such_kernel", None)])
 def test_sass_counts_tensor_core_ops_and_spills_per_match(match, expected):
     counts = sass_counts(SASS, match)

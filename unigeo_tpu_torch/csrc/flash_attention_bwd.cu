@@ -65,10 +65,29 @@
 //   still set P = 0 for keys past Sk (dq) and queries past Sq (dk/dv), so
 //   no row past the edge can reach a sum, and store no row past Sq / Sk.
 //
-// f32 (bwd_*_f32_kernel), any D up to 128: CUDA-core FMAs, the numerics for
-// f32 checks on the card.  256 threads own 64 rows, four lanes a row, each
-// lane holding 16 scores of a 64-wide tile and D/4 columns of the
-// accumulators; tile loads clamp their row index to the last valid row.
+// f32: CUDA-core FMAs, exact f32 (no tensor core, so no TF32), the numerics
+// of the f32 training paths (Spann3R, Dust3R, Cut3R, VideoDepthAnything and
+// Aether, all at D = 64).  What bounds the pair there: the 7 products'
+// 14*B*H*Sq*Sk*D operations at the CUDA cores' 67 TF/s against
+// 4*B*H*D*(5*Sq + 6*Sk) bytes (each kernel reads q, k, v and dO, dq writes
+// dq, dk/dv writes dk and dv; lse and delta add 8 bytes a query row to
+// each): 244 operations a byte at 768 tokens and 41 at Cut3R's 768 queries
+// over 64 keys, above the 20 at which the FMA units rather than memory
+// become the limit, so operations bound every training shape.  Two bodies,
+// one switch by head width (dispatch):
+//
+// * D = 64: bwd_{dq,dkv}_f32reg_kernel<kWarps, kStages, kSplit>, register-
+//   tiled and fed by a cp.async ring (see its section below).  What held
+//   the earlier body to 17-20% of the f32 rate was shared memory, one 4-byte
+//   load per FMA; these load 16 bytes for 10.7 FMAs, hide the copies under
+//   the products, and split the looped tiles over a cluster where the items
+//   leave SMs idle.  Rows must be aligned to 16 bytes (else the launch is
+//   refused).
+// * any other D up to 128 (the checks' 8, 16, 32 and 128):
+//   bwd_{dq,dkv}_f32_kernel<NCOL>.  256 threads own 64 rows, four lanes a
+//   row, each lane holding 16 scores of a 64-wide tile and D/4 columns of
+//   the accumulators; tile loads clamp their row index to the last valid
+//   row.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -83,6 +102,13 @@ namespace {
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ int clamp_row(int s, int S) { return s < S ? s : S - 1; }
+
+// 2^x by the SFU (ex2.approx.ftz: 2 ulp, results below 2^-126 flushed to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // ---------------------------------------------------------------------------
 // f32, CUDA cores
@@ -291,6 +317,436 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// f32 at D = 64 (the f32 training paths): register-tiled CUDA-core bodies
+// fed by a cp.async ring, bwd_dq_f32reg_kernel and bwd_dkv_f32reg_kernel
+// <kWarps, kStages, kSplit>.  Exact f32: every product and sum is an f32 FMA
+// or add on the CUDA cores (no tensor core, so no TF32), P one SFU ex2 in
+// log2 units (the score times scale log2 e, less lse log2 e).
+//
+// A block owns kRows = 16 kWarps rows of one (batch, head), resident in
+// shared memory with their partner: query rows with dO (dq), key rows with
+// v (dk/dv); 64-row tiles of the other side stream through a ring.  A warp
+// owns 16 rows whole; lane (rg, cl) = (lane / 8, lane % 8) holds rows
+// rg + 4i (i < 4) of its warp's, the scores of the streamed rows cl + 8j
+// (j < 8) of each tile, and the accumulator columns [4cl, 4cl + 4) and
+// [32 + 4cl, 36 + 4cl).
+//
+// * dq: per key tile, S = q k^T and dP = dO v^T as 4 x 8 register tiles fed
+//   by 16-byte loads along d (4 q and 8 k loads feed 128 FMAs, 10.7 a load);
+//   P = 2^(S scale log2 e - lse log2 e), 0 for keys past Sk; dS = P (dP scale
+//   - delta scale).  dS goes through the warp's own [64][16] buffer (a
+//   lane's 4 rows of key kk in one 16-byte slot, XOR-swizzled by kk so a
+//   quarter-warp's 8 stores fall in distinct banks), and dq += dS k takes
+//   one dS load and two k loads per 32 FMAs.
+// * dk/dv: the same, transposed.  S^T = k q^T, P^T (0 for queries past Sq)
+//   into the buffer, dv += P^T dO; then dP^T = v dO^T and dS^T = P^T (dP^T
+//   scale - delta scale), P^T read back from the lane's own slots, dS^T into
+//   the buffer, dk += dS^T q.  A lane holds dk and dv (64 floats) and one
+//   score tile at a time, not the 128 floats of both tiles and both
+//   accumulators.  lse and delta of the lane's 8 queries of a tile are read
+//   from device memory (L2) before S^T, whose products hide the latency;
+//   rows past Sq are never read.
+// * Layout: every tile is [rows][64] f32, its 16-byte chunks XOR-swizzled by
+//   the row's low 3 bits (swz).  The 8 rows cl + 8j that a quarter-warp
+//   reads at one d, the 4 rows rg + 4i that a warp reads, and the 8 chunks
+//   of a row that the update reads each fall in distinct banks, with no
+//   padding: a block of 4 warps takes 112 KB, and two share an SM.
+// * Copies: every thread issues 16-byte cp.async (L2 only) for its share of
+//   the resident rows (once) and of each streamed tile into a ring of
+//   kStages slots, one commit group per tile; at tile it a thread waits for
+//   its own group, one __syncthreads makes every thread's copies visible
+//   and frees the slot of tile it - 1, which then takes tile it + kStages -
+//   1 while tile it is computed.  cp.async and not the TMA, as in the f32
+//   forward: the TMA's swizzles are patterns for 16-bit tensor-core tiles,
+//   not the one these loads need.  Rows past Sq or Sk are zero-filled by the
+//   copy (so the masks above only make sure: a zero key row adds dS 0 to
+//   dq, a zero query row P^T 0 to dv and dS^T = 0 to dk); a warp whose
+//   rows all lie past the edge skips the products; no row past the edge is
+//   stored.
+//
+// kSplit > 1 (few items: the decoders' [1, 768, 8, 64], Cut3R's dk/dv over
+// its 64 state keys): the looped tiles (key tiles for dq, query tiles for
+// dk/dv) split over the kSplit blocks of a cluster, block r taking tiles
+// [r n / kSplit, (r + 1) n / kSplit); each keeps its partial sums in its
+// shared memory, and after a cluster barrier block r adds up rows [r kRows
+// / kSplit, (r + 1) kRows / kSplit) of every block's partials in rank order
+// (merge_partials).  No atomics and a fixed order: two launches give the
+// same bits.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdD = 64;   // the bodies' head width
+constexpr int kBwdBK = 64;  // rows of a streamed tile
+constexpr int kBwdTM = 4;   // a lane's rows
+// the products' loops unrolled by 8 steps of 4 d, the updates' by 16 rows:
+// the loop bodies stay small enough for the instruction caches
+constexpr int kBwdUnrollD = 8, kBwdUnrollK = 16;
+
+template <int kWarps, int kStages, int kSplit>
+struct BwdRegShape {
+  static constexpr int kRows = 4 * kBwdTM * kWarps;        // resident rows of a block
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kTileFloats = kBwdBK * kBwdD;       // one streamed tile
+  static constexpr int kSlotFloats = 2 * kTileFloats;      // (k, v) or (q, dO)
+  static constexpr int kBufFloats = kBwdBK * 4 * kBwdTM;   // a warp's P / dS buffer
+  static constexpr int kFloats = 2 * kRows * kBwdD + kStages * kSlotFloats + kWarps * kBufFloats;
+  // blocks an SM holds by shared memory (228 KB an SM, 1 KB reserved a
+  // block), at most 4; the launch bounds hold registers to what that many
+  // need
+  static constexpr int kBlocksPerSm =
+      233472 / (kFloats * 4 + 1024) < 4 ? 233472 / (kFloats * 4 + 1024) : 4;
+  static_assert(kBwdTM == 4, "a lane's rows of a streamed row fill one 16-byte slot");
+  static_assert(kStages >= 2, "a ring of at least two slots");
+  static_assert(kSplit == 1 || kSplit == 2 || kSplit == 4 || kSplit == 8, "clusters of 1-8");
+  // the merge's partials ([kRows][64] for dq, two of them for dk/dv) over the ring
+  static_assert(2 * kRows * kBwdD <= kStages * kSlotFloats, "merge space");
+  static_assert(kRows * 16 % kThreads == 0 && kBwdBK * 16 % kThreads == 0, "whole copies");
+  static_assert(kRows / kSplit * 16 % kThreads == 0, "whole merge steps");
+};
+
+// the float offset of 16-byte chunk x (x < 16) of row r of a [rows][64] tile
+// whose chunks are XOR-swizzled by the row's low 3 bits
+__device__ __forceinline__ int swz(int r, int x) { return r * kBwdD + 4 * (x ^ (r & 7)); }
+
+// rows [r0, r0 + R) of one head's rows `src` (row stride ss floats) into the
+// swizzled tile `dst`, 16 bytes per copy; rows at or past `lim` are
+// zero-filled (r0 < lim, so row r0 is a valid address)
+template <int R, int NT>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src, int64_t ss, int r0,
+                                          int lim, int tid) {
+#pragma unroll
+  for (int n = 0; n < R * 16 / NT; ++n) {
+    const int c = tid + n * NT, r = c / 16, x = c % 16;
+    const bool ok = r0 + r < lim;
+    sm90::cp_async16(dst + swz(r, x), src + (int64_t)(ok ? r0 + r : r0) * ss + 4 * x, ok);
+  }
+}
+
+// The float offset in a warp's buffer (4 float4 slots a streamed row, one
+// per row group) of row kk's slot of row group rg, XORed with a pattern of
+// kk that spreads a quarter-warp's 8 rows (cl + 8j) over distinct banks
+__device__ __forceinline__ int buf_offset(int kk, int rg) {
+  return 16 * kk + 4 * (rg ^ ((kk >> 1) & 3));
+}
+
+// x[i][j] = sum_d a[row0 + 4i][d] b[cl + 8j][d]: the lane's 4 resident rows
+// of `a` against 8 streamed rows of `b` (both swizzled tiles), in 16-byte
+// loads along d, each sum in the order of d
+__device__ __forceinline__ void tile_scores(float (&x)[kBwdTM][8], const float* a,
+                                            const float* b, int row0, int cl) {
+#pragma unroll
+  for (int i = 0; i < kBwdTM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[i][j] = 0.f;
+#pragma unroll (kBwdUnrollD)
+  for (int c = 0; c < kBwdD / 4; ++c) {
+    float4 av[kBwdTM];
+#pragma unroll
+    for (int i = 0; i < kBwdTM; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + swz(row0 + 4 * i, c));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 bv = *reinterpret_cast<const float4*>(b + swz(cl + 8 * j, c));
+#pragma unroll
+      for (int i = 0; i < kBwdTM; ++i) {
+        x[i][j] = fmaf(av[i].x, bv.x, x[i][j]);
+        x[i][j] = fmaf(av[i].y, bv.y, x[i][j]);
+        x[i][j] = fmaf(av[i].z, bv.z, x[i][j]);
+        x[i][j] = fmaf(av[i].w, bv.w, x[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][.] += sum_kk w[kk][i] t[kk][.]: the warp's buffer (row kk's slot of
+// row group rg holds the lane's 4 rows' weights) times the streamed tile `t`
+// at the lane's columns [4cl, 4cl + 4) and [32 + 4cl, 36 + 4cl), kk in order
+__device__ __forceinline__ void tile_update(float (&acc)[kBwdTM][8], const float* buf,
+                                            const float* t, int rg, int cl) {
+  static_assert(kBwdUnrollK % 8 == 0, "the slot and chunk patterns repeat every 8 rows");
+#pragma unroll (kBwdUnrollK)
+  for (int kk = 0; kk < kBwdBK; ++kk) {
+    const float4 w = *reinterpret_cast<const float4*>(buf + buf_offset(kk, rg));
+    const float wr[kBwdTM] = {w.x, w.y, w.z, w.w};
+    const float4 lo = *reinterpret_cast<const float4*>(t + swz(kk, cl));
+    const float4 hi = *reinterpret_cast<const float4*>(t + swz(kk, 8 + cl));
+#pragma unroll
+    for (int i = 0; i < kBwdTM; ++i) {
+      acc[i][0] = fmaf(wr[i], lo.x, acc[i][0]);
+      acc[i][1] = fmaf(wr[i], lo.y, acc[i][1]);
+      acc[i][2] = fmaf(wr[i], lo.z, acc[i][2]);
+      acc[i][3] = fmaf(wr[i], lo.w, acc[i][3]);
+      acc[i][4] = fmaf(wr[i], hi.x, acc[i][4]);
+      acc[i][5] = fmaf(wr[i], hi.y, acc[i][5]);
+      acc[i][6] = fmaf(wr[i], hi.z, acc[i][6]);
+      acc[i][7] = fmaf(wr[i], hi.w, acc[i][7]);
+    }
+  }
+}
+
+// buffer slots of the streamed rows cl + 8j: the lane's 4 rows of x
+__device__ __forceinline__ void put_slots(float* buf, const float (&x)[kBwdTM][8], int rg,
+                                          int cl) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    *reinterpret_cast<float4*>(buf + buf_offset(cl + 8 * j, rg)) =
+        make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
+}
+
+// the lane's rows first + 4i of acc into the packed rows `out` (row stride
+// ss), rows at or past S not stored
+__device__ __forceinline__ void store_rows_f32(float* out, int64_t ss,
+                                               const float (&acc)[kBwdTM][8], int first, int S,
+                                               int cl) {
+#pragma unroll
+  for (int i = 0; i < kBwdTM; ++i) {
+    const int row = first + 4 * i;
+    if (row >= S) continue;
+    float* o = out + (int64_t)row * ss + 4 * cl;
+    *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(o + 32) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
+// rows [r0, r0 + R) of the cluster's partials (each block's [rows][64] at
+// the same shared offset `part`) added up in rank order into the packed rows
+// `out` (row stride ss) from row `base` on, rows at or past S not stored
+template <int kSplit, int R, int NT>
+__device__ __forceinline__ void merge_partials(const float* part, int r0, float* out, int64_t ss,
+                                               int base, int S, int tid) {
+#pragma unroll
+  for (int n = 0; n < R * 16 / NT; ++n) {
+    const int c = tid + n * NT, r = r0 + c / 16, x = 4 * (c % 16);
+    float4 y = sm90::ld_cluster_f32x4(part + r * kBwdD + x, 0);
+#pragma unroll
+    for (int sp = 1; sp < kSplit; ++sp) {  // rank order
+      const float4 a = sm90::ld_cluster_f32x4(part + r * kBwdD + x, sp);
+      y = make_float4(y.x + a.x, y.y + a.y, y.z + a.z, y.w + a.w);
+    }
+    if (base + r < S) *reinterpret_cast<float4*>(out + (int64_t)(base + r) * ss + x) = y;
+  }
+}
+
+#define UNIGEO_BWD_REG_PARAMS                                                              \
+  const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,  \
+      const float* __restrict__ dout, const float* __restrict__ lse,                      \
+      const float* __restrict__ delta
+
+template <int kWarps, int kStages, int kSplit>
+__global__ void __launch_bounds__(BwdRegShape<kWarps, kStages, kSplit>::kThreads,
+                                  BwdRegShape<kWarps, kStages, kSplit>::kBlocksPerSm)
+bwd_dq_f32reg_kernel(UNIGEO_BWD_REG_PARAMS, float* __restrict__ dq, int Sq, int Sk,
+                     float scale) {
+  using Shape = BwdRegShape<kWarps, kStages, kSplit>;
+  constexpr int BQ = Shape::kRows, NT = Shape::kThreads, TM = kBwdTM;
+  extern __shared__ __align__(16) float bwd_reg_smem[];
+  float* qs = bwd_reg_smem;                           // [BQ][64], resident
+  float* dos = qs + BQ * kBwdD;                       // [BQ][64], resident
+  float* ring = dos + BQ * kBwdD;                     // kStages x (k, v) [64][64]
+  float* bufs = ring + kStages * Shape::kSlotFloats;  // kWarps x [64][16]
+
+  const float scale_log2 = scale * kLog2e;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rg = lane / 8, cl = lane % 8;
+  const int split = kSplit > 1 ? (int)sm90::cluster_rank() : 0;
+  const int q0 = blockIdx.x / kSplit * BQ, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int64_t hd = (int64_t)H * kBwdD, bh = (int64_t)b * H + h;
+  const int n_all = (Sk + kBwdBK - 1) / kBwdBK;
+  const int t0 = split * n_all / kSplit, n_tiles = (split + 1) * n_all / kSplit - t0;
+  const int64_t qoff = (int64_t)b * Sq * hd + (int64_t)h * kBwdD;
+  const int64_t koff = (int64_t)b * Sk * hd + (int64_t)h * kBwdD;
+  const auto issue = [&](int it) {  // key tile t0 + it into its slot
+    float* slot = ring + it % kStages * Shape::kSlotFloats;
+    const int k0 = (t0 + it) * kBwdBK;
+    copy_tile<kBwdBK, NT>(slot, k + koff, hd, k0, Sk, tid);
+    copy_tile<kBwdBK, NT>(slot + Shape::kTileFloats, v + koff, hd, k0, Sk, tid);
+  };
+  copy_tile<BQ, NT>(qs, q + qoff, hd, q0, Sq, tid);  // q and dO join tile 0's group
+  copy_tile<BQ, NT>(dos, dout + qoff, hd, q0, Sq, tid);
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < n_tiles) issue(it);
+    sm90::cp_async_commit();
+  }
+
+  // lse log2 e and delta scale of this lane's rows row0 + 4i (0 past Sq)
+  const int row0 = warp * 4 * TM + rg;
+  const bool live = q0 + warp * 4 * TM < Sq;  // the warp holds a query row
+  const float* lse_bh = lse + bh * Sq;
+  const float* delta_bh = delta + bh * Sq;
+  float lse2[TM], dlt[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = q0 + row0 + 4 * i;
+    const bool ok = row < Sq;
+    lse2[i] = ok ? lse_bh[row] * kLog2e : 0.f;
+    dlt[i] = ok ? delta_bh[row] * scale : 0.f;
+  }
+  float* buf = bufs + warp * Shape::kBufFloats;
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    sm90::cp_async_wait<kStages - 2>();  // this thread's copies of tile it
+    __syncthreads();                     // everyone's; and tile it - 1 is consumed
+    if (it + kStages - 1 < n_tiles) issue(it + kStages - 1);
+    sm90::cp_async_commit();  // (empty past the last tile: the count stays uniform)
+    if (!live) continue;
+    const float* ks = ring + it % kStages * Shape::kSlotFloats;
+    const float* vs = ks + Shape::kTileFloats;
+
+    float s[TM][8], dp[TM][8];
+    tile_scores(s, qs, ks, row0, cl);    // S = q k^T
+    tile_scores(dp, dos, vs, row0, cl);  // dP = dO v^T
+    // s <- dS = P (dP scale - delta scale); key cl + 8j of the tile is one
+    // iff cl + 8j < lim, else P = 0
+    const int lim = Sk - (t0 + it) * kBwdBK;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float p = exp2_approx(fmaf(s[i][j], scale_log2, -lse2[i]));
+        s[i][j] = cl + 8 * j < lim ? p * fmaf(dp[i][j], scale, -dlt[i]) : 0.f;
+      }
+    __syncwarp();  // the warp's lanes have read the previous tile's dS
+    put_slots(buf, s, rg, cl);
+    __syncwarp();
+    tile_update(acc, buf, ks, rg, cl);  // dq += dS k
+  }
+
+  if constexpr (kSplit == 1) {
+    store_rows_f32(dq + qoff, hd, acc, q0 + row0, Sq, cl);
+  } else {
+    // the partial [BQ][64] over the ring (every copy has landed and been read)
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+    store_rows_f32(ring, kBwdD, acc, row0, BQ, cl);
+    sm90::cluster_sync();  // every block's partials are written
+    constexpr int R = BQ / kSplit;  // rows this block adds up
+    merge_partials<kSplit, R, NT>(ring, split * R, dq + qoff, hd, q0, Sq, tid);
+    sm90::cluster_sync();  // no block leaves while another reads its partials
+  }
+}
+
+template <int kWarps, int kStages, int kSplit>
+__global__ void __launch_bounds__(BwdRegShape<kWarps, kStages, kSplit>::kThreads,
+                                  BwdRegShape<kWarps, kStages, kSplit>::kBlocksPerSm)
+bwd_dkv_f32reg_kernel(UNIGEO_BWD_REG_PARAMS, float* __restrict__ dk, float* __restrict__ dv,
+                      int Sq, int Sk, float scale) {
+  using Shape = BwdRegShape<kWarps, kStages, kSplit>;
+  constexpr int BK = Shape::kRows, NT = Shape::kThreads, TM = kBwdTM;
+  extern __shared__ __align__(16) float bwd_reg_smem[];
+  float* ks = bwd_reg_smem;                           // [BK][64], resident
+  float* vs = ks + BK * kBwdD;                        // [BK][64], resident
+  float* ring = vs + BK * kBwdD;                      // kStages x (q, dO) [64][64]
+  float* bufs = ring + kStages * Shape::kSlotFloats;  // kWarps x [64][16]
+
+  const float scale_log2 = scale * kLog2e;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, rg = lane / 8, cl = lane % 8;
+  const int split = kSplit > 1 ? (int)sm90::cluster_rank() : 0;
+  const int k0 = blockIdx.x / kSplit * BK, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int64_t hd = (int64_t)H * kBwdD, bh = (int64_t)b * H + h;
+  const int n_all = (Sq + kBwdBK - 1) / kBwdBK;
+  const int t0 = split * n_all / kSplit, n_tiles = (split + 1) * n_all / kSplit - t0;
+  const int64_t qoff = (int64_t)b * Sq * hd + (int64_t)h * kBwdD;
+  const int64_t koff = (int64_t)b * Sk * hd + (int64_t)h * kBwdD;
+  const auto issue = [&](int it) {  // query tile t0 + it into its slot
+    float* slot = ring + it % kStages * Shape::kSlotFloats;
+    const int q0 = (t0 + it) * kBwdBK;
+    copy_tile<kBwdBK, NT>(slot, q + qoff, hd, q0, Sq, tid);
+    copy_tile<kBwdBK, NT>(slot + Shape::kTileFloats, dout + qoff, hd, q0, Sq, tid);
+  };
+  copy_tile<BK, NT>(ks, k + koff, hd, k0, Sk, tid);  // k and v join tile 0's group
+  copy_tile<BK, NT>(vs, v + koff, hd, k0, Sk, tid);
+#pragma unroll
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < n_tiles) issue(it);
+    sm90::cp_async_commit();
+  }
+
+  const int row0 = warp * 4 * TM + rg;        // this lane's key rows: row0 + 4i
+  const bool live = k0 + warp * 4 * TM < Sk;  // the warp holds a key row
+  const float* lse_bh = lse + bh * Sq;
+  const float* delta_bh = delta + bh * Sq;
+  float* buf = bufs + warp * Shape::kBufFloats;
+  float acck[TM][8], accv[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acck[i][c] = accv[i][c] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    sm90::cp_async_wait<kStages - 2>();  // this thread's copies of tile it
+    __syncthreads();                     // everyone's; and tile it - 1 is consumed
+    if (it + kStages - 1 < n_tiles) issue(it + kStages - 1);
+    sm90::cp_async_commit();  // (empty past the last tile: the count stays uniform)
+    if (!live) continue;
+    const float* qs = ring + it % kStages * Shape::kSlotFloats;
+    const float* dos = qs + Shape::kTileFloats;
+
+    // lse log2 e and delta scale of this lane's queries cl + 8j, a query iff
+    // cl + 8j < lim (read while S^T runs; 0 past Sq)
+    const int q0 = (t0 + it) * kBwdBK, lim = Sq - q0;
+    float l2[8], dl[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qi = q0 + cl + 8 * j;
+      const bool ok = cl + 8 * j < lim;
+      l2[j] = ok ? lse_bh[qi] * kLog2e : 0.f;
+      dl[j] = ok ? delta_bh[qi] * scale : 0.f;
+    }
+    float x[TM][8];
+    tile_scores(x, ks, qs, row0, cl);  // S^T = k q^T
+    // x <- P^T, 0 for queries past Sq
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float p = exp2_approx(fmaf(x[i][j], scale_log2, -l2[j]));
+        x[i][j] = cl + 8 * j < lim ? p : 0.f;
+      }
+    __syncwarp();  // the warp's lanes have read the previous tile's dS^T
+    put_slots(buf, x, rg, cl);
+    __syncwarp();
+    tile_update(accv, buf, dos, rg, cl);  // dv += P^T dO
+    tile_scores(x, vs, dos, row0, cl);    // dP^T = v dO^T
+    // x <- dS^T = P^T (dP^T scale - delta scale), P^T from the lane's own slots
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 p = *reinterpret_cast<const float4*>(buf + buf_offset(cl + 8 * j, rg));
+      x[0][j] = p.x * fmaf(x[0][j], scale, -dl[j]);
+      x[1][j] = p.y * fmaf(x[1][j], scale, -dl[j]);
+      x[2][j] = p.z * fmaf(x[2][j], scale, -dl[j]);
+      x[3][j] = p.w * fmaf(x[3][j], scale, -dl[j]);
+    }
+    __syncwarp();  // every lane has read P^T
+    put_slots(buf, x, rg, cl);
+    __syncwarp();
+    tile_update(acck, buf, qs, rg, cl);  // dk += dS^T q
+  }
+
+  if constexpr (kSplit == 1) {
+    store_rows_f32(dk + koff, hd, acck, k0 + row0, Sk, cl);
+    store_rows_f32(dv + koff, hd, accv, k0 + row0, Sk, cl);
+  } else {
+    // the partials [BK][64] over the ring (every copy has landed and been read)
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+    float* part_v = ring + BK * kBwdD;
+    store_rows_f32(ring, kBwdD, acck, row0, BK, cl);
+    store_rows_f32(part_v, kBwdD, accv, row0, BK, cl);
+    sm90::cluster_sync();  // every block's partials are written
+    constexpr int R = BK / kSplit;  // rows this block adds up
+    merge_partials<kSplit, R, NT>(ring, split * R, dk + koff, hd, k0, Sk, tid);
+    merge_partials<kSplit, R, NT>(part_v, split * R, dv + koff, hd, k0, Sk, tid);
+    sm90::cluster_sync();  // no block leaves while another reads its partials
+  }
+}
+
+#undef UNIGEO_BWD_REG_PARAMS
+
+// ---------------------------------------------------------------------------
 // bf16, tensor cores: TMA -> mbarrier ring -> wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
@@ -311,13 +767,6 @@ struct Block {
   // the registers the producer gives up, shared among the consumers
   static constexpr int kConsumerRegs = (65536 - 128 * kProducerRegs) / (128 * C) / 8 * 8;
 };
-
-// 2^x by the SFU (ex2.approx.ftz: 2 ulp, results below 2^-126 flushed to 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int D>
 __host__ __device__ constexpr uint32_t tile_bytes() { return kTile * D * sizeof(__nv_bfloat16); }
@@ -702,6 +1151,91 @@ cudaError_t launch_f32(const Args& a, bool dkv) {
   return cudaGetLastError();
 }
 
+// The f32 bodies at D = 64: blocks of kBwdWarps warps (16 rows each), 64-row
+// tiles in a ring of kBwdStages slots; the measured choices of
+// tools/backward_variants.py.
+constexpr int kBwdWarps = 4, kBwdStages = 2;
+
+// the shared memory a launch asks for, and the largest carveout, so that
+// kBlocksPerSm blocks fit an SM
+template <typename Kern>
+cudaError_t set_f32reg_smem(Kern kern, size_t smem) {
+  const cudaError_t err = set_smem(kern, smem);
+  return err != cudaSuccess ? err
+                            : cudaFuncSetAttribute(kern,
+                                                   cudaFuncAttributePreferredSharedMemoryCarveout,
+                                                   (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int kSplit>
+cudaError_t launch_f32reg(const Args& a, bool dkv) {
+  using Shape = BwdRegShape<kBwdWarps, kBwdStages, kSplit>;
+  constexpr size_t smem = Shape::kFloats * sizeof(float);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((dkv ? a.Sk : a.Sq) + Shape::kRows - 1) / Shape::kRows * kSplit, a.H, a.B);
+  cfg.blockDim = dim3(Shape::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kSplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kSplit > 1 ? 1 : 0;
+  auto q = static_cast<const float*>(a.q);
+  auto k = static_cast<const float*>(a.k);
+  auto v = static_cast<const float*>(a.v);
+  auto dout = static_cast<const float*>(a.dout);
+  cudaError_t err;
+  if (dkv) {
+    auto kern = bwd_dkv_f32reg_kernel<kBwdWarps, kBwdStages, kSplit>;
+    if ((err = set_f32reg_smem(kern, smem)) != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, kern, q, k, v, dout, a.lse, a.delta,
+                             static_cast<float*>(a.g0), static_cast<float*>(a.g1), a.Sq, a.Sk,
+                             a.scale);
+  } else {
+    auto kern = bwd_dq_f32reg_kernel<kBwdWarps, kBwdStages, kSplit>;
+    if ((err = set_f32reg_smem(kern, smem)) != cudaSuccess) return err;
+    err = cudaLaunchKernelEx(&cfg, kern, q, k, v, dout, a.lse, a.delta,
+                             static_cast<float*>(a.g0), a.Sq, a.Sk, a.scale);
+  }
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The split at D = 64: one block an item (kRows rows of one batch and head)
+// where the items give every SM a block, or the looped side has one tile;
+// else the looped tiles split over a cluster, doubled up to 8 blocks while
+// SMs stay without a block and every block keeps a tile
+int f32reg_split(int64_t items, int n_tiles, int sms) {
+  int split = 1;
+  while (split < 8 && items * split < sms && 2 * split <= n_tiles) split *= 2;
+  return split;
+}
+
+cudaError_t launch_f32_d64(const Args& a, bool dkv) {
+  // 16-byte copies and stores: bases aligned to 16 bytes (the row stride,
+  // H * 64 * 4 bytes, is then a multiple of 16), else the launch is refused
+  const uintptr_t ptrs = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
+                         (uintptr_t)a.dout | (uintptr_t)a.g0 |
+                         (uintptr_t)(dkv ? a.g1 : a.g0);
+  if (ptrs % 16) return cudaErrorInvalidValue;
+  int dev, sms;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  constexpr int rows = BwdRegShape<kBwdWarps, kBwdStages, 1>::kRows;
+  const int64_t items = (int64_t)(((dkv ? a.Sk : a.Sq) + rows - 1) / rows) * a.H * a.B;
+  const int n_tiles = ((dkv ? a.Sq : a.Sk) + kBwdBK - 1) / kBwdBK;
+  switch (f32reg_split(items, n_tiles, sms)) {
+    case 1: return launch_f32reg<1>(a, dkv);
+    case 2: return launch_f32reg<2>(a, dkv);
+    case 4: return launch_f32reg<4>(a, dkv);
+    default: return launch_f32reg<8>(a, dkv);
+  }
+}
+
 template <int D>
 cudaError_t launch_wgmma(const Args& a, bool dkv) {
   const int hd = a.H * D;
@@ -738,6 +1272,9 @@ cudaError_t dispatch(const Args& a, int dtype, bool dkv) {
       a.B > 65535 || a.g0 == nullptr || (dkv && a.g1 == nullptr))
     return cudaErrorInvalidValue;
   if (dtype == 0) {
+    // the register-tiled bodies at D = 64 (the f32 training paths), the earlier
+    // body at every other width up to 128; no width is sent to another body
+    if (a.D == kBwdD) return launch_f32_d64(a, dkv);
     if (a.D <= 64) return launch_f32<16>(a, dkv);
     if (a.D <= 128) return launch_f32<32>(a, dkv);
     return cudaErrorInvalidValue;

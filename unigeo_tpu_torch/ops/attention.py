@@ -59,9 +59,31 @@ MIN_KERNEL_SEQ = 128  # same threshold as unigeo_tpu's use_packed_attention
 BF16_HEAD_WIDTHS = (16, 64, 80, 512)
 F32_TILED_HEAD_WIDTH = 64
 # the backward kernels: bf16 at the UNet's 64 (and 16 for small checks),
-# f32 at any width up to 128
+# f32 at any width up to 128 (CUDA cores: the register-tiled bodies at the
+# f32 training paths' 64, which take rows aligned to 16 bytes, the earlier body
+# at every other width)
 BWD_BF16_HEAD_WIDTHS = (16, 64)
 BWD_F32_MAX_HEAD_WIDTH = 128
+# rows a block of the f32 backward's bodies at d = 64 owns (4 warps of 16)
+# and rows of the tiles it streams
+BWD_F32_BLOCK_ROWS, BWD_F32_TILE = 64, 64
+
+
+def f32_bwd_split(b: int, sq: int, sk: int, h: int, dkv: bool, sms: int) -> int:
+    """The cluster split the library's host plan picks for the f32 backward
+    at d = 64 (``csrc/flash_attention_bwd.cu::f32reg_split``; written here
+    for the tests and the reports): the items are blocks of
+    ``BWD_F32_BLOCK_ROWS`` query rows (dq) or key rows (dk/dv) of one batch
+    and head; the looped tiles (key tiles for dq, query tiles for dk/dv)
+    split over 1, 2, 4 or 8 blocks, doubled while the items times the split
+    leave SMs without a block and every block keeps a tile."""
+    rows, looped = (sk, sq) if dkv else (sq, sk)
+    items = -(-rows // BWD_F32_BLOCK_ROWS) * h * b
+    n_tiles = -(-looped // BWD_F32_TILE)
+    split = 1
+    while split < 8 and items * split < sms and 2 * split <= n_tiles:
+        split *= 2
+    return split
 
 
 def _heads(x, num_heads: int, upcast: bool = True):
@@ -360,8 +382,11 @@ def _check_bwd_kernel_input(q, k, v, dout, d: int):
     tensors = (q, k, v, dout)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("backward kernel takes contiguous q, k, v, dO")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("bf16 backward kernel takes rows aligned to 16 bytes")
+    # 16-byte tile loads: every bf16 body and the f32 bodies at d = 64
+    if (q.dtype == torch.bfloat16 or d == F32_TILED_HEAD_WIDTH) and any(
+        t.data_ptr() % 16 for t in tensors
+    ):
+        raise ValueError(f"{q.dtype} backward kernel at d = {d} takes rows aligned to 16 bytes")
 
 
 def _bwd_args(q, k, num_heads: int, scale: float):

@@ -11,8 +11,8 @@ kernel whose mangled name contains ``--match``, the instructions that say
 how it computes: FFMA / FMUL / FADD (f32 on the CUDA cores), LDS and
 LDS.128 (shared-memory loads, 16-byte ones), STS and STS.128, LDGSTS
 (cp.async), MUFU and MUFU.EX2, SHFL, BAR, LDL / STL (local memory, which
-spills land in), and any tensor-core instruction (``*MMA*``, e.g. HMMA,
-HGMMA; a TF32 product would be one).  It prints one JSON object.  It needs
+spills land in), any tensor-core instruction (``*MMA*``, e.g. HMMA,
+HGMMA; a TF32 product would be one) and every instruction (``total``).  It prints one JSON object.  It needs
 nvcc and cuobjdump (the CUDA toolkit on the machine with the card).
 """
 
@@ -64,8 +64,8 @@ def ptxas_info(text: str) -> dict:
 def sass_counts(text: str, match: str) -> dict:
     """kernel (mangled) -> instruction counts, for the kernels of
     ``cuobjdump -sass`` output whose names hold ``match``: each family of
-    FAMILIES, LDS.128 and STS.128 (16-byte shared accesses), MUFU.EX2, and
-    tensor_core (any opcode with MMA in it)."""
+    FAMILIES, LDS.128 and STS.128 (16-byte shared accesses), MUFU.EX2,
+    tensor_core (any opcode with MMA in it) and total (every instruction)."""
     out, fn = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
@@ -79,6 +79,7 @@ def sass_counts(text: str, match: str) -> dict:
             continue
         op = m.group(1)
         base, counts = op.split(".")[0], out[fn]
+        counts["total"] += 1
         if base in FAMILIES:
             counts[base] += 1
         if base in ("LDS", "STS") and ".128" in op:
