@@ -38,9 +38,12 @@ Phases, each printed on its own flushed line with the seconds since start:
              12, 64] and [1, 768, 8, 64], Dust3R's [20, 768, 16, 64] and [19,
              768, 12, 64], VideoDepthAnything's [25, 972, 16, 64], Cut3R's
              frame-to-state [1, 768 queries, 64 keys, 8, 64] and Aether's
-             DiT [1, 3072, 12, 64]) against its plain version, with its
-             events and device ms, the plain version's and SDPA's f32 times
-             and the bound at the f32 rate; the f32 backward pair (dq,
+             DiT [1, 3072, 12, 64]) and its f32 body at d = 512 (the
+             register-tiled flash_packed_f32w512_kernel, asserted by name)
+             at the DepthCrafter trainer's VAE mid attention [25, 3072, 1,
+             512] against its plain version, with its events and device ms,
+             the plain version's and SDPA's f32 times and the bound at the
+             f32 rate; the f32 backward pair (dq,
              dk/dv on the CUDA-core body, by kernel name) at the f32
              training shapes (Aether's DiT, Spann3R's encoder and decoder,
              Dust3R's encoder and decoder on its 16-frame training clip,
@@ -1841,11 +1844,25 @@ def phase_train(dev):
     batch = train.build_batch_diffusion([out["dataset"][0]], out["pipe"])
     # one batch's device time: CLIP and the VAE's bf16 encode of the frames,
     # and the f32 encode of the depth target (its mid attention at d = 512
-    # on the f32 forward's CUDA-core body)
+    # on the f32 forward's wide register-tiled body)
     bprof = profile_device("profile", lambda: train.build_batch_diffusion(
         [out["dataset"][0]], out["pipe"]),
-        {"flash": "flash_", "conv_fprop": "fprop", "elementwise": "elementwise"})
-    result.update(batch_device_ms=bprof["device_ms"], batch_flash_device_ms=bprof["flash_ms"])
+        {"flash": "flash_", "flash_f32_d512": "f32w512", "conv_fprop": "fprop",
+         "elementwise": "elementwise"})
+    # one wrapper call at [25, 3072, 1, 512]: the host plan's kernel launches
+    from unigeo_tpu_torch.ops.attention import f32_d512_plan
+
+    whole, rest, _ = f32_d512_plan(TRAIN_FRAMES, TRAIN_H * TRAIN_W // 64, TRAIN_H * TRAIN_W // 64,
+                                   1, torch.cuda.get_device_properties(dev).multi_processor_count)
+    want = (whole > 0) + (rest > 0)
+    if bprof["flash_f32_d512_launches"] != want:
+        raise AssertionError(f"the batch's f32 target encode launched the d 512 body "
+                             f"{bprof['flash_f32_d512_launches']} times, not {want}")
+    log("train", f"one batch: device_ms {bprof['device_ms']}, of which flash "
+        f"{bprof['flash_ms']} ms ({bprof['flash_launches']} launches; the f32 d 512 body "
+        f"{bprof['flash_f32_d512_ms']} ms)")
+    result.update(batch_device_ms=bprof["device_ms"], batch_flash_device_ms=bprof["flash_ms"],
+                  batch_flash_f32_d512_device_ms=bprof["flash_f32_d512_ms"])
     prof = profile_device("profile", lambda: out["trainer"].train_step(batch),
                           {"flash_fwd_lse": "flash_fwd_lse", "flash_bwd_dq": "bwd_dq",
                            "flash_bwd_dkv": "bwd_dkv"})
@@ -3021,28 +3038,32 @@ F32_POINTMAP_SHAPES = [("pointmap_encoder", 25, 768, 768, 12, 64),
                        ("aether_dit", 1, 3072, 3072, 12, 64),
                        # the DepthCrafter trainer's f32 target encode: the
                        # VAE mid block's one head over 25 frames' 48 x 64
-                       # latents (the earlier CUDA-core body, the one f32 width not 64
-                       # on a path)
+                       # latents (the wide register-tiled body)
                        ("depthcrafter_vae_mid", 25, 3072, 3072, 1, 512)]
-F32_WIDE_ITERS = 3  # the d 512 row's calls a timing (about 0.12 s each)
+# the f32 forward's body by head width (kernel names of the packed entry)
+F32_BODIES = {64: "flash_packed_f32reg_kernel", 512: "flash_packed_f32w512_kernel"}
+F32_WIDE_ITERS = 10  # the d 512 row's calls a timing (about 12 ms each)
 
 
 def phase_kernel_f32_pointmap(dev):
-    """The packed kernel's f32 bodies (by kernel name: register-tiled at
-    d = 64, the earlier flash_packed_kernel at d = 512) at the f32 paths' shapes
+    """The packed kernel's f32 bodies (by kernel name: F32_BODIES, the
+    register-tiled bodies at d = 64 and 512) at the f32 paths' shapes
     against the plain version (F32_OUT_TOL), their events and device ms
     (torch.profiler), the plain version's, SDPA's in f32 (TF32 off; events
-    and device ms) and the bound.  The earlier CUDA-core body at d = 64 is
-    timed beside it by ``python -m unigeo_tpu_torch.tools.forward_variants
-    --f32`` (``earlier_d64``), not here: its second build of the kernels
-    does not fit the smoke's time."""
+    and device ms) and the bound.  The earlier CUDA-core body at d = 64 and
+    512 is timed beside them by ``python -m
+    unigeo_tpu_torch.tools.forward_variants --f32`` (``earlier_d64``,
+    ``earlier_d512``), not here: its second build of the kernels does not
+    fit the smoke's time."""
     import torch.nn.functional as F
 
     from unigeo_tpu_torch.device import set_exact_f32
-    from unigeo_tpu_torch.ops.attention import attention_packed_reference, flash_attention_packed
+    from unigeo_tpu_torch.ops.attention import (attention_packed_reference, f32_d512_plan,
+                                                flash_attention_packed)
     from unigeo_tpu_torch.tools.forward_variants import profile_device_ms, profile_flash
 
     set_exact_f32()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(16)
     rows = []
     for name, b, sq, sk, h, d in F32_POINTMAP_SHAPES:
@@ -3058,19 +3079,21 @@ def phase_kernel_f32_pointmap(dev):
         iters = 20 if d == 64 else F32_WIDE_ITERS
         ms = time_ms(kern, iters)
         body, device_ms = profile_flash(kern, iters)
-        want = "flash_packed_f32reg_kernel" if d == 64 else "flash_packed_kernel<"
-        if want not in body:
+        if F32_BODIES[d] not in body:
             raise AssertionError(f"{name}: the f32 forward at d = {d} ran {body}")
         plain_ms = time_ms(lambda: attention_packed_reference(q, k, v, h), iters)
         lib_ms, lib_device_ms = time_ms(sdpa, iters), profile_device_ms(sdpa, iters)
         bms, by = f32_bound(b, sq, sk, h, d)
-        body_name = lambda key: re.search(r"flash_\w+<[^>]*>", key).group(0)
+        body_name = lambda key: " + ".join(re.findall(r"flash_\w+<[^>]*>", key))
+        # the host plan at d = 512: (items in whole rounds, left over, their split)
+        plan = f32_d512_plan(b, sq, sk, h, sms) if d == 512 else None
         rows.append(dict(shape=name, b=b, sq=sq, sk=sk, h=h, d=d, dtype="float32",
-                         max_abs_err=err,
+                         max_abs_err=err, plan=plan,
                          body=body_name(body), ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, library_device_ms=lib_device_ms, bound_ms=bms,
                          bound_by=by))
         log("kernel", f"f32 {name} [B={b},Sq={sq},Sk={sk},H={h},D={d}] body {rows[-1]['body']} "
+            f"{'' if plan is None else f'plan (whole, rest, split) {plan} '}"
             f"max_abs_err={err:.3e} kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} device {lib_device_ms:.4f} "
             f"(SDPA f32) bound_ms={bms:.5f} ({by})")
@@ -3331,6 +3354,8 @@ def main():
                                                    for k, v in siblings.items()
                                                    if "launches_per_clip" in v},
                    "f32_pointmap_shapes": f32_rows,
+                   "f32_body_by_head_width": {str(r["d"]): r["body"] for r in f32_rows},
+                   "batch_flash_f32_d512_device_ms": trained["batch_flash_f32_d512_device_ms"],
                    **forward25("packed")}),
         summarize("flash_attention_headsplit", src + "flash_attention_packed.cu",
                   "unigeo_tpu/ops/attention.py:163", headsplit_rows,

@@ -210,19 +210,22 @@ def test_planted_fault_anchors_are_unique():
         assert faulty != anchor, name
 
 
-@pytest.mark.parametrize("name", ["built", "earlier_d64", "warps8", "stages3", "full_unroll",
-                                  "half_unroll"])
+F32_VARIANT_NAMES = ["built", "earlier_d64", "warps8", "stages3", "full_unroll", "half_unroll",
+                     "earlier_d512", "w512_bk8", "w512_no_split", "w512_unroll4",
+                     "w512_unroll2"]
+
+
+@pytest.mark.parametrize("name", F32_VARIANT_NAMES)
 def test_f32_variant_anchors_are_unique(name):
-    """Each f32 variant of tools/forward_variants.py (built on the card, the
-    earlier body's by chip_smoke.py too) finds each anchor once in its
-    source, and its replacement changes it."""
+    """Each f32 variant of tools/forward_variants.py (built on the card: the
+    d = 64 body's and, since the d = 512 body was redesigned, that one's)
+    finds each anchor once in its source, and its replacement changes it."""
     import os
 
     from unigeo_tpu_torch import _build
     from unigeo_tpu_torch.tools.forward_variants import F32_VARIANTS
 
-    assert sorted(F32_VARIANTS) == sorted(["built", "earlier_d64", "warps8", "stages3",
-                                           "full_unroll", "half_unroll"])
+    assert sorted(F32_VARIANTS) == sorted(F32_VARIANT_NAMES)
     for fname, anchor, repl in F32_VARIANTS[name]:
         with open(os.path.join(_build.CSRC_DIR, fname)) as f:
             assert f.read().count(anchor) == 1, (name, anchor)

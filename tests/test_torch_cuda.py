@@ -63,7 +63,10 @@ reads P v's B operand without wgmma's transpose bit, or writes lse without
 its log l term or into another consumer's rows (the lse held to LSE_TOL),
 skips the fifth 16-column k-step of S (d = 80), or, at d = 512, adds a
 consumer's own partial scores twice or stores each consumer's output half
-at the other's columns (forward), skips one query tile of dk/dv,
+at the other's columns (forward; and in f32 at d = 512 drops the eighth
+key tile, the ragged mask or the alpha rescale, sums one warp's partial
+scores twice in place of another's, or merges one block's partial twice
+where the keys split over a cluster), skips one query tile of dk/dv,
 drops the ragged last key tile of dq or reads dv's B operand without
 wgmma's transpose bit (backward; and in f32 at d = 64 drops dq's eighth key
 tile, loses dk/dv's ragged query tile, takes delta as 0 in either kernel or
@@ -154,6 +157,9 @@ def _err_over_limit(out, q, k, v, h):
         (2, 257, 257, 4, 80),
         (1, 200, 150, 1, 32),
         (1, 96, 77, 1, 512),
+        # d = 512, the wide register-tiled body at the VAE mid block's 3072
+        # tokens (48 items of 64 rows a batch entry, 192 key tiles)
+        (2, 3072, 3072, 1, 512),
         # d = 64, the register-tiled body: ragged Sq and Sk (one partial key
         # tile; 257: the last tile holds one key; Sq below a block), the
         # pointmap shapes at small batch (the encoder unsplit, 12 heads) and
@@ -300,6 +306,44 @@ PLANTED_FAULTS = {
         "flash_attention_packed.cu",
         "sm90::ld_cluster_f32x4(part + r * kRegD + x, sp);",
         "sm90::ld_cluster_f32x4(part + r * kRegD + x, sp == 1 ? 0 : sp);",
+    ),
+    # forward, f32 body at d = 512: the eighth key tile's scores become -inf
+    # in its owners' softmax, so it adds to neither O nor l (the copies still
+    # hand it over)
+    "w512_drop_key_tile": (
+        "flash_attention_packed.cu",
+        "      float sc[4] = {x.x, x.y, x.z, x.w};\n",
+        "      float sc[4] = {x.x, x.y, x.z, x.w};\n"
+        "      if (t == 7) for (float& y : sc) y = -INFINITY;\n",
+    ),
+    # forward, f32 body at d = 512: the last tile's select goes, so the
+    # copies' zero key rows past Sk score 0 instead of -inf
+    "w512_no_ragged_mask": (
+        "flash_attention_packed.cu",
+        "sc[j] = ok + LK * j < lim ? sc[j] : -INFINITY;",
+        "sc[j] = lim > 0 ? sc[j] : -INFINITY;",
+    ),
+    # forward, f32 body at d = 512: O is not rescaled by alpha when the
+    # running max rises (l still is)
+    "w512_no_rescale": (
+        "flash_attention_packed.cu",
+        "for (int c = 0; c < 16; ++c) acc[i][c] *= al[i];",
+        "for (int c = 0; c < 16; ++c) acc[i][c] *= 1.f;",
+    ),
+    # forward, f32 body at d = 512: the owners' sum of the 8 partial scores
+    # reads warp 0's partial twice, in place of warp 1's
+    "w512_trade_reads_one_twice": (
+        "flash_attention_packed.cu",
+        "(src + w * Shape::kPartFloats);",
+        "(src + (w == 1 ? 0 : w) * Shape::kPartFloats);",
+    ),
+    # forward, f32 body at d = 512, its keys split over a cluster: the merge
+    # takes block 0's partial O in place of block 1's (its m and l stay
+    # block 1's)
+    "w512_merge_twice": (
+        "flash_attention_packed.cu",
+        "const float4 a = sm90::ld_cluster_f32x4(qs + r * kW512Pitch + 4 * x, sp);",
+        "const float4 a = sm90::ld_cluster_f32x4(qs + r * kW512Pitch + 4 * x, sp == 1 ? 0 : sp);",
     ),
     # backward: the tensor-core dk/dv kernel skips its eighth query tile
     # (the ring still hands the tile over, but it adds nothing to dk, dv)
@@ -508,6 +552,17 @@ def faulty_libraries(tmp_path_factory):
         ("f32reg_no_ragged_mask", 2, 257, 4, 64),
         ("f32reg_no_rescale", 2, 768, 12, 64),
         ("f32reg_merge_twice", 1, 768, 8, 64),
+        # the f32 body at d = 512 (held to F32_OUT_TOL): the VAE mid block's
+        # 3072 tokens (192 key tiles of 16), and S = 257 (the last key tile
+        # holds one key and 15 zero rows)
+        ("w512_drop_key_tile", 1, 3072, 1, 512),
+        ("w512_no_ragged_mask", 2, 257, 1, 512),
+        ("w512_no_rescale", 1, 3072, 1, 512),
+        ("w512_no_rescale", 2, 257, 1, 512),
+        ("w512_trade_reads_one_twice", 1, 3072, 1, 512),
+        # one sequence of 1024 tokens: 16 items, their keys split over
+        # clusters of 8 blocks
+        ("w512_merge_twice", 1, 1024, 1, 512),
         # GEGLU at (M, C) = (b * s, h * d): the UNet's stage 0 (the fused
         # pass, where h lives in shared memory), stage 2 and its ragged mid
         # block (two passes; M = 1200, 18.75 row blocks, three hidden splits
@@ -530,7 +585,7 @@ def test_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, s, h, d):
     lib = faulty_libraries[fault]
     if PLANTED_FAULTS[fault][0] == "geglu_ffn.cu":
         return _geglu_planted(cuda, lib, fault, m=b * s, c=h * d)
-    if fault.startswith("f32reg_"):
+    if fault.startswith(("f32reg_", "w512_")):
         return _f32_planted(cuda, lib, fault, b, s, h, d)
     q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, cuda, seed=5)
     if fault.startswith("lse_"):
@@ -728,6 +783,105 @@ def test_f32_other_widths_keep_the_earlier_body(cuda):
         flash_attention_packed(qs, ks, vs, h)
     with pytest.raises(RuntimeError):
         attention._launch(_build.load_library(), qs, ks, vs, h, d**-0.5)
+
+
+@pytest.mark.parametrize("b,sq,sk,h", [(1, 96, 77, 1), (2, 3072, 3072, 1), (1, 130, 61, 2),
+                                       (2, 257, 257, 1)])
+def test_f32_d512_runs_the_wide_body_bitwise(cuda, b, sq, sk, h):
+    """f32 at d = 512: the packed, head-split and lse entries run
+    flash_{packed,headsplit,fwd_lse}_f32w512_kernel (by the profiler's
+    kernel names), each within F32_OUT_TOL of the plain version (the lse
+    within LSE_TOL), and two launches give the same bits; one block an item,
+    or (257 tokens: 10 items) the keys split over 8-block clusters."""
+    d = 512
+    q, k, v = _qkv(b, sq, sk, h, d, torch.float32, cuda, seed=26)
+    heads = lambda x: x.view(b, x.shape[1], h, d)
+    run = lambda: (flash_attention_packed(q, k, v, h), *flash_attention_fwd_lse(q, k, v, h),
+                   flash_attention(heads(q), heads(k), heads(v)).reshape(q.shape))
+    launched = [name for name, _ in _f32reg_launches(run)]
+    for entry in ("flash_packed_f32w512_kernel", "flash_fwd_lse_f32w512_kernel",
+                  "flash_headsplit_f32w512_kernel"):
+        assert any(entry in name for name in launched), launched
+    assert all("f32w512_kernel" in name for name in launched), launched
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    ref, ref_lse = attention_fwd_lse_reference(q, k, v, h)
+    for out in (first[0], first[1], first[3]):
+        err = (out - ref).abs().max().item()
+        assert err < F32_OUT_TOL, err
+    assert (first[2] - ref_lse).abs().max().item() < LSE_TOL
+
+
+@pytest.mark.parametrize("b,s", [(25, 3072), (1, 1024)])
+def test_f32_d512_splits_the_items_left_over(cuda, b, s):
+    """The host plan runs the whole rounds of items one block an item and
+    splits the keys of the items left over across a cluster
+    (attention.f32_d512_plan): at the VAE mid block's [25, 3072, 1, 512]
+    1188 items, then 12 over 8-block clusters; at [1, 1024, 1, 512] 16 items
+    over 8-block clusters; by the profiler's kernel names (template
+    arguments <16, split>); the output and the lse within their limits, two
+    launches bitwise equal."""
+    import re
+
+    h, d = 1, 512
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    whole, rest, split = attention.f32_d512_plan(b, s, s, h, sms)
+    q, k, v = _qkv(b, s, s, h, d, torch.float32, cuda, seed=28)
+    launched = [name for name, _ in _f32reg_launches(lambda: flash_attention_fwd_lse(q, k, v, h))]
+    splits = sorted({int(re.search(r"f32w512_kernel<16, (\d+)>", n).group(1)) for n in launched})
+    expected = ({1} if whole else set()) | ({split} if rest else set())
+    assert splits == sorted(expected), (launched, whole, rest)
+    first, second = flash_attention_fwd_lse(q, k, v, h), flash_attention_fwd_lse(q, k, v, h)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    idx = sorted({0, b - 1})  # the first and the last batch entry (the split items)
+    ref, ref_lse = attention_fwd_lse_reference(q[idx], k[idx], v[idx], h)
+    assert (first[0][idx] - ref).abs().max().item() < F32_OUT_TOL
+    assert (first[1][idx] - ref_lse).abs().max().item() < LSE_TOL
+
+
+def test_f32_d512_refuses_rows_not_aligned_to_16_bytes(cuda):
+    """f32 at d = 512 with rows not aligned to 16 bytes is refused: the
+    wrapper raises, and the library refuses the launch (no other body is
+    tried)."""
+    b, s, h, d = 1, 150, 1, 512
+    q, k, v = _qkv(b, s, s, h, d, torch.float32, cuda, seed=27)
+    shift = lambda x: torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(b, s, h * d)
+    qs, ks, vs = shift(q), shift(k), shift(v)
+    assert qs.is_contiguous() and qs.data_ptr() % 16 != 0
+    with pytest.raises(ValueError):
+        flash_attention_packed(qs, ks, vs, h)
+    with pytest.raises(ValueError):
+        flash_attention_fwd_lse(qs, ks, vs, h)
+    lib = _build.load_library()
+    with pytest.raises(RuntimeError):
+        attention._launch(lib, qs, ks, vs, h, d**-0.5)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=cuda)
+    with pytest.raises(RuntimeError):
+        attention._launch(lib, qs, ks, vs, h, d**-0.5, lse=lse)
+
+
+def test_f32_d512_body_compiles_to_fma_and_16_byte_loads(cuda):
+    """What ptxas and cuobjdump show of the three f32w512 kernels
+    (tools/kernel_report.py): no spill (0 bytes, no local loads or stores),
+    no tensor-core instruction (so no TF32 product), f32 FMAs, 16-byte
+    shared loads (LDS.128) and the TMA's bulk copies (UBLKCP); it prints
+    each kernel's registers and FFMA share."""
+    from unigeo_tpu_torch.tools import kernel_report
+
+    kernels = kernel_report.main(["--match", "f32w512"])["kernels"]
+    assert len(kernels) >= 3, kernels
+    for name, rep in kernels.items():
+        sass = rep["sass"]
+        print(f"{name}: {rep.get('registers')} registers, FFMA share {rep['ffma_share']:.3f}",
+              flush=True)
+        assert rep["spill_stores"] == rep["spill_loads"] == 0, (name, rep)
+        assert sass.get("LDL", 0) == sass.get("STL", 0) == 0, (name, rep)
+        assert sass.get("tensor_core", 0) == 0, (name, rep)
+        assert sass.get("FFMA", 0) > 0 and sass.get("LDS.128", 0) > 0, (name, rep)
+        assert sass.get("UBLKCP", 0) > 0, (name, rep)
 
 
 @pytest.mark.parametrize("source,count", [("flash_attention_packed.cu", 3),

@@ -6,7 +6,7 @@ import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist work
 
 import pytest
 
-from unigeo_tpu_torch.tools.kernel_report import ptxas_info, sass_counts, template_args
+from unigeo_tpu_torch.tools.kernel_report import ffma_share, ptxas_info, sass_counts, template_args
 
 F32REG = "_ZN12_GLOBAL__N_126flash_packed_f32reg_kernelILi4ELi2ELi2EEEvPKfS2_S2_Pf"
 WGMMA = "_ZN12_GLOBAL__N_126flash_packed_wgmma_kernelILi64EEEv14CUtensorMap_st"
@@ -64,3 +64,23 @@ def test_sass_counts_tensor_core_ops_and_spills_per_match(match, expected):
 def test_template_args_of_a_mangled_name():
     assert template_args(F32REG) == [4, 2, 2]
     assert template_args(WGMMA) == [64]
+
+
+def test_ffma_share_of_the_static_sass():
+    """FFMA over every instruction: 2 of the f32 body's 10 above; a kernel
+    with no instruction has none."""
+    counts = sass_counts(SASS, "f32reg")
+    assert ffma_share(counts[F32REG]) == pytest.approx(0.2)
+    assert ffma_share(sass_counts(SASS, "wgmma")[WGMMA]) == 0.0
+    assert ffma_share({}) is None
+
+
+def test_sass_counts_the_tma_bulk_copies():
+    """The f32 body at d = 512 copies its rows with the TMA's bulk copies
+    (UBLKCP), which the report counts as a family of their own."""
+    name = "_ZN12_GLOBAL__N_127flash_packed_f32w512_kernelILi16EEEvPKfS2_S2_PfS3_l"
+    sass = f"""		Function : {name}
+        /*0000*/                   UBLKCP.S.G [UR8], [UR6], UR10 ;
+        /*0010*/                   FFMA R9, R4, R5, R9 ;
+"""
+    assert sass_counts(sass, "f32w512") == {name: {"UBLKCP": 1, "FFMA": 1, "total": 2}}

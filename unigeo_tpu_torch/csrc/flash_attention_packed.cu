@@ -41,7 +41,7 @@
 // and accumulator, one key tile at a time in shared memory), and in bf16
 // both products run on the tensor cores, f32 accumulate.
 //
-// Four block layouts, chosen by dtype and by head width, one switch per
+// Five block layouts, chosen by dtype and by head width, one switch per
 // dtype (dispatch_bf16, dispatch_f32); every bf16 body is Hopper's TMA and
 // wgmma (blocks from sm90.cuh):
 //
@@ -100,7 +100,13 @@
 //   held the earlier body to 15% of that rate was shared memory: one load
 //   per FMA.  This body loads 16 bytes for 10.7 FMAs.  Rows must be aligned
 //   to 16 bytes (else the launch is refused).
-// * f32, any other D up to 512 (the checks' 8, 10, 32, 80 and 512, the tiny
+// * f32, D = 512 (the DepthCrafter trainer's f32 target encode, the VAE mid
+//   block's one head): flash_{packed,headsplit,fwd_lse}_f32w512_kernel<kBK>,
+//   register-tiled FMAs on the CUDA cores fed by the TMA (see its section
+//   below): 64-row items whose 8 warps each own a 64-wide slice of d, trade
+//   partial scores through shared memory and split the softmax's rows.
+//   Rows must be aligned to 16 bytes (else the launch is refused).
+// * f32, any other D up to 512 (the checks' 8, 10, 32 and 80, the tiny
 //   pointmap configs' 24 and 32): flash_{packed,headsplit,fwd_lse}_kernel,
 //   CUDA-core FMAs.  256 threads own BQ query rows; TPR = 256 / BQ lanes of
 //   a warp share a row, each holding BK / TPR scores and NCOL accumulator
@@ -108,8 +114,8 @@
 //     D <= 64:  BQ = 64, BK = 64, NCOL = 16
 //     D <= 128: BQ = 64, BK = 64, NCOL = 32
 //     D <= 512: BQ = 16, BK = 32, NCOL = 32 (~166 KB of shared memory)
-//   Both f32 bodies are exact f32 (no TF32 anywhere): the reference
-//   numerics for f32 checks on the card.
+//   Every f32 body is exact f32 (no TF32 anywhere): the reference numerics
+//   for f32 checks on the card.
 //
 // All: keys past Sk (the ragged edge, e.g. 257 CLIP tokens) get zero
 // weight; query rows past Sq are computed on zeros and not stored (nor is
@@ -1281,6 +1287,447 @@ __global__ void __launch_bounds__(32 * kWarps, (RegShape<kWarps, kStages, kSplit
   flash_f32reg_block<kWarps, kStages, kSplit, true>(UNIGEO_F32_ARGS);
 }
 
+// ---------------------------------------------------------------------------
+// f32 at D = 512 (the DepthCrafter trainer's f32 target encode: the VAE mid
+// block's one head over 25 frames' 48 x 64 latents, [25, 3072, 1, 512]): a
+// register-tiled CUDA-core body fed by the TMA, flash_{packed,headsplit,
+// fwd_lse}_f32w512_kernel<kBK>.  Exact f32 as the body above: every product
+// and sum an f32 FMA or add on the CUDA cores, the exponentials the SFU's ex2
+// in log2 units.
+//
+// What bounds it: 4*B*H*Sq*Sk*D operations at the CUDA cores' 67 TF/s (7.21 ms
+// at [25, 3072, 1, 512]) against 4*B*H*D*(2*Sq + 2*Sk) bytes (0.19 ms).  What
+// held the earlier body (flash_f32_block<16, 32, 32>) to 5.8% of that rate:
+// one 4-byte shared load per FMA, scalar copies between two barriers with
+// nothing to overlap them (one 166 KB block an SM), and 16-row blocks that
+// stream every key's 4 KB of k and v from L2 (60 GB a call).
+//
+// A block owns an item of kW512Rows = 64 query rows of one (batch, head) and
+// 8 warps (256 threads, one block an SM); warp w owns the 64-wide slice
+// [64w, 64w + 64) of d.  Per key tile of kBK = 16 keys:
+//
+// * S: warp w computes the partial scores S_w = q[:, slice w] k[:, slice
+//   w]^T of all 64 rows and the tile's keys, only from its slices of q and
+//   k.  Lane (rr, kc) = (lane / 4, lane % 4) holds rows rr + 8i (i < 8) and
+//   keys kc + 4j (j < 4): per 4 d, 8 q and 4 k loads of 16 bytes feed 128
+//   FMAs (10.7 a load), each sum in the order of d.
+// * The trade: every warp writes its partials to shared memory, and warp o
+//   (the owner of rows [8o, 8o + 8)) adds up its rows' 8 partials in warp
+//   order, S = ((S_0 + S_1) + S_2) + ..., and runs the online softmax on
+//   them (running max in log2 units, alpha = 2^(m_old - m_new), p = 2^(S
+//   scale log2 e - m)), lane (lane / 4, lane % 4) taking one row's keys
+//   lane % 4 + 4j.  Owners write P and alpha where their partials were.
+//   Each row's softmax runs once, spread over the 8 warps, where every warp
+//   running it on all 64 rows would read 8 times the partials and take 8
+//   times the exponentials.
+// * O += P v: warp w owns O's columns of its slice; lane (pr, pc) = (lane /
+//   4, lane % 4) holds rows 8pr + i (i < 8) and the columns 4(pc + 4jj) + e
+//   (jj, e < 4): O is 128 registers a lane, 64 x 512 x 4 bytes = 128 KB a
+//   block, half the SM's register file.  Per key, 2 loads of P and 4 of v
+//   (16 bytes each) feed 128 FMAs (21.3 a load), keys in order.
+//
+// Registers a lane: O 128, the partial scores 32 and their 12 loads' 48
+// during S; at one block an SM the launch allows 255.  Shared memory, f32:
+// q 64 x 516 (132,096 bytes, resident), one k tile 16 x 516 (33,024), one v
+// tile 16 x 512 (32,768), the partials 8 warps x 8 owners x 132 (33,792) and
+// two mbarriers: 231,696 bytes of the 232,448 a block may take, so one
+// block an SM.  q and
+// k rows are padded to 516 floats (rows 4 banks apart): the 8 rows of q and
+// the 4 keys a warp reads at one d fall in distinct banks, and every load's
+// address is one base a lane plus an immediate.  (The TMA's row copies
+// cannot XOR-swizzle 16-byte chunks; fed by cp.async, such a swizzle of
+// unpadded rows cost an XOR and an add a load: 15.13 device ms against
+// 14.45 padded on an H100 SXM at 700 W, tools/forward_variants.py.)  An
+// owner's region of the partials is 132 floats, 128 and 4 of padding, so
+// the 8 regions P is read from lie 4 banks apart: every access above is
+// free of bank conflicts.  L2: each item reads q once and all of k and v
+// (12.6 MB at Sk = 3072): 1200 items x 12.7 MB = 15.3 GB a call, about
+// 2.6 ms at the 5.8 TB/s the bf16 body at d = 512 draws from L2, under the
+// FMA bound.
+//
+// The copies: the TMA's bulk copies (no tensor map), one 2 KB row each,
+// issued by the lanes of warp 0 into the padded rows, each tile's bytes
+// completing on an mbarrier of its own (k's, with q's on tile 0, and v's):
+// 16-byte cp.async from every thread takes 280 address instructions and 16
+// copies a thread a tile (with the copies cut out, that body took 12.2 ms
+// against 14.7 at [25, 3072, 1, 512] on an H100 SXM at 700 W).  One slot
+// each for k and v: v(it) is copied while S(it) runs, k(it + 1) while the
+// trade and P v(it) run.  Three barriers a tile: T (P v(it - 1) is done, so v and the
+// partials are free), A (the partials are written; k(it) is read) and C (P,
+// alpha and v(it)'s zero rows are visible); each thread waits for k(it) and
+// v(it) on their mbarriers.  The rows past Sk of the last tile and past Sq
+// of q are zeroed by the threads (no copy fills them); keys past Sk score
+// -inf on the last tile only, when Sk is ragged; query rows past Sq are
+// computed on zeros and not stored, nor is their lse.  Every output element
+// is written once, no atomics: two launches give the same bits.  Rows must
+// be aligned to 16 bytes (else the launch is refused).
+//
+// The launches (launch_f32_d512): one block an item over the whole rounds
+// of the card's SMs, then the items left over in a second launch, their key
+// tiles split over the kSplit blocks of a cluster (block r takes tiles
+// [r n / kSplit, (r + 1) n / kSplit)), each keeping its partial (m, l, O);
+// O goes to q's space, and after a cluster barrier block r merges rows
+// [r 64 / kSplit, (r + 1) 64 / kSplit) from all the blocks' shared memory
+// in rank order (M = max m_s, w_s = 2^(m_s - M), O = sum w_s O_s / sum w_s
+// l_s): no atomics and a fixed order, so two launches give the same bits.
+// At [25, 3072, 1, 512] the 1200 items are 9 rounds of 132 and 12 left
+// over, split 8 ways: a tenth round of 12 blocks would leave 120 SMs idle
+// for a whole item (9% of the call).
+// ---------------------------------------------------------------------------
+
+constexpr int kW512D = 512;
+constexpr int kW512Rows = 64;   // query rows of an item (a block)
+constexpr int kW512Warps = 8;   // warp w owns d columns [64w, 64w + 64)
+constexpr int kW512BK = 16;     // keys of a tile
+// floats a row of q and k in shared memory: 4 of padding put rows 4 banks apart
+constexpr int kW512Pitch = kW512D + 4;
+constexpr int kW512Region = 132;  // floats of an owner's region of the partials
+// S's loop over the slice's 16 steps of 4 d unrolled whole, as P v's 16 keys
+constexpr int kW512UnrollD = 16;
+
+template <int kBK>
+struct W512Shape {
+  static constexpr int kThreads = 32 * kW512Warps;
+  static constexpr int kSlice = kW512D / kW512Warps;  // d columns of a warp
+  static constexpr int kLanesK = kBK / 4;            // S: lanes along the keys (4 keys each)
+  static constexpr int kLanesR = 32 / kLanesK;       // S: lanes along the rows
+  static constexpr int kTM = kW512Rows / kLanesR;    // S: a lane's rows
+  static constexpr int kOwnRows = kLanesR;           // rows of an owner warp
+  static constexpr int kOwners = kW512Rows / kOwnRows;
+  static constexpr int kPartFloats = kOwners * kW512Region;  // one warp's partials
+  static constexpr int kQFloats = kW512Rows * kW512Pitch;
+  static constexpr int kKFloats = kBK * kW512Pitch;
+  static constexpr int kVFloats = kBK * kW512D;
+  // q, k, v, the partials, then the k and v tiles' two mbarriers
+  static constexpr int kFloats = kQFloats + kKFloats + kVFloats + kW512Warps * kPartFloats + 4;
+  static_assert(kSlice == 64, "P v: a lane's 8 rows x 16 columns of a 64-wide slice");
+  static_assert(kBK == 8 || kBK == 16, "key tiles of 8 or 16");
+  static_assert(kOwnRows * kBK <= kW512Region - 4, "an owner's rows fill its region");
+  static_assert(kOwners <= kW512Warps && kW512Warps >= 3, "owners; P, alpha, l in three");
+  static_assert(kFloats * 4 <= 232448, "a block's shared memory");
+  static_assert(kW512Pitch % 4 == 0, "16-byte rows");
+};
+
+// the float offset of 16-byte chunk x of row r of q or k in shared memory
+__device__ __forceinline__ int w512_off(int r, int x) { return r * kW512Pitch + 4 * x; }
+
+// rows [r0, r0 + n) of one head's 512 columns `src` (row stride ss floats)
+// into shared `dst`, `pitch` floats a row: one 2 KB bulk copy a row, issued
+// by the lanes of one warp, completing on `bar` (whose expected bytes lane 0
+// has set)
+__device__ __forceinline__ void w512_load(float* dst, int pitch, const float* src, int64_t ss,
+                                          int r0, int n, uint64_t* bar, int lane) {
+  for (int r = lane; r < n; r += 32)
+    sm90::bulk_load(dst + r * pitch, src + (int64_t)(r0 + r) * ss, kW512D * sizeof(float), bar);
+}
+
+// rows [n, R) of shared `dst` (`pitch` floats a row) to zero: the rows past
+// an edge, which no copy fills
+template <int R, int NT>
+__device__ __forceinline__ void w512_zero_rows(float* dst, int pitch, int n, int tid) {
+  constexpr int kChunks = kW512D / 4;
+  for (int i = tid; i < (R - n) * kChunks; i += NT)
+    *reinterpret_cast<float4*>(dst + (n + i / kChunks) * pitch + 4 * (i % kChunks)) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+#define UNIGEO_W512_PARAMS UNIGEO_F32_PARAMS, int H, int item0
+#define UNIGEO_W512_ARGS UNIGEO_F32_ARGS, H, item0
+
+// the body of the three f32w512 kernels; kLse: write the row logsumexp.
+// Block i takes item item0 + i / kSplit (query block item % n_qb of head
+// item / n_qb % H of batch entry item / (n_qb H)); with kSplit > 1 the
+// blocks of a cluster take its key tiles in kSplit ranges and merge.
+template <int kBK, int kSplit, bool kLse>
+__device__ __forceinline__ void flash_f32w512_block(UNIGEO_W512_PARAMS) {
+  using Shape = W512Shape<kBK>;
+  constexpr int NT = Shape::kThreads, TM = Shape::kTM, LK = Shape::kLanesK;
+  constexpr int LR = Shape::kLanesR, OR = Shape::kOwnRows, RG = kW512Region;
+  constexpr int DD = kW512D, SL = Shape::kSlice;
+  extern __shared__ __align__(16) float f32w512_smem[];
+  float* qs = f32w512_smem;        // [64][516], resident
+  float* ks = qs + Shape::kQFloats;  // [kBK][516]
+  float* vs = ks + Shape::kKFloats;  // [kBK][512]
+  // the partials, warp w's at part + w * kPartFloats, owner o's rows in
+  // region o (row 8o + r's slot of keys kc + 4j at 132o + kBK r + 4kc); after
+  // the owners' sums, region o of warp 0's area holds P of its rows (key kk,
+  // row 8o + r at 132o + 8kk + r), of warp 1's their alpha, of warp 2's, after
+  // the last tile, their l
+  float* part = vs + Shape::kVFloats;
+  float* p_area = part;
+  float* alpha_area = part + Shape::kPartFloats;
+  float* l_area = part + 2 * Shape::kPartFloats;
+  float* m_area = part + 3 * Shape::kPartFloats;  // kSplit > 1: the owners' m, after the last tile
+  // the k tile's (and, with tile 0, q's) and the v tile's: one phase a tile
+  uint64_t* kbar = reinterpret_cast<uint64_t*>(part + kW512Warps * Shape::kPartFloats);
+  uint64_t* vbar = kbar + 1;
+
+  const float scale_log2 = scale;  // the launch passes scale * log2 e
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_qb = (Sq + kW512Rows - 1) / kW512Rows, item = item0 + blockIdx.x / kSplit;
+  const int q0 = item % n_qb * kW512Rows, h = item / n_qb % H, b = item / (n_qb * H);
+  // this block's key tiles [t0, t0 + n_tiles) of the row's n_all
+  const int split = kSplit > 1 ? (int)sm90::cluster_rank() : 0;
+  const int n_all = (Sk + kBK - 1) / kBK;
+  const int t0 = split * n_all / kSplit, n_tiles = (split + 1) * n_all / kSplit - t0;
+  const bool ragged = Sk % kBK != 0;
+  const float* qb = q + b * q_sb + (int64_t)h * DD;
+  const float* kb = k + b * k_sb + (int64_t)h * DD;
+  const float* vb = v + b * v_sb + (int64_t)h * DD;
+
+  const int last = n_all - 1;  // the row's last key tile (the ragged one)
+  const auto tile_keys = [&](int t) { return min(kBK, Sk - t * kBK); };
+  // k tile t into its slot (warp 0; the last tile's rows past Sk zeroed by
+  // every thread), with q's rows where t = t0; the bytes complete on kbar
+  const auto issue_k = [&](int t) {
+    const int nk = tile_keys(t), nq = t == t0 ? min(kW512Rows, Sq - q0) : 0;
+    if (warp == 0) {
+      if (lane == 0) sm90::mbar_arrive_expect_tx(kbar, (nk + nq) * kW512D * sizeof(float));
+      __syncwarp();
+      w512_load(ks, kW512Pitch, kb, k_ss, t * kBK, nk, kbar, lane);
+      if (nq > 0) w512_load(qs, kW512Pitch, qb, q_ss, q0, nq, kbar, lane);
+    }
+    if (nk < kBK) w512_zero_rows<kBK, NT>(ks, kW512Pitch, nk, tid);
+    if (nq > 0 && nq < kW512Rows) w512_zero_rows<kW512Rows, NT>(qs, kW512Pitch, nq, tid);
+  };
+  // v tile t into its slot the same way, on vbar
+  const auto issue_v = [&](int t) {
+    const int nk = tile_keys(t);
+    if (warp == 0) {
+      if (lane == 0) sm90::mbar_arrive_expect_tx(vbar, nk * kW512D * sizeof(float));
+      __syncwarp();
+      w512_load(vs, kW512D, vb, v_ss, t * kBK, nk, vbar, lane);
+    }
+    if (nk < kBK) w512_zero_rows<kBK, NT>(vs, kW512D, nk, tid);
+  };
+  if (tid == 0) {
+    sm90::mbar_init(kbar, 1);
+    sm90::mbar_init(vbar, 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  issue_k(t0);
+
+  // S: rows rr + LR i, keys kc + LK j of this warp's slice
+  const int rr = lane / LK, kc = lane % LK, x0 = warp * (SL / 4);
+  // the owner's row 8o + orow (o = warp), keys ok + LK j
+  const int orow = lane / LK, ok = lane % LK;
+  const bool owner = warp < Shape::kOwners;
+  // P v: rows 8pr + i, columns 4(pc + 4jj) + e of this warp's slice; P of
+  // those rows (key kk at pw + OR kk), their alpha at aw
+  const int pr = lane / 4, pc = lane % 4;
+  const int p_reg = 8 * pr / OR * RG + 8 * pr % OR;
+  const float* pw = p_area + p_reg;
+  const float* aw = alpha_area + p_reg;
+  const float* vc = vs + warp * SL + 4 * pc;
+
+  float acc[8][16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[i][c] = 0.f;
+  float m = -INFINITY, l = 0.f;  // the owner's row: running max (log2 units), its keys' share of l
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t = t0 + it;
+    __syncthreads();  // (T) P v(it - 1) is done: v and the partials are free
+    issue_v(t);
+    sm90::mbar_wait(kbar, it & 1);  // k(it) (and q) have landed
+
+    // S_w for rows rr + LR i, keys kc + LK j, in the order of d
+    float s[TM][4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll (kW512UnrollD)
+    for (int c = 0; c < SL / 4; ++c) {
+      float4 kv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + w512_off(kc + LK * j, x0 + c));
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + w512_off(rr + LR * i, x0 + c));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+        }
+      }
+    }
+    // the partials out: row rr + LR i is owner i's row rr
+    float* mine = part + warp * Shape::kPartFloats + kBK * rr + 4 * kc;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      *reinterpret_cast<float4*>(mine + i * RG) = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+    __syncthreads();  // (A) every partial is written; every warp has read k(it)
+    if (it + 1 < n_tiles) issue_k(t + 1);
+
+    if (owner) {
+      // S of row 8o + orow, keys ok + LK j: the 8 partials in warp order
+      const float* src = part + warp * RG + kBK * orow + 4 * ok;
+      float4 x = *reinterpret_cast<const float4*>(src);
+#pragma unroll
+      for (int w = 1; w < kW512Warps; ++w) {
+        const float4 y = *reinterpret_cast<const float4*>(src + w * Shape::kPartFloats);
+        x = make_float4(x.x + y.x, x.y + y.y, x.z + y.z, x.w + y.w);
+      }
+      float sc[4] = {x.x, x.y, x.z, x.w};
+      // the row's online softmax in log2 units, where keys past Sk (zero
+      // rows of the ragged last tile) score -inf
+      if (ragged && t == last) {
+        const int lim = Sk - t * kBK;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[j] = ok + LK * j < lim ? sc[j] : -INFINITY;
+      }
+      float mx = fmaxf(fmaxf(sc[0], sc[1]), fmaxf(sc[2], sc[3]));
+#pragma unroll
+      for (int off = 1; off < LK; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m, mx * scale_log2);  // finite: each tile has a key
+      const float alpha = exp2_approx(m - m_new);
+      m = m_new;
+      l *= alpha;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[j] = exp2_approx(fmaf(sc[j], scale_log2, -m_new));
+        l += sc[j];
+      }
+      __syncwarp();  // the warp's lanes have read their partials where P goes
+      float* preg = p_area + warp * RG + orow;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) preg[(ok + LK * j) * OR] = sc[j];
+      if (ok == 0) alpha_area[warp * RG + orow] = alpha;
+    }
+    sm90::mbar_wait(vbar, it & 1);  // v(it) has landed
+    __syncthreads();                // (C) P, alpha and v(it)'s zero rows are visible
+
+    // O = alpha O + P v for rows 8pr + i, this warp's columns
+    {
+      const float4 a0 = *reinterpret_cast<const float4*>(aw);
+      const float4 a1 = *reinterpret_cast<const float4*>(aw + 4);
+      const float al[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 16; ++c) acc[i][c] *= al[i];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 p0 = *reinterpret_cast<const float4*>(pw + OR * kk);
+      const float4 p1 = *reinterpret_cast<const float4*>(pw + OR * kk + 4);
+      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      float4 vv[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        vv[jj] = *reinterpret_cast<const float4*>(vc + kk * DD + 16 * jj);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          acc[i][4 * jj] = fmaf(pv[i], vv[jj].x, acc[i][4 * jj]);
+          acc[i][4 * jj + 1] = fmaf(pv[i], vv[jj].y, acc[i][4 * jj + 1]);
+          acc[i][4 * jj + 2] = fmaf(pv[i], vv[jj].z, acc[i][4 * jj + 2]);
+          acc[i][4 * jj + 3] = fmaf(pv[i], vv[jj].w, acc[i][4 * jj + 3]);
+        }
+    }
+  }
+
+  // l over the row's lanes; the owners' l (and m where the keys split, or
+  // the lse) out
+  if (owner) {
+#pragma unroll
+    for (int off = 1; off < LK; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    const int row = q0 + warp * OR + orow;
+    if (ok == 0) {
+      l_area[warp * RG + orow] = l;
+      if (kSplit > 1) m_area[warp * RG + orow] = m;
+      else if (kLse && row < Sq) lse[((int64_t)b * H + h) * Sq + row] = kLn2 * (m + log2f(l));
+    }
+  }
+  if constexpr (kSplit == 1) {
+    __syncthreads();
+    const float* lw = l_area + p_reg;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + 8 * pr + i;
+      if (row >= Sq) continue;
+      const float inv = 1.f / lw[i];
+      float* orow_p = o + b * o_sb + row * o_ss + (int64_t)h * DD + warp * SL + 4 * pc;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        *reinterpret_cast<float4*>(orow_p + 16 * jj) =
+            make_float4(acc[i][4 * jj] * inv, acc[i][4 * jj + 1] * inv, acc[i][4 * jj + 2] * inv,
+                        acc[i][4 * jj + 3] * inv);
+    }
+  } else {
+    // the partial O over q's rows (S is done everywhere), then block r
+    // merges rows [r R, (r + 1) R) from every block's partials in rank order:
+    // M = max m_s, w_s = 2^(m_s - M), O = sum w_s O_s / sum w_s l_s
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        *reinterpret_cast<float4*>(qs + (8 * pr + i) * kW512Pitch + warp * SL + 4 * pc +
+                                   16 * jj) =
+            make_float4(acc[i][4 * jj], acc[i][4 * jj + 1], acc[i][4 * jj + 2], acc[i][4 * jj + 3]);
+    sm90::cluster_sync();  // every block's partials are written
+    constexpr int R = kW512Rows / kSplit, kChunks = DD / 4;
+    for (int c = tid; c < R * kChunks; c += NT) {
+      const int r = split * R + c / kChunks, x = c % kChunks, row = q0 + r;
+      const int reg = r / OR * RG + r % OR;  // row r's slot of l and m
+      float ms[kSplit], mx = -INFINITY;
+#pragma unroll
+      for (int sp = 0; sp < kSplit; ++sp) {
+        ms[sp] = sm90::ld_cluster_f32(m_area + reg, sp);
+        mx = fmaxf(mx, ms[sp]);
+      }
+      float lsum = 0.f;
+      float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int sp = 0; sp < kSplit; ++sp) {  // rank order
+        const float w = exp2_approx(ms[sp] - mx);
+        const float4 a = sm90::ld_cluster_f32x4(qs + r * kW512Pitch + 4 * x, sp);
+        lsum = fmaf(w, sm90::ld_cluster_f32(l_area + reg, sp), lsum);
+        y = make_float4(fmaf(w, a.x, y.x), fmaf(w, a.y, y.y), fmaf(w, a.z, y.z),
+                        fmaf(w, a.w, y.w));
+      }
+      if (row < Sq) {
+        const float inv = 1.f / lsum;
+        *reinterpret_cast<float4*>(o + b * o_sb + row * o_ss + (int64_t)h * DD + 4 * x) =
+            make_float4(y.x * inv, y.y * inv, y.z * inv, y.w * inv);
+        if (kLse && x == 0) lse[((int64_t)b * H + h) * Sq + row] = kLn2 * (mx + log2f(lsum));
+      }
+    }
+    sm90::cluster_sync();  // no block leaves while another reads its partials
+  }
+}
+
+// one kernel per entry point, so a profile tells them apart by name; the
+// scale arrives in log2 units (scale * log2 e)
+template <int kBK, int kSplit>
+__global__ void __launch_bounds__(W512Shape<kBK>::kThreads, 1)
+    flash_packed_f32w512_kernel(UNIGEO_W512_PARAMS) {
+  flash_f32w512_block<kBK, kSplit, false>(UNIGEO_W512_ARGS);
+}
+
+template <int kBK, int kSplit>
+__global__ void __launch_bounds__(W512Shape<kBK>::kThreads, 1)
+    flash_headsplit_f32w512_kernel(UNIGEO_W512_PARAMS) {
+  flash_f32w512_block<kBK, kSplit, false>(UNIGEO_W512_ARGS);
+}
+
+template <int kBK, int kSplit>
+__global__ void __launch_bounds__(W512Shape<kBK>::kThreads, 1)
+    flash_fwd_lse_f32w512_kernel(UNIGEO_W512_PARAMS) {
+  flash_f32w512_block<kBK, kSplit, true>(UNIGEO_W512_ARGS);
+}
+
+#undef UNIGEO_W512_PARAMS
+#undef UNIGEO_W512_ARGS
+
 // q, k, v and o contiguous [B, S, H*D] (the tensor maps and the stores
 // assume it)
 bool packed_contiguous(int64_t hd, int Sq, int Sk, int64_t q_sb, int64_t q_ss, int64_t k_sb,
@@ -1453,11 +1900,81 @@ cudaError_t launch_f32_d64(Entry entry, const void* q, const void* k, const void
 #undef UNIGEO_REG
 }
 
+// `items` items of the f32 body at D = 512 from item0 on, each over the
+// kSplit blocks of a cluster
+template <int kSplit>
+cudaError_t launch_f32w512(Entry entry, const void* q, const void* k, const void* v, void* o,
+                           float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                           int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss, int Sq,
+                           int Sk, int H, float scale, int item0, int items,
+                           cudaStream_t stream) {
+  using Shape = W512Shape<kW512BK>;
+  auto kern = entry == kFwdLse      ? flash_fwd_lse_f32w512_kernel<kW512BK, kSplit>
+              : entry == kHeadsplit ? flash_headsplit_f32w512_kernel<kW512BK, kSplit>
+                                    : flash_packed_f32w512_kernel<kW512BK, kSplit>;
+  constexpr size_t smem = Shape::kFloats * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(items * kSplit);
+  cfg.blockDim = dim3(Shape::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kSplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = kSplit > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const float*>(q),
+                           static_cast<const float*>(k), static_cast<const float*>(v),
+                           static_cast<float*>(o), lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                           o_sb, o_ss, Sq, Sk, kW512D, scale * kLog2e, H, item0);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The f32 body at D = 512, rows aligned to 16 bytes: one block an item
+// (64 query rows of one batch entry and head) over the whole rounds of the
+// card's SMs, then the items left over (fewer than the SMs) in a second
+// launch, their keys split over clusters of 8 blocks where the SMs hold
+// them all and each keeps a key tile.  At [25, 3072, 1, 512] the 1200 items
+// are 9 rounds of 132 and 12 left over, split 8 ways: a tenth round of 12
+// blocks would leave 120 SMs idle for a whole item.  (Each split is 3 more
+// fully unrolled kernels to build: the path needs 8.)
+cudaError_t launch_f32_d512(Entry entry, const void* q, const void* k, const void* v, void* o,
+                            float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                            int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss, int B,
+                            int Sq, int Sk, int H, float scale, cudaStream_t stream) {
+  if (!aligned16(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, 4))
+    return cudaErrorInvalidValue;
+  int dev, sms;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int64_t items = (int64_t)((Sq + kW512Rows - 1) / kW512Rows) * H * B;
+  if (items > INT32_MAX) return cudaErrorInvalidValue;
+  const int whole = (int)(items / sms * sms), rest = (int)(items - whole);
+  const int n_tiles = (Sk + kW512BK - 1) / kW512BK;
+#define UNIGEO_W512(KS, I0, N)                                                            \
+  launch_f32w512<KS>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, \
+                     Sq, Sk, H, scale, I0, N, stream)
+  if (whole > 0 && (err = UNIGEO_W512(1, 0, whole)) != cudaSuccess) return err;
+  if (rest == 0) return cudaSuccess;
+  constexpr int kSplit = 8;
+  if (rest * kSplit <= sms && kSplit <= n_tiles) return UNIGEO_W512(kSplit, whole, rest);
+  return UNIGEO_W512(1, whole, rest);
+#undef UNIGEO_W512
+}
+
 // The f32 forward's one switch by head width: D = 64 (the pointmap path)
-// goes to the register-tiled body, which takes rows aligned to 16 bytes
-// (else the launch is refused); every other width up to 512 (the checks'
-// 8, 10, 32, 80 and 512, the tiny pointmap configs' 24 and 32) to
-// flash_f32_block as before.  No width is sent to another body.
+// and D = 512 (the VAE mid block's head) go to their register-tiled bodies,
+// which take rows aligned to 16 bytes (else the launch is refused); every
+// other width up to 512 (the checks' 8, 10, 32 and 80, the tiny pointmap
+// configs' 24 and 32) to flash_f32_block as before.  No width is sent to
+// another body.
 cudaError_t dispatch_f32(Entry entry, const void* q, const void* k, const void* v, void* o,
                          float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                          int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
@@ -1466,6 +1983,9 @@ cudaError_t dispatch_f32(Entry entry, const void* q, const void* k, const void* 
   if (D == kRegD)
     return launch_f32_d64(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
                           o_ss, B, Sq, Sk, H, scale, stream);
+  if (D == kW512D)
+    return launch_f32_d512(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
+                           o_ss, B, Sq, Sk, H, scale, stream);
   if (D <= 64)
     return launch<64, 64, 16>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                               o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);

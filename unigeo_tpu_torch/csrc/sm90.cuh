@@ -7,7 +7,8 @@
 //   `const __grid_constant__ CUtensorMap` parameter;
 // * a cache of launch plans per device and sizes (host);
 // * mbarriers: init, arrive, arrive.expect_tx, try_wait.parity;
-// * the TMA's 3-D tile load into shared memory, completing on an mbarrier;
+// * the TMA's 3-D tile load into shared memory, and its bulk copy of
+//   contiguous bytes (no tensor map), completing on an mbarrier;
 // * wgmma: shared-memory matrix descriptors for 128-, 64- and 32-byte
 //   swizzled tiles as the TMA writes them, wgmma.mma_async m64nNk16 bf16 ->
 //   f32 with A from shared memory or from registers and B K-major or
@@ -192,6 +193,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// TMA without a tensor map: `bytes` (a multiple of 16) from device memory at
+// `src` into shared `dst`, both 16-byte aligned; the bytes complete on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

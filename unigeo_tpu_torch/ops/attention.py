@@ -54,10 +54,12 @@ MIN_KERNEL_SEQ = 128  # same threshold as unigeo_tpu's use_packed_attention
 # head widths of the bf16 tensor-core forward: UNet 64, CLIP 80, VAE 512, and
 # 16 for small checks (TMA + wgmma bodies: 64-row consumers at 16, 64 and 80,
 # a column-split pair of consumers at 512); f32 takes any width up to 512
-# (CUDA cores: the register-tiled body at the pointmap path's 64, which
-# takes rows aligned to 16 bytes, the earlier body at every other width)
+# (CUDA cores: the register-tiled bodies at the pointmap path's 64 and the
+# VAE mid block's 512, which take rows aligned to 16 bytes, the earlier body
+# at every other width)
 BF16_HEAD_WIDTHS = (16, 64, 80, 512)
-F32_TILED_HEAD_WIDTH = 64
+F32_TILED_HEAD_WIDTHS = (64, 512)
+F32_TILED_HEAD_WIDTH = 64  # the f32 backward's register-tiled bodies
 # the backward kernels: bf16 at the UNet's 64 (and 16 for small checks),
 # f32 at any width up to 128 (CUDA cores: the register-tiled bodies at the
 # f32 training paths' 64, which take rows aligned to 16 bytes, the earlier body
@@ -84,6 +86,26 @@ def f32_bwd_split(b: int, sq: int, sk: int, h: int, dkv: bool, sms: int) -> int:
     while split < 8 and items * split < sms and 2 * split <= n_tiles:
         split *= 2
     return split
+
+
+# rows of an item of the f32 forward's body at d = 512, keys of its tiles
+F32_D512_ITEM_ROWS, F32_D512_KEY_TILE = 64, 16
+
+
+def f32_d512_plan(b: int, sq: int, sk: int, h: int, sms: int):
+    """The launches the library's host plan makes for the f32 forward at
+    d = 512 (``csrc/flash_attention_packed.cu::launch_f32_d512``; written here
+    for the tests and the reports): (whole, rest, split).  The items are
+    blocks of ``F32_D512_ITEM_ROWS`` query rows of one batch entry and head;
+    the first launch runs the ``whole`` rounds of ``sms`` items, one block
+    an item, the second the ``rest`` left over with their keys split over
+    clusters of ``split`` = 8 blocks where the SMs hold them all and each
+    keeps a key tile, else 1."""
+    items = -(-sq // F32_D512_ITEM_ROWS) * h * b
+    whole = items // sms * sms
+    rest = items - whole
+    n_tiles = -(-sk // F32_D512_KEY_TILE)
+    return whole, rest, 8 if rest and rest * 8 <= sms and n_tiles >= 8 else 1
 
 
 def _heads(x, num_heads: int, upcast: bool = True):
@@ -155,8 +177,8 @@ def _check_kernel_input(q, k, v, d: int):
     if q.dtype == torch.bfloat16 and d not in BF16_HEAD_WIDTHS:
         raise ValueError(f"bf16 kernel takes head widths {BF16_HEAD_WIDTHS}, not {d}")
     # 16-byte tile loads (rows and head offsets are then multiples of 16
-    # bytes): every bf16 body and the f32 body at d = 64
-    if (q.dtype == torch.bfloat16 or d == F32_TILED_HEAD_WIDTH) and any(
+    # bytes): every bf16 body and the f32 bodies at d = 64 and 512
+    if (q.dtype == torch.bfloat16 or d in F32_TILED_HEAD_WIDTHS) and any(
         t.data_ptr() % 16 for t in (q, k, v)
     ):
         raise ValueError(f"{q.dtype} kernel at d = {d} takes rows aligned to 16 bytes")

@@ -14,12 +14,16 @@ torch.profiler (``device_ms``).  The variants are the design choices of the
 
     python -m unigeo_tpu_torch.tools.forward_variants [--variants a,b,...]
 
-With ``--f32`` the variants are ``F32_VARIANTS``, those of the f32 body at
+With ``--f32`` the variants are ``F32_VARIANTS``: those of the f32 body at
 d = 64 (block rows, ring depth, unrolls; and the earlier CUDA-core body at
-d = 64), at the pointmap path's shapes ``F32_SHAPES`` in f32 (TF32
-off), each held against the plain version within F32_OUT_TOL = 1e-5 on the
-batch entries 0, 1 and the last, with the kernel's name and SDPA's f32
-time beside them:
+d = 64) and of the f32 body at d = 512 (key tile, the key split of the
+items left over, unrolls; and the earlier CUDA-core body at d = 512), at
+the pointmap
+path's shapes and the DepthCrafter trainer's VAE mid attention
+(``F32_SHAPES``) in f32 (TF32 off), each held against the plain version
+within F32_OUT_TOL = 1e-5 on the batch entries 0, 1 and the last, with the
+kernel's name and SDPA's f32 time beside them (a variant of one width
+builds the other's body as it is):
 
     python -m unigeo_tpu_torch.tools.forward_variants --f32 [--variants a,b,...]
 
@@ -77,11 +81,28 @@ F32_VARIANTS = {
                      "constexpr int kRegUnrollD = 16, kRegUnrollK = 64;")],
     "half_unroll": [(_SRC, "constexpr int kRegUnrollD = 4, kRegUnrollK = 16;",
                      "constexpr int kRegUnrollD = 2, kRegUnrollK = 8;")],
+    # d = 512: the earlier CUDA-core body (flash_*_kernel<16, 32, 32>)
+    "earlier_d512": [(_SRC, "  if (D == kW512D)\n    return launch_f32_d512(",
+                      "  if (false)\n    return launch_f32_d512(")],
+    # key tiles of 8 (S: 4 rows x 4 keys a lane, 8 FMAs a load; 4 owners)
+    "w512_bk8": [(_SRC, "constexpr int kW512BK = 16;     // keys of a tile",
+                  "constexpr int kW512BK = 8;     // keys of a tile")],
+    # the items left over after the whole rounds run one block an item, as
+    # the others (no key split over clusters)
+    "w512_no_split": [(_SRC, "if (rest * kSplit <= sms && kSplit <= n_tiles) return",
+                       "if (false) return")],
+    # S's loop over 16 steps of 4 d unrolled by 4 or by 2 (whole as built)
+    "w512_unroll4": [(_SRC, "constexpr int kW512UnrollD = 16;", "constexpr int kW512UnrollD = 4;")],
+    "w512_unroll2": [(_SRC, "constexpr int kW512UnrollD = 16;", "constexpr int kW512UnrollD = 2;")],
 }
-# Spann3R's encoder over UniGeoCam's 25 frames and over its own 20, its
-# decoder per frame (768 tokens of 384 x 512)
-F32_SHAPES = [("pointmap_encoder", 25, 768, 12), ("spann3r_encoder", 20, 768, 12),
-              ("pointmap_decoder", 1, 768, 8)]
+# (name, B, S, H, D): Spann3R's encoder over UniGeoCam's 25 frames and over
+# its own 20, its decoder per frame (768 tokens of 384 x 512); the
+# DepthCrafter trainer's f32 target encode, its VAE mid block's one head
+# over 25 frames' 48 x 64 latents
+F32_SHAPES = [("pointmap_encoder", 25, 768, 12, 64), ("spann3r_encoder", 20, 768, 12, 64),
+              ("pointmap_decoder", 1, 768, 8, 64), ("depthcrafter_vae_mid", 25, 3072, 1, 512)]
+# calls a timing at d = 512 (the earlier body takes about 0.12 s a call)
+F32_WIDE_ITERS = 5
 F32_OUT_TOL = 1e-5
 SHAPES = [("unet_stage0", 3072, 5, 64), ("unet_stage1", 768, 10, 64),
           ("unet_stage2", 192, 20, 64), ("vae_mid", 3072, 1, 512), ("clip_vit_h", 257, 16, 80)]
@@ -162,14 +183,21 @@ def profile_device_ms(fn, iters: int) -> float:
 
 
 def profile_flash(fn, iters: int):
-    """``iters`` calls of ``fn`` under torch.profiler: (the name of the one
-    flash kernel they launched, its mean device ms per launch the profiler
-    recorded; it may miss one of a run of long launches)."""
+    """``iters`` calls of ``fn`` under torch.profiler: (the name of the flash
+    kernel they launched, its mean device ms per launch the profiler
+    recorded; it may miss one of a run of long launches).  A call of the f32
+    body at d = 512 may be two launches of it (the whole rounds of items,
+    then the items left over, split over clusters or not): then the names
+    joined by " + " and the sum of their means, each times its launches a
+    call."""
     found = [e for e in _profiled_kernels(fn, iters) if "flash_" in e.key]
-    if len(found) != 1:
+    if len(found) != 1 and not (len(found) == 2 and all("f32w512" in e.key for e in found)):
         raise RuntimeError(f"{iters} calls launched the flash kernels "
                            f"{[(e.key, e.count) for e in found]}")
-    return found[0].key, found[0].self_device_time_total / 1e3 / found[0].count
+    found.sort(key=lambda e: e.key)
+    return (" + ".join(e.key for e in found),
+            sum(e.self_device_time_total / 1e3 / e.count * max(1, round(e.count / iters))
+                for e in found))
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -179,7 +207,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=None,
                     help="comma-separated names from VARIANTS (F32_VARIANTS with --f32)")
-    ap.add_argument("--f32", action="store_true", help="the f32 body at d = 64")
+    ap.add_argument("--f32", action="store_true", help="the f32 bodies at d = 64 and 512")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("forward_variants needs an NVIDIA GPU")
@@ -225,8 +253,8 @@ def main_f32(names: List[str]) -> dict:
               "library_ms": {}}
     with tempfile.TemporaryDirectory() as root:
         libs = build_variants(names, root, F32_VARIANTS)
-        for name, b, s, h in F32_SHAPES:
-            d = 64
+        for name, b, s, h, d in F32_SHAPES:
+            iters = ITERS if d == 64 else F32_WIDE_ITERS
             rng = np.random.default_rng(s + b)
             q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h * d), dtype=np.float32))
                        .to(dev) for _ in range(3))
@@ -234,16 +262,16 @@ def main_f32(names: List[str]) -> dict:
             ref = attention_packed_reference(q[idx], k[idx], v[idx], h)
             split = lambda x: x.view(b, s, h, d).transpose(1, 2)
             sdpa = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
-            result["library_ms"][name] = dict(ms=events_ms(sdpa, ITERS),
-                                              device_ms=profile_device_ms(sdpa, ITERS))
+            result["library_ms"][name] = dict(ms=events_ms(sdpa, iters),
+                                              device_ms=profile_device_ms(sdpa, iters))
             for var in names:
                 fn = lambda: attention._launch(libs[var], q, k, v, h, d**-0.5)
                 out = fn()
                 torch.cuda.synchronize()
                 err = (out[idx] - ref).abs().max().item()
-                kernel, device_ms = profile_flash(fn, ITERS)
+                kernel, device_ms = profile_flash(fn, iters)
                 result["variants"].setdefault(var, {})[name] = dict(
-                    ms=events_ms(fn, ITERS), device_ms=device_ms,
+                    ms=events_ms(fn, iters), device_ms=device_ms,
                     max_err_over_limit=err / F32_OUT_TOL, kernel=kernel)
             del q, k, v, ref
             torch.cuda.empty_cache()

@@ -10,10 +10,13 @@ kernel, disassembles the object with ``cuobjdump -sass`` and counts, per
 kernel whose mangled name contains ``--match``, the instructions that say
 how it computes: FFMA / FMUL / FADD (f32 on the CUDA cores), LDS and
 LDS.128 (shared-memory loads, 16-byte ones), STS and STS.128, LDGSTS
-(cp.async), MUFU and MUFU.EX2, SHFL, BAR, LDL / STL (local memory, which
+(cp.async), UBLKCP (the TMA's bulk copies), MUFU and MUFU.EX2, SHFL, BAR, LDL / STL (local memory, which
 spills land in), any tensor-core instruction (``*MMA*``, e.g. HMMA,
-HGMMA; a TF32 product would be one) and every instruction (``total``).  It prints one JSON object.  It needs
-nvcc and cuobjdump (the CUDA toolkit on the machine with the card).
+HGMMA; a TF32 product would be one) and every instruction (``total``), and
+each kernel's ``ffma_share``, FFMA over every instruction of its static SASS.
+``--match f32w512`` reports the f32 body at d = 512.  It prints one JSON
+object.  It needs nvcc and cuobjdump (the CUDA toolkit on the machine with
+the card).
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import tempfile
 from typing import List, Optional
 
 # opcode families counted per kernel (an opcode's text before its first dot)
-FAMILIES = ("FFMA", "FMUL", "FADD", "LDS", "STS", "LDGSTS", "SHFL", "MUFU", "LDL", "STL", "BAR")
+FAMILIES = ("FFMA", "FMUL", "FADD", "LDS", "STS", "LDGSTS", "UBLKCP", "SHFL", "MUFU", "LDL", "STL",
+            "BAR")
 
 
 def _tool(name: str) -> str:
@@ -91,6 +95,12 @@ def sass_counts(text: str, match: str) -> dict:
     return {fn: dict(c) for fn, c in out.items()}
 
 
+def ffma_share(counts: dict) -> Optional[float]:
+    """FFMA over every instruction of one kernel's ``sass_counts`` (None for
+    a kernel with no instruction)."""
+    return counts.get("FFMA", 0) / counts["total"] if counts.get("total") else None
+
+
 def template_args(mangled: str) -> List[int]:
     """The integer template arguments of a mangled kernel name (Li8E -> 8)."""
     return [int(x) for x in re.findall(r"Li(\d+)E", mangled)]
@@ -118,7 +128,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         sass = subprocess.run([_tool("cuobjdump"), "-sass", obj], capture_output=True,
                               text=True, timeout=300, check=True).stdout
     counts = sass_counts(sass, args.match)
-    kernels = {fn: {"template_args": template_args(fn), **info.get(fn, {}), "sass": c}
+    kernels = {fn: {"template_args": template_args(fn), **info.get(fn, {}), "sass": c,
+                    "ffma_share": ffma_share(c)}
                for fn, c in sorted(counts.items())}
     result = {"source": args.source, "match": args.match, "kernels": kernels}
     print(json.dumps(result), flush=True)
