@@ -51,6 +51,14 @@ Phases, each printed on its own flushed line with the seconds since start:
              Cut3R's frame-to-state cross-attention) held elementwise to
              the plain version's limits, with events and device ms, the
              plain versions', SDPA's f32 backward and the bounds
+             Then the bf16 CUDA-core bodies (flash_*_kernel<__nv_bfloat16>,
+             bwd_{dq,dkv}_f32_kernel<__nv_bfloat16>, asserted by kernel name)
+             that every bf16 width no wgmma body takes and rows not aligned
+             to 16 bytes run: the forward at [2, 768, 2, 24], [2, 768, 2,
+             32], [2, 768, 4, 128] and [2, 768, 4, 64] with misaligned rows,
+             the backward at [2, 768, 2, 32] and [2, 257, 16, 80], each
+             under its derived limit, with events and device ms, the plain
+             versions' and SDPA's times and the bound
   reference  the tiny pipeline in f32 on the card (kernel path) against the
              same weights on the CPU (plain path); then one step of the tiny
              trainer the same way: loss, every gradient, and the AdamW step
@@ -59,6 +67,17 @@ Phases, each printed on its own flushed line with the seconds since start:
              launch count against the count the configuration predicts;
              depth and normal metrics against an analytic tilted plane
   profile    one more forward under torch.profiler
+  serving    the same configuration with clips_per_step 2 behind
+             unigeo_tpu_torch.serving.HTTPInferenceServer on 127.0.0.1 in
+             this process (max_batch 2, a 2 s window), under deterministic
+             cuDNN: two distinct clips POSTed at once coalesce into one batch
+             (/stats), each response bitwise equal to the model's direct
+             forward_batch, 143 packed launches for the pair; a malformed
+             body gets a 400; one more clip, bitwise equal to forward, 109
+             launches; request seconds, clips/s, peak memory, npz encode /
+             decode seconds
+  debug_nans run_evaluation(debug_nans=True) on a tiny f32 DepthCrafter on
+             the card with one NaN weight planted: FloatingPointError
   eval       the port's evaluator (unigeo_tpu_torch.evaluator.run_evaluation)
              on two synthetic 25 x 384 x 512 clips with DepthCrafter built from
              the config's model_params (random bf16 weights made on the card),
@@ -3227,6 +3246,298 @@ def phase_kernel_f32_bwd(dev):
     return rows
 
 
+# bf16 shapes no wgmma body takes, run on the CUDA-core body read into f32
+# (name, B, Sq, Sk, H, D, rows shifted off 16-byte alignment): the tiny
+# pointmap configs' head widths 24 and 32 with compute_dtype bf16, 128, and
+# the UNet's 64 with rows the TMA cannot take
+BF16_CUDA_CORE_FWD = [("pointmap_tiny_d24", 2, 768, 768, 2, 24, False),
+                      ("pointmap_tiny_d32", 2, 768, 768, 2, 32, False),
+                      ("d128", 2, 768, 768, 4, 128, False),
+                      ("d64_misaligned", 2, 768, 768, 4, 64, True)]
+# the backward there: the tiny pointmap width 32, CLIP's 80 (a trainer that
+# unfreezes CLIP)
+BF16_CUDA_CORE_BWD = [("pointmap_tiny_d32", 2, 768, 768, 2, 32),
+                      ("clip_d80", 2, 257, 257, 16, 80)]
+
+
+def misaligned(x):
+    """x's values in a contiguous tensor whose base is 2 bytes past a 16-byte
+    boundary."""
+    y = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    return y
+
+
+def phase_kernel_bf16_cuda_core(dev):
+    """The bf16 CUDA-core bodies (flash_*_kernel<__nv_bfloat16, ...> and
+    bwd_{dq,dkv}_f32_kernel<__nv_bfloat16, ...>, asserted by kernel name) at
+    BF16_CUDA_CORE_FWD / _BWD against their plain versions under their
+    derived limits (bf16_cuda_core_error_limit, grad_error_limits with
+    cuda_core), with events ms, the plain versions' and SDPA's times and the
+    bounds at the bf16 rate.  No default path launches them."""
+    from unigeo_tpu_torch.ops import attention as att
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = {"fwd": [], "bwd_dq": [], "bwd_dkv": []}
+    split = lambda x, b, s_, h, d: x.view(b, s_, h, d).transpose(1, 2)
+    for name, b, sq, sk, h, d, shifted in BF16_CUDA_CORE_FWD:
+        mk = lambda s_: torch.randn((b, s_, h * d), generator=gen, device=dev,
+                                    dtype=torch.bfloat16)
+        q, k, v = mk(sq), mk(sk), mk(sk)
+        if shifted:
+            q, k, v = misaligned(q), misaligned(k), misaligned(v)
+        if not att.bf16_fwd_on_cuda_core(q, k, v, d):
+            raise AssertionError(f"{name}: not a CUDA-core shape")
+        out = att.flash_attention_packed(q, k, v, h)
+        torch.cuda.synchronize()
+        ref = att.attention_packed_reference(q, k, v, h)
+        limit = att.bf16_cuda_core_error_limit(q, k, v, h, ref)
+        diff = (out.float() - ref.float()).abs()
+        err, ratio = diff.max().item(), (diff / limit).max().item()
+        if not (np.isfinite(err) and ratio <= 1.0):
+            raise AssertionError(f"bf16 cuda-core {name}: max err/limit {ratio} (err {err})")
+        body, device_ms = forward_body(lambda: att.flash_attention_packed(q, k, v, h), 5)
+        if "<__nv_bfloat16" not in body:
+            raise AssertionError(f"bf16 cuda-core {name} ran {body}")
+        bms, by = bound(b, sq, h, d)
+        row = dict(shape=name, b=b, sq=sq, sk=sk, h=h, d=d, misaligned=shifted, body=body,
+                   max_abs_err=err, max_err_over_limit=ratio,
+                   ms=time_ms(lambda: att.flash_attention_packed(q, k, v, h), 20),
+                   device_ms=device_ms,
+                   plain_ms=time_ms(lambda: att.attention_packed_reference(q, k, v, h), 20),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       split(q, b, sq, h, d), split(k, b, sk, h, d), split(v, b, sk, h, d)), 20),
+                   bound_ms=bms, bound_by=by)
+        rows["fwd"].append(row)
+        log("kernel", f"bf16 cuda-core fwd {name} [B={b},S={sq},H={h},D={d}"
+            f"{',misaligned' if shifted else ''}] body {body} max_err/limit={ratio:.3f} "
+            f"ms={row['ms']:.4f} device_ms={device_ms:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} bound_ms={bms:.5f} ({by})")
+    for name, b, sq, sk, h, d in BF16_CUDA_CORE_BWD:
+        mk = lambda s_: torch.randn((b, s_, h * d), generator=gen, device=dev,
+                                    dtype=torch.bfloat16)
+        q, k, v, dout = mk(sq), mk(sk), mk(sk), mk(sq)
+        out, lse = att.attention_fwd_lse_reference(q, k, v, h)
+        if not att.bf16_bwd_on_cuda_core(q, k, v, dout, d):
+            raise AssertionError(f"{name}: not a CUDA-core shape")
+        grads = att.flash_attention_bwd(q, k, v, out, lse, dout, h)
+        torch.cuda.synchronize()
+        refs = att.attention_bwd_reference(q, k, v, out, lse, dout, h)
+        limits = att.grad_error_limits(q, k, v, out, lse, dout, h, refs, cuda_core=True)
+        errs = [(g.float() - r.float()).abs() for g, r in zip(grads, refs)]
+        ratios = [(e / lim).max().item() for e, lim in zip(errs, limits)]
+        if not max(ratios) <= 1.0:
+            raise AssertionError(f"bf16 cuda-core bwd {name}: max err/limit {ratios}")
+        delta = att._delta(out, dout, h)
+        bounds = train_bounds(torch.bfloat16, b, sq, sk, h, d)
+        qs, ks, vs = (split(x, b, s_, h, d).detach().requires_grad_()
+                      for x, s_ in ((q, sq), (k, sk), (v, sk)))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
+        lib_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs),
+                                                     split(dout, b, sq, h, d),
+                                                     retain_graph=True), 20)
+        for kernel, fn, parts, ratio in (
+                ("bwd_dq", lambda: att.flash_attention_bwd_dq(q, k, v, dout, lse, delta, h),
+                 ("dq",), ratios[0]),
+                ("bwd_dkv", lambda: att.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, h),
+                 ("dk", "dv"), max(ratios[1:]))):
+            body, device_ms = bwd_device_ms(fn, 5, kernel + "_f32_kernel")
+            if "<__nv_bfloat16" not in body:
+                raise AssertionError(f"bf16 cuda-core {kernel} {name} ran {body}")
+            row = dict(shape=name, b=b, sq=sq, sk=sk, h=h, d=d, body=body,
+                       max_abs_err=max(errs[i].max().item() for i in
+                                       ((0,) if kernel == "bwd_dq" else (1, 2))),
+                       max_err_over_limit=ratio, ms=time_ms(fn, 20), device_ms=device_ms,
+                       plain_ms=time_ms(lambda: att._bwd_plain(q, k, v, dout, lse, delta, h,
+                                                               d**-0.5, parts), 20),
+                       library_ms=lib_ms, library_computes="dq, dk and dv",
+                       bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1])
+            rows[kernel].append(row)
+            log("kernel", f"bf16 cuda-core {kernel} {name} [B={b},Sq={sq},Sk={sk},H={h},D={d}] "
+                f"body {body} max_err/limit={ratio:.3f} ms={row['ms']:.4f} "
+                f"device_ms={device_ms:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"library_bwd_ms={lib_ms:.4f} bound_ms={row['bound_ms']:.5f}")
+    torch.cuda.synchronize()
+    return rows
+
+
+# the serving phase: DepthCrafter at SVD-XT width behind the HTTP server,
+# two clips coalesced into one batch of clips_per_step = 2
+SERVE_WINDOW_MS, SERVE_STAGGER_S = 2000.0, 0.5
+
+
+def serving_clips(t, h, w):
+    """Three distinct clips as a client sends them (serve.py's wire format):
+    images [t, 3, h, w] f32 0..255 (the tilted plane, rolled by 0, 37 and 91
+    columns) and intrinsics [t, 3, 3], all DepthCrafter reads."""
+    base = tilted_plane_clip(t, h, w)
+    return [{"images": np.roll(base["images"], shift, axis=3).astype(np.float32),
+             "intrinsics": base["intrinsics"]} for shift in (0, 37, 91)]
+
+
+def post(port, payload, timeout=600):
+    """(status, body bytes, seconds) of one POST to /v1/predict."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/predict", data=payload,
+                                 method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read(), time.perf_counter() - t0
+
+
+def get_json(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def phase_serving(dev):
+    """DepthCrafter (SVD-XT width, random bf16 weights made on the card,
+    clips_per_step 2, 5 steps) behind unigeo_tpu_torch.serving's
+    HTTPInferenceServer on 127.0.0.1 in this process (max_batch 2, a
+    SERVE_WINDOW_MS window): two distinct 25 x 384 x 512 clips POSTed at once
+    coalesce into one batch (/stats), each response bitwise equal to the
+    same model's direct forward_batch on the decoded clips, with the packed
+    kernel's launches held to the pair's count; one malformed body gets a
+    400; one single clip, bitwise equal to forward, its launches held to one
+    clip's count.  Under deterministic cuDNN.  Request latencies, clips/s,
+    peak memory, npz encode / decode seconds per request."""
+    from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
+    from unigeo_tpu_torch.models.depthcrafter.pipeline import DepthCrafterPipeline
+    from unigeo_tpu_torch.serving import HTTPInferenceServer, decode_arrays, encode_arrays
+    from concurrent.futures import ThreadPoolExecutor
+
+    t, h, w, steps = 25, 384, 512, 5
+    unet_cfg, clip_cfg = SVD_XT_UNET, SVD_XT_CLIP
+    pipe = DepthCrafterPipeline(unet_config=unet_cfg, clip_config=clip_cfg,
+                                dtype=torch.bfloat16, device=dev)
+    pipe.init_random(torch.Generator(device=dev).manual_seed(0))
+    model = DepthCrafter(pipe, num_inference_steps=steps, seed=42, clips_per_step=2)
+    clips = serving_clips(t, h, w)
+    t0 = time.perf_counter()
+    payloads = [encode_arrays(c) for c in clips]
+    encode_s = (time.perf_counter() - t0) / len(clips)
+    t0 = time.perf_counter()
+    decoded = [decode_arrays(p) for p in payloads]
+    decode_s = (time.perf_counter() - t0) / len(clips)
+    mb = len(payloads[0]) / 1e6
+    per_clip = predicted_launches(unet_cfg, clip_cfg, h, w, steps)
+    # a batch runs each UNet evaluation once for both clips; CLIP and the
+    # VAE run per clip
+    pair_predicted = (steps * unet_kernel_attentions(unet_cfg, h, w)
+                      + 2 * (clip_kernel_attentions(clip_cfg) + 2 * vae_mid_attentions(h, w)))
+    with deterministic_cudnn():
+        with torch.inference_mode():  # warm up once: cuDNN's first use, the allocator
+            model.forward_batch(decoded[:2])
+            model.forward(decoded[2])
+        torch.cuda.synchronize()
+        srv = HTTPInferenceServer(model, host="127.0.0.1", port=0, max_batch=2,
+                                  batch_window_ms=SERVE_WINDOW_MS, model_name="DepthCrafter")
+        srv.start()
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t_pair = time.perf_counter()
+            # both in flight at once; the second sent SERVE_STAGGER_S after
+            # the first, inside the window, so the batch holds them in order
+            with ThreadPoolExecutor(2) as pool:
+                first = pool.submit(post, srv.port, payloads[0])
+                time.sleep(SERVE_STAGGER_S)
+                second = pool.submit(post, srv.port, payloads[1])
+                pair = [first.result(), second.result()]
+            pair_s = time.perf_counter() - t_pair
+            pair_counts = read_counts()
+            peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+            stats = get_json(srv.port, "/stats")
+            bad = post(srv.port, b"not an npz")
+            reset_counts()
+            single = post(srv.port, payloads[2])
+            single_counts = read_counts()
+            health = get_json(srv.port, "/healthz")
+        finally:
+            srv.shutdown()
+        with torch.inference_mode():  # the direct calls on the same clips, warm
+            direct_pair = model.forward_batch(decoded[:2])
+            direct_single = model.forward(decoded[2])
+    statuses = [r[0] for r in pair] + [bad[0], single[0]]
+    if statuses != [200, 200, 400, 200]:
+        raise AssertionError(f"serving: statuses {statuses} (pair, malformed, single): "
+                             f"{[r[1][:200] for r in pair + [bad, single] if r[0] != 200]}")
+    if stats["served"] != 2 or stats["mean_batch"] != 2.0:
+        raise AssertionError(f"serving: the pair did not coalesce into one batch: {stats}")
+    if health != {"status": "ok", "model": "DepthCrafter"}:
+        raise AssertionError(f"serving: /healthz {health}")
+    for label, got, ref in (("pair 0", decode_arrays(pair[0][1]), direct_pair[0]),
+                            ("pair 1", decode_arrays(pair[1][1]), direct_pair[1]),
+                            ("single", decode_arrays(single[1]), direct_single)):
+        if set(got) != set(ref) or not all(np.array_equal(got[k], ref[k]) for k in ref):
+            raise AssertionError(f"serving: {label} differs from the direct call: "
+                                 f"{[(k, float(np.abs(got[k] - ref[k]).max())) for k in ref]}")
+        check_prediction(f"serving {label}", got, t, h, w)
+    if np.array_equal(direct_pair[0]["pred_depths"], direct_pair[1]["pred_depths"]):
+        raise AssertionError("serving: the two clips gave the same depths")
+    pair_launches = pair_counts["flash_attention_packed"]
+    single_launches = single_counts["flash_attention_packed"]
+    if (pair_launches, single_launches) != (pair_predicted, per_clip):
+        raise AssertionError(f"serving: packed launches pair {pair_launches}, single "
+                             f"{single_launches}; predicted {pair_predicted}, {per_clip}")
+    if any(n for name, n in {**pair_counts, **single_counts}.items()
+           if name != "flash_attention_packed"):
+        raise AssertionError(f"serving launched another kernel: {pair_counts} {single_counts}")
+    result = dict(pair_request_s=[r[2] for r in pair], pair_wall_s=pair_s,
+                  clips_per_s=2 / pair_s, single_request_s=single[2], malformed_status=bad[0],
+                  peak_mem_gib=peak_gib, request_mb=mb, npz_encode_s=encode_s,
+                  npz_decode_s=decode_s, launches_pair=pair_launches,
+                  launches_single=single_launches, stats=stats)
+    log("serving", f"pair of clips in one batch of 2 (stats {json.dumps(stats)}): request s "
+        f"{[round(r[2], 3) for r in pair]} wall {pair_s:.3f} s, {2 / pair_s:.3f} clips/s, "
+        f"peak {peak_gib:.2f} GiB, packed launches {pair_launches} (predicted "
+        f"{pair_predicted}); bitwise equal to forward_batch")
+    log("serving", f"single clip {single[2]:.3f} s, launches {single_launches} (predicted "
+        f"{per_clip}), bitwise equal to forward; malformed body -> {bad[0]}, then 200; "
+        f"npz {mb:.1f} MB a request: encode {encode_s:.3f} s, decode {decode_s:.3f} s")
+    return result
+
+
+def phase_debug_nans(dev):
+    """run_evaluation with debug_nans on a tiny f32 DepthCrafter on the card
+    whose VAE encoder's first convolution holds one NaN weight: it must
+    raise FloatingPointError naming that module's class, and leave no hook."""
+    from unigeo_tpu_torch.config import EvalConfig
+    from unigeo_tpu_torch.evaluator import run_evaluation
+    from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
+    from unigeo_tpu_torch.models.depthcrafter.pipeline import tiny_pipeline
+
+    pipe = tiny_pipeline(device=dev).init_random(torch.Generator(device=dev).manual_seed(5))
+    with torch.no_grad():
+        pipe.vae.encoder.conv_in.weight[0, 0, 0, 0] = float("nan")
+    cfg = EvalConfig.from_dict({
+        "dataset": "SyntheticBoxDataset", "root": None, "h": 64, "w": 64, "clip_length": 2,
+        "clip_overlap": 0, "split": "test",
+        "dataset_params": {"render_size": [64, 64], "num_scenes": 1, "frames_per_scene": 2},
+        "model_name": "DepthCrafter", "model_params": {},
+        "eval_depth": {"metric_names": ["Abs Rel"], "depth_alignment": "lstsq"}})
+    hooks = dict(torch.nn.modules.module._global_forward_hooks)
+    with tempfile.TemporaryDirectory() as out:
+        try:
+            run_evaluation(cfg, save_dir=out, model=DepthCrafter(pipe, num_inference_steps=2),
+                           verbose=False, debug_nans=True, device=dev)
+        except FloatingPointError as exc:
+            message = str(exc)
+        else:
+            raise AssertionError("debug_nans: the planted NaN weight did not raise")
+    if "Conv" not in message or dict(torch.nn.modules.module._global_forward_hooks) != hooks:
+        raise AssertionError(f"debug_nans: raised {message!r}, hooks left")
+    log("debug_nans", f"planted NaN weight raised FloatingPointError: {message}")
+
+
 def summarize(name, source, replaces, rows, launches, extra=None):
     """One entry of the kernels line: sums over the shapes, each shape below.
     The sums are over the rows given, all at KERNEL_BATCH (the batch-25 rows
@@ -3285,6 +3596,7 @@ def main():
     fwd25 = kernel_forward_batch25(dev)
     f32_rows = phase_kernel_f32_pointmap(dev)
     f32_bwd_rows = phase_kernel_f32_bwd(dev)
+    cuda_core_rows = phase_kernel_bf16_cuda_core(dev)
     torch.cuda.synchronize()
     phase_reference(dev)
     phase_reference_train(dev)
@@ -3292,6 +3604,10 @@ def main():
     launches, _ = phase_main(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    served = phase_serving(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    phase_debug_nans(dev)
     evaluated = phase_eval(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3353,6 +3669,10 @@ def main():
                    "launches_per_clip_new_paths": {k: v["launches_per_clip"]
                                                    for k, v in siblings.items()
                                                    if "launches_per_clip" in v},
+                   "launches_serving": {"pair_in_one_batch": served["launches_pair"],
+                                        "single_clip": served["launches_single"]},
+                   "serving": served,
+                   "bf16_cuda_core_shapes": cuda_core_rows["fwd"],
                    "f32_pointmap_shapes": f32_rows,
                    "f32_body_by_head_width": {str(r["d"]): r["body"] for r in f32_rows},
                    "batch_flash_f32_d512_device_ms": trained["batch_flash_f32_d512_device_ms"],
@@ -3385,6 +3705,7 @@ def main():
                    "launches_per_step_new_paths": {
                        k: v["flash_attention_bwd_dq"] for k, v in new_paths.items()},
                    "f32_training_shapes": f32_bwd_rows,
+                   "bf16_cuda_core_shapes": cuda_core_rows["bwd_dq"],
                    "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)",
                    "batch25_shapes": batch25("dq_ms", "library_bwd_ms", "dq_bound_ms",
                                              "max_err_over_limit_dq", "max_abs_err_dq",
@@ -3396,6 +3717,7 @@ def main():
                    "launches_per_step_new_paths": {
                        k: v["flash_attention_bwd_dkv"] for k, v in new_paths.items()},
                    "f32_training_shapes": f32_bwd_rows,
+                   "bf16_cuda_core_shapes": cuda_core_rows["bwd_dkv"],
                    "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)",
                    "batch25_shapes": batch25("dkv_ms", "library_bwd_ms", "dkv_bound_ms",
                                              "max_err_over_limit_dkv", "max_abs_err_dkv",

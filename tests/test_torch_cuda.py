@@ -28,10 +28,14 @@ cases, where dP - delta cancels and dS is zero in exact arithmetic.
 The bf16 forward has two Hopper bodies (TMA, wgmma), chosen by head width
 in one switch: 64-row consumers that each own whole rows at d in {16, 64,
 80}, and at d = 512 two consumers that split a row's 512 output columns and
-trade their partial scores through shared memory.  A launch either body
-refuses raises; no other body is tried, and any other bf16 width is
-refused.  Each writes every output element once, so two launches give the
-same bits.
+trade their partial scores through shared memory.  Every other bf16 width up
+to 512, and rows not aligned to 16 bytes, run the CUDA-core body read into
+f32 (the backward's likewise up to 128), held to
+``bf16_cuda_core_error_limit`` (and ``grad_error_limits(cuda_core=True)``):
+1.0625 (2^-7 |ref| + 2 E), the output's one rounding and twice each
+version's f32 error E (the sums' order; P is not rounded).  A launch a body
+refuses raises; no other body is tried.  Each writes every output element
+once, so two launches give the same bits.
 
 The head-split forward (``flash_attention`` on [B, S, H, D]) is the packed
 kernel's body under another name: its output is bitwise equal to the packed
@@ -58,7 +62,8 @@ past M, written into a zeroed buffer of whole items (each kernel's
 the mma.sync body otherwise, by shape and alignment.
 
 The planted-fault tests show that the limits fail a kernel that drops one
-key tile or the ragged-edge mask (forward, each of its two bf16 bodies),
+key tile or the ragged-edge mask (forward, each of its two bf16 bodies; the
+CUDA-core body's bf16 instantiation dropping a key tile fails by 10x),
 reads P v's B operand without wgmma's transpose bit, or writes lse without
 its log l term or into another consumer's rows (the lse held to LSE_TOL),
 skips the fifth 16-column k-step of S (d = 80), or, at d = 512, adds a
@@ -344,6 +349,16 @@ PLANTED_FAULTS = {
         "flash_attention_packed.cu",
         "const float4 a = sm90::ld_cluster_f32x4(qs + r * kW512Pitch + 4 * x, sp);",
         "const float4 a = sm90::ld_cluster_f32x4(qs + r * kW512Pitch + 4 * x, sp == 1 ? 0 : sp);",
+    ),
+    # forward, the CUDA-core body instantiated for bf16: the eighth key
+    # tile's scores become -inf, so it adds to neither O nor l (the f32
+    # instantiation keeps every tile)
+    "bf16_cuda_core_drop_key_tile": (
+        "flash_attention_packed.cu",
+        "    tmax = group_max<TPR>(tmax);\n",
+        "    if (sizeof(T) == 2 && k0 == 7 * BK)\n"
+        "      for (int j = 0; j < KPT; ++j) sc[j] = -INFINITY;\n"
+        "    tmax = group_max<TPR>(tmax);\n",
     ),
     # backward: the tensor-core dk/dv kernel skips its eighth query tile
     # (the ring still hands the tile over, but it adds nothing to dk, dv)
@@ -653,6 +668,23 @@ def test_f32_bwd_limit_fails_planted_faults(cuda, faulty_libraries, fault, b, sq
     assert good <= 1.0 and bad >= 3.0, (good, ratios)
 
 
+@pytest.mark.parametrize("b,s,h,d", [(2, 768, 2, 32), (1, 1024, 2, 24), (1, 600, 1, 128)])
+def test_bf16_cuda_core_limit_fails_planted_fault(cuda, faulty_libraries, b, s, h, d):
+    """The bf16 CUDA-core body passes bf16_cuda_core_error_limit and a copy
+    that drops its eighth key tile fails it by at least 10x; the same copy's
+    f32 instantiation, untouched, still passes F32_OUT_TOL."""
+    lib = faulty_libraries["bf16_cuda_core_drop_key_tile"]
+    q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, cuda, seed=5)
+    good = _cuda_core_ratio(flash_attention_packed(q, k, v, h), q, k, v, h)
+    bad = _cuda_core_ratio(attention._launch(lib, q, k, v, h, d**-0.5), q, k, v, h)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    f32 = _f32_ratio(attention._launch(lib, qf, kf, vf, h, d**-0.5), qf, kf, vf, h)
+    print(f"planted bf16_cuda_core_drop_key_tile [B={b},S={s},H={h},D={d}]: max err/limit "
+          f"kernel {good:.3f}, faulty copy {bad:.3f} (its f32 instantiation {f32:.3f})",
+          flush=True)
+    assert good <= 1.0 and bad >= 10.0 and f32 <= 1.0, (good, bad, f32)
+
+
 def _f32_ratio(out, q, k, v, h):
     """max |out - plain| / F32_OUT_TOL (inf where out is not finite)."""
     torch.cuda.synchronize()
@@ -681,7 +713,27 @@ def _fwd_lse_ratio(out, lse, q, k, v, h):
                (lse - ref_lse).abs().max().item() / LSE_TOL)
 
 
+def _misaligned(x):
+    """x's values in a contiguous tensor whose base is 2 bytes past a 16-byte
+    boundary (the TMA cannot take it)."""
+    y = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    return y
+
+
+def _cuda_core_ratio(out, q, k, v, h):
+    """max over elements of |out - plain| / the CUDA-core body's bf16 limit."""
+    torch.cuda.synchronize()
+    ref = attention_packed_reference(q, k, v, h)
+    limit = attention.bf16_cuda_core_error_limit(q, k, v, h, ref)
+    return ((out.float() - ref.float()).abs() / limit).max().item()
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
+    """f16, d > 512 and strided rows are refused.  bf16 at d = 8 (no wgmma
+    body) and bf16 rows not aligned to 16 bytes (the TMA cannot take them),
+    refused until the CUDA-core body took bf16, now run on it within its
+    limit."""
     q, k, v = _qkv(1, 128, 128, 2, 64, torch.float16, cuda)
     with pytest.raises(ValueError):
         flash_attention_packed(q, k, v, 2)
@@ -691,17 +743,105 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v = _qkv(1, 128, 128, 2, 64, torch.float32, cuda)
     with pytest.raises(ValueError):
         flash_attention_packed(q[:, ::2], k[:, ::2], v[:, ::2], 2)
-    # bf16: only the tensor-core head widths, and rows aligned to 16 bytes
     q, k, v = _qkv(1, 128, 128, 3, 8, torch.bfloat16, cuda)
-    with pytest.raises(ValueError):
-        flash_attention_packed(q, k, v, 3)
+    assert attention.bf16_fwd_on_cuda_core(q, k, v, 8)
+    assert _cuda_core_ratio(flash_attention_packed(q, k, v, 3), q, k, v, 3) <= 1.0
     b, s, h, d = 1, 150, 2, 64
-    q, k, v = _qkv(b, s, s, h, d, torch.bfloat16, cuda)
-    shift = lambda x: torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(b, s, h * d)
-    qs, ks, vs = shift(q), shift(k), shift(v)
-    assert qs.is_contiguous() and qs.data_ptr() % 16 != 0
-    with pytest.raises(ValueError):
-        flash_attention_packed(qs, ks, vs, h)
+    q, k, v = (_misaligned(x) for x in _qkv(b, s, s, h, d, torch.bfloat16, cuda))
+    assert attention.bf16_fwd_on_cuda_core(q, k, v, d)
+    assert _cuda_core_ratio(flash_attention_packed(q, k, v, h), q, k, v, h) <= 1.0
+
+
+# bf16 on the CUDA-core body: the tiny pointmap configs' 24 and 32 (a
+# [2, 768, 2, 32] attention), 128, ragged shapes, the checks' 8, and the
+# wgmma widths with rows not aligned to 16 bytes
+BF16_CUDA_CORE_CASES = [
+    (2, 768, 768, 2, 24, False),
+    (2, 768, 768, 2, 32, False),
+    (2, 130, 61, 3, 32, False),
+    (1, 257, 257, 4, 128, False),
+    (2, 70, 100, 3, 8, False),
+    (1, 96, 77, 1, 200, False),
+    (1, 150, 150, 2, 64, True),
+    (2, 257, 100, 4, 16, True),
+    (1, 257, 257, 4, 80, True),
+    (1, 130, 96, 1, 512, True),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,shifted", BF16_CUDA_CORE_CASES)
+def test_bf16_cuda_core_forward_matches_plain_bitwise(cuda, b, sq, sk, h, d, shifted):
+    """bf16 the wgmma bodies do not take runs the CUDA-core body
+    (flash_{packed,headsplit,fwd_lse}_kernel<__nv_bfloat16, ...>, by the
+    profiler's kernel names) within bf16_cuda_core_error_limit, its lse
+    within LSE_TOL; two launches give the same bits, and the head-split
+    entry the packed entry's bits."""
+    q, k, v = _qkv(b, sq, sk, h, d, torch.bfloat16, cuda, seed=31)
+    if shifted:
+        q, k, v = (_misaligned(x) for x in (q, k, v))
+    assert attention.bf16_fwd_on_cuda_core(q, k, v, d)
+    heads = lambda x: x.view(b, x.shape[1], h, d)
+    run = lambda: (flash_attention_packed(q, k, v, h), *flash_attention_fwd_lse(q, k, v, h),
+                   flash_attention(heads(q), heads(k), heads(v)).reshape(q.shape))
+    launched = _f32reg_launches(run, iters=2)
+    for name in ("flash_packed_kernel<__nv_bfloat16", "flash_fwd_lse_kernel<__nv_bfloat16",
+                 "flash_headsplit_kernel<__nv_bfloat16"):
+        assert any(name in key for key, _ in launched), launched
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    out, out_lse, lse, out_hs = first
+    assert torch.equal(out, out_lse) and torch.equal(out, out_hs)
+    assert _cuda_core_ratio(out, q, k, v, h) <= 1.0
+    _, ref_lse = attention_fwd_lse_reference(q, k, v, h)
+    assert (lse - ref_lse).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,shifted", [
+    (2, 768, 768, 2, 32, False),
+    (2, 257, 257, 16, 80, False),
+    (2, 130, 61, 3, 24, False),
+    (1, 200, 150, 2, 128, False),
+    (2, 130, 61, 2, 64, True),
+    (1, 100, 70, 3, 16, True),
+])
+def test_bf16_cuda_core_backward_matches_plain_bitwise(cuda, b, sq, sk, h, d, shifted):
+    """The bf16 backward pair outside the wgmma widths (CLIP's 80 when a
+    trainer unfreezes it, the tiny pointmap widths, 128) and with rows not
+    aligned to 16 bytes runs bwd_{dq,dkv}_f32_kernel<__nv_bfloat16, ...>
+    (by kernel name) within grad_error_limits(cuda_core=True); two launches
+    give the same bits."""
+    q, k, v = _qkv(b, sq, sk, h, d, torch.bfloat16, cuda, seed=32)
+    out, lse, dout = _fwd_and_dout(q, k, v, h, seed=33)
+    if shifted:
+        q, k, v, dout = (_misaligned(x) for x in (q, k, v, dout))
+    assert attention.bf16_bwd_on_cuda_core(q, k, v, dout, d)
+    run = lambda: flash_attention_bwd(q, k, v, out, lse, dout, h)
+    launched = _f32reg_launches(run, part="bwd_", iters=2)
+    for name in ("bwd_dq_f32_kernel<__nv_bfloat16", "bwd_dkv_f32_kernel<__nv_bfloat16"):
+        assert any(name in key for key, _ in launched), launched
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    refs = attention_bwd_reference(q, k, v, out, lse, dout, h)
+    limits = grad_error_limits(q, k, v, out, lse, dout, h, refs, cuda_core=True)
+    for g, r, lim in zip(first, refs, limits):
+        assert ((g.float() - r.float()).abs() / lim).max().item() <= 1.0
+
+
+def test_wider_heads_still_raise(cuda):
+    """What no body takes: the forward past d = 512 and the backward past
+    d = 128, in both dtypes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(1, 128, 128, 1, 520, dtype, cuda)
+        with pytest.raises(ValueError):
+            flash_attention_packed(q, k, v, 1)
+        q, k, v = _qkv(1, 128, 128, 1, 136, dtype, cuda)
+        out, lse, dout = _fwd_and_dout(q, k, v, 1, seed=34)
+        with pytest.raises(ValueError):
+            flash_attention_bwd(q, k, v, out, lse, dout, 1)
 
 
 @pytest.mark.parametrize("b,sq,sk,h,d", [(2, 3072, 3072, 5, 64), (2, 257, 100, 4, 16),
@@ -908,7 +1048,8 @@ def test_bf16_forward_switch_refuses_without_fallback(cuda):
     """The bf16 forward's switch by head width: at d = 64, 80 and 512 the
     wgmma bodies refuse rows that are not contiguous [B, S, H*D] (their
     tensor maps assume them) and the launch raises; no other body is tried.
-    A bf16 width outside the switch is refused too."""
+    A bf16 width outside the switch, refused until the CUDA-core body took
+    bf16, runs on it within its limit."""
     lib = _build.load_library()
     for d in (64, 80, 512):
         b, s, h = 2, 200, 2
@@ -920,8 +1061,8 @@ def test_bf16_forward_switch_refuses_without_fallback(cuda):
         with pytest.raises(RuntimeError):
             attention._launch(lib, q, k, v, h, d**-0.5)
     q, k, v = _qkv(1, 128, 128, 2, 32, torch.bfloat16, cuda, seed=21)
-    with pytest.raises(RuntimeError):  # d = 32: no bf16 body
-        attention._launch(lib, q, k, v, 2, 32**-0.5)
+    out = attention._launch(lib, q, k, v, 2, 32**-0.5)  # d = 32: the CUDA-core body
+    assert _cuda_core_ratio(out, q, k, v, 2) <= 1.0
 
 
 # --- forward with logsumexp, and the backward ---------------------------------
@@ -1079,10 +1220,18 @@ def test_bwd_kernels_reject_what_they_do_not_take(cuda):
         out, lse, dout = _fwd_and_dout(q, k, v, h, seed=1)
         return q, k, v, out, lse, dout
 
-    with pytest.raises(ValueError):  # bf16 only at d = 16 and 64
-        flash_attention_bwd(*args(1, 128, 2, 80, torch.bfloat16), 2)
-    with pytest.raises(ValueError):  # f32 up to d = 128
-        flash_attention_bwd(*args(1, 128, 1, 256, torch.float32), 1)
+    # bf16 at d = 80 (no wgmma body), refused until the CUDA-core body took
+    # bf16, now runs on it within its limit
+    a80 = args(1, 128, 2, 80, torch.bfloat16)
+    q, k, v, out, lse, dout = a80
+    assert attention.bf16_bwd_on_cuda_core(q, k, v, dout, 80)
+    refs = attention_bwd_reference(*a80[:3], out, lse, dout, 2)
+    for g, r, lim in zip(flash_attention_bwd(*a80, 2), refs,
+                         grad_error_limits(*a80[:3], out, lse, dout, 2, refs, cuda_core=True)):
+        assert ((g.float() - r.float()).abs() / lim).max().item() <= 1.0
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError):  # up to d = 128
+            flash_attention_bwd(*args(1, 128, 1, 256, dtype), 1)
     with pytest.raises(ValueError):  # float16
         flash_attention_bwd(*args(1, 128, 2, 64, torch.float16), 2)
     q, k, v, out, lse, dout = args(1, 128, 2, 64, torch.float32)
@@ -1097,6 +1246,15 @@ def test_bwd_kernels_reject_what_they_do_not_take(cuda):
         q, k, v, out, lse, dout = args(b, s, h, d, dtype)
         qs, ks, vs, dos = shift(q), shift(k), shift(v), shift(dout)
         assert qs.is_contiguous() and qs.data_ptr() % 16 != 0
+        if dtype == torch.bfloat16:
+            # rows not aligned to 16 bytes: refused until the CUDA-core body
+            # took bf16, now run on it within its limit
+            refs = attention_bwd_reference(qs, ks, vs, out, lse, dos, h)
+            limits = grad_error_limits(qs, ks, vs, out, lse, dos, h, refs, cuda_core=True)
+            for g, r, lim in zip(flash_attention_bwd(qs, ks, vs, shift(out), lse, dos, h),
+                                 refs, limits):
+                assert ((g.float() - r.float()).abs() / lim).max().item() <= 1.0
+            continue
         with pytest.raises(ValueError):  # rows not aligned to 16 bytes
             flash_attention_bwd(qs, ks, vs, shift(out), lse, dos, h)
         if dtype == torch.float32:

@@ -256,3 +256,38 @@ def test_loader_slice_imports_no_pil_pandas_h5py_or_yaml():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+# the modules of the serving slice, which the walk above must find
+SERVING_SLICE_MODULES = [
+    "unigeo_tpu_torch/serving.py",
+    "unigeo_tpu_torch/serve.py",
+    "unigeo_tpu_torch/utils/convert_dust3r.py",
+    "unigeo_tpu_torch/utils/convert_vda.py",
+    "unigeo_tpu_torch/utils/convert_aether.py",
+    "unigeo_tpu_torch/utils/randparams.py",
+]
+
+
+@pytest.mark.parametrize("rel", SERVING_SLICE_MODULES)
+def test_serving_slice_modules_are_checked(rel):
+    assert os.path.join(ROOT, rel) in _port_files()
+
+
+def test_serving_and_converters_import_no_jax_yaml_or_pil():
+    """The server, its CLI and the converters import neither JAX nor the JAX
+    package, PyYAML or PIL."""
+    code = (
+        "import sys\n"
+        "import unigeo_tpu_torch.serve, unigeo_tpu_torch.serving\n"
+        "import unigeo_tpu_torch.tools.convert_checkpoint\n"
+        "import unigeo_tpu_torch.utils.convert_dust3r, unigeo_tpu_torch.utils.convert_vda\n"
+        "import unigeo_tpu_torch.utils.convert_aether, unigeo_tpu_torch.utils.randparams\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'flax', 'unigeo_tpu', 'yaml', 'PIL'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -34,6 +34,14 @@
 // operations a byte, above the ~295 where the tensor cores become the
 // limit), bytes at stage 2 (192 tokens, about 240 a byte).
 //
+// bf16, any other D up to 128 (CLIP's 80 when a trainer unfreezes it, the
+// tiny pointmap configs' 24 and 32), and bases not aligned to 16 bytes at
+// any width (the TMA cannot take them): the CUDA-core body of the f32
+// section below instantiated for bf16, bwd_{dq,dkv}_f32_kernel<__nv_bfloat16,
+// NCOL>.  It reads bf16 into f32 and does every product and sum in f32 (P
+// and dS are not rounded to bf16, as the wgmma bodies round them); each
+// gradient is rounded to bf16 once.  No shape reaches it on a default path.
+//
 // bf16, D in {16, 64} (the UNet's 64, and 16 for small checks): what the
 // design does about that bound.
 //
@@ -84,7 +92,7 @@
 //   leave SMs idle.  Rows must be aligned to 16 bytes (else the launch is
 //   refused).
 // * any other D up to 128 (the checks' 8, 16, 32 and 128):
-//   bwd_{dq,dkv}_f32_kernel<NCOL>.  256 threads own 64 rows, four lanes a
+//   bwd_{dq,dkv}_f32_kernel<float, NCOL>.  256 threads own 64 rows, four lanes a
 //   row, each lane holding 16 scores of a 64-wide tile and D/4 columns of
 //   the accumulators; tile loads clamp their row index to the last valid
 //   row.
@@ -119,14 +127,28 @@ constexpr int kF32Tile = 64;                          // rows of either tile
 constexpr int kF32Lanes = kF32Threads / kF32Tile;     // 4 lanes per row
 constexpr int kF32PerLane = kF32Tile / kF32Lanes;     // 16 scores per lane
 
+// the CUDA-core bodies' element type T: float, or __nv_bfloat16 read into
+// f32 on load and rounded to bf16 once on the store
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 // rows [s0, s0 + kF32Tile) of a packed head into shared memory (pitch D+1),
-// row indices clamped to S-1
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int64_t ss,
+// in f32, row indices clamped to S-1
+template <typename T>
+__device__ __forceinline__ void load_rows_f32(float* dst, const T* src, int64_t ss,
                                               int s0, int S, int D, int tid) {
   const int dp = D + 1;
   for (int i = tid; i < kF32Tile * D; i += kF32Threads) {
     const int r = i / D, d = i % D;
-    dst[r * dp + d] = src[(int64_t)clamp_row(s0 + r, S) * ss + d];
+    dst[r * dp + d] = to_f32(src[(int64_t)clamp_row(s0 + r, S) * ss + d]);
   }
 }
 
@@ -136,12 +158,14 @@ size_t f32_smem_bytes(int D, int n_ptiles) {
                           (size_t)n_ptiles * kF32Tile * (kF32Tile + 1) + 2 * kF32Tile);
 }
 
-template <int NCOL>
+// T = float, or __nv_bfloat16 (every product and sum in f32, P and dS not
+// rounded; each gradient rounded to bf16 once)
+template <typename T, int NCOL>
 __global__ void __launch_bounds__(kF32Threads)
-bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
+bwd_dq_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dq, int Sq, int Sk, int D, float scale) {
+                  T* __restrict__ dq, int Sq, int Sk, int D, float scale) {
   extern __shared__ float smem[];
   const int dp = D + 1, pp = kF32Tile + 1;
   float* qs = smem;                    // [64][D+1]
@@ -154,10 +178,10 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * kF32Tile, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int64_t hd = (int64_t)H * D;
   const int64_t hoff = (int64_t)h * D;
-  const float* qb = q + (int64_t)b * Sq * hd + hoff;
-  const float* dob = dout + (int64_t)b * Sq * hd + hoff;
-  const float* kb = k + (int64_t)b * Sk * hd + hoff;
-  const float* vb = v + (int64_t)b * Sk * hd + hoff;
+  const T* qb = q + (int64_t)b * Sq * hd + hoff;
+  const T* dob = dout + (int64_t)b * Sq * hd + hoff;
+  const T* kb = k + (int64_t)b * Sk * hd + hoff;
+  const T* vb = v + (int64_t)b * Sk * hd + hoff;
 
   load_rows_f32(qs, qb, hd, q0, Sq, D, tid);
   load_rows_f32(dos, dob, hd, q0, Sq, D, tid);
@@ -208,21 +232,21 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int s = q0 + row;
   if (s < Sq) {
-    float* out = dq + (int64_t)b * Sq * hd + (int64_t)s * hd + hoff;
+    T* out = dq + (int64_t)b * Sq * hd + (int64_t)s * hd + hoff;
 #pragma unroll
     for (int j = 0; j < NCOL; ++j) {
       const int c = lane + j * kF32Lanes;
-      if (c < D) out[c] = acc[j];
+      if (c < D) out[c] = from_f32<T>(acc[j]);
     }
   }
 }
 
-template <int NCOL>
+template <typename T, int NCOL>
 __global__ void __launch_bounds__(kF32Threads)
-bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
+bwd_dkv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dk, float* __restrict__ dv,
+                   T* __restrict__ dk, T* __restrict__ dv,
                    int Sq, int Sk, int D, float scale) {
   extern __shared__ float smem[];
   const int dp = D + 1, pp = kF32Tile + 1;
@@ -239,10 +263,10 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * kF32Tile, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int64_t hd = (int64_t)H * D;
   const int64_t hoff = (int64_t)h * D;
-  const float* qb = q + (int64_t)b * Sq * hd + hoff;
-  const float* dob = dout + (int64_t)b * Sq * hd + hoff;
-  const float* kb = k + (int64_t)b * Sk * hd + hoff;
-  const float* vb = v + (int64_t)b * Sk * hd + hoff;
+  const T* qb = q + (int64_t)b * Sq * hd + hoff;
+  const T* dob = dout + (int64_t)b * Sq * hd + hoff;
+  const T* kb = k + (int64_t)b * Sk * hd + hoff;
+  const T* vb = v + (int64_t)b * Sk * hd + hoff;
   const float* lseb = lse + ((int64_t)b * H + h) * Sq;
   const float* deltab = delta + ((int64_t)b * H + h) * Sq;
 
@@ -309,8 +333,8 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < NCOL; ++j) {
       const int c = lane + j * kF32Lanes;
       if (c < D) {
-        dk[off + c] = acc_k[j];
-        dv[off + c] = acc_v[j];
+        dk[off + c] = from_f32<T>(acc_k[j]);
+        dv[off + c] = from_f32<T>(acc_v[j]);
       }
     }
   }
@@ -1126,29 +1150,36 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int NCOL>
+template <typename T, int NCOL>
 cudaError_t launch_f32(const Args& a, bool dkv) {
   const int rows = dkv ? a.Sk : a.Sq;
   dim3 grid((rows + kF32Tile - 1) / kF32Tile, a.H, a.B);
-  auto q = static_cast<const float*>(a.q);
-  auto k = static_cast<const float*>(a.k);
-  auto v = static_cast<const float*>(a.v);
-  auto dout = static_cast<const float*>(a.dout);
+  auto q = static_cast<const T*>(a.q);
+  auto k = static_cast<const T*>(a.k);
+  auto v = static_cast<const T*>(a.v);
+  auto dout = static_cast<const T*>(a.dout);
   cudaError_t err;
   if (dkv) {
     const size_t smem = f32_smem_bytes(a.D, 2);
-    if ((err = set_smem(bwd_dkv_f32_kernel<NCOL>, smem)) != cudaSuccess) return err;
-    bwd_dkv_f32_kernel<NCOL><<<grid, kF32Threads, smem, a.stream>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.g0),
-        static_cast<float*>(a.g1), a.Sq, a.Sk, a.D, a.scale);
+    if ((err = set_smem(bwd_dkv_f32_kernel<T, NCOL>, smem)) != cudaSuccess) return err;
+    bwd_dkv_f32_kernel<T, NCOL><<<grid, kF32Threads, smem, a.stream>>>(
+        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.g0), static_cast<T*>(a.g1), a.Sq,
+        a.Sk, a.D, a.scale);
   } else {
     const size_t smem = f32_smem_bytes(a.D, 1);
-    if ((err = set_smem(bwd_dq_f32_kernel<NCOL>, smem)) != cudaSuccess) return err;
-    bwd_dq_f32_kernel<NCOL><<<grid, kF32Threads, smem, a.stream>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.g0), a.Sq, a.Sk, a.D,
-        a.scale);
+    if ((err = set_smem(bwd_dq_f32_kernel<T, NCOL>, smem)) != cudaSuccess) return err;
+    bwd_dq_f32_kernel<T, NCOL><<<grid, kF32Threads, smem, a.stream>>>(
+        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.g0), a.Sq, a.Sk, a.D, a.scale);
   }
   return cudaGetLastError();
+}
+
+// the CUDA-core body's two column counts by head width (any D up to 128)
+template <typename T>
+cudaError_t launch_cuda_core(const Args& a, bool dkv) {
+  if (a.D <= 64) return launch_f32<T, 16>(a, dkv);
+  if (a.D <= 128) return launch_f32<T, 32>(a, dkv);
+  return cudaErrorInvalidValue;
 }
 
 // The f32 bodies at D = 64: blocks of kBwdWarps warps (16 rows each), 64-row
@@ -1275,20 +1306,19 @@ cudaError_t dispatch(const Args& a, int dtype, bool dkv) {
     // the register-tiled bodies at D = 64 (the f32 training paths), the earlier
     // body at every other width up to 128; no width is sent to another body
     if (a.D == kBwdD) return launch_f32_d64(a, dkv);
-    if (a.D <= 64) return launch_f32<16>(a, dkv);
-    if (a.D <= 128) return launch_f32<32>(a, dkv);
-    return cudaErrorInvalidValue;
+    return launch_cuda_core<float>(a, dkv);
   }
   if (dtype == 1) {
-    // the TMA reads from 16-byte-aligned bases (the row stride H*D*2 bytes
-    // is then a multiple of 16 for both head widths); outputs are stored as
-    // 4-byte pairs
+    // the wgmma bodies at D in {16, 64}: the TMA reads from 16-byte-aligned
+    // bases (the row stride H*D*2 bytes is then a multiple of 16 for both
+    // head widths), outputs stored as 4-byte pairs; every other width up to
+    // 128, and bases the TMA cannot take, to the CUDA-core body in bf16
     const uintptr_t ptrs = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
                            (uintptr_t)a.dout | (uintptr_t)a.g0 |
                            (uintptr_t)(dkv ? a.g1 : a.g0);
-    if (ptrs % 16) return cudaErrorInvalidValue;
-    if (a.D == 16) return launch_wgmma<16>(a, dkv);
-    if (a.D == 64) return launch_wgmma<64>(a, dkv);
+    if (ptrs % 16 == 0 && a.D == 16) return launch_wgmma<16>(a, dkv);
+    if (ptrs % 16 == 0 && a.D == 64) return launch_wgmma<64>(a, dkv);
+    return launch_cuda_core<__nv_bfloat16>(a, dkv);
   }
   return cudaErrorInvalidValue;
 }

@@ -41,9 +41,9 @@
 // and accumulator, one key tile at a time in shared memory), and in bf16
 // both products run on the tensor cores, f32 accumulate.
 //
-// Five block layouts, chosen by dtype and by head width, one switch per
-// dtype (dispatch_bf16, dispatch_f32); every bf16 body is Hopper's TMA and
-// wgmma (blocks from sm90.cuh):
+// Five block layouts, chosen by dtype, head width and alignment, one switch
+// per dtype (dispatch_bf16, dispatch_f32); the bf16 bodies at the main
+// path's widths are Hopper's TMA and wgmma (blocks from sm90.cuh):
 //
 // * bf16, D in {16, 64, 80} (the UNet's 64, CLIP's 80, and 16 for small
 //   checks): flash_{packed,headsplit,fwd_lse}_wgmma_kernel<D>.  At most one
@@ -87,9 +87,16 @@
 //   is freed as soon as its S is taken and a v slot after its P v.  Each
 //   64-row block fetches every key's 2 KB of k and v from L2.
 //   Every bf16 body writes each output element once, no atomics: two
-//   launches give the same bits.  Other bf16 widths, rows not contiguous
-//   [B, S, H*D] and rows not aligned to 16 bytes are refused with
-//   cudaErrorInvalidValue; no width is sent to another body.
+//   launches give the same bits.  Rows not contiguous [B, S, H*D] are
+//   refused with cudaErrorInvalidValue.
+// * bf16, any other D up to 512 (the tiny pointmap configs' 24 and 32, the
+//   checks' 8 and 128), and rows not aligned to 16 bytes at any width (the
+//   TMA cannot take them): the CUDA-core body below instantiated for bf16,
+//   flash_{packed,headsplit,fwd_lse}_kernel<__nv_bfloat16, BQ, BK, NCOL>.
+//   It reads bf16 into f32 and does every product and sum in f32 (P is not
+//   rounded to bf16, as the wgmma bodies round it); the output is rounded
+//   to bf16 once, lse stays f32.  No shape reaches it on a default path
+//   (the models' bf16 widths are 64, 80 and 512, their rows aligned).
 // * f32, D = 64 (Spann3R's and UniGeoCam's pointmap path):
 //   flash_{packed,headsplit,fwd_lse}_f32reg_kernel<kWarps, kStages, kSplit>,
 //   register-tiled FMAs on the CUDA cores fed by a cp.async ring
@@ -107,8 +114,8 @@
 //   partial scores through shared memory and split the softmax's rows.
 //   Rows must be aligned to 16 bytes (else the launch is refused).
 // * f32, any other D up to 512 (the checks' 8, 10, 32 and 80, the tiny
-//   pointmap configs' 24 and 32): flash_{packed,headsplit,fwd_lse}_kernel,
-//   CUDA-core FMAs.  256 threads own BQ query rows; TPR = 256 / BQ lanes of
+//   pointmap configs' 24 and 32): flash_{packed,headsplit,fwd_lse}_kernel
+//   <float, BQ, BK, NCOL>, CUDA-core FMAs (the same body as bf16's above).  256 threads own BQ query rows; TPR = 256 / BQ lanes of
 //   a warp share a row, each holding BK / TPR scores and NCOL accumulator
 //   columns; row max and sum are butterfly shuffles within the row's lanes.
 //     D <= 64:  BQ = 64, BK = 64, NCOL = 16
@@ -163,17 +170,38 @@ size_t smem_bytes(int D) {
           (size_t)BQ * (BK + 1));
 }
 
+// the CUDA-core body's element type T: float, or __nv_bfloat16 read into f32
+// on load and rounded to bf16 once on the store
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 #define UNIGEO_F32_PARAMS                                                          \
   const float* __restrict__ q, const float* __restrict__ k,                        \
       const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, \
       int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss, int64_t v_sb,         \
       int64_t v_ss, int64_t o_sb, int64_t o_ss, int Sq, int Sk, int D, float scale
+// the CUDA-core body's: its element type T for q, k, v and o
+#define UNIGEO_CC_PARAMS                                                           \
+  const T* __restrict__ q, const T* __restrict__ k,                                \
+      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,         \
+      int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss, int64_t v_sb,         \
+      int64_t v_ss, int64_t o_sb, int64_t o_ss, int Sq, int Sk, int D, float scale
 #define UNIGEO_F32_ARGS \
   q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, Sq, Sk, D, scale
 
-// the body of both f32 kernels; kLse: write the row logsumexp
-template <int BQ, int BK, int NCOL, bool kLse>
-__device__ __forceinline__ void flash_f32_block(UNIGEO_F32_PARAMS) {
+// the body of the CUDA-core kernels; kLse: write the row logsumexp.  T =
+// float, or __nv_bfloat16 (read into f32 on load; every score, sum and
+// product in f32, the output rounded to bf16 once, lse kept f32)
+template <typename T, int BQ, int BK, int NCOL, bool kLse>
+__device__ __forceinline__ void flash_f32_block(UNIGEO_CC_PARAMS) {
   constexpr int TPR = kThreads / BQ;  // lanes per query row
   constexpr int KPT = BK / TPR;       // scores per lane per key tile
   static_assert(TPR <= 32 && (TPR & (TPR - 1)) == 0, "row group within a warp");
@@ -193,14 +221,14 @@ __device__ __forceinline__ void flash_f32_block(UNIGEO_F32_PARAMS) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const float* qb = q + b * q_sb + (int64_t)h * D;
-  const float* kb = k + b * k_sb + (int64_t)h * D;
-  const float* vb = v + b * v_sb + (int64_t)h * D;
+  const T* qb = q + b * q_sb + (int64_t)h * D;
+  const T* kb = k + b * k_sb + (int64_t)h * D;
+  const T* vb = v + b * v_sb + (int64_t)h * D;
 
   for (int i = tid; i < BQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int s = q0 + r;
-    qs[r * dq + d] = s < Sq ? qb[s * q_ss + d] : 0.f;
+    qs[r * dq + d] = s < Sq ? to_f32(qb[s * q_ss + d]) : 0.f;
   }
 
   float m_run = -INFINITY, l_run = 0.f;
@@ -214,8 +242,8 @@ __device__ __forceinline__ void flash_f32_block(UNIGEO_F32_PARAMS) {
       const int r = i / D, d = i % D;
       const int s = k0 + r;
       const bool ok = s < Sk;
-      ks[r * dq + d] = ok ? kb[s * k_ss + d] : 0.f;
-      vs[r * D + d] = ok ? vb[s * v_ss + d] : 0.f;
+      ks[r * dq + d] = ok ? to_f32(kb[s * k_ss + d]) : 0.f;
+      vs[r * D + d] = ok ? to_f32(vb[s * v_ss + d]) : 0.f;
     }
     __syncthreads();
 
@@ -272,50 +300,68 @@ __device__ __forceinline__ void flash_f32_block(UNIGEO_F32_PARAMS) {
     const float inv = 1.f / l_safe;
     if (kLse && lane == 0)
       lse[((int64_t)b * gridDim.y + h) * Sq + s] = m_run + logf(l_safe);
-    float* orow = o + b * o_sb + s * o_ss + (int64_t)h * D;
+    T* orow = o + b * o_sb + s * o_ss + (int64_t)h * D;
 #pragma unroll
     for (int j = 0; j < NCOL; ++j) {
       const int c = lane + j * TPR;
-      if (c < D) orow[c] = acc[j] * inv;
+      if (c < D) orow[c] = from_f32<T>(acc[j] * inv);
     }
   }
 }
 
-// one kernel per entry point, so a profile tells them apart by name
-template <int BQ, int BK, int NCOL>
-__global__ void __launch_bounds__(kThreads) flash_packed_kernel(UNIGEO_F32_PARAMS) {
-  flash_f32_block<BQ, BK, NCOL, false>(UNIGEO_F32_ARGS);
+// one kernel per entry point, so a profile tells them apart by name (and
+// by T: flash_packed_kernel<float, ...> or <__nv_bfloat16, ...>)
+template <typename T, int BQ, int BK, int NCOL>
+__global__ void __launch_bounds__(kThreads) flash_packed_kernel(UNIGEO_CC_PARAMS) {
+  flash_f32_block<T, BQ, BK, NCOL, false>(UNIGEO_F32_ARGS);
 }
 
-template <int BQ, int BK, int NCOL>
-__global__ void __launch_bounds__(kThreads) flash_headsplit_kernel(UNIGEO_F32_PARAMS) {
-  flash_f32_block<BQ, BK, NCOL, false>(UNIGEO_F32_ARGS);
+template <typename T, int BQ, int BK, int NCOL>
+__global__ void __launch_bounds__(kThreads) flash_headsplit_kernel(UNIGEO_CC_PARAMS) {
+  flash_f32_block<T, BQ, BK, NCOL, false>(UNIGEO_F32_ARGS);
 }
 
-template <int BQ, int BK, int NCOL>
-__global__ void __launch_bounds__(kThreads) flash_fwd_lse_kernel(UNIGEO_F32_PARAMS) {
-  flash_f32_block<BQ, BK, NCOL, true>(UNIGEO_F32_ARGS);
+template <typename T, int BQ, int BK, int NCOL>
+__global__ void __launch_bounds__(kThreads) flash_fwd_lse_kernel(UNIGEO_CC_PARAMS) {
+  flash_f32_block<T, BQ, BK, NCOL, true>(UNIGEO_F32_ARGS);
 }
 
-template <int BQ, int BK, int NCOL>
+template <typename T, int BQ, int BK, int NCOL>
 cudaError_t launch(Entry entry, const void* q, const void* k, const void* v, void* o,
                    float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                    int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                    int B, int Sq, int Sk, int H, int D, float scale,
                    cudaStream_t stream) {
-  auto kern = entry == kFwdLse      ? flash_fwd_lse_kernel<BQ, BK, NCOL>
-              : entry == kHeadsplit ? flash_headsplit_kernel<BQ, BK, NCOL>
-                                    : flash_packed_kernel<BQ, BK, NCOL>;
+  auto kern = entry == kFwdLse      ? flash_fwd_lse_kernel<T, BQ, BK, NCOL>
+              : entry == kHeadsplit ? flash_headsplit_kernel<T, BQ, BK, NCOL>
+                                    : flash_packed_kernel<T, BQ, BK, NCOL>;
   const size_t smem = smem_bytes<BQ, BK>(D);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, q_sb, q_ss, k_sb, k_ss,
-      v_sb, v_ss, o_sb, o_ss, Sq, Sk, D, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, Sq, Sk, D,
+      scale);
   return cudaGetLastError();
+}
+
+// the CUDA-core body's three tile shapes by head width (any D up to 512)
+template <typename T>
+cudaError_t launch_cuda_core(Entry entry, const void* q, const void* k, const void* v,
+                             void* o, float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb,
+                             int64_t k_ss, int64_t v_sb, int64_t v_ss, int64_t o_sb,
+                             int64_t o_ss, int B, int Sq, int Sk, int H, int D, float scale,
+                             cudaStream_t stream) {
+  if (D <= 64)
+    return launch<T, 64, 64, 16>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                                 o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
+  if (D <= 128)
+    return launch<T, 64, 64, 32>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                                 o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
+  return launch<T, 16, 32, 32>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                               o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
 }
 
 // 16-byte tile loads need 16-byte-aligned rows: pointers, strides and the
@@ -1806,17 +1852,22 @@ cudaError_t launch_wgmma512(Entry entry, const void* q, const void* k, const voi
   return cudaGetLastError();
 }
 
-// The bf16 forward's one switch by head width: the wgmma body of 64-row
+// The bf16 forward's one switch, by shape alone: the wgmma body of 64-row
 // consumers at the UNet's 64, CLIP's 80 (and 16 for small checks), the
-// column-split wgmma body at the VAE's 512; any other width is refused.  A
-// launch a body refuses returns its error: no other body is tried.
+// column-split wgmma body at the VAE's 512, each for rows aligned to 16
+// bytes; every other width up to 512, and rows the TMA cannot take (not
+// aligned to 16 bytes), to the CUDA-core body flash_f32_block<__nv_bfloat16>.
+// A launch a body refuses returns its error: no other body is tried.
 cudaError_t dispatch_bf16(Entry entry, const void* q, const void* k, const void* v, void* o,
                           float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                           int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                           int B, int Sq, int Sk, int H, int D, float scale,
                           cudaStream_t stream) {
-  if (!aligned16(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, 8))
-    return cudaErrorInvalidValue;
+  const bool wgmma_width = D == 16 || D == 64 || D == 80 || D == kW5D;
+  if (!wgmma_width || !aligned16(q, k, v, o, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, 8))
+    return launch_cuda_core<__nv_bfloat16>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss,
+                                           v_sb, v_ss, o_sb, o_ss, B, Sq, Sk, H, D, scale,
+                                           stream);
 #define UNIGEO_WG(DD)                                                                    \
   case DD:                                                                               \
     return launch_wgmma<DD>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,  \
@@ -1973,8 +2024,8 @@ cudaError_t launch_f32_d512(Entry entry, const void* q, const void* k, const voi
 // and D = 512 (the VAE mid block's head) go to their register-tiled bodies,
 // which take rows aligned to 16 bytes (else the launch is refused); every
 // other width up to 512 (the checks' 8, 10, 32 and 80, the tiny pointmap
-// configs' 24 and 32) to flash_f32_block as before.  No width is sent to
-// another body.
+// configs' 24 and 32) to flash_f32_block<float> as before.  No width is sent
+// to another body.
 cudaError_t dispatch_f32(Entry entry, const void* q, const void* k, const void* v, void* o,
                          float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                          int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
@@ -1986,14 +2037,8 @@ cudaError_t dispatch_f32(Entry entry, const void* q, const void* k, const void* 
   if (D == kW512D)
     return launch_f32_d512(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
                            o_ss, B, Sq, Sk, H, scale, stream);
-  if (D <= 64)
-    return launch<64, 64, 16>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-                              o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
-  if (D <= 128)
-    return launch<64, 64, 32>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-                              o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
-  return launch<16, 32, 32>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-                            o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
+  return launch_cuda_core<float>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                                 o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
 }
 
 }  // namespace

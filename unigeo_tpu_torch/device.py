@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 PRODUCTION_DTYPE = torch.bfloat16
@@ -43,3 +44,12 @@ def exact_f32():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
         torch.backends.cudnn.allow_tf32 = cudnn
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor on any device -> a numpy array on the host (bf16, which numpy
+    lacks, as f32); anything else through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)

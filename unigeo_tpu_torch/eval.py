@@ -14,7 +14,9 @@ failed, 1 otherwise; ``--num-workers N`` decodes clips ahead on N threads;
 clips through ``forward_batch`` is one line).
 The reader that decodes the stock image files (``native``, the C++ clip
 reader built with g++ on first use, or ``pil``) is printed once.
-``--debug-nans`` raises with its ROADMAP item (not ported yet).
+``--debug-nans`` raises ``FloatingPointError`` at the first NaN in a
+module's output or in the model's ``pred_*`` outputs, naming the module's
+class (``evaluator.debug_nans``).
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--no-resume", action="store_true")
     parser.add_argument("--strict", action="store_true",
                         help="validate the clip-sample contract per clip")
-    parser.add_argument("--debug-nans", action="store_true")
+    parser.add_argument("--debug-nans", action="store_true",
+                        help="raise at the first NaN in a module's or the model's output")
     parser.add_argument("--num-workers", type=int, default=0,
                         help="prefetch clips with this many threads")
     parser.add_argument("--data-parallel", dest="data_parallel", action="store_true",

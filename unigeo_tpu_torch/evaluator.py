@@ -28,17 +28,25 @@ The four metric families: depth, normals, point clouds (``eval_pcd``, on
 (``eval_camera``, numpy f64 on the host); with ``vis_pcd`` each clip's
 aligned clouds go to ``<save_dir>/pcd_<seq>/{pred,gt}.ply``.
 
-Not ported yet, and raising with their ROADMAP item instead of running
-something else: runs over several processes (queue 1 item 11) and
-``debug_nans`` (item 12).
+``debug_nans``: the counterpart of the JAX package's ``jax_debug_nans``
+for the run (``nan_hooks`` below): the first NaN in the output of any
+``nn.Module``, or in the model's ``pred_*`` outputs, raises
+``FloatingPointError`` naming the module's class.
+
+Not ported yet, and raising with its ROADMAP item instead of running
+something else: runs over several processes (queue 1 item 11).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
 
 from unigeo_tpu_torch.config import EvalConfig
 from unigeo_tpu_torch.data.sample import prepare_gt_label, validate_sample
@@ -51,9 +59,47 @@ from unigeo_tpu_torch.registry import get_dataset_cls, get_model_cls
 from unigeo_tpu_torch.utils.profiling import ClipTimer
 
 
-def _refuse_unported(debug_nans: bool) -> None:
-    if debug_nans:
-        raise NotImplementedError("debug_nans is not ported yet (ROADMAP queue 1 item 12)")
+def _has_nan(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.is_floating_point() and bool(torch.isnan(x).any())
+    if isinstance(x, np.ndarray):
+        return x.dtype.kind in "fc" and bool(np.isnan(x).any())
+    if isinstance(x, (tuple, list)):
+        return any(_has_nan(y) for y in x)
+    if isinstance(x, dict):
+        return any(_has_nan(y) for y in x.values())
+    return False
+
+
+def _raise_on_nan_output(module, inputs, output) -> None:
+    if _has_nan(output):
+        raise FloatingPointError(f"NaN in the output of {type(module).__name__}")
+
+
+@contextlib.contextmanager
+def nan_hooks():
+    """The counterpart of ``jax_debug_nans`` for the block: a global forward
+    hook on every ``nn.Module`` raises ``FloatingPointError`` naming the
+    module's class at the first NaN in its output (NaN only, not Inf, as
+    ``jax_debug_nans``).  Removed on every exit.  What it does not see: NaN
+    made and dropped inside one module's forward without reaching its output,
+    and the metrics' arithmetic (the JAX flag covers the jnp metrics too)."""
+    handle = torch.nn.modules.module.register_module_forward_hook(_raise_on_nan_output)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def check_predictions(model, output: Dict[str, Any]) -> None:
+    """``FloatingPointError`` naming the model's class and the key at a NaN
+    in one of its ``pred_*`` outputs (numpy arrays or tensors)."""
+    for key, value in output.items():
+        if key.startswith("pred_") and _has_nan(value):
+            raise FloatingPointError(f"NaN in {type(model).__name__}'s {key}")
+
+
+def _refuse_unported() -> None:
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
@@ -120,8 +166,10 @@ def run_evaluation(
         give one with a ``jsonl_path`` to keep each clip's seconds and frames/s.
     device: where the point-cloud metrics run (the card by default, and a
         missing card is an error; "cpu" when asked for).
+    debug_nans: raise ``FloatingPointError`` at the first NaN in a module's
+        output or a ``pred_*`` output (``nan_hooks()``, for this call only).
     """
-    _refuse_unported(debug_nans)
+    _refuse_unported()
     os.makedirs(save_dir, exist_ok=True)
     save_path = os.path.join(save_dir, "metrics.csv")
     if dataset is None:
@@ -199,30 +247,35 @@ def run_evaluation(
         with timer.clip(num_frames=sum(len(d["images"]) for _, d in pending)):
             outputs = model.forward_batch([d for _, d in pending])
         for (seq, data), output in zip(pending, outputs):
+            if debug_nans:
+                check_predictions(model, output)
             _submit_record(seq, data, output)
         pending.clear()
 
     try:
-        for data_idx, data in stream:
-            _check_worker()
-            seq = f"{data_idx:03d}_{data['scene_name']}"
-            if resume and manager.has_sequence(seq):
-                continue
-            if strict:
-                validate_sample(data)
-            if verbose:
-                print(f"processing seq: {seq}")
-            if batch_size > 1:
-                pending.append((seq, data))
-                if len(pending) >= batch_size:
-                    _flush()
-                continue
-            with timer.clip(num_frames=len(data["images"])):
-                output = model.forward(data)
-            _submit_record(seq, data, output)
-        _flush()
-        while record_q:
-            record_q.popleft().result()
+        with nan_hooks() if debug_nans else contextlib.nullcontext():
+            for data_idx, data in stream:
+                _check_worker()
+                seq = f"{data_idx:03d}_{data['scene_name']}"
+                if resume and manager.has_sequence(seq):
+                    continue
+                if strict:
+                    validate_sample(data)
+                if verbose:
+                    print(f"processing seq: {seq}")
+                if batch_size > 1:
+                    pending.append((seq, data))
+                    if len(pending) >= batch_size:
+                        _flush()
+                    continue
+                with timer.clip(num_frames=len(data["images"])):
+                    output = model.forward(data)
+                if debug_nans:
+                    check_predictions(model, output)
+                _submit_record(seq, data, output)
+            _flush()
+            while record_q:
+                record_q.popleft().result()
     finally:
         # every exit: cancel queued records and wait out a running one, so no
         # thread outlives this call

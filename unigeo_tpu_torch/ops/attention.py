@@ -51,21 +51,42 @@ import torch
 
 _DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
 MIN_KERNEL_SEQ = 128  # same threshold as unigeo_tpu's use_packed_attention
-# head widths of the bf16 tensor-core forward: UNet 64, CLIP 80, VAE 512, and
-# 16 for small checks (TMA + wgmma bodies: 64-row consumers at 16, 64 and 80,
-# a column-split pair of consumers at 512); f32 takes any width up to 512
-# (CUDA cores: the register-tiled bodies at the pointmap path's 64 and the
-# VAE mid block's 512, which take rows aligned to 16 bytes, the earlier body
-# at every other width)
-BF16_HEAD_WIDTHS = (16, 64, 80, 512)
+# the forward takes any head width up to 512 in both dtypes.  bf16: the
+# tensor-core bodies (TMA + wgmma: 64-row consumers at 16, 64 and 80, a
+# column-split pair of consumers at 512) for rows aligned to 16 bytes at the
+# UNet's 64, CLIP's 80, the VAE's 512 and 16 for small checks; every other
+# width, and rows the TMA cannot take, on the CUDA-core body read into f32.
+# f32 (CUDA cores): the register-tiled bodies at the pointmap path's 64 and
+# the VAE mid block's 512, which take rows aligned to 16 bytes, the earlier
+# body at every other width.  The choice is by shape and alignment alone.
+FWD_MAX_HEAD_WIDTH = 512
+BF16_WGMMA_HEAD_WIDTHS = (16, 64, 80, 512)
 F32_TILED_HEAD_WIDTHS = (64, 512)
 F32_TILED_HEAD_WIDTH = 64  # the f32 backward's register-tiled bodies
-# the backward kernels: bf16 at the UNet's 64 (and 16 for small checks),
-# f32 at any width up to 128 (CUDA cores: the register-tiled bodies at the
-# f32 training paths' 64, which take rows aligned to 16 bytes, the earlier body
-# at every other width)
-BWD_BF16_HEAD_WIDTHS = (16, 64)
-BWD_F32_MAX_HEAD_WIDTH = 128
+# the backward kernels take any head width up to 128 in both dtypes: bf16 on
+# the tensor-core bodies at the UNet's 64 (and 16 for small checks) for rows
+# aligned to 16 bytes, else on the CUDA-core body read into f32; f32 on the
+# CUDA cores (the register-tiled bodies at the f32 training paths' 64, which
+# take rows aligned to 16 bytes, the earlier body at every other width)
+BWD_BF16_WGMMA_HEAD_WIDTHS = (16, 64)
+BWD_MAX_HEAD_WIDTH = 128
+
+
+def _aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def bf16_fwd_on_cuda_core(q, k, v, d: int) -> bool:
+    """Whether bf16 q, k, v (contiguous, on the card) run the forward's
+    CUDA-core body rather than a wgmma body: a head width outside
+    ``BF16_WGMMA_HEAD_WIDTHS``, or a base not aligned to 16 bytes
+    (``csrc/flash_attention_packed.cu::dispatch_bf16``)."""
+    return d not in BF16_WGMMA_HEAD_WIDTHS or not _aligned16(q, k, v)
+
+
+def bf16_bwd_on_cuda_core(q, k, v, dout, d: int) -> bool:
+    """The same for the backward pair (``csrc/flash_attention_bwd.cu::dispatch``)."""
+    return d not in BWD_BF16_WGMMA_HEAD_WIDTHS or not _aligned16(q, k, v, dout)
 # rows a block of the f32 backward's bodies at d = 64 owns (4 warps of 16)
 # and rows of the tiles it streams
 BWD_F32_BLOCK_ROWS, BWD_F32_TILE = 64, 64
@@ -145,10 +166,54 @@ def bf16_error_limit(q, k, v, num_heads: int, ref, scale: Optional[float] = None
 
     The limit is the sum of the two, widened by 1/16 for the second-order
     terms, the f32 sums taken in another order and the kernel's exp2 (all
-    under 1e-4 relative).  ``ref`` is the plain version's output.
+    under 1e-4 relative).  ``ref`` is the plain version's output.  This is
+    the wgmma bodies' limit; the CUDA-core body, which does not round P,
+    has ``bf16_cuda_core_error_limit``.
     """
     pv = attention_packed_reference(q.float(), k.float(), v.float().abs(), num_heads, scale)
     return 1.0625 * (2.0**-7 * ref.float().abs() + 2.0**-8 * pv)
+
+
+def bf16_cuda_core_error_limit(q, k, v, num_heads: int, ref, scale: Optional[float] = None):
+    """Elementwise limit on |kernel - plain version| for bf16 q, k, v on the
+    forward's CUDA-core body (``bf16_fwd_on_cuda_core``).
+
+    Both versions read the same bf16 values into f32 exactly and keep every
+    score, max, exponential and sum in f32; the body does not round P.  They
+    differ in two ways only:
+
+    * the order of the f32 sums.  With u = 2^-24, n = Sk, s the scaled
+      scores, p = softmax(s) and lse the row logsumexp, each version's f32
+      output is within E = sum_j p_j |v_j| r_j of the exact one, where r_j
+      bounds the relative error of its p_j: the score is a D-term dot
+      product and a scaling, off by at most e_j = (D + 1) u scale
+      sum_d |q_d||k_jd| (the row's max of it, e, enters again through the
+      normaliser); the subtraction of the row's max or lse, the exponential
+      (expf, 2 ulp) and the normaliser's n-term sum with one rescale a key
+      tile add u (|s_j| + 2 |lse| + 3 n + 8), and the n-term sum of
+      p_j v_j its own n u, inside the 3 n: r_j = 2 e + u (|s_j| + 2 |lse|
+      + 3 n + 8).  The two versions differ by at most 2 E.
+    * each rounds its f32 output to bf16 once: at most 2^-8 (|x_kernel| +
+      |x_plain|), about 2^-7 |ref|.
+
+    The limit is 2^-7 |ref| + 2 E, widened by 1/16 for the second-order
+    terms (2^-8 of 2 E, the plain version's values standing for the exact
+    ones).  ``ref`` is the plain version's output.
+    """
+    u = 2.0**-24
+    b, sq, hd = q.shape
+    d, sk = hd // num_heads, k.shape[1]
+    if scale is None:
+        scale = d**-0.5
+    qh, kh, vh = (_heads(x, num_heads) for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.exp(s - lse)
+    e = ((d + 1) * u * scale
+         * torch.einsum("bqhd,bkhd->bhqk", qh.abs(), kh.abs())).amax(-1, keepdim=True)
+    r = 2.0 * e + u * (s.abs() + 2.0 * lse.abs() + 3 * sk + 8)
+    err = torch.einsum("bhqk,bkhd->bqhd", p * r, vh.abs()).reshape(b, sq, hd)
+    return 1.0625 * (2.0**-7 * ref.float().abs() + 2.0 * err)
 
 
 def _check(q, k, v, num_heads: int):
@@ -170,17 +235,14 @@ def _check_kernel_input(q, k, v, d: int):
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype not in _DTYPE_TAGS:
         raise ValueError(f"kernel takes float32 or bfloat16, not {q.dtype}")
-    if d > 512:
-        raise ValueError(f"kernel takes head widths up to 512, not {d}")
+    if d > FWD_MAX_HEAD_WIDTH:
+        raise ValueError(f"kernel takes head widths up to {FWD_MAX_HEAD_WIDTH}, not {d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel takes contiguous q, k, v")
-    if q.dtype == torch.bfloat16 and d not in BF16_HEAD_WIDTHS:
-        raise ValueError(f"bf16 kernel takes head widths {BF16_HEAD_WIDTHS}, not {d}")
     # 16-byte tile loads (rows and head offsets are then multiples of 16
-    # bytes): every bf16 body and the f32 bodies at d = 64 and 512
-    if (q.dtype == torch.bfloat16 or d in F32_TILED_HEAD_WIDTHS) and any(
-        t.data_ptr() % 16 for t in (q, k, v)
-    ):
+    # bytes) in the f32 bodies at d = 64 and 512; bf16 rows that the TMA
+    # cannot take run on the CUDA-core body
+    if q.dtype == torch.float32 and d in F32_TILED_HEAD_WIDTHS and not _aligned16(q, k, v):
         raise ValueError(f"{q.dtype} kernel at d = {d} takes rows aligned to 16 bytes")
 
 
@@ -325,7 +387,7 @@ def attention_bwd_reference(q, k, v, out, lse, dout, num_heads: int,
 
 
 def grad_error_limits(q, k, v, out, lse, dout, num_heads: int, grads,
-                      scale: Optional[float] = None):
+                      scale: Optional[float] = None, cuda_core: bool = False):
     """Elementwise limits on |kernel - plain version| for ``grads`` = the plain
     version's (dq, dk, dv), both versions given the same q, k, v, out, lse
     and dO (delta = rowsum(dO * O) is the same torch code in both).
@@ -341,6 +403,10 @@ def grad_error_limits(q, k, v, out, lse, dout, num_heads: int, grads,
       2^-7 |ref|).
     * f32 inputs: no rounding differs, but each version sums the last
       product in its own order: at most n 2^-24 T each, n = max(Sq, Sk).
+    * bf16 inputs on the CUDA-core body (``cuda_core``,
+      ``bf16_bwd_on_cuda_core``): it rounds neither P nor dS, so only each
+      gradient's one rounding (2^-7 |ref|) and the sums' order (2 n 2^-24 T,
+      as in f32) differ.
 
     Both dtypes add F, the f32 error of S and dP (sums of D products, at
     most D 2^-24 of the sums of their magnitudes in each version) carried
@@ -374,7 +440,10 @@ def grad_error_limits(q, k, v, out, lse, dout, num_heads: int, grads,
     limits = []
     for g, t, f in zip(grads, (t_dq, t_dk, t_dv), (f_dq, f_dk, f_dv)):
         t, f = t.reshape(g.shape), f.reshape(g.shape)
-        if q.dtype == torch.bfloat16:
+        if q.dtype == torch.bfloat16 and cuda_core:
+            lim = (2.0**-7 * g.float().abs()
+                   + 2.0 * max(q.shape[1], k.shape[1]) * 2.0**-24 * t + f)
+        elif q.dtype == torch.bfloat16:
             lim = 2.0**-7 * g.float().abs() + 2.0**-8 * t + f
         else:
             lim = 2.0 * max(q.shape[1], k.shape[1]) * 2.0**-24 * t + f
@@ -396,18 +465,14 @@ def _check_bwd_kernel_input(q, k, v, dout, d: int):
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype not in _DTYPE_TAGS:
         raise ValueError(f"kernel takes float32 or bfloat16, not {q.dtype}")
-    if q.dtype == torch.bfloat16 and d not in BWD_BF16_HEAD_WIDTHS:
-        raise ValueError(f"bf16 backward kernel takes head widths {BWD_BF16_HEAD_WIDTHS}, not {d}")
-    if q.dtype == torch.float32 and d > BWD_F32_MAX_HEAD_WIDTH:
-        raise ValueError(f"f32 backward kernel takes head widths up to "
-                         f"{BWD_F32_MAX_HEAD_WIDTH}, not {d}")
+    if d > BWD_MAX_HEAD_WIDTH:
+        raise ValueError(f"backward kernel takes head widths up to {BWD_MAX_HEAD_WIDTH}, not {d}")
     tensors = (q, k, v, dout)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("backward kernel takes contiguous q, k, v, dO")
-    # 16-byte tile loads: every bf16 body and the f32 bodies at d = 64
-    if (q.dtype == torch.bfloat16 or d == F32_TILED_HEAD_WIDTH) and any(
-        t.data_ptr() % 16 for t in tensors
-    ):
+    # 16-byte tile loads in the f32 bodies at d = 64; bf16 rows that the TMA
+    # cannot take run on the CUDA-core body
+    if q.dtype == torch.float32 and d == F32_TILED_HEAD_WIDTH and not _aligned16(*tensors):
         raise ValueError(f"{q.dtype} backward kernel at d = {d} takes rows aligned to 16 bytes")
 
 

@@ -1,25 +1,47 @@
-"""Upstream SVD checkpoints -> the port's checkpoint layout.
+"""Upstream checkpoints -> the port's checkpoint layouts.
 
     python -m unigeo_tpu_torch.tools.convert_checkpoint \
         --unet FILE|DIR --vae FILE|DIR --clip FILE|DIR --out FILE \
         [--network-config JSON]
+    python -m unigeo_tpu_torch.tools.convert_checkpoint --family dust3r \
+        --ckpt FILE --out FILE [--network-config JSON]
+    python -m unigeo_tpu_torch.tools.convert_checkpoint --family vda \
+        --ckpt FILE --out FILE [--network-config JSON] [--head-prefix depth_head.]
+    python -m unigeo_tpu_torch.tools.convert_checkpoint --family aether \
+        --transformer FILE|DIR --vae FILE|DIR --out FILE [--network-config JSON]
 
-Counterpart of ``tools/convert_checkpoint.py``'s ``svd`` family: reads a
-diffusers-layout ``UNetSpatioTemporalConditionModel`` and
-``AutoencoderKLTemporalDecoder`` state dict and a transformers
-``CLIPVisionModelWithProjection`` one (``.safetensors``, or ``.pt`` /
-``.pth`` / ``.bin`` read with ``weights_only=True``; a directory merges
-every shard in it; state dicts nested under ``model`` / ``state_dict`` and
-``module.`` prefixes are unwrapped), checks every key name and shape
+Counterpart of ``tools/convert_checkpoint.py``'s four families.  Inputs are
+``.safetensors``, or ``.pt`` / ``.pth`` / ``.bin`` read with
+``weights_only=True``; a directory merges every shard in it; state dicts
+nested under ``model`` / ``state_dict`` and ``module.`` prefixes are
+unwrapped.  Each family's result is checked key by key and shape by shape
 against the port's modules, built on the meta device at the widths of
-``--network-config`` (a JSON object with ``unet_config`` / ``vae_config`` /
-``clip_config``, the default SVD-XT ones where absent), and writes the
-{"unet", "vae", "clip"} checkpoint that ``DepthCrafter(checkpoint_path=...)``
-and the other SVD-family adapters load.  The port keeps the upstream key
-names, so nothing is renamed or transposed; the check is two-sided (no
-module key without a tensor, no tensor without a module key) and refuses a
-partial conversion, naming the keys.  ``position_ids`` buffers that older
-transformers versions saved are dropped and reported.
+``--network-config``; the check is two-sided (no module key without a
+tensor, no tensor without a module key) and refuses a partial conversion,
+naming the keys.
+
+* ``svd`` (the default): a diffusers ``UNetSpatioTemporalConditionModel``,
+  ``AutoencoderKLTemporalDecoder`` and transformers
+  ``CLIPVisionModelWithProjection`` -> the {"unet", "vae", "clip"}
+  checkpoint that ``DepthCrafter(checkpoint_path=...)`` and the other
+  SVD-family adapters load.  The port keeps the upstream key names, so
+  nothing is renamed or transposed; ``position_ids`` buffers that older
+  transformers versions saved are dropped and reported.  ``--network-config``:
+  ``unet_config`` / ``vae_config`` / ``clip_config``, SVD-XT's where absent.
+* ``dust3r``: a two-view DUSt3R with DPT heads -> the ``Dust3RNetwork``
+  state dict ``Dust3R(checkpoint_path=...)`` loads
+  (``utils/convert_dust3r.py``); ``--network-config`` the network's keywords
+  over DUSt3R_ViTLarge_BaseDecoder_512_dpt's.
+* ``vda``: VideoDepthAnything (or DepthAnything with ``--head-prefix
+  depth_head.``) -> the ``VDANetwork`` state dict
+  ``VideoDepthAnything(checkpoint_path=...)`` loads (``utils/convert_vda.py``);
+  ``--network-config`` the network's keywords.
+* ``aether``: the CogVideoX-lineage DiT and 3D VAE -> the {"vae", "dit"}
+  checkpoint ``Aether(checkpoint_path=...)`` loads
+  (``utils/convert_aether.py``); ``--network-config``: ``vae_config`` /
+  ``network_config``.  Both components are needed.
+
+The keys a family's rules skip (no counterpart in the port) are printed.
 """
 
 from __future__ import annotations
@@ -105,21 +127,103 @@ def convert_svd(unet_sd, vae_sd, clip_sd, network_config: Optional[Mapping] = No
             zip(COMPONENTS, port_modules(network_config), (unet_sd, vae_sd, clip_sd))}
 
 
+# the released DUSt3R_ViTLarge_BaseDecoder_512_dpt architecture
+DUST3R_512_DPT_CONFIG = dict(enc_width=1024, enc_depth=24, enc_heads=16, dec_width=768,
+                             dec_depth=12, dec_heads=12, patch_size=16, head_type="dpt",
+                             pos_embed="RoPE100", qkv_bias=True, norm_context=True)
+
+
+def _report_skipped(skipped) -> None:
+    if skipped:
+        print(f"skipped {len(skipped)} source keys with no counterpart: {skipped[:10]}",
+              flush=True)
+
+
+def _converted(convert, *args, **kwargs):
+    """``convert``'s (params, skipped), its refusal of unknown keys as a
+    SystemExit naming them."""
+    try:
+        params, skipped = convert(*args, **kwargs)
+    except KeyError as exc:
+        raise SystemExit(f"conversion refused: {exc.args[0]}") from None
+    _report_skipped(skipped)
+    return params
+
+
+def convert_dust3r(state_dict, network_config: Optional[Mapping] = None):
+    """A DUSt3R state dict -> the ``Dust3RNetwork`` state dict, checked."""
+    from unigeo_tpu_torch.models.pointmap.dust3r import Dust3RNetwork
+    from unigeo_tpu_torch.utils.convert_dust3r import convert_dust3r_checkpoint
+
+    with torch.device("meta"):
+        net = Dust3RNetwork(**{**DUST3R_512_DPT_CONFIG, **(network_config or {})})
+    return check_component("dust3r", net, _converted(convert_dust3r_checkpoint, state_dict))
+
+
+def convert_vda(state_dict, network_config: Optional[Mapping] = None,
+                head_prefix: str = "head."):
+    """A VideoDepthAnything state dict -> the ``VDANetwork`` state dict, checked."""
+    from unigeo_tpu_torch.models.vda import VDANetwork
+    from unigeo_tpu_torch.utils.convert_vda import convert_vda_checkpoint
+
+    with torch.device("meta"):
+        net = VDANetwork(**(network_config or {}))
+    return check_component("vda", net, _converted(convert_vda_checkpoint, state_dict,
+                                                  head_prefix=head_prefix))
+
+
+def convert_aether(transformer_sd, vae_sd, network_config: Optional[Mapping] = None):
+    """The DiT's and the VAE's state dicts -> the {"vae", "dit"} checkpoint,
+    each component checked."""
+    from unigeo_tpu_torch.models.aether import AetherNetwork, CausalVAE3D
+    from unigeo_tpu_torch.utils.convert_aether import convert_aether_checkpoint
+
+    cfg = dict(network_config or {})
+    with torch.device("meta"):
+        vae = CausalVAE3D(**(cfg.get("vae_config") or {}))
+        dit = AetherNetwork(vae_config=cfg.get("vae_config"),
+                            network_config=cfg.get("network_config")).dit
+    params = _converted(convert_aether_checkpoint, transformer_sd, vae_sd)
+    return {"vae": check_component("vae", vae, params["vae"]),
+            "dit": check_component("dit", dit, params["dit"])}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--family", choices=("svd", "dust3r", "vda", "aether"), default="svd")
     for name in COMPONENTS:
-        parser.add_argument(f"--{name}", required=True, help=f"the {name}'s state dict")
+        parser.add_argument(f"--{name}", help=f"svd: the {name}'s state dict"
+                            + (" (aether: the 3D VAE's)" if name == "vae" else ""))
+    parser.add_argument("--ckpt", help="dust3r / vda: the checkpoint")
+    parser.add_argument("--transformer", help="aether: the DiT's state dict")
+    parser.add_argument("--head-prefix", default="head.",
+                        help="vda: 'depth_head.' for plain DepthAnything")
     parser.add_argument("--out", required=True, help="the checkpoint file to write")
     parser.add_argument("--network-config", default=None,
-                        help="JSON with unet_config / vae_config / clip_config")
+                        help="JSON: the family's configs (see above)")
     args = parser.parse_args(argv)
+    needs = {"svd": COMPONENTS, "dust3r": ("ckpt",), "vda": ("ckpt",),
+             "aether": ("transformer", "vae")}[args.family]
+    absent = [f"--{n}" for n in needs if not getattr(args, n)]
+    if absent:
+        parser.error(f"{args.family} needs {' '.join(absent)}")
 
     from unigeo_tpu_torch.utils.checkpoint import save_params
 
     cfg = json.loads(args.network_config) if args.network_config else None
-    params = convert_svd(*(load_state_dict(getattr(args, n)) for n in COMPONENTS), cfg)
+    sds = [load_state_dict(getattr(args, n)) for n in needs]
+    if args.family == "svd":
+        params = convert_svd(*sds, cfg)
+    elif args.family == "dust3r":
+        params = convert_dust3r(*sds, cfg)
+    elif args.family == "vda":
+        params = convert_vda(*sds, cfg, head_prefix=args.head_prefix)
+    else:
+        params = convert_aether(*sds, cfg)
     save_params(params, args.out)
-    n = sum(v.numel() for sd in params.values() for v in sd.values())
+    tensors = [v for v in params.values()] if args.family in ("dust3r", "vda") else [
+        v for sd in params.values() for v in sd.values()]
+    n = sum(v.numel() for v in tensors)
     print(f"wrote {args.out}: {n / 1e9:.3f} B parameters", flush=True)
     return 0
 

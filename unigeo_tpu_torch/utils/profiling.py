@@ -1,20 +1,62 @@
-"""Per-clip timing of the evaluator, port of
-``unigeo_tpu/utils/profiling.py::ClipTimer``.
+"""Tracing and per-clip timing, port of ``unigeo_tpu/utils/profiling.py``.
 
-``ClipTimer`` keeps each clip's wall seconds and the running frames per
-second, and appends one JSON line per clip when given a path.  The caller
-makes the timed block end on finished device work: the port's models
-return host arrays, which waits for the card.  The JAX package's xprof
-hooks (``trace_annotation``, ``start_trace``) have no counterpart here:
-``torch.profiler`` is used directly where a trace is wanted.
+* ``ClipTimer``: each clip's wall seconds and the running frames per
+  second, one JSON line per clip appended when given a path.  The caller
+  makes the timed block end on finished device work: the port's models
+  return host arrays, which waits for the card.
+* ``trace_annotation``: a named range (``torch.profiler.record_function``),
+  the counterpart of ``jax.profiler.TraceAnnotation``, so stages show up by
+  name in a trace.
+* ``start_trace`` / ``stop_trace``: a ``torch.profiler.profile`` of the CPU
+  and, where there is one, the card around a region, written as a Chrome
+  trace (``trace.json``, for chrome://tracing or Perfetto) into ``logdir``,
+  the counterpart of ``jax.profiler.start_trace`` / ``stop_trace``.  One
+  trace at a time.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from typing import Optional
+
+_TRACE = {}  # the running profile and its logdir
+
+
+@contextlib.contextmanager
+def trace_annotation(name: str):
+    import torch.profiler
+
+    with torch.profiler.record_function(name):
+        yield
+
+
+def start_trace(logdir: str) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if _TRACE:
+        raise RuntimeError(f"a trace into {_TRACE['logdir']} is running")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    _TRACE.update(prof=prof, logdir=logdir)
+
+
+def stop_trace() -> str:
+    """Stops the running trace; returns the path of its ``trace.json``."""
+    if not _TRACE:
+        raise RuntimeError("no trace is running")
+    prof, logdir = _TRACE.pop("prof"), _TRACE.pop("logdir")
+    prof.stop()
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 class ClipTimer:
