@@ -58,7 +58,14 @@ Phases, each printed on its own flushed line with the seconds since start:
              32], [2, 768, 4, 128] and [2, 768, 4, 64] with misaligned rows,
              the backward at [2, 768, 2, 32] and [2, 257, 16, 80], each
              under its derived limit, with events and device ms, the plain
-             versions' and SDPA's times and the bound
+             versions' and SDPA's times and the bound.  Then the
+             column-chunked bodies past the forward's d 512 and the
+             backward's d 128 (flash_*_wide_kernel<T>, bwd_{dq,dkv}_wide_
+             kernel<T>, asserted by kernel name): the forward at [2, 1024,
+             1, 768] f32, [2, 1024, 1, 1024] bf16 and [2, 1024, 2, 520] bf16
+             with misaligned rows, the backward at the VAE mid block's [2,
+             3072, 1, 512] in bf16 and f32, [2, 1024, 2, 256] bf16 and [2,
+             1024, 1, 520] f32, the same numbers
   reference  the tiny pipeline in f32 on the card (kernel path) against the
              same weights on the CPU (plain path); then one step of the tiny
              trainer the same way: loss, every gradient, and the AdamW step
@@ -71,11 +78,14 @@ Phases, each printed on its own flushed line with the seconds since start:
              unigeo_tpu_torch.serving.HTTPInferenceServer on 127.0.0.1 in
              this process (max_batch 2, a 2 s window), under deterministic
              cuDNN: two distinct clips POSTed at once coalesce into one batch
-             (/stats), each response bitwise equal to the model's direct
-             forward_batch, 143 packed launches for the pair; a malformed
-             body gets a 400; one more clip, bitwise equal to forward, 109
-             launches; request seconds, clips/s, peak memory, npz encode /
-             decode seconds
+             (/stats), and again in the other order; each clip's batched
+             result bitwise the same in either slot (forward_batch on [A, B]
+             and [B, A]), each response bitwise its clip's direct batched
+             result, 143 packed launches for the pair; each clip's scores
+             (Abs Rel, delta < 1.25, normal mean on the tilted plane) within
+             0.5% of its serial forward's; a malformed body gets a 400; one
+             more clip, bitwise equal to forward, 109 launches; request
+             seconds, clips/s, peak memory, npz encode / decode seconds
   debug_nans run_evaluation(debug_nans=True) on a tiny f32 DepthCrafter on
              the card with one NaN weight planted: FloatingPointError
   eval       the port's evaluator (unigeo_tpu_torch.evaluator.run_evaluation)
@@ -117,9 +127,8 @@ Phases, each printed on its own flushed line with the seconds since start:
              CPU, the camera recovery card against CPU and with TF32 on in
              the process (the same result: it turns TF32 off inside); then
              the CLI on a copy of configs/spann3r_7scenes.yaml (one clip of
-             20, the default Spann3R in f32; one warm clip under
-             torch.profiler gives the f32 flash device ms per clip, every
-             launch on the register-tiled body) and UniGeoCam with its
+             20, the default Spann3R in f32, and warm in f32 and bf16) and
+             UniGeoCam with its
              geometry branch at full width on all four metric families
              (one clip of 25), the same numbers as svd_family
   pointmap_models
@@ -132,8 +141,8 @@ Phases, each printed on its own flushed line with the seconds since start:
              25): per-clip seconds, peak memory, stage ms, the packed kernel's
              launches held to the count the configuration predicts
              (POINTMAP_TABLE), every scored metric finite, and one more clip
-             of each under torch.profiler with every flash launch on the
-             register-tiled f32 body
+             of Dust3R and of VideoDepthAnything under torch.profiler with
+             every flash launch on the register-tiled f32 body
   aether     a small Aether (tools/aether_check.py: 8 frames at 128 x
              128, 256 DiT tokens at d = 64, the f32 kernel) in f32 on the
              card against the same weights on the CPU, its constant leaves
@@ -171,6 +180,15 @@ Phases, each printed on its own flushed line with the seconds since start:
              (unigeo_tpu_torch.tools.ablate_ln_qkv) in-process at full size,
              its JSON line, and the kernel's launches against the count the
              tool's parameters predict
+  preprocess the offline preprocessors (unigeo_tpu_torch/preprocess) on
+             the card: the rasterizer on a seeded heightfield of about 1.5 M
+             faces at 768 x 1024, timed, and at about 20 k faces held
+             against the port's own CPU run; register_depth_to_rgb on a 480
+             x 640 Kinect frame (bitwise the CPU run) and undistort_image on
+             a 1752 x 1168 fisheye frame, timed; the three CLIs
+             (preprocess_7scenes, preprocess_scannetpp on the iPhone and
+             the DSLR path, vis_dataset) over fixtures written by the
+             phase, each held against its --device cpu run
   metrics    run_evaluation with IdentityModel on the identity config (a
              dict, configs/identity_synthetic.yaml's content) on the card:
              perfect scores on all four families, held against the same
@@ -1104,8 +1122,6 @@ SVD_XT_CLIP = dict(width=1280, depth=32, num_heads=16, patch_size=14,
 
 def phase_main(dev):
     from unigeo_tpu_torch.data.sample import prepare_gt_label
-    from unigeo_tpu_torch.metrics.depth import depth_evaluation
-    from unigeo_tpu_torch.metrics.normal import normal_evaluation
     from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
     from unigeo_tpu_torch.models.depthcrafter.pipeline import DepthCrafterPipeline
 
@@ -1150,12 +1166,7 @@ def phase_main(dev):
                              f"GEGLU kernel: {counts}")
 
     check_prediction("main", out, t, h, w)
-    gt = prepare_gt_label(data)
-    dm, *_ = depth_evaluation(out["pred_depths"], gt["gt_depths"],
-                             custom_mask=gt["gt_masks"], max_depth=80.0)
-    nm = normal_evaluation(out["pred_normals"], gt["gt_normals"], custom_mask=gt["gt_masks"])
-    scores = {"Abs Rel": dm["Abs Rel"], "delta < 1.25": dm["delta < 1.25"],
-              "normal mean": nm["normal mean"]}
+    scores = clip_scores(out, prepare_gt_label(data))
     if not all(np.isfinite(v) for v in scores.values()):
         raise AssertionError(f"non-finite metrics {scores}")
     log("main", f"metrics (random weights) {json.dumps(scores)}")
@@ -2524,8 +2535,11 @@ def phase_pointmap(dev):
 def spann3r_f32_vs_bf16(dev, root, cache, sp):
     """One 20-frame fixture clip through the config's Spann3R in f32 and in
     bf16 (``compute_dtype``, the same weights): warm seconds, launches of
-    each body, the bf16 world points' deviation from the f32 ones; then the
-    f32 forward under torch.profiler."""
+    each body, the bf16 world points' deviation from the f32 ones.  (Its f32
+    clip under torch.profiler took 28-37 s of trace processing for its
+    host-paced per-frame loop; cut to keep the run inside its time, the f32
+    body's launches are held by name in Dust3R's, VDA's and Aether's
+    profiled clips and in tests/test_torch_cuda.py.)"""
     from unigeo_tpu_torch.models.pointmap.spann3r import Spann3R
     from unigeo_tpu_torch.registry import get_dataset_cls
 
@@ -2555,21 +2569,6 @@ def spann3r_f32_vs_bf16(dev, root, cache, sp):
     if not (res["f32"]["launches"] == res["bf16"]["launches"] == sibling_launches(
             "spann3r", PM_CLIP) and np.isfinite(res["bf16_world_pts_rel_dev"])):
         raise AssertionError(f"Spann3R f32 / bf16: {res}")
-    res["profile_f32"] = profile_device(
-        "pointmap", lambda: f32.forward_tensors(data),
-        {"flash_kernel": "flash_packed", "f32reg": "flash_packed_f32reg_kernel", "conv": "conv",
-         "gemm": "gemm", "elementwise": "elementwise"})
-    # the f32 flash device ms of one clip: every launch on the register-tiled
-    # body
-    prof = res["profile_f32"]
-    res["f32_flash_device_ms_per_clip"] = prof["flash_kernel_ms"]
-    log("pointmap", f"f32 flash device ms per {PM_CLIP}-frame clip "
-        f"{prof['flash_kernel_ms']} in {prof['flash_kernel_launches']} launches "
-        f"({prof['f32reg_launches']} on flash_packed_f32reg_kernel), device "
-        f"{prof['device_ms']} ms, wall {prof['wall_ms']} ms, busy share "
-        f"{prof['device_busy_share']}")
-    if not prof["f32reg_launches"] == prof["flash_kernel_launches"] > 0:
-        raise AssertionError(f"Spann3R f32 profile: {prof}")
     del f32, bf16, out
     torch.cuda.empty_cache()
     return res
@@ -2687,6 +2686,12 @@ AETHER_GROUPS = {"flash_kernel": "flash_packed", "f32reg": "flash_packed_f32reg_
                  "elementwise": "elementwise"}
 
 
+# the pointmap models whose clip runs once more under torch.profiler: not
+# Cut3R, whose host-paced per-frame loop made its trace take 34-37 s to
+# process (cut to keep the run inside its time)
+PROFILED_POINTMAP_MODELS = ("dust3r", "vda")
+
+
 def profiled_f32_clip(phase, label, model, data, predicted, groups=F32_CLIP_GROUPS):
     """One more clip of ``model`` under torch.profiler (profile_device, by
     ``groups``): every flash launch the profiler records must be on the
@@ -2717,8 +2722,9 @@ def phase_pointmap_models(dev):
     clips of 25) through the eval CLI over the 7-Scenes fixture, one clip
     each, in f32 with TF32 off: per-clip seconds, peak memory, stage ms, the
     packed kernel's launches held to pointmap_launches and POINTMAP_TABLE,
-    every metric the config scores finite; then one more clip of each under
-    torch.profiler: every flash launch on the register-tiled f32 body."""
+    every metric the config scores finite; then one more clip of each of
+    PROFILED_POINTMAP_MODELS under torch.profiler: every flash launch on the
+    register-tiled f32 body."""
     pointmap_models_reference(dev)
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 is on for the pointmap models' f32 runs")
@@ -2739,16 +2745,19 @@ def phase_pointmap_models(dev):
             model = run.pop("models")[0]
             if next(model.network.parameters()).dtype != torch.float32:
                 raise AssertionError(f"{label}: the network is not f32")
-            data = fixture_clip(root, cache, clip, PM_OVERLAP)
-            prof = profiled_f32_clip("pointmap_models", label, model, data, predicted)
             summary[label] = {k: run[k] for k in ("seconds", "clip_s", "peak_gib", "stage_ms")}
             summary[label].update(
                 launches_per_clip=predicted, params=sum(p.numel() for p in model.network.parameters()),
-                families=[s for s in SECTIONS if s in secs], average=run["rows"][-1],
-                f32_flash_device_ms_per_clip=prof["flash_kernel_ms"],
-                profiled_device_ms=prof["device_ms"], profiled_wall_ms=prof["wall_ms"],
-                device_busy_share=prof["device_busy_share"])
-            del model, run, data
+                families=[s for s in SECTIONS if s in secs], average=run["rows"][-1])
+            if label in PROFILED_POINTMAP_MODELS:
+                data = fixture_clip(root, cache, clip, PM_OVERLAP)
+                prof = profiled_f32_clip("pointmap_models", label, model, data, predicted)
+                summary[label].update(
+                    f32_flash_device_ms_per_clip=prof["flash_kernel_ms"],
+                    profiled_device_ms=prof["device_ms"], profiled_wall_ms=prof["wall_ms"],
+                    device_busy_share=prof["device_busy_share"])
+                del data
+            del model, run
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3362,9 +3371,121 @@ def phase_kernel_bf16_cuda_core(dev):
     return rows
 
 
+# the column-chunked CUDA-core bodies past the forward's d 512 and the
+# backward's d 128 (flash_*_wide_kernel<T>, bwd_{dq,dkv}_wide_kernel<T>):
+# (name, dtype, B, Sq, Sk, H, D, misaligned).  No default path reaches them;
+# the VAE mid block's one head of 512 over two frames' 48 x 64 latents is
+# the backward a trainer that unfroze the VAE would run
+WIDE_FWD = [("d768", torch.float32, 2, 1024, 1024, 1, 768, False),
+            ("d1024", torch.bfloat16, 2, 1024, 1024, 1, 1024, False),
+            ("d520_misaligned", torch.bfloat16, 2, 1024, 1024, 2, 520, True)]
+WIDE_BWD = [("vae_mid_d512", torch.bfloat16, 2, 3072, 3072, 1, 512),
+            ("vae_mid_d512", torch.float32, 2, 3072, 3072, 1, 512),
+            ("d256", torch.bfloat16, 2, 1024, 1024, 2, 256),
+            ("d520", torch.float32, 2, 1024, 1024, 1, 520)]
+
+
+def phase_kernel_wide(dev):
+    """The column-chunked bodies at WIDE_FWD / WIDE_BWD against their plain
+    versions under their derived limits (bf16_cuda_core_error_limit, its
+    2 E alone in f32; grad_error_limits with cuda_core), each body checked
+    by kernel name, with events ms, profiler device ms, the plain versions'
+    and SDPA's times and the bounds (the bf16 rows at the bf16 tensor-core
+    rate, the f32 rows at the f32 rate).  No default path launches them."""
+    from unigeo_tpu_torch.device import set_exact_f32
+    from unigeo_tpu_torch.ops import attention as att
+    import torch.nn.functional as F
+
+    set_exact_f32()  # the f32 plain versions in full f32
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = {"fwd": [], "bwd_dq": [], "bwd_dkv": []}
+    split = lambda x, b, s_, h, d: x.view(b, s_, h, d).transpose(1, 2)
+    tag = lambda dt: "bf16" if dt == torch.bfloat16 else "f32"
+    for name, dtype, b, sq, sk, h, d, shifted in WIDE_FWD:
+        mk = lambda s_: torch.randn((b, s_, h * d), generator=gen, device=dev, dtype=dtype)
+        q, k, v = mk(sq), mk(sk), mk(sk)
+        if shifted:
+            q, k, v = misaligned(q), misaligned(k), misaligned(v)
+        out = att.flash_attention_packed(q, k, v, h)
+        torch.cuda.synchronize()
+        ref = att.attention_packed_reference(q, k, v, h)
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        ratio = (diff / att.bf16_cuda_core_error_limit(q, k, v, h, ref)).max().item()
+        if not (np.isfinite(err) and ratio <= 1.0):
+            raise AssertionError(f"wide fwd {name} {tag(dtype)}: max err/limit {ratio} (err {err})")
+        body, device_ms = forward_body(lambda: att.flash_attention_packed(q, k, v, h), 3)
+        if "flash_packed_wide_kernel<" not in body:
+            raise AssertionError(f"wide fwd {name} ran {body}")
+        # SDPA's kernels refuse rows not aligned to 16 bytes: it reads aligned copies
+        qa, ka, va = (x.clone() for x in (q, k, v))
+        bms, by = bound(b, sq, h, d) if dtype == torch.bfloat16 else f32_bound(b, sq, sk, h, d)
+        row = dict(shape=name, dtype=tag(dtype), b=b, sq=sq, sk=sk, h=h, d=d,
+                   misaligned=shifted, body=body, max_abs_err=err, max_err_over_limit=ratio,
+                   ms=time_ms(lambda: att.flash_attention_packed(q, k, v, h), 5),
+                   device_ms=device_ms,
+                   plain_ms=time_ms(lambda: att.attention_packed_reference(q, k, v, h), 5),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       split(qa, b, sq, h, d), split(ka, b, sk, h, d),
+                       split(va, b, sk, h, d)), 5),
+                   bound_ms=bms, bound_by=by)
+        rows["fwd"].append(row)
+        log("kernel", f"wide fwd {name} {tag(dtype)} [B={b},S={sq},H={h},D={d}] body {body} "
+            f"max_err/limit={ratio:.3f} ms={row['ms']:.4f} device_ms={device_ms:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+            f"bound_ms={bms:.5f} ({by})")
+    for name, dtype, b, sq, sk, h, d in WIDE_BWD:
+        mk = lambda s_: torch.randn((b, s_, h * d), generator=gen, device=dev, dtype=dtype)
+        q, k, v, dout = mk(sq), mk(sk), mk(sk), mk(sq)
+        out, lse = att.attention_fwd_lse_reference(q, k, v, h)
+        grads = att.flash_attention_bwd(q, k, v, out, lse, dout, h)
+        torch.cuda.synchronize()
+        refs = att.attention_bwd_reference(q, k, v, out, lse, dout, h)
+        limits = att.grad_error_limits(q, k, v, out, lse, dout, h, refs, cuda_core=True)
+        errs = [(g.float() - r.float()).abs() for g, r in zip(grads, refs)]
+        ratios = [(e / lim).max().item() for e, lim in zip(errs, limits)]
+        err_max = [e.max().item() for e in errs]
+        if not max(ratios) <= 1.0:
+            raise AssertionError(f"wide bwd {name} {tag(dtype)}: max err/limit {ratios}")
+        del grads, refs, limits, errs
+        delta = att._delta(out, dout, h)
+        bounds = train_bounds(dtype, b, sq, sk, h, d)
+        qs, ks, vs = (split(x, b, s_, h, d).detach().requires_grad_()
+                      for x, s_ in ((q, sq), (k, sk), (v, sk)))
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
+        lib_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs),
+                                                     split(dout, b, sq, h, d),
+                                                     retain_graph=True), 5)
+        for kernel, fn, parts, ratio, err in (
+                ("bwd_dq", lambda: att.flash_attention_bwd_dq(q, k, v, dout, lse, delta, h),
+                 ("dq",), ratios[0], err_max[0]),
+                ("bwd_dkv", lambda: att.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, h),
+                 ("dk", "dv"), max(ratios[1:]), max(err_max[1:]))):
+            body, device_ms = bwd_device_ms(fn, 3, kernel + "_wide_kernel<")
+            row = dict(shape=name, dtype=tag(dtype), b=b, sq=sq, sk=sk, h=h, d=d, body=body,
+                       max_abs_err=err, max_err_over_limit=ratio, ms=time_ms(fn, 5),
+                       device_ms=device_ms,
+                       plain_ms=time_ms(lambda: att._bwd_plain(q, k, v, dout, lse, delta, h,
+                                                               d**-0.5, parts), 5),
+                       library_ms=lib_ms, library_computes="dq, dk and dv",
+                       bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1])
+            rows[kernel].append(row)
+            log("kernel", f"wide {kernel} {name} {tag(dtype)} [B={b},S={sq},H={h},D={d}] "
+                f"body {body} max_err/limit={ratio:.3f} ms={row['ms']:.4f} "
+                f"device_ms={device_ms:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"library_bwd_ms={lib_ms:.4f} bound_ms={row['bound_ms']:.5f}")
+        del qs, ks, vs, sdpa_out
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
 # the serving phase: DepthCrafter at SVD-XT width behind the HTTP server,
-# two clips coalesced into one batch of clips_per_step = 2
-SERVE_WINDOW_MS, SERVE_STAGGER_S = 2000.0, 0.5
+# two clips coalesced into one batch of clips_per_step = 2.  The pair is
+# posted at once, in no fixed order: since the UNet's convolutions run one
+# clip at a time (layers.clipwise), a clip's bits no longer depend on its
+# slot in the batch, so the 0.5 s stagger that fixed the order is gone
+SERVE_WINDOW_MS = 2000.0
 
 
 def serving_clips(t, h, w):
@@ -3398,17 +3519,37 @@ def get_json(port, path):
         return json.loads(r.read())
 
 
+def clip_scores(out, gt):
+    """Abs Rel, delta < 1.25 and the normal mean of one prediction against
+    a GT label."""
+    from unigeo_tpu_torch.metrics.depth import depth_evaluation
+    from unigeo_tpu_torch.metrics.normal import normal_evaluation
+
+    dm, *_ = depth_evaluation(out["pred_depths"], gt["gt_depths"],
+                              custom_mask=gt["gt_masks"], max_depth=80.0)
+    nm = normal_evaluation(out["pred_normals"], gt["gt_normals"], custom_mask=gt["gt_masks"])
+    return {"Abs Rel": dm["Abs Rel"], "delta < 1.25": dm["delta < 1.25"],
+            "normal mean": nm["normal mean"]}
+
+
 def phase_serving(dev):
     """DepthCrafter (SVD-XT width, random bf16 weights made on the card,
     clips_per_step 2, 5 steps) behind unigeo_tpu_torch.serving's
     HTTPInferenceServer on 127.0.0.1 in this process (max_batch 2, a
-    SERVE_WINDOW_MS window): two distinct 25 x 384 x 512 clips POSTed at once
-    coalesce into one batch (/stats), each response bitwise equal to the
-    same model's direct forward_batch on the decoded clips, with the packed
-    kernel's launches held to the pair's count; one malformed body gets a
-    400; one single clip, bitwise equal to forward, its launches held to one
-    clip's count.  Under deterministic cuDNN.  Request latencies, clips/s,
-    peak memory, npz encode / decode seconds per request."""
+    SERVE_WINDOW_MS window): two distinct 25 x 384 x 512 clips A and B
+    POSTed at once coalesce into one batch (/stats), and again in the other
+    order; each clip's batched result is bitwise the same with A first or B
+    first (the direct forward_batch on [A, B] and on [B, A]), every response
+    bitwise the direct batched result of its clip, with the packed kernel's
+    launches held to the pair's count; against each clip's own serial
+    forward (the products at half the rows choose other sums) the scores
+    Abs Rel, delta < 1.25 and normal mean on the clips' one synthetic GT
+    (the tilted plane they all show) within EVAL_METRIC_TOL_REL; one
+    malformed body gets a 400; one single clip, bitwise equal to forward,
+    its launches held to one clip's count.  Under deterministic cuDNN.
+    Request latencies, clips/s, peak memory, npz encode / decode seconds
+    per request."""
+    from unigeo_tpu_torch.data.sample import prepare_gt_label
     from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
     from unigeo_tpu_torch.models.depthcrafter.pipeline import DepthCrafterPipeline
     from unigeo_tpu_torch.serving import HTTPInferenceServer, decode_arrays, encode_arrays
@@ -3433,6 +3574,15 @@ def phase_serving(dev):
     # VAE run per clip
     pair_predicted = (steps * unet_kernel_attentions(unet_cfg, h, w)
                       + 2 * (clip_kernel_attentions(clip_cfg) + 2 * vae_mid_attentions(h, w)))
+
+    def post_pair(first, second):
+        """Both bodies in flight at once; (responses in that order, wall s)."""
+        t_pair = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            futs = [pool.submit(post, srv.port, payloads[i]) for i in (first, second)]
+            got = [f.result() for f in futs]
+        return got, time.perf_counter() - t_pair
+
     with deterministic_cudnn():
         with torch.inference_mode():  # warm up once: cuDNN's first use, the allocator
             model.forward_batch(decoded[:2])
@@ -3444,18 +3594,12 @@ def phase_serving(dev):
         try:
             torch.cuda.reset_peak_memory_stats(dev)
             reset_counts()
-            t_pair = time.perf_counter()
-            # both in flight at once; the second sent SERVE_STAGGER_S after
-            # the first, inside the window, so the batch holds them in order
-            with ThreadPoolExecutor(2) as pool:
-                first = pool.submit(post, srv.port, payloads[0])
-                time.sleep(SERVE_STAGGER_S)
-                second = pool.submit(post, srv.port, payloads[1])
-                pair = [first.result(), second.result()]
-            pair_s = time.perf_counter() - t_pair
+            pair, pair_s = post_pair(0, 1)
             pair_counts = read_counts()
             peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
             stats = get_json(srv.port, "/stats")
+            swapped, swapped_s = post_pair(1, 0)
+            swapped_stats = get_json(srv.port, "/stats")
             bad = post(srv.port, b"not an npz")
             reset_counts()
             single = post(srv.port, payloads[2])
@@ -3464,25 +3608,48 @@ def phase_serving(dev):
         finally:
             srv.shutdown()
         with torch.inference_mode():  # the direct calls on the same clips, warm
-            direct_pair = model.forward_batch(decoded[:2])
-            direct_single = model.forward(decoded[2])
-    statuses = [r[0] for r in pair] + [bad[0], single[0]]
-    if statuses != [200, 200, 400, 200]:
-        raise AssertionError(f"serving: statuses {statuses} (pair, malformed, single): "
-                             f"{[r[1][:200] for r in pair + [bad, single] if r[0] != 200]}")
-    if stats["served"] != 2 or stats["mean_batch"] != 2.0:
-        raise AssertionError(f"serving: the pair did not coalesce into one batch: {stats}")
+            direct_ab = model.forward_batch(decoded[:2])
+            direct_ba = model.forward_batch([decoded[1], decoded[0]])
+            serial = [model.forward(decoded[i]) for i in range(3)]
+    statuses = [r[0] for r in pair + swapped] + [bad[0], single[0]]
+    if statuses != [200, 200, 200, 200, 400, 200]:
+        raise AssertionError(f"serving: statuses {statuses} (pair, swapped pair, malformed, "
+                             f"single): {[r[1][:200] for r in pair + swapped + [bad, single]]}")
+    if stats["served"] != 2 or stats["mean_batch"] != 2.0 or \
+            swapped_stats["served"] != 4 or swapped_stats["mean_batch"] != 2.0:
+        raise AssertionError(f"serving: a pair did not coalesce into one batch: {stats} "
+                             f"{swapped_stats}")
     if health != {"status": "ok", "model": "DepthCrafter"}:
         raise AssertionError(f"serving: /healthz {health}")
-    for label, got, ref in (("pair 0", decode_arrays(pair[0][1]), direct_pair[0]),
-                            ("pair 1", decode_arrays(pair[1][1]), direct_pair[1]),
-                            ("single", decode_arrays(single[1]), direct_single)):
-        if set(got) != set(ref) or not all(np.array_equal(got[k], ref[k]) for k in ref):
+    same = lambda a, b: set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in b)
+    # each clip's batched bits in either slot
+    for label, x, y in (("A", direct_ab[0], direct_ba[1]), ("B", direct_ab[1], direct_ba[0])):
+        if not same(x, y):
+            raise AssertionError(f"serving: clip {label}'s batched result depends on its slot: "
+                                 f"{[(k, float(np.abs(x[k] - y[k]).max())) for k in x]}")
+    direct = {0: direct_ab[0], 1: direct_ab[1]}
+    for label, got, ref in (("pair A", decode_arrays(pair[0][1]), direct[0]),
+                            ("pair B", decode_arrays(pair[1][1]), direct[1]),
+                            ("swapped B", decode_arrays(swapped[0][1]), direct[1]),
+                            ("swapped A", decode_arrays(swapped[1][1]), direct[0]),
+                            ("single", decode_arrays(single[1]), serial[2])):
+        if not same(got, ref):
             raise AssertionError(f"serving: {label} differs from the direct call: "
                                  f"{[(k, float(np.abs(got[k] - ref[k]).max())) for k in ref]}")
         check_prediction(f"serving {label}", got, t, h, w)
-    if np.array_equal(direct_pair[0]["pred_depths"], direct_pair[1]["pred_depths"]):
+    if np.array_equal(direct[0]["pred_depths"], direct[1]["pred_depths"]):
         raise AssertionError("serving: the two clips gave the same depths")
+    gt = prepare_gt_label(tilted_plane_clip(t, h, w))
+    scores = {label: {"batched": clip_scores(direct[i], gt), "serial": clip_scores(serial[i], gt)}
+              for i, label in enumerate("AB")}
+    shift = {label: {k: abs(v["batched"][k] - v["serial"][k]) / abs(v["serial"][k])
+                     for k in v["serial"]} for label, v in scores.items()}
+    bits_vs_serial = {label: same(direct[i], serial[i]) for i, label in enumerate("AB")}
+    log("serving", f"each clip bitwise the same in either slot of the batch; against its "
+        f"serial forward: bitwise {bits_vs_serial}, scores {json.dumps(scores)}, relative "
+        f"shift {json.dumps(shift)} (tol {EVAL_METRIC_TOL_REL})")
+    if not all(v <= EVAL_METRIC_TOL_REL for s_ in shift.values() for v in s_.values()):
+        raise AssertionError(f"serving: batched vs serial scores shift {shift}")
     pair_launches = pair_counts["flash_attention_packed"]
     single_launches = single_counts["flash_attention_packed"]
     if (pair_launches, single_launches) != (pair_predicted, per_clip):
@@ -3492,14 +3659,18 @@ def phase_serving(dev):
            if name != "flash_attention_packed"):
         raise AssertionError(f"serving launched another kernel: {pair_counts} {single_counts}")
     result = dict(pair_request_s=[r[2] for r in pair], pair_wall_s=pair_s,
+                  swapped_pair_request_s=[r[2] for r in swapped], swapped_pair_wall_s=swapped_s,
                   clips_per_s=2 / pair_s, single_request_s=single[2], malformed_status=bad[0],
                   peak_mem_gib=peak_gib, request_mb=mb, npz_encode_s=encode_s,
                   npz_decode_s=decode_s, launches_pair=pair_launches,
-                  launches_single=single_launches, stats=stats)
+                  launches_single=single_launches, stats=swapped_stats,
+                  batch_order_bitwise=True, bitwise_vs_serial=bits_vs_serial,
+                  scores_batched_vs_serial=scores, score_shift_vs_serial=shift)
     log("serving", f"pair of clips in one batch of 2 (stats {json.dumps(stats)}): request s "
         f"{[round(r[2], 3) for r in pair]} wall {pair_s:.3f} s, {2 / pair_s:.3f} clips/s, "
         f"peak {peak_gib:.2f} GiB, packed launches {pair_launches} (predicted "
-        f"{pair_predicted}); bitwise equal to forward_batch")
+        f"{pair_predicted}); the swapped pair wall {swapped_s:.3f} s; every response bitwise "
+        f"its clip's direct batched result")
     log("serving", f"single clip {single[2]:.3f} s, launches {single_launches} (predicted "
         f"{per_clip}), bitwise equal to forward; malformed body -> {bad[0]}, then 200; "
         f"npz {mb:.1f} MB a request: encode {encode_s:.3f} s, decode {decode_s:.3f} s")
@@ -3536,6 +3707,245 @@ def phase_debug_nans(dev):
     if "Conv" not in message or dict(torch.nn.modules.module._global_forward_hooks) != hooks:
         raise AssertionError(f"debug_nans: raised {message!r}, hooks left")
     log("debug_nans", f"planted NaN weight raised FloatingPointError: {message}")
+
+
+# the rasterizer's synthetic scenes: a noisy heightfield of nx x ny vertices
+# (2 (nx - 1) (ny - 1) faces) seen at 768 x 1024, as ScanNet++'s iPhone
+# frames are rendered; the large one about 1.5 M faces (a laser mesh at
+# 5 cm holds a few million), the small one about 20 k for the CPU run
+RASTER_HW = (768, 1024)
+RASTER_LARGE, RASTER_SMALL = (1000, 750), (115, 90)
+EDGE_SHARE = 2e-3  # hit-mask and winning-face differences, of the hit pixels
+
+
+def heightfield_mesh(nx, ny, seed):
+    """float32 vertices and int64 faces of a noisy heightfield (every inner
+    edge shared by two faces) filling a 768 x 1024 view at z ~ 3 m."""
+    rng = np.random.default_rng(seed)
+    xs, ys = np.meshgrid(np.linspace(-2.2, 2.2, nx), np.linspace(-1.7, 1.7, ny))
+    zs = 3.0 + 0.3 * np.sin(xs * 3) * np.cos(ys * 2) + 0.01 * rng.normal(size=xs.shape)
+    verts = np.stack([xs, ys, zs], -1).reshape(-1, 3).astype(np.float32)
+    idx = np.arange(nx * ny).reshape(ny, nx)
+    a, b, c, d = idx[:-1, :-1], idx[:-1, 1:], idx[1:, :-1], idx[1:, 1:]
+    faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                            np.stack([b, d, c], -1).reshape(-1, 3)]).astype(np.int64)
+    return verts, faces
+
+
+def raster_camera():
+    """An OpenCV world-to-camera pose (float64, slightly turned) and K at
+    RASTER_HW."""
+    h, w = RASTER_HW
+    ang = 0.03
+    w2c = np.eye(4)
+    w2c[:3, :3] = [[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]]
+    w2c[:3, 3] = [0.05, -0.02, 0.1]
+    k = np.array([[900.0, 0, (w - 1) / 2], [0, 900.0, (h - 1) / 2], [0, 0, 1]], np.float32)
+    return w2c, k
+
+
+def hold_render(label, card, cpu):
+    """The card's render against the CPU's: depth within 1e-6 relative where
+    both hit, hit masks and winners (normals within 1e-5) differing on at
+    most EDGE_SHARE of the hit pixels."""
+    (cd, cn), (pd, pn) = [(d.cpu().numpy(), n.cpu().numpy()) for d, n in (card, cpu)]
+    chit, phit = cd > 0, pd > 0
+    both = chit & phit
+    n_hit = max(int(phit.sum()), 1)
+    mask_diff = int((chit != phit).sum())
+    depth_rel = float((np.abs(cd[both] - pd[both]) / pd[both]).max()) if both.any() else 0.0
+    winner_diff = int((np.abs(cn[both] - pn[both]).max(-1) > 1e-5).sum())
+    if not (mask_diff <= EDGE_SHARE * n_hit and depth_rel <= 1e-6
+            and winner_diff <= EDGE_SHARE * n_hit and phit.mean() > 0.5):
+        raise AssertionError(f"{label}: mask diff {mask_diff}, depth rel {depth_rel}, winner "
+                             f"diff {winner_diff} of {n_hit} hit pixels")
+    return dict(hit_pixels=n_hit, mask_diff=mask_diff, max_depth_rel=depth_rel,
+                winner_diff=winner_diff)
+
+
+def timed_s(fn, dev, reps=3):
+    """The least host seconds of ``reps`` calls of fn, each ended by a
+    synchronize, after one warm-up call; and fn's last result."""
+    out = fn()
+    torch.cuda.synchronize(dev)
+    best = math.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def write_preprocess_fixtures(root):
+    """The three CLIs' inputs: a 7-Scenes sequence of two 480 x 640 Kinect
+    depth frames; a ScanNet++ scene with a heightfield mesh, two iPhone
+    frames with IMU poses and two fisheye DSLR frames with a COLMAP model;
+    and the identity config's synthetic dataset (nothing on disk)."""
+    from PIL import Image
+
+    from unigeo_tpu_torch.preprocess.rasterizer import write_ply_mesh
+
+    rng = np.random.default_rng(21)
+    seq = os.path.join(root, "7s", "chess", "seq-01")
+    os.makedirs(seq)
+    vv, uu = np.mgrid[0:480, 0:640]
+    for i in range(2):
+        depth = np.clip(1200 + 2.0 * uu + vv + rng.normal(scale=25, size=uu.shape), 1, 65534)
+        depth = depth.astype(np.uint16)
+        depth[rng.random(depth.shape) < 0.05] = 0
+        Image.fromarray(depth).save(os.path.join(seq, f"frame-{i:06d}.depth.png"))
+    scene = os.path.join(root, "scannetpp", "scene0")
+    for sub in ("scans", "iphone/rgb", "dslr/colmap", "dslr/images"):
+        os.makedirs(os.path.join(scene, sub))
+    write_ply_mesh(os.path.join(scene, "scans", "mesh_aligned_0.05.ply"),
+                   *heightfield_mesh(60, 45, seed=22))
+    meta = {}
+    for i in range(2):
+        c2w = np.eye(4)
+        c2w[:3, 3] = [0.05 * i, 0.0, -0.2]
+        meta[f"frame_{i:06d}"] = {"aligned_pose": c2w.tolist(),
+                                  "intrinsic": [[180.0, 0, 95.5], [0, 180.0, 71.5], [0, 0, 1]]}
+        Image.fromarray(rng.integers(0, 256, (144, 192, 3), dtype=np.uint8)).save(
+            os.path.join(scene, "iphone", "rgb", f"frame_{i:06d}.jpg"))
+    with open(os.path.join(scene, "iphone", "pose_intrinsic_imu.json"), "w") as f:
+        json.dump(meta, f)
+    w, h = 192, 128
+    with open(os.path.join(scene, "dslr", "colmap", "cameras.txt"), "w") as f:
+        f.write(f"1 OPENCV_FISHEYE {w} {h} 110.0 110.0 {w / 2 + 0.5} {h / 2 + 0.5} "
+                "0.03 -0.005 0.001 -0.0002\n")
+    with open(os.path.join(scene, "dslr", "colmap", "images.txt"), "w") as f:
+        f.write("1 1 0 0 0 0 0 0.2 1 DSC00001.JPG\n\n2 0.999 0 0.0447 0 0.1 0 0.2 1 "
+                "DSC00002.JPG\n\n")
+    with open(os.path.join(scene, "dslr", "colmap", "points3D.txt"), "w") as f:
+        f.write("# none\n")
+    for name in ("DSC00001.JPG", "DSC00002.JPG"):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            os.path.join(scene, "dslr", "images", name))
+
+
+def phase_preprocess(dev):
+    """The offline preprocessors on the card (``unigeo_tpu_torch/preprocess``):
+    the rasterizer on a seeded heightfield of about 1.5 M faces at 768 x 1024
+    (timed, its z-buffer's candidate rows counted) and, at about 20 k faces,
+    held against the port's own CPU run; register_depth_to_rgb on a 480 x
+    640 Kinect frame (bitwise the CPU run's) and undistort_image on a 1752 x
+    1168 fisheye DSLR frame (ScanNet++'s DSLR size; within 1e-3 of the CPU
+    run), both timed; then the three CLIs (preprocess_7scenes,
+    preprocess_scannetpp on the iPhone and the DSLR path, vis_dataset) on
+    the card over fixtures written here, each held against the same CLI
+    run with --device cpu (the 7-Scenes PNGs bitwise, the ScanNet++ depth
+    PNGs within 1 mm with equal hit masks and the normal maps within 1 of
+    255, the QA strips within 1 of 255 away from the frame's 2-pixel
+    border band)."""
+    from PIL import Image
+
+    from unigeo_tpu_torch.preprocess import colmap, rasterizer, sevenscenes
+    from unigeo_tpu_torch.tools import preprocess_7scenes, preprocess_scannetpp, vis_dataset
+
+    cpu = torch.device("cpu")
+    h, w = RASTER_HW
+    w2c, k = raster_camera()
+    result = {}
+    verts, faces = heightfield_mesh(*RASTER_LARGE, seed=20)
+    vd, fd = torch.from_numpy(verts).to(dev), torch.from_numpy(faces).to(dev)
+    sec, (depth, normal) = timed_s(lambda: rasterizer.rasterize_mesh(vd, fd, w2c, k, h, w,
+                                                                      device=dev), dev)
+    hit = float((depth > 0).float().mean())
+    if not (hit > 0.9 and torch.isfinite(normal).all()):
+        raise AssertionError(f"rasterizer: hit share {hit} at {len(faces)} faces")
+    result["raster_large"] = dict(faces=len(faces), vertices=len(verts), hw=[h, w],
+                                  seconds=sec, hit_share=hit)
+    log("preprocess", f"rasterize_mesh {len(faces)} faces at {h} x {w}: {sec * 1e3:.1f} ms "
+        f"(best of 3, vertex normals included), hit share {hit:.4f}")
+    verts, faces = heightfield_mesh(*RASTER_SMALL, seed=23)
+    card = rasterizer.rasterize_mesh(verts, faces, w2c, k, h, w, device=dev)
+    t0 = time.perf_counter()
+    on_cpu = rasterizer.rasterize_mesh(verts, faces, w2c, k, h, w, device=cpu)
+    cpu_s = time.perf_counter() - t0
+    held = hold_render("rasterizer card vs cpu", card, on_cpu)
+    result["raster_small"] = dict(faces=len(faces), cpu_seconds=cpu_s, **held)
+    log("preprocess", f"rasterize_mesh {len(faces)} faces: card vs the port's CPU run {held} "
+        f"(CPU {cpu_s:.2f} s)")
+
+    rng = np.random.default_rng(24)
+    vv, uu = np.mgrid[0:480, 0:640]
+    kinect = np.clip(1500 + 2.0 * uu + 1.5 * vv + rng.normal(scale=30, size=uu.shape), 1, 65534)
+    kinect = kinect.astype(np.uint16)
+    kinect[rng.random(kinect.shape) < 0.05] = 0
+    sec, reg = timed_s(lambda: sevenscenes.register_depth_to_rgb(kinect, device=dev), dev)
+    want = sevenscenes.register_depth_to_rgb(kinect, device=cpu)
+    if not torch.equal(reg.cpu(), want):
+        raise AssertionError("register_depth_to_rgb: the card's frame differs from the CPU's")
+    result["register_depth_to_rgb"] = dict(hw=[480, 640], seconds=sec,
+                                           valid_share=float((want > 0).float().mean()))
+    log("preprocess", f"register_depth_to_rgb 480 x 640: {sec * 1e3:.2f} ms, bitwise the CPU run")
+
+    cam = colmap.ColmapCamera(1, "OPENCV_FISHEYE", 1752, 1168,
+                              np.array([790.0, 790.0, 876.5, 584.5, 0.03, -0.005, 0.001, -2e-4]))
+    image = rng.integers(0, 256, (1168, 1752, 3)).astype(np.float32)
+    sec, (new_k, und, mask) = timed_s(lambda: colmap.undistort_image(cam, image, device=dev), dev)
+    want_k, want_und, want_mask = colmap.undistort_image(cam, image, device=cpu)
+    und_err = float((und.cpu() - want_und).abs().max()) / 255.0
+    if not (und_err <= 1e-3 and torch.allclose(new_k.cpu(), want_k, rtol=1e-12, atol=0)
+            and float(mask.float().mean()) > 0.5):
+        raise AssertionError(f"undistort_image: card vs cpu {und_err}, K {new_k} {want_k}")
+    result["undistort_image"] = dict(hw=[1168, 1752], seconds=sec, max_err_over_255=und_err)
+    log("preprocess", f"undistort_image fisheye 1168 x 1752: {sec * 1e3:.2f} ms, "
+        f"max |card - cpu| / 255 = {und_err:.2e}")
+
+    with tempfile.TemporaryDirectory() as root:
+        write_preprocess_fixtures(root)
+        runs = {}
+        for dev_name in ("cpu", "cuda"):
+            out = os.path.join(root, dev_name)
+            shutil.copytree(os.path.join(root, "7s"), os.path.join(out, "7s"))
+            t0 = time.perf_counter()
+            if preprocess_7scenes.main(["--root", os.path.join(out, "7s"),
+                                        "--device", dev_name]) != 0:
+                raise AssertionError("preprocess_7scenes failed")
+            for camera in ("iphone", "dslr"):
+                if preprocess_scannetpp.main([
+                        "--data-root", os.path.join(root, "scannetpp"), "--camera", camera,
+                        "--out-root", os.path.join(out, camera), "--height", "144",
+                        "--width", "192", "--device", dev_name]) != 0:
+                    raise AssertionError(f"preprocess_scannetpp {camera} failed")
+            if vis_dataset.main(["--config", os.path.join(
+                                     os.path.dirname(os.path.abspath(__file__)), "configs",
+                                     "identity_synthetic.yaml"),
+                                 "--every", "3", "--max-samples", "2",
+                                 "--out", os.path.join(out, "vis"), "--device", dev_name]) != 0:
+                raise AssertionError("vis_dataset failed")
+            runs[dev_name] = time.perf_counter() - t0
+        png = lambda *p: np.asarray(Image.open(os.path.join(root, *p))).astype(np.int64)
+        for i in range(2):
+            name = ("7s", "chess", "seq-01", f"frame-{i:06d}.depth.proj.png")
+            if not np.array_equal(png("cuda", *name), png("cpu", *name)):
+                raise AssertionError(f"preprocess_7scenes: {name[-1]} differs from the CPU run")
+        for camera in ("iphone", "dslr"):
+            meta = np.load(os.path.join(root, "cuda", camera, "scene0", "scene_metadata.npz"))
+            if len(meta["images"]) != 2:
+                raise AssertionError(f"preprocess_scannetpp {camera}: {list(meta['images'])}")
+            for name in meta["images"]:
+                d = png("cuda", camera, "scene0", "depth", f"{name}.png")
+                dc = png("cpu", camera, "scene0", "depth", f"{name}.png")
+                n = png("cuda", camera, "scene0", "normal", f"{name}.webp")
+                nc = png("cpu", camera, "scene0", "normal", f"{name}.webp")
+                if not (np.array_equal(d > 0, dc > 0) and np.abs(d - dc).max() <= 1
+                        and np.abs(n - nc).max() <= 1 and (d > 0).mean() > 0.5):
+                    raise AssertionError(f"preprocess_scannetpp {camera} {name}: card vs cpu")
+        strips = sorted(os.listdir(os.path.join(root, "cuda", "vis")))
+        for name in strips:
+            if name.endswith(".png"):
+                a, b = png("cuda", "vis", name), png("cpu", "vis", name)
+                if not (np.array_equal(a[:, :256], b[:, :256])
+                        and np.abs(a[2:-2, 258:-2] - b[2:-2, 258:-2]).max() <= 1):
+                    raise AssertionError(f"vis_dataset {name}: card vs cpu")
+        result["clis_seconds"] = runs
+    log("preprocess", f"CLIs on the card: 7-Scenes 2 frames, ScanNet++ iPhone and DSLR 2 "
+        f"frames each, vis_dataset 2 strips; each held against its --device cpu run "
+        f"(seconds: {json.dumps({k: round(v, 2) for k, v in runs.items()})})")
+    return result
 
 
 def summarize(name, source, replaces, rows, launches, extra=None):
@@ -3597,6 +4007,7 @@ def main():
     f32_rows = phase_kernel_f32_pointmap(dev)
     f32_bwd_rows = phase_kernel_f32_bwd(dev)
     cuda_core_rows = phase_kernel_bf16_cuda_core(dev)
+    wide_rows = phase_kernel_wide(dev)
     torch.cuda.synchronize()
     phase_reference(dev)
     phase_reference_train(dev)
@@ -3633,6 +4044,8 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     ln_launches, _ = phase_tool_ln_qkv()
+    torch.cuda.empty_cache()
+    phase_preprocess(dev)
     torch.cuda.empty_cache()
     phase_metrics(dev)
 
@@ -3673,6 +4086,7 @@ def main():
                                         "single_clip": served["launches_single"]},
                    "serving": served,
                    "bf16_cuda_core_shapes": cuda_core_rows["fwd"],
+                   "wide_head_shapes": wide_rows["fwd"],
                    "f32_pointmap_shapes": f32_rows,
                    "f32_body_by_head_width": {str(r["d"]): r["body"] for r in f32_rows},
                    "batch_flash_f32_d512_device_ms": trained["batch_flash_f32_d512_device_ms"],
@@ -3706,6 +4120,7 @@ def main():
                        k: v["flash_attention_bwd_dq"] for k, v in new_paths.items()},
                    "f32_training_shapes": f32_bwd_rows,
                    "bf16_cuda_core_shapes": cuda_core_rows["bwd_dq"],
+                   "wide_head_shapes": wide_rows["bwd_dq"],
                    "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)",
                    "batch25_shapes": batch25("dq_ms", "library_bwd_ms", "dq_bound_ms",
                                              "max_err_over_limit_dq", "max_abs_err_dq",
@@ -3718,6 +4133,7 @@ def main():
                        k: v["flash_attention_bwd_dkv"] for k, v in new_paths.items()},
                    "f32_training_shapes": f32_bwd_rows,
                    "bf16_cuda_core_shapes": cuda_core_rows["bwd_dkv"],
+                   "wide_head_shapes": wide_rows["bwd_dkv"],
                    "library_computes": "dq, dk and dv (scaled_dot_product_attention backward)",
                    "batch25_shapes": batch25("dkv_ms", "library_bwd_ms", "dkv_bound_ms",
                                              "max_err_over_limit_dkv", "max_abs_err_dkv",

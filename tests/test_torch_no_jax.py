@@ -291,3 +291,23 @@ def test_serving_and_converters_import_no_jax_yaml_or_pil():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+# the offline preprocessors, their host tools and the batch-order bisect,
+# which the walk above must find
+PREPROCESS_MODULES = [
+    "unigeo_tpu_torch/preprocess/__init__.py",
+    "unigeo_tpu_torch/preprocess/colmap.py",
+    "unigeo_tpu_torch/preprocess/rasterizer.py",
+    "unigeo_tpu_torch/preprocess/scannetpp.py",
+    "unigeo_tpu_torch/preprocess/sevenscenes.py",
+    "unigeo_tpu_torch/tools/preprocess_7scenes.py",
+    "unigeo_tpu_torch/tools/preprocess_scannetpp.py",
+    "unigeo_tpu_torch/tools/vis_dataset.py",
+    "unigeo_tpu_torch/tools/order_bisect.py",
+]
+
+
+@pytest.mark.parametrize("rel", PREPROCESS_MODULES)
+def test_preprocess_modules_are_checked(rel):
+    assert os.path.join(ROOT, rel) in _port_files()

@@ -34,11 +34,12 @@
 // operations a byte, above the ~295 where the tensor cores become the
 // limit), bytes at stage 2 (192 tokens, about 240 a byte).
 //
-// bf16, any other D up to 128 (CLIP's 80 when a trainer unfreezes it, the
-// tiny pointmap configs' 24 and 32), and bases not aligned to 16 bytes at
-// any width (the TMA cannot take them): the CUDA-core body of the f32
-// section below instantiated for bf16, bwd_{dq,dkv}_f32_kernel<__nv_bfloat16,
-// NCOL>.  It reads bf16 into f32 and does every product and sum in f32 (P
+// bf16, any other D (CLIP's 80 when a trainer unfreezes it, the tiny
+// pointmap configs' 24 and 32, the VAE's 512), and bases not aligned to 16
+// bytes at any width (the TMA cannot take them): the CUDA-core bodies of
+// the f32 section below instantiated for bf16, bwd_{dq,dkv}_f32_kernel
+// <__nv_bfloat16, NCOL> up to D = 128 and bwd_{dq,dkv}_wide_kernel
+// <__nv_bfloat16> past it.  It reads bf16 into f32 and does every product and sum in f32 (P
 // and dS are not rounded to bf16, as the wgmma bodies round them); each
 // gradient is rounded to bf16 once.  No shape reaches it on a default path.
 //
@@ -96,6 +97,8 @@
 //   row, each lane holding 16 scores of a 64-wide tile and D/4 columns of
 //   the accumulators; tile loads clamp their row index to the last valid
 //   row.
+// * any D past 128: bwd_{dq,dkv}_wide_kernel<float>, 16-row blocks with the
+//   head width streamed in column chunks of at most 512 (see its section).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -333,6 +336,285 @@ bwd_dkv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NCOL; ++j) {
       const int c = lane + j * kF32Lanes;
       if (c < D) {
+        dk[off + c] = from_f32<T>(acc_k[j]);
+        dv[off + c] = from_f32<T>(acc_v[j]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Head widths past 128, both dtypes, any alignment: bwd_{dq,dkv}_wide_kernel<T>
+// (the VAE mid block's 512 when a trainer unfreezes the VAE, and wider).
+// The forward's d <= 512 layout: a block owns 16 rows (queries for dq, keys
+// for dk/dv), 16 lanes a row, 32-row looped tiles, 32 accumulator columns a
+// lane.  The head width streams in column chunks of at most 512 (the head
+// split into ceil(D / 512) chunks as equal as can be), so shared memory does
+// not grow with D: S and dP of a tile are summed over every chunk in turn
+// (the d-sum in the order d = 0 .. D-1), and a block owns one chunk of its
+// rows' gradient columns, so the blocks of one row block recompute S and dP
+// once per output chunk.  Up to D = 512 there is one chunk, and the block's
+// own rows stay in shared memory across the looped tiles.  Every product
+// and sum in f32 (P and dS are not rounded); each gradient is rounded to its
+// dtype once.  Loads past S are zero and their P is masked to 0.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideRows = 16;                              // rows a block owns
+constexpr int kWideTile = 32;                              // rows of a looped tile
+constexpr int kWideLanes = kF32Threads / kWideRows;        // 16 lanes a row
+constexpr int kWidePerLane = kWideTile / kWideLanes;       // 2 scores a lane
+constexpr int kWideCols = 32;                              // columns a lane
+constexpr int kWideMaxChunk = kWideLanes * kWideCols;      // 512
+
+// the column chunk of a head of width D: ceil(D / 512) chunks, as equal as
+// can be (136 -> 136, 520 -> 260, 1024 -> 512)
+__host__ __device__ __forceinline__ int wide_chunk(int D) {
+  const int n = (D + kWideMaxChunk - 1) / kWideMaxChunk;
+  return (D + n - 1) / n;
+}
+
+size_t wide_smem_bytes(int D, bool dkv) {
+  // two [16][DC+1] and two [32][DC+1] row buffers, the [16][33] score tiles
+  // (dS; P too for dk/dv), and a tile's lse and delta (dk/dv)
+  const size_t cp = wide_chunk(D) + 1;
+  return sizeof(float) * (2 * (size_t)(kWideRows + kWideTile) * cp +
+                          (dkv ? 2 : 1) * (size_t)kWideRows * (kWideTile + 1) +
+                          (dkv ? 2 * kWideTile : 0));
+}
+
+// rows [s0, s0 + R) and columns [c0, c0 + cw) of a packed head into shared
+// memory (pitch ld), in f32, zero past S
+template <typename T, int R>
+__device__ __forceinline__ void load_chunk(float* dst, int ld, const T* src, int64_t ss,
+                                           int s0, int S, int c0, int cw) {
+  for (int i = threadIdx.x; i < R * cw; i += kF32Threads) {
+    const int r = i / cw, c = i % cw, s = s0 + r;
+    dst[r * ld + c] = s < S ? to_f32(src[(int64_t)s * ss + c0 + c]) : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kF32Threads)
+bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   T* __restrict__ dq, int Sq, int Sk, int D, float scale) {
+  extern __shared__ float smem[];
+  const int DC = wide_chunk(D), cp = DC + 1, pp = kWideTile + 1;
+  const int n_chunks = (D + DC - 1) / DC;
+  float* qs = smem;                    // [16][DC+1]
+  float* dos = qs + kWideRows * cp;    // [16][DC+1]
+  float* ks = dos + kWideRows * cp;    // [32][DC+1]
+  float* vs = ks + kWideTile * cp;     // [32][DC+1]
+  float* dss = vs + kWideTile * cp;    // [16][33]
+
+  const int tid = threadIdx.x, row = tid / kWideLanes, lane = tid % kWideLanes;
+  const int oc = blockIdx.x % n_chunks;  // this block's chunk of dq's columns
+  const int q0 = blockIdx.x / n_chunks * kWideRows;
+  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int o0 = oc * DC, ow = min(DC, D - o0);
+  const bool last = oc == n_chunks - 1;  // k's last chunk is this block's
+  const bool resident = n_chunks == 1;   // q and dO loaded once
+  const int64_t hd = (int64_t)H * D;
+  const int64_t hoff = (int64_t)h * D;
+  const T* qb = q + (int64_t)b * Sq * hd + hoff;
+  const T* dob = dout + (int64_t)b * Sq * hd + hoff;
+  const T* kb = k + (int64_t)b * Sk * hd + hoff;
+  const T* vb = v + (int64_t)b * Sk * hd + hoff;
+
+  if (resident) {
+    load_chunk<T, kWideRows>(qs, cp, qb, hd, q0, Sq, 0, D);
+    load_chunk<T, kWideRows>(dos, cp, dob, hd, q0, Sq, 0, D);
+  }
+  const int64_t rid = ((int64_t)b * H + h) * Sq + clamp_row(q0 + row, Sq);
+  const float lse_r = lse[rid], delta_r = delta[rid];
+
+  float acc[kWideCols];
+#pragma unroll
+  for (int j = 0; j < kWideCols; ++j) acc[j] = 0.f;
+
+  for (int k0 = 0; k0 < Sk; k0 += kWideTile) {
+    float sc[kWidePerLane], dpv[kWidePerLane];
+#pragma unroll
+    for (int j = 0; j < kWidePerLane; ++j) sc[j] = dpv[j] = 0.f;
+    // S and dP of the key tile: the d-sum over every column chunk
+    for (int c0 = 0; c0 < D; c0 += DC) {  // dq's chunks of S and dP
+      const int cw = min(DC, D - c0);
+      __syncthreads();  // the chunk before (and the tile before's dS k) consumed
+      if (!resident) {
+        load_chunk<T, kWideRows>(qs, cp, qb, hd, q0, Sq, c0, cw);
+        load_chunk<T, kWideRows>(dos, cp, dob, hd, q0, Sq, c0, cw);
+      }
+      load_chunk<T, kWideTile>(ks, cp, kb, hd, k0, Sk, c0, cw);
+      load_chunk<T, kWideTile>(vs, cp, vb, hd, k0, Sk, c0, cw);
+      __syncthreads();
+      const float* qrow = qs + row * cp;
+      const float* dorow = dos + row * cp;
+      for (int d = 0; d < cw; ++d) {
+        const float qv = qrow[d], dov = dorow[d];
+#pragma unroll
+        for (int j = 0; j < kWidePerLane; ++j) {
+          const int kk = lane + j * kWideLanes;
+          sc[j] = fmaf(qv, ks[kk * cp + d], sc[j]);
+          dpv[j] = fmaf(dov, vs[kk * cp + d], dpv[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kWidePerLane; ++j) {
+      const int kk = lane + j * kWideLanes;
+      const float p = k0 + kk < Sk ? expf(sc[j] * scale - lse_r) : 0.f;
+      dss[row * pp + kk] = p * (dpv[j] - delta_r) * scale;
+    }
+    if (!last) {  // k's columns of this block's chunk
+      __syncthreads();
+      load_chunk<T, kWideTile>(ks, cp, kb, hd, k0, Sk, o0, ow);
+      __syncthreads();
+    } else {
+      __syncwarp();  // the row's dS was written by lanes of this warp
+    }
+
+    const float* dsrow = dss + row * pp;
+    for (int kk = 0; kk < kWideTile; ++kk) {
+      const float ds = dsrow[kk];
+      const float* krow = ks + kk * cp;
+#pragma unroll
+      for (int j = 0; j < kWideCols; ++j) {
+        const int c = lane + j * kWideLanes;
+        if (c < ow) acc[j] = fmaf(ds, krow[c], acc[j]);
+      }
+    }
+  }
+
+  const int s = q0 + row;
+  if (s < Sq) {
+    T* out = dq + (int64_t)b * Sq * hd + (int64_t)s * hd + hoff + o0;
+#pragma unroll
+    for (int j = 0; j < kWideCols; ++j) {
+      const int c = lane + j * kWideLanes;
+      if (c < ow) out[c] = from_f32<T>(acc[j]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kF32Threads)
+bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int D,
+                    float scale) {
+  extern __shared__ float smem[];
+  const int DC = wide_chunk(D), cp = DC + 1, pp = kWideTile + 1;
+  const int n_chunks = (D + DC - 1) / DC;
+  float* ks = smem;                     // [16][DC+1]
+  float* vs = ks + kWideRows * cp;      // [16][DC+1]
+  float* qs = vs + kWideRows * cp;      // [32][DC+1]
+  float* dos = qs + kWideTile * cp;     // [32][DC+1]
+  float* ps = dos + kWideTile * cp;     // [16][33]  P^T of this key row
+  float* dss = ps + kWideRows * pp;     // [16][33]  dS^T
+  float* lses = dss + kWideRows * pp;   // [32]
+  float* deltas = lses + kWideTile;     // [32]
+
+  const int tid = threadIdx.x, row = tid / kWideLanes, lane = tid % kWideLanes;
+  const int oc = blockIdx.x % n_chunks;  // this block's chunk of dk's and dv's columns
+  const int k0 = blockIdx.x / n_chunks * kWideRows;
+  const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int o0 = oc * DC, ow = min(DC, D - o0);
+  const bool last = oc == n_chunks - 1;  // q's and dO's last chunks are this block's
+  const bool resident = n_chunks == 1;   // k and v loaded once
+  const int64_t hd = (int64_t)H * D;
+  const int64_t hoff = (int64_t)h * D;
+  const T* qb = q + (int64_t)b * Sq * hd + hoff;
+  const T* dob = dout + (int64_t)b * Sq * hd + hoff;
+  const T* kb = k + (int64_t)b * Sk * hd + hoff;
+  const T* vb = v + (int64_t)b * Sk * hd + hoff;
+  const float* lseb = lse + ((int64_t)b * H + h) * Sq;
+  const float* deltab = delta + ((int64_t)b * H + h) * Sq;
+
+  if (resident) {
+    load_chunk<T, kWideRows>(ks, cp, kb, hd, k0, Sk, 0, D);
+    load_chunk<T, kWideRows>(vs, cp, vb, hd, k0, Sk, 0, D);
+  }
+
+  float acc_k[kWideCols], acc_v[kWideCols];
+#pragma unroll
+  for (int j = 0; j < kWideCols; ++j) acc_k[j] = acc_v[j] = 0.f;
+
+  for (int q0 = 0; q0 < Sq; q0 += kWideTile) {
+    float sc[kWidePerLane], dpv[kWidePerLane];
+#pragma unroll
+    for (int j = 0; j < kWidePerLane; ++j) sc[j] = dpv[j] = 0.f;
+    // S^T and dP^T of the query tile: the d-sum over every column chunk
+    for (int c0 = 0; c0 < D; c0 += DC) {
+      const int cw = min(DC, D - c0);
+      __syncthreads();  // the chunk before (and the tile before's products) consumed
+      if (!resident) {
+        load_chunk<T, kWideRows>(ks, cp, kb, hd, k0, Sk, c0, cw);
+        load_chunk<T, kWideRows>(vs, cp, vb, hd, k0, Sk, c0, cw);
+      }
+      load_chunk<T, kWideTile>(qs, cp, qb, hd, q0, Sq, c0, cw);
+      load_chunk<T, kWideTile>(dos, cp, dob, hd, q0, Sq, c0, cw);
+      if (c0 == 0) {
+        for (int i = tid; i < kWideTile; i += kF32Threads) {
+          const int s = clamp_row(q0 + i, Sq);
+          lses[i] = lseb[s];
+          deltas[i] = deltab[s];
+        }
+      }
+      __syncthreads();
+      const float* krow = ks + row * cp;
+      const float* vrow = vs + row * cp;
+      for (int d = 0; d < cw; ++d) {
+        const float kv = krow[d], vv = vrow[d];
+#pragma unroll
+        for (int j = 0; j < kWidePerLane; ++j) {
+          const int qi = lane + j * kWideLanes;
+          sc[j] = fmaf(kv, qs[qi * cp + d], sc[j]);
+          dpv[j] = fmaf(vv, dos[qi * cp + d], dpv[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kWidePerLane; ++j) {
+      const int qi = lane + j * kWideLanes;
+      const float p = q0 + qi < Sq ? expf(sc[j] * scale - lses[qi]) : 0.f;
+      ps[row * pp + qi] = p;
+      dss[row * pp + qi] = p * (dpv[j] - deltas[qi]) * scale;
+    }
+    if (!last) {  // q's and dO's columns of this block's chunk
+      __syncthreads();
+      load_chunk<T, kWideTile>(qs, cp, qb, hd, q0, Sq, o0, ow);
+      load_chunk<T, kWideTile>(dos, cp, dob, hd, q0, Sq, o0, ow);
+      __syncthreads();
+    } else {
+      __syncwarp();  // the row's P and dS were written by lanes of this warp
+    }
+
+    const float* prow = ps + row * pp;
+    const float* dsrow = dss + row * pp;
+    for (int qi = 0; qi < kWideTile; ++qi) {
+      const float p = prow[qi], ds = dsrow[qi];
+      const float* dorow = dos + qi * cp;
+      const float* qrow = qs + qi * cp;
+#pragma unroll
+      for (int j = 0; j < kWideCols; ++j) {
+        const int c = lane + j * kWideLanes;
+        if (c < ow) {
+          acc_v[j] = fmaf(p, dorow[c], acc_v[j]);
+          acc_k[j] = fmaf(ds, qrow[c], acc_k[j]);
+        }
+      }
+    }
+  }
+
+  const int s = k0 + row;
+  if (s < Sk) {
+    const int64_t off = (int64_t)b * Sk * hd + (int64_t)s * hd + hoff + o0;
+#pragma unroll
+    for (int j = 0; j < kWideCols; ++j) {
+      const int c = lane + j * kWideLanes;
+      if (c < ow) {
         dk[off + c] = from_f32<T>(acc_k[j]);
         dv[off + c] = from_f32<T>(acc_v[j]);
       }
@@ -1174,12 +1456,39 @@ cudaError_t launch_f32(const Args& a, bool dkv) {
   return cudaGetLastError();
 }
 
-// the CUDA-core body's two column counts by head width (any D up to 128)
+template <typename T>
+cudaError_t launch_wide(const Args& a, bool dkv) {
+  const int DC = wide_chunk(a.D);
+  const int64_t blocks = (int64_t)(((dkv ? a.Sk : a.Sq) + kWideRows - 1) / kWideRows) *
+                         ((a.D + DC - 1) / DC);
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, a.H, a.B);
+  const size_t smem = wide_smem_bytes(a.D, dkv);
+  auto q = static_cast<const T*>(a.q);
+  auto k = static_cast<const T*>(a.k);
+  auto v = static_cast<const T*>(a.v);
+  auto dout = static_cast<const T*>(a.dout);
+  cudaError_t err;
+  if (dkv) {
+    if ((err = set_smem(bwd_dkv_wide_kernel<T>, smem)) != cudaSuccess) return err;
+    bwd_dkv_wide_kernel<T><<<grid, kF32Threads, smem, a.stream>>>(
+        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.g0), static_cast<T*>(a.g1), a.Sq,
+        a.Sk, a.D, a.scale);
+  } else {
+    if ((err = set_smem(bwd_dq_wide_kernel<T>, smem)) != cudaSuccess) return err;
+    bwd_dq_wide_kernel<T><<<grid, kF32Threads, smem, a.stream>>>(
+        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.g0), a.Sq, a.Sk, a.D, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+// the CUDA-core body's two column counts by head width up to 128, and the
+// column-chunked body past it
 template <typename T>
 cudaError_t launch_cuda_core(const Args& a, bool dkv) {
   if (a.D <= 64) return launch_f32<T, 16>(a, dkv);
   if (a.D <= 128) return launch_f32<T, 32>(a, dkv);
-  return cudaErrorInvalidValue;
+  return launch_wide<T>(a, dkv);
 }
 
 // The f32 bodies at D = 64: blocks of kBwdWarps warps (16 rows each), 64-row
@@ -1304,15 +1613,16 @@ cudaError_t dispatch(const Args& a, int dtype, bool dkv) {
     return cudaErrorInvalidValue;
   if (dtype == 0) {
     // the register-tiled bodies at D = 64 (the f32 training paths), the earlier
-    // body at every other width up to 128; no width is sent to another body
+    // body at every other width up to 128, the column-chunked body past it;
+    // no width is sent to another body
     if (a.D == kBwdD) return launch_f32_d64(a, dkv);
     return launch_cuda_core<float>(a, dkv);
   }
   if (dtype == 1) {
     // the wgmma bodies at D in {16, 64}: the TMA reads from 16-byte-aligned
     // bases (the row stride H*D*2 bytes is then a multiple of 16 for both
-    // head widths), outputs stored as 4-byte pairs; every other width up to
-    // 128, and bases the TMA cannot take, to the CUDA-core body in bf16
+    // head widths), outputs stored as 4-byte pairs; every other width, and
+    // bases the TMA cannot take, to the CUDA-core bodies in bf16
     const uintptr_t ptrs = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
                            (uintptr_t)a.dout | (uintptr_t)a.g0 |
                            (uintptr_t)(dkv ? a.g1 : a.g0);

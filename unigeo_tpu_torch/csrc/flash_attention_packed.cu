@@ -41,7 +41,7 @@
 // and accumulator, one key tile at a time in shared memory), and in bf16
 // both products run on the tensor cores, f32 accumulate.
 //
-// Five block layouts, chosen by dtype, head width and alignment, one switch
+// Six block layouts, chosen by dtype, head width and alignment, one switch
 // per dtype (dispatch_bf16, dispatch_f32); the bf16 bodies at the main
 // path's widths are Hopper's TMA and wgmma (blocks from sm90.cuh):
 //
@@ -89,10 +89,11 @@
 //   Every bf16 body writes each output element once, no atomics: two
 //   launches give the same bits.  Rows not contiguous [B, S, H*D] are
 //   refused with cudaErrorInvalidValue.
-// * bf16, any other D up to 512 (the tiny pointmap configs' 24 and 32, the
-//   checks' 8 and 128), and rows not aligned to 16 bytes at any width (the
-//   TMA cannot take them): the CUDA-core body below instantiated for bf16,
-//   flash_{packed,headsplit,fwd_lse}_kernel<__nv_bfloat16, BQ, BK, NCOL>.
+// * bf16, any other D (the tiny pointmap configs' 24 and 32, the checks' 8
+//   and 128), and rows not aligned to 16 bytes at any width (the TMA cannot
+//   take them): the CUDA-core body below instantiated for bf16,
+//   flash_{packed,headsplit,fwd_lse}_kernel<__nv_bfloat16, BQ, BK, NCOL>, and
+//   past D = 512 its column-chunked form flash_*_wide_kernel<__nv_bfloat16>.
 //   It reads bf16 into f32 and does every product and sum in f32 (P is not
 //   rounded to bf16, as the wgmma bodies round it); the output is rounded
 //   to bf16 once, lse stays f32.  No shape reaches it on a default path
@@ -113,7 +114,7 @@
 //   below): 64-row items whose 8 warps each own a 64-wide slice of d, trade
 //   partial scores through shared memory and split the softmax's rows.
 //   Rows must be aligned to 16 bytes (else the launch is refused).
-// * f32, any other D up to 512 (the checks' 8, 10, 32 and 80, the tiny
+// * f32, any other D (the checks' 8, 10, 32 and 80, the tiny
 //   pointmap configs' 24 and 32): flash_{packed,headsplit,fwd_lse}_kernel
 //   <float, BQ, BK, NCOL>, CUDA-core FMAs (the same body as bf16's above).  256 threads own BQ query rows; TPR = 256 / BQ lanes of
 //   a warp share a row, each holding BK / TPR scores and NCOL accumulator
@@ -121,6 +122,9 @@
 //     D <= 64:  BQ = 64, BK = 64, NCOL = 16
 //     D <= 128: BQ = 64, BK = 64, NCOL = 32
 //     D <= 512: BQ = 16, BK = 32, NCOL = 32 (~166 KB of shared memory)
+//     D > 512:  the same layout with the head width streamed in column
+//               chunks of at most 512, flash_{packed,headsplit,fwd_lse}
+//               _wide_kernel<T> (see its section below; bf16 too)
 //   Every f32 body is exact f32 (no TF32 anywhere): the reference numerics
 //   for f32 checks on the card.
 //
@@ -347,13 +351,207 @@ cudaError_t launch(Entry entry, const void* q, const void* k, const void* v, voi
   return cudaGetLastError();
 }
 
-// the CUDA-core body's three tile shapes by head width (any D up to 512)
+// ---------------------------------------------------------------------------
+// Head widths past 512, both dtypes, any alignment:
+// flash_{packed,headsplit,fwd_lse}_wide_kernel<T>.  The d <= 512 layout
+// (16 query rows, 16 lanes a row, 32-key tiles, 32 accumulator columns a
+// lane) with the head width streamed in column chunks of at most 512, so
+// shared memory does not grow with D: the head splits into
+// ceil(D / 512) chunks as equal as can be (wide_chunk), a block owns one
+// chunk of the output columns of its 16 rows, and each key tile's scores
+// are summed over every chunk of q and k in turn (the d-sum in the order
+// d = 0 .. D-1, as the other CUDA-core bodies take it).  So the blocks of
+// one row block recompute the same scores, once per output chunk: at
+// D = 1024 twice the score work.  Reads every element into f32, does every
+// score, sum and product in f32 (P is not rounded), rounds the output once;
+// lse is written by the first chunk's block.  No default path reaches it
+// (the models' widths are 512 and below); it exists so that no width
+// raises, as the JAX kernels take any width.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideRows = 16, kWideKeys = 32, kWideCols = 32;
+constexpr int kWideMaxChunk = (kThreads / kWideRows) * kWideCols;  // 512
+
+// the column chunk of a head of width D: ceil(D / 512) chunks, as equal as
+// can be (520 -> 260, 768 -> 384, 1024 -> 512)
+__host__ __device__ __forceinline__ int wide_chunk(int D) {
+  const int n = (D + kWideMaxChunk - 1) / kWideMaxChunk;
+  return (D + n - 1) / n;
+}
+
+size_t wide_smem_bytes(int DC) {
+  // q [16][DC+1], k [32][DC+1], v [32][DC], p [16][33], all f32
+  return sizeof(float) * ((size_t)kWideRows * (DC + 1) + (size_t)kWideKeys * (DC + 1) +
+                          (size_t)kWideKeys * DC + (size_t)kWideRows * (kWideKeys + 1));
+}
+
+// rows [s0, s0 + R) and columns [c0, c0 + cw) of a head into shared memory
+// (pitch ld), in f32, zero past S
+template <typename T, int R>
+__device__ __forceinline__ void load_chunk(float* dst, int ld, const T* src, int64_t ss,
+                                           int s0, int S, int c0, int cw) {
+  for (int i = threadIdx.x; i < R * cw; i += kThreads) {
+    const int r = i / cw, c = i % cw, s = s0 + r;
+    dst[r * ld + c] = s < S ? to_f32(src[(int64_t)s * ss + c0 + c]) : 0.f;
+  }
+}
+
+template <typename T, bool kLse>
+__device__ __forceinline__ void flash_wide_block(UNIGEO_CC_PARAMS) {
+  constexpr int BQ = kWideRows, BK = kWideKeys, NCOL = kWideCols;
+  constexpr int TPR = kThreads / BQ;  // 16 lanes a row
+  constexpr int KPT = BK / TPR;       // 2 scores a lane
+
+  extern __shared__ float smem[];
+  const int DC = wide_chunk(D), cp = DC + 1;
+  const int n_chunks = (D + DC - 1) / DC;
+  float* qs = smem;              // [BQ][DC+1]
+  float* ks = qs + BQ * cp;      // [BK][DC+1]
+  float* vs = ks + BK * cp;      // [BK][DC]
+  float* ps = vs + BK * DC;      // [BQ][BK+1]
+
+  const int tid = threadIdx.x;
+  const int row = tid / TPR;
+  const int lane = tid % TPR;
+  const int oc = blockIdx.x % n_chunks;  // this block's output chunk
+  const int q0 = blockIdx.x / n_chunks * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int o0 = oc * DC, ow = min(DC, D - o0);
+
+  const T* qb = q + b * q_sb + (int64_t)h * D;
+  const T* kb = k + b * k_sb + (int64_t)h * D;
+  const T* vb = v + b * v_sb + (int64_t)h * D;
+
+  float m_run = -INFINITY, l_run = 0.f;
+  float acc[NCOL];
+#pragma unroll
+  for (int j = 0; j < NCOL; ++j) acc[j] = 0.f;
+
+  for (int k0 = 0; k0 < Sk; k0 += BK) {
+    float sc[KPT];
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) sc[j] = 0.f;
+    // the scores: the d-sum over every column chunk of q and k
+    for (int c0 = 0; c0 < D; c0 += DC) {
+      const int cw = min(DC, D - c0);
+      __syncthreads();  // the chunk before (and the tile before's P v) consumed
+      load_chunk<T, BQ>(qs, cp, qb, q_ss, q0, Sq, c0, cw);
+      load_chunk<T, BK>(ks, cp, kb, k_ss, k0, Sk, c0, cw);
+      __syncthreads();
+      const float* qrow = qs + row * cp;
+      for (int d = 0; d < cw; ++d) {
+        const float qv = qrow[d];
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) sc[j] = fmaf(qv, ks[(lane + j * TPR) * cp + d], sc[j]);
+      }
+    }
+
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) {
+      const int key = k0 + lane + j * TPR;
+      sc[j] = key < Sk ? sc[j] * scale : -INFINITY;
+      tmax = fmaxf(tmax, sc[j]);
+    }
+    tmax = group_max<TPR>(tmax);  // over the row's 16 lanes
+    // every tile holds at least one valid key, so m_new is finite
+    const float m_new = fmaxf(m_run, tmax);
+    const float alpha = expf(m_run - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) {
+      const float p = expf(sc[j] - m_new);
+      psum += p;
+      ps[row * (BK + 1) + lane + j * TPR] = p;
+    }
+    psum = group_sum<TPR>(psum);
+    l_run = l_run * alpha + psum;
+    m_run = m_new;
+
+    // this block's output chunk of the tile's v rows
+    load_chunk<T, BK>(vs, DC, vb, v_ss, k0, Sk, o0, ow);
+    __syncthreads();  // v's chunk loaded (and the rows' P written)
+
+#pragma unroll
+    for (int j = 0; j < NCOL; ++j) acc[j] *= alpha;
+    const float* prow = ps + row * (BK + 1);
+    for (int kk = 0; kk < BK; ++kk) {
+      const float p = prow[kk];
+      const float* vrow = vs + kk * DC;
+#pragma unroll
+      for (int j = 0; j < NCOL; ++j) {
+        const int c = lane + j * TPR;
+        if (c < ow) acc[j] = fmaf(p, vrow[c], acc[j]);
+      }
+    }
+  }
+
+  const int s = q0 + row;
+  if (s < Sq) {
+    const float l_safe = fmaxf(l_run, 1e-30f);
+    const float inv = 1.f / l_safe;
+    if (kLse && oc == 0 && lane == 0)
+      lse[((int64_t)b * gridDim.y + h) * Sq + s] = m_run + logf(l_safe);
+    T* orow = o + b * o_sb + s * o_ss + (int64_t)h * D + o0;
+#pragma unroll
+    for (int j = 0; j < NCOL; ++j) {
+      const int c = lane + j * TPR;
+      if (c < ow) orow[c] = from_f32<T>(acc[j] * inv);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_packed_wide_kernel(UNIGEO_CC_PARAMS) {
+  flash_wide_block<T, false>(UNIGEO_F32_ARGS);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_headsplit_wide_kernel(UNIGEO_CC_PARAMS) {
+  flash_wide_block<T, false>(UNIGEO_F32_ARGS);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_fwd_lse_wide_kernel(UNIGEO_CC_PARAMS) {
+  flash_wide_block<T, true>(UNIGEO_F32_ARGS);
+}
+
+template <typename T>
+cudaError_t launch_wide(Entry entry, const void* q, const void* k, const void* v, void* o,
+                        float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                        int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
+                        int B, int Sq, int Sk, int H, int D, float scale,
+                        cudaStream_t stream) {
+  auto kern = entry == kFwdLse      ? flash_fwd_lse_wide_kernel<T>
+              : entry == kHeadsplit ? flash_headsplit_wide_kernel<T>
+                                    : flash_packed_wide_kernel<T>;
+  const int DC = wide_chunk(D);
+  const size_t smem = wide_smem_bytes(DC);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (int64_t)((Sq + kWideRows - 1) / kWideRows) * ((D + DC - 1) / DC);
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  dim3 grid((unsigned)blocks, H, B);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, Sq, Sk, D,
+      scale);
+  return cudaGetLastError();
+}
+
+// the CUDA-core body's three tile shapes by head width up to 512, and the
+// column-chunked body past it
 template <typename T>
 cudaError_t launch_cuda_core(Entry entry, const void* q, const void* k, const void* v,
                              void* o, float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb,
                              int64_t k_ss, int64_t v_sb, int64_t v_ss, int64_t o_sb,
                              int64_t o_ss, int B, int Sq, int Sk, int H, int D, float scale,
                              cudaStream_t stream) {
+  if (D > kWideMaxChunk)
+    return launch_wide<T>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
+                          o_ss, B, Sq, Sk, H, D, scale, stream);
   if (D <= 64)
     return launch<T, 64, 64, 16>(entry, q, k, v, o, lse, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                                  o_sb, o_ss, B, Sq, Sk, H, D, scale, stream);
@@ -1856,7 +2054,8 @@ cudaError_t launch_wgmma512(Entry entry, const void* q, const void* k, const voi
 // consumers at the UNet's 64, CLIP's 80 (and 16 for small checks), the
 // column-split wgmma body at the VAE's 512, each for rows aligned to 16
 // bytes; every other width up to 512, and rows the TMA cannot take (not
-// aligned to 16 bytes), to the CUDA-core body flash_f32_block<__nv_bfloat16>.
+// aligned to 16 bytes), to the CUDA-core body flash_f32_block<__nv_bfloat16>,
+// every width past 512 to flash_wide_block<__nv_bfloat16>.
 // A launch a body refuses returns its error: no other body is tried.
 cudaError_t dispatch_bf16(Entry entry, const void* q, const void* k, const void* v, void* o,
                           float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
@@ -2024,8 +2223,8 @@ cudaError_t launch_f32_d512(Entry entry, const void* q, const void* k, const voi
 // and D = 512 (the VAE mid block's head) go to their register-tiled bodies,
 // which take rows aligned to 16 bytes (else the launch is refused); every
 // other width up to 512 (the checks' 8, 10, 32 and 80, the tiny pointmap
-// configs' 24 and 32) to flash_f32_block<float> as before.  No width is sent
-// to another body.
+// configs' 24 and 32) to flash_f32_block<float> as before, and every width
+// past 512 to flash_wide_block<float>.  No width is sent to another body.
 cudaError_t dispatch_f32(Entry entry, const void* q, const void* k, const void* v, void* o,
                          float* lse, int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                          int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
@@ -2050,8 +2249,7 @@ cudaError_t dispatch(Entry entry, const void* q, const void* k, const void* v, v
                      int64_t v_sb, int64_t v_ss, int64_t o_sb, int64_t o_ss,
                      int B, int Sq, int Sk, int H, int D, float scale, int dtype,
                      void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || D > 512 || H > 65535 ||
-      B > 65535)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || H > 65535 || B > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -23,6 +23,7 @@ from unigeo_tpu_torch.models.layers import (
     AlphaBlender,
     Attention,
     Conv2d,
+    clips_in_batch,
     FeedForward,
     GroupNorm,
     TimestepEmbedding,
@@ -195,6 +196,12 @@ class UNetSpatioTemporal(nn.Module):
         self.conv_out = Conv2d(ch0, out_channels)
 
     def forward(self, sample, timesteps, context, added_time_ids, num_frames: int):
+        # the convolutions run one clip at a time (layers.clipwise), so a
+        # clip's output does not depend on its slot in a batch of clips
+        with clips_in_batch(timesteps.shape[0]):
+            return self._forward(sample, timesteps, context, added_time_ids, num_frames)
+
+    def _forward(self, sample, timesteps, context, added_time_ids, num_frames: int):
         b = timesteps.shape[0]
         dtype = self.conv_in.weight.dtype
         # the embeddings start in f32 (sinusoids) and enter the MLPs at the

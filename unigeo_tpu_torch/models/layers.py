@@ -8,6 +8,8 @@ the upstream key names.  Convolutions run NCHW; token sequences are
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional
 
@@ -235,6 +237,36 @@ class AlphaBlender(nn.Module):
         return alpha * x_spatial + (1.0 - alpha) * x_temporal
 
 
+# The clips of the batch a UNet evaluation runs (the frames of each clip
+# consecutive along the batch): cuDNN computes a clip's rows of a
+# convolution over several clips in another order by the clip's place in
+# the batch (measured on the H100 in bf16 at SVD-XT width: the stride-2
+# downsampler at 24 x 32 and 640 channels is the first op whose output for a
+# clip changes with its slot; unigeo_tpu_torch/tools/order_bisect.py), so
+# the convolutions run one clip at a time (``clipwise``): each clip then
+# gets the bits of its own serial forward in any order.
+_CLIPS = contextvars.ContextVar("unigeo_clips_in_batch", default=1)
+
+
+@contextlib.contextmanager
+def clips_in_batch(n: int):
+    """Inside the block, ``clipwise`` ops split their batch into ``n`` clips."""
+    token = _CLIPS.set(int(n))
+    try:
+        yield
+    finally:
+        _CLIPS.reset(token)
+
+
+def clipwise(fn, x):
+    """``fn(x)``, one call per clip of the current batch (``clips_in_batch``;
+    x's leading dimension split into that many equal parts), concatenated."""
+    n = _CLIPS.get()
+    if n <= 1:
+        return fn(x)
+    return torch.cat([fn(xi) for xi in x.chunk(n)])
+
+
 class Conv2d(nn.Conv2d):
     """3x3 / 1x1 conv, 'same' padding by default.
 
@@ -255,6 +287,9 @@ class Conv2d(nn.Conv2d):
         self.fuse_upsample2x = fuse_upsample2x
 
     def forward(self, x):
+        return clipwise(self._forward, x)
+
+    def _forward(self, x):
         if not self.fuse_upsample2x:
             return super().forward(x)
         w = self.weight  # [out, in, 3, 3]
@@ -267,7 +302,11 @@ class Conv2d(nn.Conv2d):
 
 
 class TemporalConv(nn.Conv3d):
-    """Conv over the frame axis only: kernel (k, 1, 1) on [B, C, T, H, W]."""
+    """Conv over the frame axis only: kernel (k, 1, 1) on [B, C, T, H, W]
+    (one clip at a time inside ``clips_in_batch``)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3):
         super().__init__(cin, cout, (kernel, 1, 1), padding=(kernel // 2, 0, 0))
+
+    def forward(self, x):
+        return clipwise(super().forward, x)

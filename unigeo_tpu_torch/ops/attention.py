@@ -51,25 +51,38 @@ import torch
 
 _DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
 MIN_KERNEL_SEQ = 128  # same threshold as unigeo_tpu's use_packed_attention
-# the forward takes any head width up to 512 in both dtypes.  bf16: the
-# tensor-core bodies (TMA + wgmma: 64-row consumers at 16, 64 and 80, a
-# column-split pair of consumers at 512) for rows aligned to 16 bytes at the
-# UNet's 64, CLIP's 80, the VAE's 512 and 16 for small checks; every other
-# width, and rows the TMA cannot take, on the CUDA-core body read into f32.
-# f32 (CUDA cores): the register-tiled bodies at the pointmap path's 64 and
-# the VAE mid block's 512, which take rows aligned to 16 bytes, the earlier
-# body at every other width.  The choice is by shape and alignment alone.
-FWD_MAX_HEAD_WIDTH = 512
+# the forward takes any head width in both dtypes.  bf16: the tensor-core
+# bodies (TMA + wgmma: 64-row consumers at 16, 64 and 80, a column-split
+# pair of consumers at 512) for rows aligned to 16 bytes at the UNet's 64,
+# CLIP's 80, the VAE's 512 and 16 for small checks; every other width, and
+# rows the TMA cannot take, on the CUDA-core body read into f32.  f32 (CUDA
+# cores): the register-tiled bodies at the pointmap path's 64 and the VAE
+# mid block's 512, which take rows aligned to 16 bytes, the earlier body at
+# every other width.  Past FWD_WIDE_ABOVE both dtypes run the CUDA-core
+# body with the head width streamed in column chunks (``wide_chunk``).  The
+# choice is by shape and alignment alone.
+FWD_WIDE_ABOVE = 512
 BF16_WGMMA_HEAD_WIDTHS = (16, 64, 80, 512)
 F32_TILED_HEAD_WIDTHS = (64, 512)
 F32_TILED_HEAD_WIDTH = 64  # the f32 backward's register-tiled bodies
-# the backward kernels take any head width up to 128 in both dtypes: bf16 on
-# the tensor-core bodies at the UNet's 64 (and 16 for small checks) for rows
+# the backward kernels take any head width in both dtypes: bf16 on the
+# tensor-core bodies at the UNet's 64 (and 16 for small checks) for rows
 # aligned to 16 bytes, else on the CUDA-core body read into f32; f32 on the
 # CUDA cores (the register-tiled bodies at the f32 training paths' 64, which
-# take rows aligned to 16 bytes, the earlier body at every other width)
+# take rows aligned to 16 bytes, the earlier body at every other width up to
+# BWD_WIDE_ABOVE); past it both dtypes run the column-chunked CUDA-core body
 BWD_BF16_WGMMA_HEAD_WIDTHS = (16, 64)
-BWD_MAX_HEAD_WIDTH = 128
+BWD_WIDE_ABOVE = 128
+# the column-chunked bodies' widest chunk (16 lanes a row, 32 columns each)
+WIDE_MAX_CHUNK = 512
+
+
+def wide_chunk(d: int) -> int:
+    """The column chunk of the column-chunked bodies at head width ``d``
+    (``csrc/flash_attention_packed.cu::wide_chunk`` and its twin in
+    ``flash_attention_bwd.cu``): ceil(d / 512) chunks as equal as can be."""
+    n = -(-d // WIDE_MAX_CHUNK)
+    return -(-d // n)
 
 
 def _aligned16(*tensors) -> bool:
@@ -198,7 +211,9 @@ def bf16_cuda_core_error_limit(q, k, v, num_heads: int, ref, scale: Optional[flo
 
     The limit is 2^-7 |ref| + 2 E, widened by 1/16 for the second-order
     terms (2^-8 of 2 E, the plain version's values standing for the exact
-    ones).  ``ref`` is the plain version's output.
+    ones).  ``ref`` is the plain version's output.  For f32 q, k, v (the
+    same bodies instantiated for float, e.g. the column-chunked one past
+    d = 512) neither version rounds its output, so the limit is 1.0625 * 2 E.
     """
     u = 2.0**-24
     b, sq, hd = q.shape
@@ -213,7 +228,8 @@ def bf16_cuda_core_error_limit(q, k, v, num_heads: int, ref, scale: Optional[flo
          * torch.einsum("bqhd,bkhd->bhqk", qh.abs(), kh.abs())).amax(-1, keepdim=True)
     r = 2.0 * e + u * (s.abs() + 2.0 * lse.abs() + 3 * sk + 8)
     err = torch.einsum("bhqk,bkhd->bqhd", p * r, vh.abs()).reshape(b, sq, hd)
-    return 1.0625 * (2.0**-7 * ref.float().abs() + 2.0 * err)
+    rounding = 2.0**-7 if q.dtype == torch.bfloat16 else 0.0
+    return 1.0625 * (rounding * ref.float().abs() + 2.0 * err)
 
 
 def _check(q, k, v, num_heads: int):
@@ -235,8 +251,6 @@ def _check_kernel_input(q, k, v, d: int):
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype not in _DTYPE_TAGS:
         raise ValueError(f"kernel takes float32 or bfloat16, not {q.dtype}")
-    if d > FWD_MAX_HEAD_WIDTH:
-        raise ValueError(f"kernel takes head widths up to {FWD_MAX_HEAD_WIDTH}, not {d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel takes contiguous q, k, v")
     # 16-byte tile loads (rows and head offsets are then multiples of 16
@@ -465,8 +479,6 @@ def _check_bwd_kernel_input(q, k, v, dout, d: int):
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype not in _DTYPE_TAGS:
         raise ValueError(f"kernel takes float32 or bfloat16, not {q.dtype}")
-    if d > BWD_MAX_HEAD_WIDTH:
-        raise ValueError(f"backward kernel takes head widths up to {BWD_MAX_HEAD_WIDTH}, not {d}")
     tensors = (q, k, v, dout)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("backward kernel takes contiguous q, k, v, dO")

@@ -2,7 +2,7 @@
 
     python -m unigeo_tpu_torch.tools.convert_checkpoint \
         --unet FILE|DIR --vae FILE|DIR --clip FILE|DIR --out FILE \
-        [--network-config JSON]
+        [--network-config JSON] [--allow-partial]
     python -m unigeo_tpu_torch.tools.convert_checkpoint --family dust3r \
         --ckpt FILE --out FILE [--network-config JSON]
     python -m unigeo_tpu_torch.tools.convert_checkpoint --family vda \
@@ -18,7 +18,10 @@ unwrapped.  Each family's result is checked key by key and shape by shape
 against the port's modules, built on the meta device at the widths of
 ``--network-config``; the check is two-sided (no module key without a
 tensor, no tensor without a module key) and refuses a partial conversion,
-naming the keys.
+naming the keys.  With ``--allow-partial`` it reports one instead, as the
+JAX tool does: the module keys without a tensor (or with one of another
+shape) are written as ZEROS and the unconsumed tensors dropped, so the
+file is for inspection or re-grafting by hand, not for loading as it is.
 
 * ``svd`` (the default): a diffusers ``UNetSpatioTemporalConditionModel``,
   ``AutoencoderKLTemporalDecoder`` and transformers
@@ -102,28 +105,44 @@ def port_modules(network_config: Optional[Mapping] = None):
 
 
 def check_component(name: str, module: torch.nn.Module,
-                    state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                    state_dict: Mapping[str, torch.Tensor],
+                    allow_partial: bool = False) -> Dict[str, torch.Tensor]:
     """``state_dict`` less the skipped buffers, once every key and shape
-    matches ``module``'s; raises naming what differs."""
+    matches ``module``'s; raises naming what differs.  With
+    ``allow_partial`` it reports what differs on stderr instead and returns
+    the matched tensors, ZEROS for the module keys without a tensor of
+    their shape, and no unconsumed tensor."""
     skipped = sorted(k for k in state_dict if k.endswith(SKIPPED_SUFFIXES))
     sd = {k: v for k, v in state_dict.items() if k not in skipped}
-    own = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    own_sd = module.state_dict()
+    own = {k: tuple(v.shape) for k, v in own_sd.items()}
     missing = sorted(set(own) - set(sd))
     orphans = sorted(set(sd) - set(own))
     shapes = sorted(k for k in set(own) & set(sd) if tuple(sd[k].shape) != own[k])
     print(f"{name}: {len(own) - len(missing)} of {len(own)} module keys matched, "
           f"{len(orphans)} unconsumed tensors, {len(shapes)} of another shape"
           + (f", skipped {skipped}" if skipped else ""), flush=True)
-    if missing or orphans or shapes:
-        raise SystemExit(
-            f"{name}: conversion incomplete: missing {missing[:10]}, unconsumed "
-            f"{orphans[:10]}, shapes {[(k, tuple(sd[k].shape), own[k]) for k in shapes[:10]]}")
-    return sd
+    if not (missing or orphans or shapes):
+        return sd
+    report = (f"missing {missing[:10]}, unconsumed {orphans[:10]}, "
+              f"shapes {[(k, tuple(sd[k].shape), own[k]) for k in shapes[:10]]}")
+    if not allow_partial:
+        raise SystemExit(f"{name}: conversion incomplete: {report} (pass --allow-partial "
+                         "to write it anyway)")
+    print(f"{name}: partial conversion: {report}", file=sys.stderr)
+    print(f"WARNING: --allow-partial writes {len(missing) + len(shapes)} unmatched module "
+          f"keys of {name} as ZEROS (not random init) and drops {len(orphans)} unconsumed "
+          "tensors: the file is for inspection or manual re-grafting, loading it as it "
+          "is gives degenerate outputs", file=sys.stderr, flush=True)
+    out = {k: sd[k] for k in own if k in sd and k not in shapes}
+    out.update({k: torch.zeros(own[k], dtype=own_sd[k].dtype) for k in [*missing, *shapes]})
+    return out
 
 
-def convert_svd(unet_sd, vae_sd, clip_sd, network_config: Optional[Mapping] = None):
+def convert_svd(unet_sd, vae_sd, clip_sd, network_config: Optional[Mapping] = None,
+                allow_partial: bool = False):
     """The three upstream state dicts -> the port's checkpoint, checked."""
-    return {name: check_component(name, module, sd) for name, module, sd in
+    return {name: check_component(name, module, sd, allow_partial) for name, module, sd in
             zip(COMPONENTS, port_modules(network_config), (unet_sd, vae_sd, clip_sd))}
 
 
@@ -150,18 +169,20 @@ def _converted(convert, *args, **kwargs):
     return params
 
 
-def convert_dust3r(state_dict, network_config: Optional[Mapping] = None):
+def convert_dust3r(state_dict, network_config: Optional[Mapping] = None,
+                   allow_partial: bool = False):
     """A DUSt3R state dict -> the ``Dust3RNetwork`` state dict, checked."""
     from unigeo_tpu_torch.models.pointmap.dust3r import Dust3RNetwork
     from unigeo_tpu_torch.utils.convert_dust3r import convert_dust3r_checkpoint
 
     with torch.device("meta"):
         net = Dust3RNetwork(**{**DUST3R_512_DPT_CONFIG, **(network_config or {})})
-    return check_component("dust3r", net, _converted(convert_dust3r_checkpoint, state_dict))
+    return check_component("dust3r", net, _converted(convert_dust3r_checkpoint, state_dict),
+                           allow_partial)
 
 
 def convert_vda(state_dict, network_config: Optional[Mapping] = None,
-                head_prefix: str = "head."):
+                head_prefix: str = "head.", allow_partial: bool = False):
     """A VideoDepthAnything state dict -> the ``VDANetwork`` state dict, checked."""
     from unigeo_tpu_torch.models.vda import VDANetwork
     from unigeo_tpu_torch.utils.convert_vda import convert_vda_checkpoint
@@ -169,10 +190,11 @@ def convert_vda(state_dict, network_config: Optional[Mapping] = None,
     with torch.device("meta"):
         net = VDANetwork(**(network_config or {}))
     return check_component("vda", net, _converted(convert_vda_checkpoint, state_dict,
-                                                  head_prefix=head_prefix))
+                                                  head_prefix=head_prefix), allow_partial)
 
 
-def convert_aether(transformer_sd, vae_sd, network_config: Optional[Mapping] = None):
+def convert_aether(transformer_sd, vae_sd, network_config: Optional[Mapping] = None,
+                   allow_partial: bool = False):
     """The DiT's and the VAE's state dicts -> the {"vae", "dit"} checkpoint,
     each component checked."""
     from unigeo_tpu_torch.models.aether import AetherNetwork, CausalVAE3D
@@ -184,8 +206,8 @@ def convert_aether(transformer_sd, vae_sd, network_config: Optional[Mapping] = N
         dit = AetherNetwork(vae_config=cfg.get("vae_config"),
                             network_config=cfg.get("network_config")).dit
     params = _converted(convert_aether_checkpoint, transformer_sd, vae_sd)
-    return {"vae": check_component("vae", vae, params["vae"]),
-            "dit": check_component("dit", dit, params["dit"])}
+    return {"vae": check_component("vae", vae, params["vae"], allow_partial),
+            "dit": check_component("dit", dit, params["dit"], allow_partial)}
 
 
 def main(argv=None) -> int:
@@ -201,6 +223,9 @@ def main(argv=None) -> int:
     parser.add_argument("--out", required=True, help="the checkpoint file to write")
     parser.add_argument("--network-config", default=None,
                         help="JSON: the family's configs (see above)")
+    parser.add_argument("--allow-partial", action="store_true",
+                        help="report a partial conversion and write it (unmatched "
+                             "module keys as zeros) instead of refusing it")
     args = parser.parse_args(argv)
     needs = {"svd": COMPONENTS, "dust3r": ("ckpt",), "vda": ("ckpt",),
              "aether": ("transformer", "vae")}[args.family]
@@ -212,14 +237,15 @@ def main(argv=None) -> int:
 
     cfg = json.loads(args.network_config) if args.network_config else None
     sds = [load_state_dict(getattr(args, n)) for n in needs]
+    partial = args.allow_partial
     if args.family == "svd":
-        params = convert_svd(*sds, cfg)
+        params = convert_svd(*sds, cfg, allow_partial=partial)
     elif args.family == "dust3r":
-        params = convert_dust3r(*sds, cfg)
+        params = convert_dust3r(*sds, cfg, allow_partial=partial)
     elif args.family == "vda":
-        params = convert_vda(*sds, cfg, head_prefix=args.head_prefix)
+        params = convert_vda(*sds, cfg, head_prefix=args.head_prefix, allow_partial=partial)
     else:
-        params = convert_aether(*sds, cfg)
+        params = convert_aether(*sds, cfg, allow_partial=partial)
     save_params(params, args.out)
     tensors = [v for v in params.values()] if args.family in ("dust3r", "vda") else [
         v for sd in params.values() for v in sd.values()]

@@ -44,13 +44,16 @@ class EventWriter:
 
 class TimeWriter:
     """Context manager keeping a running average of its blocks' wall time
-    over the last ``window``, each block's seconds also written as a scalar."""
+    over the last ``window``, each block's seconds also written as a scalar;
+    with ``total_steps``, ``eta_seconds`` is the blocks left times that
+    average."""
 
     def __init__(self, writer: Optional[EventWriter] = None, name: str = "time",
-                 window: int = 20):
+                 window: int = 20, total_steps: Optional[int] = None):
         self.writer = writer
         self.name = name
         self.times = deque(maxlen=window)
+        self.total_steps = total_steps
         self.step = 0
         self.last = 0.0
 
@@ -69,3 +72,11 @@ class TimeWriter:
     @property
     def avg(self) -> float:
         return sum(self.times) / len(self.times) if self.times else 0.0
+
+    @property
+    def eta_seconds(self) -> Optional[float]:
+        """Seconds left at the running average, None without ``total_steps``
+        or before the first block."""
+        if self.total_steps is None or not self.times:
+            return None
+        return (self.total_steps - self.step) * self.avg
