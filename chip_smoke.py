@@ -73,7 +73,6 @@ Phases, each printed on its own flushed line with the seconds since start:
              steps, bf16, random weights made on the card; the kernel's
              launch count against the count the configuration predicts;
              depth and normal metrics against an analytic tilted plane
-  profile    one more forward under torch.profiler
   serving    the same configuration with clips_per_step 2 behind
              unigeo_tpu_torch.serving.HTTPInferenceServer on 127.0.0.1 in
              this process (max_batch 2, a 2 s window), under deterministic
@@ -107,8 +106,7 @@ Phases, each printed on its own flushed line with the seconds since start:
              run with --num-workers 2 writes 3 rows and the Average, finite;
              its resume runs nothing; --num-workers 0 writes the same bytes;
              clips_per_step 2 (clips 0 and 1 in one batched denoise) against
-             the serial run; clips 0 and 1 warm, one by one and as a batched
-             pair; one 45-frame clip in two windows of 25 (overlap 5) held
+             the serial run; one 45-frame clip in two windows of 25 (overlap 5) held
              exactly against the two windows run alone and their blend
              (under cuDNN's deterministic algorithms); the reader that
              decoded, per-clip seconds and frames/s, peak memory, and the
@@ -140,9 +138,7 @@ Phases, each printed on its own flushed line with the seconds since start:
              configs/vda_scannetpp.yaml's network (ViT-L, patch 14, clips of
              25): per-clip seconds, peak memory, stage ms, the packed kernel's
              launches held to the count the configuration predicts
-             (POINTMAP_TABLE), every scored metric finite, and one more clip
-             of Dust3R and of VideoDepthAnything under torch.profiler with
-             every flash launch on the register-tiled f32 body
+             (POINTMAP_TABLE), every scored metric finite
   aether     a small Aether (tools/aether_check.py: 8 frames at 128 x
              128, 256 DiT tokens at d = 64, the f32 kernel) in f32 on the
              card against the same weights on the CPU, its constant leaves
@@ -154,9 +150,7 @@ Phases, each printed on its own flushed line with the seconds since start:
              seconds, peak memory, parameters, stage ms (encode, denoise,
              decode, pose), the packed kernel's launches held to the count
              the configuration predicts (aether_launches), every metric of
-             the four families finite, and one more clip under
-             torch.profiler with every flash launch on the register-tiled
-             f32 body, its device ms by group and busy share
+             the four families finite
   train_models
              the port's trainer (unigeo_tpu_torch.train.main) at the full
              width of spann3r_7scenes.yaml, dust3r_7scenes.yaml,
@@ -195,7 +189,26 @@ Phases, each printed on its own flushed line with the seconds since start:
              run on the CPU; then one synthetic 25 x 384 x 512 clip with a
              perturbed point cloud, pcd_downsample_num 10000: the seconds
              of pcd_evaluation and camera_pose_evaluation, and the card's
-             metrics against the CPU's
+             metrics against the CPU's at 2500 points
+  parallel   unigeo_tpu_torch/parallel on ranks of this machine that share
+             the card over gloo (CUDA tensors staged through pinned host
+             buffers; the ranks time-share one card, so no speed-up is
+             claimed), DepthCrafter at SVD-XT width in bf16, 384 x 512, 5
+             steps, under deterministic cuDNN: dp over 2 ranks
+             (DepthCrafter.forward_batch on a mesh, ShardedClipExecutor), two
+             25-frame clips, each bitwise its serial forward; sp over 2 ranks
+             (denoise_context_parallel) on 24 frames (25 has no divisor but 5
+             and 25), the scores within EVAL_METRIC_TOL_REL of the unsplit
+             denoise's and the latents' largest relative difference;
+             Aether's flow sampler over 2 ranks (flow_sample_context_parallel,
+             the 16-frame f32 clip of aether_scannetpp.yaml's network with
+             random, not adaLN-zero, weights: the f32 flash forward with 1536
+             queries over 3072 keys) against its serial sample; pp over 3
+             ranks (PipelinedStageExecutor) on the two clips against their
+             serial forwards; the eval CLI over 2 ranks on the identity
+             config, its merged metrics.csv against one process's.  Each
+             line names the backend, the seconds and each rank's flash
+             launches, held to the count the split predicts
 
 The 7-Scenes fixture is written once a run and read by every phase that
 runs the CLI over it; svd_family and the UniGeoCam branch score one clip
@@ -1170,7 +1183,6 @@ def phase_main(dev):
     if not all(np.isfinite(v) for v in scores.values()):
         raise AssertionError(f"non-finite metrics {scores}")
     log("main", f"metrics (random weights) {json.dumps(scores)}")
-    profile_device("profile", lambda: model.forward(data), {"flash_kernel": "flash_packed"})
     return launches, stage_ms
 
 
@@ -1708,26 +1720,6 @@ def phase_disk_eval(dev):
         model = DepthCrafter(**params, device=dev)
         pipe = model.pipeline
 
-        # warm times of clips 0 and 1 one by one and as one batched pair (the
-        # CLI runs above met every shape first)
-        ds20 = get_dataset_cls("sevenScenesDataset")(
-            root=root, clip_length=DISK_CLIP, clip_overlap=DISK_OVERLAP,
-            input_size=(DISK_H, DISK_W), target_size=(DISK_H, DISK_W), cache_dir=cache)
-        pair = [ds20[0], ds20[1]]
-        warm = {}
-        for label, run in (("serial", lambda: [model.forward(d) for d in pair]),
-                           ("batched", lambda: model.forward_batch(pair))):
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            t_pair = time.perf_counter()
-            run()
-            torch.cuda.synchronize(dev)
-            warm[label] = {"seconds": time.perf_counter() - t_pair,
-                           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
-        log("disk_eval", f"clips 0 and 1, warm: {json.dumps(warm)} ({2 * DISK_CLIP} frames)")
-        summary["warm_pair"] = warm
-        del pair, ds20
-
         frames = pipe.prepare_clip(data["images"])
         starts = list(range(0, DISK_FRAMES - DISK_WINDOW_OVERLAP, DISK_WINDOW - DISK_WINDOW_OVERLAP))
         if starts != [0, 20]:
@@ -1893,19 +1885,8 @@ def phase_train(dev):
         f"{bprof['flash_f32_d512_ms']} ms)")
     result.update(batch_device_ms=bprof["device_ms"], batch_flash_device_ms=bprof["flash_ms"],
                   batch_flash_f32_d512_device_ms=bprof["flash_f32_d512_ms"])
-    prof = profile_device("profile", lambda: out["trainer"].train_step(batch),
-                          {"flash_fwd_lse": "flash_fwd_lse", "flash_bwd_dq": "bwd_dq",
-                           "flash_bwd_dkv": "bwd_dkv"})
-    # the profiler stretches the step's wall; the device time against the
-    # unprofiled steps' mean is the busy share of a step as it runs
-    log("profile", f"training step: device_ms {prof['device_ms']} over the unprofiled mean "
-        f"step {1e3 * sum(step_s) / len(step_s):.1f} ms: busy share "
-        f"{prof['device_ms'] / (1e3 * sum(step_s) / len(step_s)):.3f}")
-    per_step_ms = {k: prof[f"flash_{k}_ms"] for k in ("bwd_dq", "bwd_dkv", "fwd_lse")}
-    log("train", f"per step: mean step_s {sum(step_s) / len(step_s):.4f}, device ms "
-        f"{json.dumps(per_step_ms)} (the profiled step; bwd pair "
-        f"{per_step_ms['bwd_dq'] + per_step_ms['bwd_dkv']:.2f} ms)")
-    result.update(device_ms_per_step=per_step_ms, profiled_device_ms=prof["device_ms"])
+    # (the training step's own profile was cut to make room for the parallel
+    # phase: its kernels' device times are the kernel phase's batch-25 rows)
     del out, unet, batch
     torch.cuda.empty_cache()
     return result
@@ -1949,6 +1930,11 @@ def identity_config():
     }
 
 
+# the point count at which the metrics phase holds pcd_evaluation on the card
+# against the CPU (the card's timing stays at 10000)
+PCD_COMPARE_POINTS = 2500
+
+
 def pcd_tolerance(key, value, q_max):
     """The card-vs-CPU tolerance of one point-cloud statistic."""
     if key.startswith("nc"):
@@ -1960,7 +1946,8 @@ def phase_metrics(dev):
     """The identity config on the card (all four families, perfect scores)
     against the same run on the CPU; then one 25 x 384 x 512 clip with a
     perturbed cloud at pcd_downsample_num 10000: pcd_evaluation and
-    camera_pose_evaluation seconds, card against CPU."""
+    camera_pose_evaluation seconds, and pcd_evaluation at
+    PCD_COMPARE_POINTS on the card against the CPU."""
     from unigeo_tpu_torch.config import EvalConfig
     from unigeo_tpu_torch.data.sample import prepare_gt_label
     from unigeo_tpu_torch.evaluator import run_evaluation
@@ -2020,27 +2007,32 @@ def phase_metrics(dev):
             + rng.normal(0, 0.005, pts.shape)).astype(np.float32)
     poses = gt["gt_poses"].copy()
     poses[:, :3, 3] += rng.normal(0, 0.01, poses[:, :3, 3].shape).astype(np.float32)
-    kw = dict(rgbs=gt["gt_rgbs"], downsample_num=10000)
     q_max = float(np.linalg.norm(pts[gt["gt_masks"]], axis=-1).max())
     res, secs = {}, {}
-    for label, device in (("card_first", "cuda"), ("card", "cuda"), ("cpu", "cpu")):
+    # timed on the card at 10000 points; held against the CPU at
+    # PCD_COMPARE_POINTS (the CPU's neighbour search at 10000 took 15 s)
+    for label, device, n in (("card_first", "cuda", 10000), ("card", "cuda", 10000),
+                             ("card_compared", "cuda", PCD_COMPARE_POINTS),
+                             ("cpu", "cpu", PCD_COMPARE_POINTS)):
         t0 = time.perf_counter()
-        res[label] = pcd_evaluation(pred, pts, gt["gt_masks"], device=device, **kw)
+        res[label] = pcd_evaluation(pred, pts, gt["gt_masks"], device=device,
+                                    rgbs=gt["gt_rgbs"], downsample_num=n)
         torch.cuda.synchronize()
         secs[label] = time.perf_counter() - t0
     t0 = time.perf_counter()
     cam = camera_pose_evaluation(poses, gt["gt_poses"])
     cam_s = time.perf_counter() - t0
     pcd = {k: res["card"][k] for k in PCD_METRIC_KEYS}
-    ratio = max(abs(res["card"][k] - res["cpu"][k]) / pcd_tolerance(k, res["cpu"][k], q_max)
-                for k in PCD_METRIC_KEYS)
+    ratio = max(abs(res["card_compared"][k] - res["cpu"][k])
+                / pcd_tolerance(k, res["cpu"][k], q_max) for k in PCD_METRIC_KEYS)
     log("metrics", f"clip {EVAL_FRAMES}x{EVAL_H}x{EVAL_W}, {int(gt['gt_masks'].sum())} valid "
         f"points, downsample 10000: pcd_evaluation on the card {secs['card']:.3f}s (first call "
-        f"{secs['card_first']:.3f}s), on the CPU {secs['cpu']:.3f}s; camera_pose_evaluation "
+        f"{secs['card_first']:.3f}s); at {PCD_COMPARE_POINTS} on the card "
+        f"{secs['card_compared']:.3f}s, on the CPU {secs['cpu']:.3f}s; camera_pose_evaluation "
         f"(numpy f64, host) {cam_s:.4f}s; card metrics {json.dumps(pcd)}, ATE/RPE trans/RPE rot "
-        f"{json.dumps(cam)}; card vs CPU max dev/tol {ratio:.3e}")
+        f"{json.dumps(cam)}; card vs CPU at {PCD_COMPARE_POINTS} max dev/tol {ratio:.3e}")
     if not (ratio <= 1.0 and all(np.isfinite(v) for v in pcd.values())):
-        raise AssertionError(f"pcd metrics card {res['card']} vs CPU {res['cpu']}")
+        raise AssertionError(f"pcd metrics card {res['card_compared']} vs CPU {res['cpu']}")
     if not torch.backends.cuda.matmul.allow_tf32 is False:
         raise AssertionError("TF32 is on for the metrics' f32 products")
     return dict(pcd_s=secs["card"], pcd_cpu_s=secs["cpu"], camera_s=cam_s, pcd=pcd, camera=cam)
@@ -2676,55 +2668,15 @@ def fixture_clip(root, cache, clip, overlap):
         target_size=(DISK_H, DISK_W), cache_dir=cache)[0]
 
 
-# profile_device's kernel groups of the f32 model clips; Aether's split
-# cuDNN's convolutions (implicit-GEMM forward kernels) from cuBLAS's GEMMs,
-# which "gemm" alone lumps together
-F32_CLIP_GROUPS = {"flash_kernel": "flash_packed", "f32reg": "flash_packed_f32reg_kernel",
-                   "conv": "conv", "gemm": "gemm", "elementwise": "elementwise"}
-AETHER_GROUPS = {"flash_kernel": "flash_packed", "f32reg": "flash_packed_f32reg_kernel",
-                 "conv_fprop": "fprop_implicit_gemm", "gemm": "xmma_gemm",
-                 "elementwise": "elementwise"}
-
-
-# the pointmap models whose clip runs once more under torch.profiler: not
-# Cut3R, whose host-paced per-frame loop made its trace take 34-37 s to
-# process (cut to keep the run inside its time)
-PROFILED_POINTMAP_MODELS = ("dust3r", "vda")
-
-
-def profiled_f32_clip(phase, label, model, data, predicted, groups=F32_CLIP_GROUPS):
-    """One more clip of ``model`` under torch.profiler (profile_device, by
-    ``groups``): every flash launch the profiler records must be on the
-    register-tiled f32 body, and the wrappers must count ``predicted``; a
-    trace that recorded fewer launches than the counts (the profiler drops
-    kernels at times) is taken again, up to PROFILE_ATTEMPTS times."""
-    from unigeo_tpu_torch.tools.forward_variants import PROFILE_ATTEMPTS
-
-    for attempt in range(1, PROFILE_ATTEMPTS + 1):
-        reset_counts()
-        prof = profile_device(phase, lambda: model.forward_tensors(data), groups)
-        counted = read_counts()["flash_attention_packed"]
-        if counted != predicted:
-            raise AssertionError(f"{label}: {counted} launches in the profiled clip")
-        if prof["f32reg_launches"] != prof["flash_kernel_launches"]:
-            raise AssertionError(f"{label}: a flash launch off the f32 body {prof}")
-        if prof["flash_kernel_launches"] == predicted:
-            return prof
-        log(phase, f"{label}: trace {attempt} recorded {prof['flash_kernel_launches']} of "
-            f"the {counted} flash launches counted")
-    raise AssertionError(f"{label}: profiled flash launches {prof['flash_kernel_launches']} != "
-                         f"{predicted} in {PROFILE_ATTEMPTS} traces {prof}")
-
-
 def phase_pointmap_models(dev):
     """Dust3R and Cut3R (their 7-Scenes configs' model_params: clips of 20)
     and VideoDepthAnything (vda_scannetpp.yaml's network: ViT-L, patch 14,
     clips of 25) through the eval CLI over the 7-Scenes fixture, one clip
     each, in f32 with TF32 off: per-clip seconds, peak memory, stage ms, the
     packed kernel's launches held to pointmap_launches and POINTMAP_TABLE,
-    every metric the config scores finite; then one more clip of each of
-    PROFILED_POINTMAP_MODELS under torch.profiler: every flash launch on the
-    register-tiled f32 body."""
+    every metric the config scores finite.  (Their profiled clips were cut
+    to make room for the parallel phase; the kernel phase holds the f32
+    body by name at their shapes.)"""
     pointmap_models_reference(dev)
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 is on for the pointmap models' f32 runs")
@@ -2749,14 +2701,6 @@ def phase_pointmap_models(dev):
             summary[label].update(
                 launches_per_clip=predicted, params=sum(p.numel() for p in model.network.parameters()),
                 families=[s for s in SECTIONS if s in secs], average=run["rows"][-1])
-            if label in PROFILED_POINTMAP_MODELS:
-                data = fixture_clip(root, cache, clip, PM_OVERLAP)
-                prof = profiled_f32_clip("pointmap_models", label, model, data, predicted)
-                summary[label].update(
-                    f32_flash_device_ms_per_clip=prof["flash_kernel_ms"],
-                    profiled_device_ms=prof["device_ms"], profiled_wall_ms=prof["wall_ms"],
-                    device_busy_share=prof["device_busy_share"])
-                del data
             del model, run
             torch.cuda.empty_cache()
     finally:
@@ -2824,9 +2768,8 @@ def phase_aether(dev):
     the eval CLI over the 7-Scenes fixture, one clip of 16, in f32 with TF32
     off: per-clip seconds, peak memory, parameters, stage ms, the packed
     kernel's launches held to aether_launches and AETHER_LAUNCHES, every
-    metric of the four families finite; then one more clip under
-    torch.profiler with every flash launch on the register-tiled f32 body,
-    device ms by group and the busy share."""
+    metric of the four families finite.  (Its profiled clip was cut to make
+    room for the parallel phase.)"""
     aether_reference(dev)
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 is on for Aether's f32 run")
@@ -2847,20 +2790,13 @@ def phase_aether(dev):
         model = run.pop("models")[0]
         if {p.dtype for p in model.network.parameters()} != {torch.float32}:
             raise AssertionError("aether: the network is not f32")
-        data = fixture_clip(root, cache, AETHER_CLIP, AETHER_OVERLAP)
-        prof = profiled_f32_clip("aether", "aether", model, data, predicted, AETHER_GROUPS)
         summary = {k: run[k] for k in ("seconds", "clip_s", "peak_gib", "stage_ms")}
         summary.update(
             launches_per_clip=predicted,
             params=sum(p.numel() for p in model.network.parameters()),
             dit_params=sum(p.numel() for p in model.network.dit.parameters()),
-            families=list(secs), average=run["rows"][-1],
-            f32_flash_device_ms_per_clip=prof["flash_kernel_ms"],
-            **{f"{g}_device_ms": prof[f"{g}_ms"]
-               for g in ("conv_fprop", "gemm", "elementwise")},
-            profiled_device_ms=prof["device_ms"], profiled_wall_ms=prof["wall_ms"],
-            device_busy_share=prof["device_busy_share"])
-        del model, run, data
+            families=list(secs), average=run["rows"][-1])
+        del model, run
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3064,6 +3000,10 @@ F32_POINTMAP_SHAPES = [("pointmap_encoder", 25, 768, 768, 12, 64),
                        ("vda_encoder", 25, 972, 972, 16, 64),
                        ("cut3r_state_cross", 1, 768, 64, 8, 64),
                        ("aether_dit", 1, 3072, 3072, 12, 64),
+                       # the same over 2 ranks of its frames (flow_sample_
+                       # context_parallel): each rank's 1536 queries against
+                       # the 3072 gathered keys
+                       ("aether_dit_sp2", 1, 1536, 3072, 12, 64),
                        # the DepthCrafter trainer's f32 target encode: the
                        # VAE mid block's one head over 25 frames' 48 x 64
                        # latents (the wide register-tiled body)
@@ -3677,6 +3617,356 @@ def phase_serving(dev):
     return result
 
 
+# --- parallel/ on ranks of this machine that share the card -------------------------
+
+# the phase's clips: PAR_T frames for dp and pp, PAR_SP_T for sp (24: 25 has
+# no divisor but 5 and 25 for 2 ranks), at 384 x 512, 5 Euler steps
+PAR_T, PAR_SP_T, PAR_H, PAR_W, PAR_STEPS, PAR_SEED = 25, 24, 384, 512, 5, 42
+PAR_TIMEOUT = 420  # seconds one launch of ranks may take
+PAR_RANKS_MODULE = "chip_smoke"  # the module whose rank functions the launches run
+# Aether's flow sampler over 2 ranks against its serial run, f32 with TF32
+# off, relative to the serial output's largest magnitude: the keys and values
+# are the serial run's, the products run at half the rows
+PAR_FLOW_TOL = 1e-4
+
+
+def par_pipeline(dev):
+    """The smoke's DepthCrafter pipeline: SVD-XT width, bf16, weights from seed 0."""
+    from unigeo_tpu_torch.models.depthcrafter.pipeline import DepthCrafterPipeline
+
+    pipe = DepthCrafterPipeline(unet_config=SVD_XT_UNET, clip_config=SVD_XT_CLIP,
+                                dtype=torch.bfloat16, device=dev)
+    return pipe.init_random(torch.Generator(device=dev).manual_seed(0))
+
+
+def par_clips():
+    """Two distinct PAR_T-frame clips (the serving phase's A and B) and the
+    GT label they share, and the PAR_SP_T-frame tilted plane with its GT."""
+    from unigeo_tpu_torch.data.sample import prepare_gt_label
+
+    clips = serving_clips(PAR_T, PAR_H, PAR_W)[:2]
+    sp_clip = tilted_plane_clip(PAR_SP_T, PAR_H, PAR_W)
+    return (clips, prepare_gt_label(tilted_plane_clip(PAR_T, PAR_H, PAR_W)), sp_clip,
+            prepare_gt_label(sp_clip))
+
+
+def digest(out):
+    """sha256 of a prediction's depths and normals: bitwise across processes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in ("pred_depths", "pred_normals"):
+        h.update(np.ascontiguousarray(out[k]).tobytes())
+    return h.hexdigest()
+
+
+def par_summary(out, gt):
+    return {"digest": digest(out), "scores": clip_scores(out, gt)}
+
+
+def sp_latents(model, data, denoise):
+    """One clip's encode as run_window_staged runs it (the draws of
+    DepthCrafter.forward from the model's seed), then ``denoise(cond,
+    context, noise)`` -> the denoised latents [T, 4, h, w] f32."""
+    pipe = model.pipeline
+    images = np.asarray(data["images"])
+    t, h, w = images.shape[0], images.shape[2], images.shape[3]
+    frames = pipe.prepare_clip(images)
+    gen = torch.Generator(device=pipe.device).manual_seed(model.seed)
+    noise, aug = pipe.draw_clip_noise(gen, t, h, w)
+    nchw = lambda a: a.permute(0, 3, 1, 2).contiguous()
+    cond, ctx = pipe._encode_stage(nchw(frames), nchw(aug))
+    return denoise(cond, ctx, noise.contiguous().permute(0, 3, 1, 2))
+
+
+def sp_finish(model, data, x, gt):
+    """Denoised latents -> the clip's scores (decode, post-processing)."""
+    decoded = (model.pipeline._decode_stage(x).permute(0, 2, 3, 1) + 1.0) / 2.0
+    return clip_scores(model._finalize(decoded, data), gt)
+
+
+def aether_par_net(dev):
+    """aether_scannetpp.yaml's network in f32 with random weights from seed 0
+    (not adaLN-zero, so the DiT's velocity is not 0), and the 16-frame
+    tilted plane's RGB latents with one noise draw."""
+    from unigeo_tpu_torch.models.aether import AetherNetwork
+    from unigeo_tpu_torch.models.pointmap.adapter import build_network
+
+    conf = read_config("aether_scannetpp.yaml")["model_params"]
+    net = build_network(AetherNetwork, {k: conf[k] for k in ("vae_config", "network_config")},
+                        dev, 0).eval().requires_grad_(False)
+    raw = torch.from_numpy(tilted_plane_clip(AETHER_CLIP, PAR_H, PAR_W)["images"]).to(dev)
+    cond = net.encode(raw.float() / 255.0 * 2.0 - 1.0)
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED)
+    noise = torch.randn((cond.shape[0], net.target_channels, *cond.shape[2:]), generator=gen,
+                        device=dev)
+    return net, cond, noise, conf["num_steps"]
+
+
+def parallel_ranks(job):
+    """The 2-rank launch: dp, sp (DepthCrafter's denoise, Aether's flow
+    sampler) and the eval CLI; each part's seconds and flash launches."""
+    import torch.distributed as dist
+
+    from unigeo_tpu_torch.device import exact_f32
+    from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
+    from unigeo_tpu_torch.parallel.comm import backend_of
+    from unigeo_tpu_torch.parallel.context import (denoise_context_parallel,
+                                                   flow_sample_context_parallel)
+    from unigeo_tpu_torch.parallel.mesh import make_mesh
+    from unigeo_tpu_torch.parallel.multihost import rank_device
+
+    dev = rank_device(job["device"])
+    rank = dist.get_rank()
+    torch.backends.cudnn.deterministic = True
+    out = {"rank": rank, "backend": backend_of(), "device": str(dev),
+           "started_s": time.time() - job["t_launch"]}
+    clips, gt, sp_clip, sp_gt = par_clips()
+    with torch.inference_mode():
+        dp_mesh = make_mesh(2, (2, 1, 1))
+        model = DepthCrafter(par_pipeline(dev), num_inference_steps=PAR_STEPS, seed=PAR_SEED,
+                             mesh=dp_mesh)
+        torch.cuda.synchronize()
+        out["ready_s"] = time.time() - job["t_launch"]
+        reset_counts()
+        t0 = time.perf_counter()
+        preds = model.forward_batch(clips)
+        torch.cuda.synchronize()
+        out["dp"] = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+                         batch_size=model.eval_batch_size,
+                         clips=[par_summary(p, gt) for p in preds])
+        del preds
+
+        sp_mesh = make_mesh(2, (1, 2, 1))
+        reset_counts()
+        t0 = time.perf_counter()
+        x = sp_latents(model, sp_clip, lambda c, ctx, n: denoise_context_parallel(
+            model.pipeline, c, ctx, n, PAR_STEPS, sp_mesh))
+        scores = sp_finish(model, sp_clip, x, sp_gt) if rank == 0 else None
+        torch.cuda.synchronize()
+        out["sp"] = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+                         latents=x.cpu(), scores=scores)
+        del model, x
+        torch.cuda.empty_cache()
+
+        with exact_f32():
+            net, cond, noise, steps = aether_par_net(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            flow = flow_sample_context_parallel(net, cond, noise, steps, sp_mesh)
+            torch.cuda.synchronize()
+            out["flow"] = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+                               tokens=[int(cond.shape[0] // 2 * cond.shape[2] * cond.shape[3] // 4),
+                                       int(cond.shape[0] * cond.shape[2] * cond.shape[3] // 4)])
+            if rank == 0:
+                serial = net.sample(cond, noise, steps)
+                out["flow"]["rel_dev"] = float((flow - serial).abs().max()
+                                               / serial.abs().max())
+            del net, cond, noise, flow
+        torch.cuda.empty_cache()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    text, _ = run_cli(["--config", job["identity_config"], "--output", job["eval_dir"],
+                       "--device", job["device"]])
+    out["eval"] = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
+                       first_line=text.splitlines()[1] if len(text.splitlines()) > 1 else text,
+                       processed=text.count("processing seq"))
+    dist.barrier()
+    out["done_s"] = time.time() - job["t_launch"]
+    return out
+
+
+def pp_ranks(job):
+    """The 3-rank launch: PipelinedStageExecutor on the two clips (encode on
+    rank 0, decode on rank 1, the denoise on rank 2)."""
+    import torch.distributed as dist
+
+    from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
+    from unigeo_tpu_torch.parallel.comm import backend_of
+    from unigeo_tpu_torch.parallel.multihost import rank_device
+    from unigeo_tpu_torch.parallel.staged import PipelinedStageExecutor
+
+    dev = rank_device(job["device"])
+    rank = dist.get_rank()
+    torch.backends.cudnn.deterministic = True
+    started = time.time() - job["t_launch"]
+    clips, gt, _, _ = par_clips()
+    with torch.inference_mode():
+        model = DepthCrafter(par_pipeline(dev), num_inference_steps=PAR_STEPS, seed=PAR_SEED)
+        ex = PipelinedStageExecutor(model.pipeline, num_frames=PAR_T,
+                                    num_inference_steps=PAR_STEPS)
+        frames = torch.stack([model.pipeline.prepare_clip(c["images"]) for c in clips])
+        reset_counts()
+        t0 = time.perf_counter()
+        decoded = ex(frames, seed=PAR_SEED)
+        torch.cuda.synchronize()
+        seconds, launches = time.perf_counter() - t0, read_counts()
+        summaries = None
+        if rank == 1:  # the decode rank kept the VAE, which _finalize does not need
+            summaries = [par_summary(model._finalize(decoded[i], c), gt)
+                         for i, c in enumerate(clips)]
+    return {"rank": rank, "backend": backend_of(), "seconds": seconds, "launches": launches,
+            "denoise_ranks": ex.denoise_ranks, "clips": summaries, "started_s": started,
+            "done_s": time.time() - job["t_launch"]}
+
+
+def scores_rel(ours, ref):
+    return {k: abs(ours[k] - ref[k]) / max(abs(ref[k]), 1e-12) for k in EVAL_KEYS}
+
+
+def phase_parallel(dev):
+    """See the module docstring ("parallel").  The references (each clip's
+    serial forward, the unsplit denoise of the 24 frames, one process's eval
+    CLI) are run here first, then the ranks (run_ranks) with this process's
+    cache of the card emptied."""
+    from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
+    from unigeo_tpu_torch.parallel.launch import run_ranks
+
+    # the packed kernel's launches a clip by stage: CLIP and the encoder's mid
+    # block, the UNet's evaluations, the decoder's mid block
+    enc = clip_kernel_attentions(SVD_XT_CLIP) + vae_mid_attentions(PAR_H, PAR_W)
+    den = PAR_STEPS * unet_kernel_attentions(SVD_XT_UNET, PAR_H, PAR_W)
+    dec = vae_mid_attentions(PAR_H, PAR_W)
+    clips, gt, sp_clip, sp_gt = par_clips()
+    t0 = time.perf_counter()
+    with deterministic_cudnn(), torch.inference_mode():
+        model = DepthCrafter(par_pipeline(dev), num_inference_steps=PAR_STEPS, seed=PAR_SEED)
+        serial = [par_summary(model.forward(c), gt) for c in clips]
+        x_ref = sp_latents(model, sp_clip, lambda c, ctx, n: model.pipeline._denoise_loop(
+            c[None], ctx[None], n[None], PAR_STEPS)[0])
+        sp_ref = sp_finish(model, sp_clip, x_ref, sp_gt)
+        x_ref = x_ref.cpu()
+        del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="unigeo_parallel_")
+    try:
+        cfg_path = os.path.join(work, "identity.json")
+        with open(cfg_path, "w") as f:
+            json.dump(identity_config(), f)
+        single_dir, multi_dir = os.path.join(work, "single"), os.path.join(work, "multi")
+        run_cli(["--config", cfg_path, "--output", single_dir, "--device", dev.type])
+        log("parallel", f"references (two serial forwards, the unsplit 24-frame clip, the "
+            f"identity CLI) in {time.perf_counter() - t0:.2f}s")
+        job = {"identity_config": cfg_path, "eval_dir": multi_dir, "device": dev.type,
+               "t_launch": time.time()}
+        t0 = time.perf_counter()
+        two = run_ranks(f"{PAR_RANKS_MODULE}:parallel_ranks", 2, job, os.path.join(work, "ranks2"),
+                        device=dev.type, timeout=PAR_TIMEOUT)
+        two_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        three = run_ranks(f"{PAR_RANKS_MODULE}:pp_ranks", 3,
+                          {"device": dev.type, "t_launch": time.time()},
+                          os.path.join(work, "ranks3"), device=dev.type, timeout=PAR_TIMEOUT)
+        three_s = time.perf_counter() - t0
+        single_rows = read_csv_rows(os.path.join(single_dir, "metrics.csv"))
+        merged_rows = read_csv_rows(os.path.join(multi_dir, "metrics.csv"))
+        rank_files = sorted(f for f in os.listdir(multi_dir) if f.startswith("metrics"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    note = "ranks time-share one card: no speed-up is claimed or measurable"
+    res, failed = {"launch_s": {"two_ranks": two_s, "three_ranks": three_s}}, []
+    flash = lambda r, part: r[part]["launches"]["flash_attention_packed"]
+
+    # dp
+    dp_ok = [r["dp"]["clips"][i]["digest"] == serial[i]["digest"] for r in two for i in range(2)]
+    dp_launches = [flash(r, "dp") for r in two]
+    res["dp"] = dict(backend=two[0]["backend"], seconds=[r["dp"]["seconds"] for r in two],
+                     flash_launches=dp_launches, predicted=enc + den + dec,
+                     bitwise_serial=dp_ok, batch_size=two[0]["dp"]["batch_size"])
+    log("parallel", f"dp 2 ranks ({two[0]['backend']}, {note}): 2 clips of {PAR_T}x{PAR_H}x"
+        f"{PAR_W}, {PAR_STEPS} steps: seconds per rank "
+        f"{[round(s, 3) for s in res['dp']['seconds']]} (the first forward_batch, set-up "
+        f"included), flash launches per rank {dp_launches} (predicted {enc + den + dec}); each "
+        f"clip bitwise its serial forward on every rank: {dp_ok}")
+    if not (all(dp_ok) and dp_launches == [enc + den + dec] * 2):
+        failed.append("dp")
+
+    # sp, DepthCrafter
+    x_sp = two[0]["sp"]["latents"]
+    lat_rel = float((x_sp - x_ref).abs().max() / x_ref.abs().max())
+    sp_rel = scores_rel(two[0]["sp"]["scores"], sp_ref)
+    sp_launches = [flash(r, "sp") for r in two]
+    sp_pred = [enc + den + dec, enc + den]
+    res["sp"] = dict(backend=two[0]["backend"], seconds=[r["sp"]["seconds"] for r in two],
+                     flash_launches=sp_launches, predicted=sp_pred, frames=PAR_SP_T,
+                     latents_max_rel_dev=lat_rel, scores=two[0]["sp"]["scores"],
+                     unsplit_scores=sp_ref, scores_rel_dev=sp_rel,
+                     same_on_both=bool(torch.equal(x_sp, two[1]["sp"]["latents"])))
+    log("parallel", f"sp 2 ranks ({two[0]['backend']}, {note}): DepthCrafter's denoise over "
+        f"{PAR_SP_T} frames (cut from {PAR_T}: 25 has no divisor but 5 and 25), "
+        f"{PAR_SP_T // 2} a rank: "
+        f"seconds per rank (encode, denoise, rank 0 decodes) "
+        f"{[round(s, 3) for s in res['sp']['seconds']]}, flash launches per rank "
+        f"{sp_launches} (predicted {sp_pred}); latents max relative difference to the unsplit "
+        f"denoise {lat_rel:.3e}; scores {json.dumps(two[0]['sp']['scores'])} against the "
+        f"unsplit {json.dumps(sp_ref)}, relative {json.dumps(sp_rel)} (tol "
+        f"{EVAL_METRIC_TOL_REL}); both ranks' latents equal {res['sp']['same_on_both']}")
+    if not (all(v <= EVAL_METRIC_TOL_REL for v in sp_rel.values()) and sp_launches == sp_pred
+            and res["sp"]["same_on_both"]):
+        failed.append("sp")
+
+    # sp, Aether
+    flow_launches = [flash(r, "flow") for r in two]
+    flow_pred = AETHER_LAUNCHES
+    res["flow"] = dict(backend=two[0]["backend"], seconds=[r["flow"]["seconds"] for r in two],
+                       flash_launches=flow_launches, predicted=flow_pred,
+                       queries_keys=two[0]["flow"]["tokens"],
+                       rel_dev=two[0]["flow"]["rel_dev"], tol=PAR_FLOW_TOL)
+    log("parallel", f"sp 2 ranks ({two[0]['backend']}, {note}): Aether's flow sampler "
+        f"(aether_scannetpp.yaml's network, random weights, f32, TF32 off) on the "
+        f"{AETHER_CLIP}-frame clip, queries / keys per rank {two[0]['flow']['tokens']}: "
+        f"seconds per rank {[round(s, 3) for s in res['flow']['seconds']]}, flash launches per "
+        f"rank {flow_launches} (predicted {flow_pred}); against the serial sample max relative "
+        f"difference {res['flow']['rel_dev']:.3e} (tol {PAR_FLOW_TOL})")
+    if not (res["flow"]["rel_dev"] <= PAR_FLOW_TOL and flow_launches == [flow_pred] * 2):
+        failed.append("flow")
+
+    # pp
+    dec_rank = three[1]
+    pp_bitwise = [dec_rank["clips"][i]["digest"] == serial[i]["digest"] for i in range(2)]
+    pp_rel = [scores_rel(dec_rank["clips"][i]["scores"], serial[i]["scores"]) for i in range(2)]
+    pp_launches = [r["launches"]["flash_attention_packed"] for r in three]
+    pp_pred = [2 * enc, 2 * dec, 2 * den]
+    res["pp"] = dict(backend=three[0]["backend"], seconds=[r["seconds"] for r in three],
+                     flash_launches=pp_launches, predicted=pp_pred,
+                     denoise_ranks=three[0]["denoise_ranks"], bitwise_serial=pp_bitwise,
+                     scores_rel_dev=pp_rel)
+    log("parallel", f"pp 3 ranks ({three[0]['backend']}, {note}): encode on rank 0, decode on "
+        f"rank 1, denoise on ranks {three[0]['denoise_ranks']}, the 2 clips in flight: seconds "
+        f"per rank {[round(r['seconds'], 3) for r in three]}, flash launches per rank "
+        f"{pp_launches} (predicted {pp_pred}); each clip against its serial forward: bitwise "
+        f"{pp_bitwise}, scores relative {json.dumps(pp_rel)} (tol {EVAL_METRIC_TOL_REL})")
+    if not (all(v <= EVAL_METRIC_TOL_REL for r in pp_rel for v in r.values())
+            and pp_launches == pp_pred):
+        failed.append("pp")
+
+    # the eval CLI
+    same_csv = merged_rows == single_rows
+    res["eval"] = dict(backend=two[0]["backend"], seconds=[r["eval"]["seconds"] for r in two],
+                       processed=[r["eval"]["processed"] for r in two], files=rank_files,
+                       merged_equals_single=same_csv)
+    log("parallel", f"eval CLI 2 ranks ({two[0]['backend']}, {note}): the identity config "
+        f"({len(single_rows) - 1} clips), clips scored per rank {res['eval']['processed']}, "
+        f"seconds per rank {[round(r['eval']['seconds'], 3) for r in two]}, files {rank_files}; "
+        f"'{two[0]['eval']['first_line']}'; the merged metrics.csv equal to one process's: "
+        f"{same_csv}")
+    if not (same_csv and sorted(res["eval"]["processed"]) == [3, 3]
+            and rank_files == ["metrics.csv", "metrics.rank0.csv", "metrics.rank1.csv"]):
+        failed.append("eval")
+    res["rank_clock_s"] = {"two_ranks": [{k: round(r[k], 2) for k in ("started_s", "ready_s",
+                                                                        "done_s")} for r in two],
+                           "three_ranks": [{k: round(r[k], 2) for k in ("started_s", "done_s")}
+                                           for r in three]}
+    log("parallel", f"launches of ranks: 2 ranks {two_s:.2f}s, 3 ranks {three_s:.2f}s; each "
+        f"rank's seconds since its launch when it started, had its models, ended: "
+        f"{json.dumps(res['rank_clock_s'])}")
+    if failed:
+        raise AssertionError(f"parallel: {failed} failed: {json.dumps(res, default=str)}")
+    return res
+
+
 def phase_debug_nans(dev):
     """run_evaluation with debug_nans on a tiny f32 DepthCrafter on the card
     whose VAE encoder's first convolution holds one NaN weight: it must
@@ -4018,6 +4308,9 @@ def main():
     served = phase_serving(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    parallel = phase_parallel(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     phase_debug_nans(dev)
     evaluated = phase_eval(dev)
     torch.cuda.synchronize()
@@ -4085,6 +4378,11 @@ def main():
                    "launches_serving": {"pair_in_one_batch": served["launches_pair"],
                                         "single_clip": served["launches_single"]},
                    "serving": served,
+                   "launches_parallel": {part: {"flash_launches_per_rank": v["flash_launches"],
+                                                "backend": v["backend"]}
+                                         for part, v in parallel.items()
+                                         if isinstance(v, dict) and "flash_launches" in v},
+                   "parallel": parallel,
                    "bf16_cuda_core_shapes": cuda_core_rows["fwd"],
                    "wide_head_shapes": wide_rows["fwd"],
                    "f32_pointmap_shapes": f32_rows,

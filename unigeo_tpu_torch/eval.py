@@ -17,6 +17,17 @@ reader built with g++ on first use, or ``pil``) is printed once.
 ``--debug-nans`` raises ``FloatingPointError`` at the first NaN in a
 module's output or in the model's ``pred_*`` outputs, naming the module's
 class (``evaluator.debug_nans``).
+
+Over several processes, one a GPU:
+
+    torchrun --nproc-per-node N -m unigeo_tpu_torch.eval --config CONFIG ...
+
+each rank (``parallel/multihost.py::initialize_distributed`` reads torchrun's
+environment) runs the model on ``cuda:{LOCAL_RANK % device_count}`` and
+scores every N-th clip into ``metrics.rank{r}.csv``; rank 0 writes the
+merged ``metrics.csv`` (``evaluator.run_evaluation``).  The backend is
+NCCL when each rank has a card of its own, gloo otherwise
+(``multihost.backend_for``).
 """
 
 from __future__ import annotations
@@ -82,7 +93,14 @@ def main(argv: Optional[List[str]] = None):
     print(f"clip reader: {native.reader_name()}{reason}", flush=True)
     if args.validate_root:
         sys.exit(validate_root_main(cfg))
-    model = get_model_cls(cfg.model_name)(**{**cfg.model_params, "device": args.device})
+    from unigeo_tpu_torch.parallel.multihost import initialize_distributed, rank_device, world
+
+    device = args.device
+    if initialize_distributed(device=device) and world()[0] > 1:
+        device = str(rank_device(device))
+        n_proc, rank = world()
+        print(f"rank {rank} of {n_proc} on {device}", flush=True)
+    model = get_model_cls(cfg.model_name)(**{**cfg.model_params, "device": device})
     manager = run_evaluation(
         cfg,
         save_dir=args.output,
@@ -95,7 +113,7 @@ def main(argv: Optional[List[str]] = None):
         data_parallel=args.data_parallel,
         async_metrics=args.async_metrics,
         timer=ClipTimer(jsonl_path=args.clip_times),
-        device=args.device,
+        device=device,
     )
     print("Averages:")
     for name, value in manager.calculate_averages().items():

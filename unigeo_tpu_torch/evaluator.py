@@ -33,8 +33,13 @@ for the run (``nan_hooks`` below): the first NaN in the output of any
 ``nn.Module``, or in the model's ``pred_*`` outputs, raises
 ``FloatingPointError`` naming the module's class.
 
-Not ported yet, and raising with its ROADMAP item instead of running
-something else: runs over several processes (queue 1 item 11).
+Over several processes (a ``torch.distributed`` group of more than one rank,
+``parallel/multihost.py``; ``python -m unigeo_tpu_torch.eval`` under
+torchrun), as in the JAX package: rank r scores the clips i with i % ranks
+== r on its own device, streams its rows to ``metrics.rank{r}.csv`` and
+resumes from that file; at the end every rank's rows are gathered, and rank
+0 writes them, sorted by ``seq_name``, to ``metrics.csv``.  The model's
+``eval_batch_size`` stays per rank.
 """
 
 from __future__ import annotations
@@ -99,14 +104,6 @@ def check_predictions(model, output: Dict[str, Any]) -> None:
             raise FloatingPointError(f"NaN in {type(model).__name__}'s {key}")
 
 
-def _refuse_unported() -> None:
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "an eval over several processes is not ported yet (ROADMAP queue 1 item 11)")
-
-
 def evaluate_clip(cfg: EvalConfig, output: Dict[str, Any], gt_label: Dict[str, Any],
                   device="cuda") -> Dict[str, Any]:
     """Score one clip's predictions against its GT labels; the point-cloud
@@ -169,24 +166,32 @@ def run_evaluation(
     debug_nans: raise ``FloatingPointError`` at the first NaN in a module's
         output or a ``pred_*`` output (``nan_hooks()``, for this call only).
     """
-    _refuse_unported()
+    from unigeo_tpu_torch.parallel.multihost import world
+
     os.makedirs(save_dir, exist_ok=True)
     save_path = os.path.join(save_dir, "metrics.csv")
+    # several processes: each rank scores a round-robin share of the clips and
+    # streams its rows to its own file (its resume point); rank 0 writes the
+    # merged metrics.csv at the end
+    n_proc, proc_id = world()
+    rank_path = save_path if n_proc == 1 else os.path.join(save_dir,
+                                                           f"metrics.rank{proc_id}.csv")
     if dataset is None:
         dataset = get_dataset_cls(cfg.dataset)(**cfg.dataset_kwargs)
     if model is None:
         model = get_model_cls(cfg.model_name)(**cfg.model_params)
 
-    manager = (MetricsManager.from_csv(save_path, cfg.metric_names) if resume
+    manager = (MetricsManager.from_csv(rank_path, cfg.metric_names) if resume
                else MetricsManager(cfg.metric_names))
     timer = ClipTimer() if timer is None else timer
     n = len(dataset) if max_clips is None else min(max_clips, len(dataset))
+    indices = [i for i in range(n) if i % n_proc == proc_id]
     if num_workers > 0:
         from unigeo_tpu_torch.data.prefetch import PrefetchLoader
 
-        stream = enumerate(PrefetchLoader(dataset, num_workers=num_workers, indices=range(n)))
+        stream = zip(indices, PrefetchLoader(dataset, num_workers=num_workers, indices=indices))
     else:
-        stream = ((i, dataset[i]) for i in range(n))
+        stream = ((i, dataset[i]) for i in indices)
 
     if data_parallel is None:
         data_parallel = (hasattr(model, "forward_batch")
@@ -214,7 +219,7 @@ def run_evaluation(
                                    os.path.join(save_dir, f"depth_{seq}"),
                                    rgbs=gt_label["gt_rgbs"])
         manager.update_metrics(metric)
-        manager.export_to_csv(save_path)
+        manager.export_to_csv(rank_path)
         if verbose:
             shown = {k: round(v, 5) for k, v in metric.items()
                      if isinstance(v, (int, float)) and k in cfg.metric_names}
@@ -281,4 +286,13 @@ def run_evaluation(
         # thread outlives this call
         if record_pool is not None:
             record_pool.shutdown(wait=True, cancel_futures=True)
+    if n_proc > 1:
+        from unigeo_tpu_torch.parallel.multihost import is_primary, process_allgather_rows
+
+        merged = MetricsManager(cfg.metric_names)
+        for row in sorted(process_allgather_rows(manager.rows()), key=lambda r: r["seq_name"]):
+            merged.update_metrics(row)
+        if is_primary():
+            merged.export_to_csv(save_path)
+        return merged
     return manager

@@ -39,7 +39,8 @@ import torch.nn.functional as F
 
 from unigeo_tpu_torch.device import exact_f32
 from unigeo_tpu_torch.metrics.camera import matrix_to_quaternion, quaternion_to_matrix
-from unigeo_tpu_torch.models.layers import Attention, GroupNorm, sinusoidal_embedding
+from unigeo_tpu_torch.models.layers import (Attention, GroupNorm, frame_shard,
+                                             sinusoidal_embedding)
 from unigeo_tpu_torch.models.pointmap import adapter
 from unigeo_tpu_torch.models.vit import MLP, sincos_2d_pos_embed
 from unigeo_tpu_torch.ops.backproject import backproject_to_cv_position
@@ -244,7 +245,11 @@ class DiTBlock(nn.Module):
     def forward(self, x, cond):
         (sa_shift, sa_scale, sa_gate,
          mlp_shift, mlp_scale, mlp_gate) = self.adaLN_modulation(F.silu(cond)).chunk(6, dim=-1)
-        x = x + sa_gate[:, None, :] * self.attn(modulate(layer_norm(x), sa_shift, sa_scale))
+        h = modulate(layer_norm(x), sa_shift, sa_scale)
+        # tokens split over ranks by latent frame: the local queries meet
+        # every rank's keys and values
+        shard = frame_shard()
+        x = x + sa_gate[:, None, :] * self.attn(h, None if shard is None else shard.gather(h, 1))
         return x + mlp_gate[:, None, :] * self.mlp(modulate(layer_norm(x), mlp_shift, mlp_scale))
 
 

@@ -16,7 +16,10 @@ run it) unless ``window_size`` is shorter than it: then it runs as the
 pipeline's crossfaded windows (``DepthCrafterPipeline.__call__``).
 ``forward_batch`` scores equally-shaped clips with one batched denoise
 (``clips_per_step`` at a time, through the evaluator's ``eval_batch_size``);
-the decoded frames stay on the device into the post-processing on every path.
+given a ``mesh`` whose dp dim is above 1 it is an SPMD entry point instead:
+every rank calls it with the same clips, and ``parallel/executor.py``'s
+``ShardedClipExecutor`` runs one clip a dp rank and gathers them.  The
+decoded frames stay on the device into the post-processing on every path.
 
 The constructor takes the JAX adapter's keywords, so a config's
 ``model_params`` build it (registered as ``DepthCrafter``).  Without a
@@ -44,6 +47,7 @@ from unigeo_tpu_torch.models.depthcrafter.pipeline import (
 )
 from unigeo_tpu_torch.models.depthcrafter.scheduler import SOLVERS, EulerDiscreteConfig
 from unigeo_tpu_torch.ops.backproject import backproject_to_cv_position
+from unigeo_tpu_torch.parallel.executor import DataParallelAdapter
 from unigeo_tpu_torch.ops.normals import surface_normals_from_points
 from unigeo_tpu_torch.registry import MODELS
 
@@ -90,7 +94,7 @@ def scheduler_config_of(cfg) -> Optional[EulerDiscreteConfig]:
 
 
 @MODELS.register("DepthCrafter")
-class DepthCrafter:
+class DepthCrafter(DataParallelAdapter):
     def __init__(
         self,
         pipeline: Optional[DepthCrafterPipeline] = None,
@@ -108,6 +112,7 @@ class DepthCrafter:
         scheduler_config: Optional[Any] = None,
         solver: str = "euler",
         clips_per_step: int = 1,
+        mesh=None,
         # reference-config keys, accepted and ignored as the JAX adapter does
         model_dir: Optional[str] = None,
         unet_path: Optional[str] = None,
@@ -118,7 +123,9 @@ class DepthCrafter:
         """The JAX adapter's keywords (``unigeo_tpu/models/depthcrafter/model.py``),
         plus the ``device`` of a pipeline built here (in bf16, as the JAX
         adapter builds it).  ``init_*`` size the JAX package's parameter
-        init; the port's random weights do not depend on them."""
+        init; the port's random weights do not depend on them.  ``mesh``: a
+        ``parallel.mesh.make_mesh`` mesh; with dp > 1, ``forward_batch``
+        runs over its dp ranks."""
         if solver not in SOLVERS:
             raise ValueError(f"unknown solver {solver!r}")
         kwargs = {} if pipeline is not None else dict(
@@ -131,14 +138,16 @@ class DepthCrafter:
         self.seed = seed
         # clips per batched denoise on one GPU (the evaluator's batch)
         self.clips_per_step = max(1, clips_per_step)
+        self.mesh = mesh
         self.last_stage_ms: Dict[str, float] = {}
 
     @property
     def eval_batch_size(self) -> int:
-        """Clips the evaluator hands to ``forward_batch`` at once: on one GPU,
-        ``clips_per_step`` (the data-parallel executor over several GPUs is
-        not ported: ROADMAP queue 1 item 11)."""
-        return self.clips_per_step
+        """Clips the evaluator hands to ``forward_batch`` at once: the dp
+        width on a mesh with dp > 1, else ``clips_per_step``.  (Under an eval
+        over several processes each rank scores its own clips on its own
+        device, so this stays per rank.)"""
+        return self.dp_size if self.dp_size > 1 else self.clips_per_step
 
     def forward(self, data: Dict[str, Any], noise=None, aug_noise=None,
                 time_stages: bool = False) -> Dict[str, Any]:
@@ -188,7 +197,8 @@ class DepthCrafter:
         the serial ``forward``, as in the JAX package.  Every clip gets the
         draws the serial path makes (one generator seeded with ``seed``, or
         the explicit noise [T,h,w,4] / aug_noise [T,H,W,3]), broadcast over
-        the batch.
+        the batch.  On a mesh with dp > 1 (every rank calling with the same
+        clips) the clips go through ``ShardedClipExecutor``, one a dp rank.
         """
         images = [np.asarray(d["images"]) for d in datas]
         if len({im.shape for im in images}) > 1:
@@ -205,5 +215,8 @@ class DepthCrafter:
         noise = torch.as_tensor(noise).to(pipe.device).expand(b, *noise.shape)
         if aug_noise is not None:
             aug_noise = torch.as_tensor(aug_noise).to(pipe.device).expand(b, *aug_noise.shape)
+        if self.dp_size > 1:
+            decoded = self._get_executor()(frames, noise=noise, aug_noise=aug_noise)
+            return [self._finalize(decoded[i], d) for i, d in enumerate(datas)]
         out = pipe.run_clips_staged(frames, noise, self.num_inference_steps, aug_noise=aug_noise)
         return [self._finalize((out[i] + 1.0) / 2.0, d) for i, d in enumerate(datas)]

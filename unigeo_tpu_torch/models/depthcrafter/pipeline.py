@@ -290,16 +290,23 @@ class DepthCrafterPipeline:
         aug_noise [T,H,W,3] or None -> decoded [T,H,W,3] f32 in about [-1, 1].
 
         ``stage_ms``: if given a dict, each stage's wall time in ms is written
-        into it (the device is synchronised around every stage)."""
-        nchw = lambda a: a.to(self.device).permute(0, 3, 1, 2)
+        into it (the device is synchronised around every stage).
+
+        The result does not depend on the inputs' strides: frames and aug
+        noise enter the encoder as dense NCHW tensors and the noise is read
+        through a permuted view of a dense NHWC tensor, as in
+        ``run_clips_staged``.  (A dense NHWC clip permuted to NCHW without a
+        copy is channels-last, and cuDNN's convolutions compute such an
+        input in another order.)"""
+        nchw = lambda a: a.to(self.device).permute(0, 3, 1, 2).contiguous()
         with _timed(stage_ms, "encode", self.device):
             cond, context = self._encode_stage(
                 nchw(frames), None if aug_noise is None else nchw(aug_noise)
             )
         with _timed(stage_ms, "denoise", self.device):
-            x = self._denoise_loop(
-                cond[None], context[None], nchw(noise)[None], num_inference_steps
-            )[0]
+            noise = torch.as_tensor(noise).to(self.device).contiguous().permute(0, 3, 1, 2)
+            x = self._denoise_loop(cond[None], context[None], noise[None],
+                                   num_inference_steps)[0]
         with _timed(stage_ms, "decode", self.device):
             out = self._decode_stage(x)
         return out.permute(0, 2, 3, 1)

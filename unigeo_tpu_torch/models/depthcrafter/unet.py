@@ -25,6 +25,7 @@ from unigeo_tpu_torch.models.layers import (
     Conv2d,
     clips_in_batch,
     FeedForward,
+    frame_shard,
     GroupNorm,
     TimestepEmbedding,
     sinusoidal_embedding,
@@ -61,7 +62,10 @@ class TemporalBasicTransformerBlock(nn.Module):
 
     def forward(self, x, context):  # x [B*HW, T, C]
         x = x + self.ff_in(self.norm_in(x))
-        x = x + self.attn1(self.norm1(x))
+        h = self.norm1(x)
+        # frames split over ranks: the local queries meet every frame's keys
+        shard = frame_shard()
+        x = x + self.attn1(h, None if shard is None else shard.gather(h, dim=1))
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
@@ -94,11 +98,17 @@ class TransformerSpatioTemporal(nn.Module):
 
         # temporal pass over [B*HW, T, C]
         ht = h.view(b, num_frames, hw, c).transpose(1, 2).reshape(b * hw, num_frames, c)
-        frames = torch.arange(num_frames, device=x.device)
+        # the clip's frame indices (this rank's block of them when the frames
+        # are split over ranks)
+        shard = frame_shard()
+        first = 0 if shard is None else shard.offset(num_frames)
+        frames = torch.arange(first, first + num_frames, device=x.device)
         frame_emb = self.time_pos_embed(sinusoidal_embedding(frames, c))
         ht = ht + frame_emb[None]
         # first-frame context, shared by every spatial position (unet.py:152-172)
         ctx_first = context.view(b, num_frames, *context.shape[1:])[:, 0]
+        if shard is not None:
+            ctx_first = shard.from_first(ctx_first)
         ctx_t = ctx_first[:, None].expand(b, hw, *ctx_first.shape[1:])
         ctx_t = ctx_t.reshape(b * hw, *ctx_first.shape[1:])
         ht = self.temporal_transformer_blocks[0](ht, ctx_t)

@@ -73,8 +73,40 @@ def group_count(channels: int, num_groups: int = 32) -> int:
 
 
 class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` with the JAX package's group count.  Inside
+    ``frames_sharded`` a 5-D [B, C, T, H, W] input holds this rank's block
+    of the frames, and its group statistics are taken over every rank's
+    frames (``sharded_group_norm``)."""
+
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__(group_count(channels), channels, eps=eps)
+
+    def forward(self, x):
+        shard = _FRAMES.get()
+        if shard is not None and x.dim() == 5:
+            return sharded_group_norm(x, self.num_groups, self.weight, self.bias, self.eps,
+                                      shard)
+        return super().forward(x)
+
+
+def sharded_group_norm(x, groups: int, weight, bias, eps: float, shard):
+    """Group norm of [B, C, T, H, W] whose frame axis is split over
+    ``shard``'s ranks: each rank's per-(clip, group) mean and sum of squared
+    deviations in f32, gathered and merged (Chan's formula over equal
+    counts), then x normalised by the whole clip's statistics."""
+    b = x.shape[0]
+    xs = x.float().reshape(b, groups, -1)
+    n = xs.shape[-1]
+    mean = xs.mean(-1)
+    m2 = (xs - mean[..., None]).square().sum(-1)
+    both = shard.stacked(torch.stack([mean, m2]))  # [ranks, 2, B, G]
+    means, m2s = both[:, 0], both[:, 1]
+    mean = means.mean(0)
+    var = (m2s.sum(0) + n * (means - mean).square().sum(0)) / (n * both.shape[0])
+    y = (xs - mean[..., None]) * torch.rsqrt(var[..., None] + eps)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    y = y.reshape(x.shape) * weight.float().reshape(shape) + bias.float().reshape(shape)
+    return y.to(x.dtype)
 
 
 def attend(q, k, v, num_heads: int, head_dim: int):
@@ -258,6 +290,31 @@ def clips_in_batch(n: int):
         _CLIPS.reset(token)
 
 
+# The frame axis split over ranks (context parallelism, ``parallel/context.py``):
+# a ``parallel.comm.FrameShard`` (None: every frame here).  Inside the block
+# each clip's tensors hold this rank's consecutive block of its frames, and
+# the layers that see other frames reach them through the shard: the
+# temporal convolutions a one-frame halo from each neighbour, the temporal
+# group norms statistics over every rank's frames, the temporal attention
+# (and the Aether DiT's attention) every rank's keys and values.
+_FRAMES = contextvars.ContextVar("unigeo_frames_sharded", default=None)
+
+
+@contextlib.contextmanager
+def frames_sharded(shard):
+    """Inside the block the frame axis is split over ``shard``'s ranks."""
+    token = _FRAMES.set(shard)
+    try:
+        yield
+    finally:
+        _FRAMES.reset(token)
+
+
+def frame_shard():
+    """The ``FrameShard`` of the enclosing ``frames_sharded``, or None."""
+    return _FRAMES.get()
+
+
 def clipwise(fn, x):
     """``fn(x)``, one call per clip of the current batch (``clips_in_batch``;
     x's leading dimension split into that many equal parts), concatenated."""
@@ -303,10 +360,16 @@ class Conv2d(nn.Conv2d):
 
 class TemporalConv(nn.Conv3d):
     """Conv over the frame axis only: kernel (k, 1, 1) on [B, C, T, H, W]
-    (one clip at a time inside ``clips_in_batch``)."""
+    (one clip at a time inside ``clips_in_batch``).  Inside
+    ``frames_sharded`` the zero padding becomes the neighbours' k // 2
+    frames (zeros at the clip's ends) and the conv runs unpadded."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3):
         super().__init__(cin, cout, (kernel, 1, 1), padding=(kernel // 2, 0, 0))
 
     def forward(self, x):
-        return clipwise(super().forward, x)
+        shard = _FRAMES.get()
+        if shard is None:
+            return clipwise(super().forward, x)
+        x = shard.halo(x, dim=2, width=self.kernel_size[0] // 2)
+        return clipwise(lambda xi: F.conv3d(xi, self.weight, self.bias), x)

@@ -91,10 +91,12 @@ def fetch_outputs(outs: Dict[str, torch.Tensor], transfer_dtype=None) -> Dict[st
 
 
 class BatchedPointmapForward:
-    """``forward_batch`` of the pointmap adapters.  On one GPU the evaluator
-    hands over one clip at a time (the data-parallel executor over several
-    GPUs is ROADMAP queue 1 item 11), and a list of clips is scored one by
-    one."""
+    """``forward_batch`` of the pointmap adapters: a list of clips scored one
+    by one, and the evaluator hands over one clip at a time.  Their data
+    parallelism is the eval over several processes
+    (``parallel/multihost.py``): each rank scores its round-robin share of
+    the clips on its own device, so there is no second dp path here (the
+    JAX package's vmapped batch over the mesh, ``adapter.py:66-90``)."""
 
     @property
     def eval_batch_size(self) -> int:

@@ -11,8 +11,11 @@ draw, broadcast over the frames.  The decoded map is the normal as
 (the model predicts normals only).
 
 ``forward_batch`` concatenates the clips' frames (only H and W must agree).
-On one GPU ``eval_batch_size`` is 1; the data-parallel executor over several
-GPUs (``_run_frames_dp``) is ROADMAP queue 1 item 11.
+On one GPU ``eval_batch_size`` is 1.  Given a ``mesh`` whose dp dim is above
+1, ``_run_frames_dp`` runs the N frames as N clips of T = 1 through
+``parallel/executor.py``'s ``ShardedClipExecutor`` (an SPMD entry point:
+every rank calls it with the same frames), and ``eval_batch_size`` is the dp
+width.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from unigeo_tpu_torch.models.depthcrafter.pipeline import (
     DepthCrafterPipeline,
     adapter_pipeline,
 )
+from unigeo_tpu_torch.parallel.executor import DataParallelAdapter
 from unigeo_tpu_torch.registry import MODELS
 
 
@@ -37,7 +41,7 @@ def normals_from_decoded(decoded: torch.Tensor) -> torch.Tensor:
 
 
 @MODELS.register("StableNormal")
-class StableNormal:
+class StableNormal(DataParallelAdapter):
     def __init__(
         self,
         unet_config: Optional[Dict[str, Any]] = None,
@@ -51,18 +55,21 @@ class StableNormal:
         model_dir: Optional[str] = None,
         pipeline: Optional[DepthCrafterPipeline] = None,
         device="cuda",
+        mesh=None,
         **_: Dict,
     ):
-        """The JAX adapter's keywords and the ``device`` of a pipeline built
-        here (bf16, random weights from ``seed``)."""
+        """The JAX adapter's keywords, the ``device`` of a pipeline built
+        here (bf16, random weights from ``seed``) and a ``mesh``
+        (``parallel.mesh.make_mesh``) whose dp ranks share the frames."""
         self.pipeline = adapter_pipeline(pipeline, checkpoint_path, unet_config, vae_config,
                                          clip_config, seed=seed, device=device)
         self.num_inference_steps = num_inference_steps
         self.seed = seed
+        self.mesh = mesh
 
     @property
     def eval_batch_size(self) -> int:
-        return 1
+        return self.dp_size
 
     def frame_noise(self, h: int, w: int):
         """(noise [1,h/8,w/8,4], aug [1,H,W,3] or None): the one draw every
@@ -73,7 +80,25 @@ class StableNormal:
     def _run_frames(self, frames: torch.Tensor, noise=None, aug_noise=None) -> torch.Tensor:
         """frames [N,H,W,3] 0..1 -> decoded [N,H,W,3] 0..1, N independent frames.
         noise [1,h,w,4] / aug_noise [1,H,W,3]: the shared draw (drawn here
-        when ``noise`` is None)."""
+        when ``noise`` is None).  Over the mesh's dp ranks when dp > 1."""
+        if self.dp_size > 1:
+            return self._run_frames_dp(frames, noise, aug_noise)
+        return self._run_frames_single(frames, noise, aug_noise)
+
+    def _run_frames_dp(self, frames: torch.Tensor, noise=None, aug_noise=None) -> torch.Tensor:
+        """The N frames as N clips of T = 1 through ``ShardedClipExecutor``,
+        each with the shared draw (JAX ``stablenormal.py:107-124``)."""
+        n, h, w, _ = frames.shape
+        if noise is None:
+            noise, aug_noise = self.frame_noise(h, w)
+        dev = self.pipeline.device
+        noise = torch.as_tensor(noise).to(dev)[None].expand(n, -1, -1, -1, -1)
+        if aug_noise is not None:
+            aug_noise = torch.as_tensor(aug_noise).to(dev)[None].expand(n, -1, -1, -1, -1)
+        decoded = self._get_executor()(frames[:, None], noise=noise, aug_noise=aug_noise)
+        return decoded[:, 0]
+
+    def _run_frames_single(self, frames: torch.Tensor, noise=None, aug_noise=None):
         pipe = self.pipeline
         n, h, w, _ = frames.shape
         if noise is None:

@@ -27,6 +27,15 @@ of everything the UNet computes:
   against one clip's own call (the serial forward's op);
 * ``outputs``: A's decoded clip in both orders, against each other and
   against ``run_window_staged`` on A alone;
+* ``serial``: clip A in ``run_clips_staged([A, B])`` against
+  ``run_window_staged(A)``: the encode stage's outputs, A's latents after
+  every Euler step and the decoded clip, bitwise; and, where they first
+  differ, the first module of the encoder or the UNet whose inputs agree
+  and whose output does not (the serial run's whole tensors against A's
+  half of the batched run's).  ``serial_channels_last`` does the same with
+  the serial clip handed to the stages as a channels-last view of the tool's
+  dense NHWC clip (no copy), as ``run_window_staged`` handed such a clip to
+  its encoder before it copied its inputs to dense NCHW;
 * ``unet_ms`` (on the card): one UNet evaluation over the two clips with
   its convolutions per clip (``layers.clipwise``, the default) and over the
   whole batch, in turns, by CUDA events.
@@ -91,14 +100,14 @@ class Recorder:
     """Forward pre-hooks and hooks on every submodule of ``root``: one
     entry (call, name, "in" / "out", shapes, prints) per firing."""
 
-    def __init__(self, root: torch.nn.Module):
+    def __init__(self, root: torch.nn.Module, root_name: str = "unet"):
         self.entries: List[Dict[str, Any]] = []
         self.prints: List[torch.Tensor] = []
         self.call = -1
         self.handles = []
         self.types = {}
         for name, mod in root.named_modules():
-            name = name or "unet"
+            name = f"{root_name}.{name}" if name else root_name
             self.types[name] = type(mod).__name__
             self.handles.append(mod.register_forward_pre_hook(self._pre(name, mod is root)))
             self.handles.append(mod.register_forward_hook(self._post(name)))
@@ -233,6 +242,135 @@ def bisect(pipe, clips, noise, steps, dev):
                      a_max_abs_vs_serial=diff(a_ab, serial),
                      b_bitwise_across_orders=bool(torch.equal(out_ab[1], out_ba[0])),
                      output_scale=float(a_ab.abs().max())),
+    )
+
+
+def agree_serial(p_serial: np.ndarray, p_batched: np.ndarray) -> bool:
+    """Each tensor of one entry: the serial run's whole bits equal the
+    batched run's whole bits (a tensor that does not carry the batch) or
+    A's half of them (the first half of [A, B])."""
+    for t_s, t_b in zip(p_serial, p_batched):
+        if np.array_equal(t_s[0], t_b[0]):
+            continue
+        if not (t_b[1].any() or t_b[2].any()) or not np.array_equal(t_s[0], t_b[1]):
+            return False
+    return True
+
+
+def first_module(ent_s, pr_s, ent_b, pr_b, same):
+    """The first output entry whose module's inputs agree and whose output
+    does not, and the count of differing outputs, over two recordings whose
+    entries pair up in order (``same(p_first, p_second)`` compares one)."""
+    if [(e["name"], e["kind"]) for e in ent_s] != [(e["name"], e["kind"]) for e in ent_b]:
+        raise AssertionError("the two runs fired different hooks")
+    first, n_diff, last_in = None, 0, {}
+    for e, a, b in zip(ent_s, pr_s, pr_b):
+        ok = same(a, b)
+        if e["kind"] == "in":
+            last_in[e["name"]] = ok
+            continue
+        if ok:
+            continue
+        n_diff += 1
+        if first is None and last_in.get(e["name"]):
+            first = dict(e, inputs_agree=True)
+    return first, n_diff
+
+
+class StageTap:
+    """Records what the pipeline's stages hand on: each encode stage's
+    (cond, context), the latents after each Euler step and each decoded
+    clip, as fingerprints; and every module of the VAE encoder and the UNet
+    (``Recorder``)."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.encoded, self.steps, self.decoded = [], [], []
+        enc, euler, dec = pipe._encode_stage, pipe.scheduler.euler_step, pipe._decode_stage
+
+        def encode(*a, **k):
+            out = enc(*a, **k)
+            self.encoded.append(torch.stack([tensor_prints(t) for t in out]).cpu().numpy())
+            return out
+
+        def step(*a, **k):
+            out = euler(*a, **k)
+            self.steps.append(tensor_prints(out).cpu().numpy())
+            return out
+
+        def decode(*a, **k):
+            out = dec(*a, **k)
+            self.decoded.append(tensor_prints(out).cpu().numpy())
+            return out
+
+        pipe._encode_stage, pipe.scheduler.euler_step, pipe._decode_stage = encode, step, decode
+        self.encoder = Recorder(pipe.vae.encoder, "vae.encoder")
+        self.unet = Recorder(pipe.unet)
+
+    def close(self):
+        for obj, name in ((self.pipe, "_encode_stage"), (self.pipe.scheduler, "euler_step"),
+                          (self.pipe, "_decode_stage")):
+            del obj.__dict__[name]  # the class's method again
+        self.encoder.close()
+        self.unet.close()
+
+
+def serial_window(pipe, frames, noise, steps, channels_last):
+    """``run_window_staged(frames, noise, steps)``; with ``channels_last``
+    the frames enter the encoder as the permuted view of the dense NHWC clip
+    (what ``run_window_staged`` did before it copied its inputs)."""
+    if not channels_last:
+        return pipe.run_window_staged(frames, noise, steps)
+    cond, context = pipe._encode_stage(frames.to(pipe.device).permute(0, 3, 1, 2))
+    x = pipe._denoise_loop(cond[None], context[None],
+                           noise.contiguous().permute(0, 3, 1, 2)[None], steps)[0]
+    return pipe._decode_stage(x).permute(0, 2, 3, 1)
+
+
+def serial_bisect(pipe, clips, noise, steps, dev, channels_last=False):
+    """Clip A of ``run_clips_staged([A, B])`` against ``run_window_staged(A)``:
+    which stage first differs (the encode stage's outputs, the latents after
+    each Euler step, the decoded clip) and the first module whose inputs
+    agree and whose output does not."""
+    tap = StageTap(pipe)
+    try:
+        serial = serial_window(pipe, clips[0], noise, steps, channels_last)
+        sync(dev)
+        n_enc, n_unet = len(tap.encoder.entries), len(tap.unet.entries)
+        batched = pipe.run_clips_staged(torch.stack(clips), noise.expand(2, *noise.shape), steps)
+        sync(dev)
+    finally:
+        tap.close()
+    enc_s, enc_b = tap.encoded[0], tap.encoded[1]  # A encodes first in the batched run
+    steps_s, steps_b = tap.steps[:steps], tap.steps[steps:]
+    encode_agrees = agree_serial(enc_s, enc_b)
+    steps_agree = [agree_serial(a[None], b[None]) for a, b in zip(steps_s, steps_b)]
+    prints_e = tap.encoder.host_prints()
+    # the batched run encodes A, then B: A's encoder entries come first
+    first_enc, n_enc_diff = first_module(
+        tap.encoder.entries[:n_enc], prints_e[:n_enc],
+        tap.encoder.entries[n_enc:2 * n_enc], prints_e[n_enc:2 * n_enc],
+        lambda a, b: agree_serial(a, b))
+    prints_u = tap.unet.host_prints()
+    first_unet, n_unet_diff = first_module(
+        tap.unet.entries[:n_unet], prints_u[:n_unet],
+        tap.unet.entries[n_unet:], prints_u[n_unet:], agree_serial)
+    a_b = batched[0]
+    return dict(
+        serial_frames_layout="channels-last view of the dense NHWC clip" if channels_last
+        else "dense NCHW (run_window_staged's copy)",
+        encode_agrees=encode_agrees,
+        steps_agree=steps_agree,
+        first_step_differing=next((i for i, ok in enumerate(steps_agree) if not ok), None),
+        encoder_outputs_recorded=sum(e["kind"] == "out" for e in tap.encoder.entries[:n_enc]),
+        encoder_outputs_differing=n_enc_diff,
+        first_encoder_op=first_enc,
+        unet_outputs_recorded=sum(e["kind"] == "out" for e in tap.unet.entries[:n_unet]),
+        unet_outputs_differing=n_unet_diff,
+        first_unet_op=first_unet,
+        decoded_bitwise=bool(torch.equal(a_b, serial)),
+        decoded_max_abs=float((a_b.float() - serial.float()).abs().max()),
+        output_scale=float(a_b.abs().max()),
     )
 
 
@@ -372,6 +510,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--tiny", action="store_true", help="the tiny f32 pipeline at 4 x 64 x 64")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--serial-only", action="store_true",
+                    help="only the batched clip against run_window_staged (serial, "
+                         "serial_channels_last)")
     args = ap.parse_args(argv)
 
     from unigeo_tpu_torch.device import resolve_device
@@ -405,6 +546,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         return text
 
     with deterministic_cudnn(), torch.inference_mode():
+        result["serial"] = serial_bisect(pipe, clips, noise, args.steps, dev)
+        result["serial_channels_last"] = serial_bisect(pipe, clips, noise, args.steps, dev,
+                                                       channels_last=True)
+        write()
+        if args.serial_only:
+            print(write(), flush=True)
+            return 0
         result["bisect"] = bisect(pipe, clips, noise, args.steps, dev)
         write()  # kept if what follows fails
         with batched_convs():
