@@ -104,9 +104,8 @@ Phases, each printed on its own flushed line with the seconds since start:
              unigeo_tpu_torch/tools/disk_fixture.py (480 x 640 when PIL is
              there, else 384 x 512): --validate-root passes every check; a
              run with --num-workers 2 writes 3 rows and the Average, finite;
-             its resume runs nothing; --num-workers 0 writes the same bytes;
-             clips_per_step 2 (clips 0 and 1 in one batched denoise) against
-             the serial run; one 45-frame clip in two windows of 25 (overlap 5) held
+             clips_per_step 2 (clips 0 and 1 in one batched denoise)
+             against that run; one 45-frame clip in two windows of 25 (overlap 5) held
              exactly against the two windows run alone and their blend
              (under cuDNN's deterministic algorithms); the reader that
              decoded, per-clip seconds and frames/s, peak memory, and the
@@ -115,8 +114,8 @@ Phases, each printed on its own flushed line with the seconds since start:
              the known-frame denoise (its clamped frames exact on the card),
              StableNormal and ChronoDepth; then the eval CLI over the
              7-Scenes fixture (384 x 512, one clip of 25 frames) with Heun
-             (DepthCrafter, solver heun), StableNormal, ChronoDepth,
-             DepthAnyVideo and UniGeo (no branch), each on a copy of its
+             (DepthCrafter, solver heun), StableNormal, ChronoDepth and
+             DepthAnyVideo, each on a copy of its
              configs/ file's model_params at SVD-XT width, all sharing one
              bf16 pipeline made on the card: per-clip seconds, peak memory,
              stage ms, and the packed kernel's launches held to the count
@@ -125,7 +124,7 @@ Phases, each printed on its own flushed line with the seconds since start:
              CPU, the camera recovery card against CPU and with TF32 on in
              the process (the same result: it turns TF32 off inside); then
              the CLI on a copy of configs/spann3r_7scenes.yaml (one clip of
-             20, the default Spann3R in f32, and warm in f32 and bf16) and
+             20, the default Spann3R in f32) and
              UniGeoCam with its
              geometry branch at full width on all four metric families
              (one clip of 25), the same numbers as svd_family
@@ -161,9 +160,7 @@ Phases, each printed on its own flushed line with the seconds since start:
              dq / dk-dv launches of every step held to the count the
              configuration predicts; Aether saves its full-width
              checkpoint, which Aether(checkpoint_path=...) loads with every
-             output of a clip bitwise equal to the trained module's; then
-             one step of ChronoDepth's branch (direct-depth targets) at
-             SVD-XT width in bf16 on a 25-frame clip
+             output of a clip bitwise equal to the trained module's
   train      the port's trainer (unigeo_tpu_torch.train.main) at SVD-XT
              width on synthetic 384 x 512 clips, bf16: one warm-up step and
              two measured steps, no checkpoint saved; losses, step
@@ -206,8 +203,19 @@ Phases, each printed on its own flushed line with the seconds since start:
              queries over 3072 keys) against its serial sample; pp over 3
              ranks (PipelinedStageExecutor) on the two clips against their
              serial forwards; the eval CLI over 2 ranks on the identity
-             config, its merged metrics.csv against one process's.  Each
-             line names the backend, the seconds and each rank's flash
+             config, its merged metrics.csv against one process's; tp:
+             ShardedClipExecutor on a (1, 1, 2) mesh (UNet, VAE and CLIP
+             placed by parallelize) on a 2-frame clip, 2 steps, its scores within
+             EVAL_METRIC_TOL_REL of its serial forward's; training, in the
+             2-rank launch: one DiffusionTrainer step at SVD-XT width in
+             bf16 on 8-frame clips over dp (2 clips), sp (4 frames a rank)
+             and tp 2, and one FlowMatchingTrainer step of Aether's DiT in
+             f32 on two 16-frame clips over dp and tp 2, each held to the
+             one-process step on the same batch and draws (this process's,
+             run first): the loss and the all-reduced gradients' relative
+             L2 on named leaves within PAR_TRAIN_TOL, with the step's
+             seconds, peak memory and fwd_lse / dq / dk,dv launches a rank.
+             Each line names the backend, the seconds and each rank's flash
              launches, held to the count the split predicts
 
 The 7-Scenes fixture is written once a run and read by every phase that
@@ -1649,23 +1657,12 @@ def phase_disk_eval(dev):
         for i in range(DISK_CLIPS):
             check_prediction(f"disk clip {i}", outputs["prefetch"][i], DISK_CLIP, DISK_H, DISK_W)
 
-        # resumed: every clip skipped, nothing launched, the CSV unchanged
-        resumed = cli_run("resumed", serial_cfg, 2, out_dir=os.path.join(work, "prefetch"))
-        with open(prefetch["csv"], "rb") as f:
-            unchanged = f.read() == csv_bytes
-        log("disk_eval", f"resumed: {len(resumed['clips'])} clips run, CSV unchanged {unchanged}")
-        if resumed["clips"] or outputs["resumed"] or not unchanged:
-            raise AssertionError("the resumed run ran a clip or changed the CSV")
-        expect_launches("resumed", resumed, 0)
-
-        # no prefetch: the same bytes
-        serial = cli_run("serial", serial_cfg, 0)
-        expect_launches("serial", serial, DISK_CLIPS * per_clip)
-        with open(serial["csv"], "rb") as f:
-            same = f.read() == csv_bytes
-        log("disk_eval", f"--num-workers 0 CSV byte-identical to --num-workers 2: {same}")
-        if not same:
-            raise AssertionError("the serial run's CSV differs from the prefetch run's")
+        # (the CLI's resumed run over this output and the run with
+        # --num-workers 0, its CSV byte-identical to this one's, were cut to
+        # make room for the parallel phase's training lines: the eval phase
+        # resumes run_evaluation on the card, tests/test_torch_parallel_
+        # ranks.py the CLI on the CPU, and tests/test_torch_preflight_
+        # prefetch.py holds prefetch to the serial loader)
 
         # clips_per_step 2: clips 0 and 1 in one batched denoise, clip 2 alone
         batched = cli_run("batched", config_file("batched", clips_per_step=2), 0)
@@ -1674,10 +1671,10 @@ def phase_disk_eval(dev):
         disparity = lambda run, i: 1.0 / outputs[run][i]["pred_depths"].astype(np.float64) - 0.1
         x_dev, nearest = {}, {}
         for i in range(DISK_CLIPS):
-            d = np.abs(disparity("batched", i) - disparity("serial", i))
+            d = np.abs(disparity("batched", i) - disparity("prefetch", i))
             x_dev[i] = {"mean": float(d.mean()), "max": float(d.max())}
             nearest[i] = min(range(DISK_CLIPS), key=lambda j: np.abs(
-                disparity("batched", i) - disparity("serial", j)).mean())
+                disparity("batched", i) - disparity("prefetch", j)).mean())
         metric_rel = {
             name: max(abs(float(brows[name][k]) - float(r[k])) / abs(float(r[k]))
                       for k in EVAL_KEYS)
@@ -1694,15 +1691,11 @@ def phase_disk_eval(dev):
                                  f"{metric_rel}")
         summary.update(
             clip_seconds={k: [c["seconds"] for c in run["clips"]]
-                          for k, run in (("prefetch", prefetch), ("serial", serial),
-                                         ("batched", batched))},
+                          for k, run in (("prefetch", prefetch), ("batched", batched))},
             clip_fps={k: [c["fps"] for c in run["clips"]]
-                      for k, run in (("prefetch", prefetch), ("serial", serial),
-                                     ("batched", batched))},
-            peak_gib={"prefetch": prefetch["peak_gib"], "serial": serial["peak_gib"],
-                      "batched": batched["peak_gib"]},
-            run_seconds={"prefetch": prefetch["seconds"], "serial": serial["seconds"],
-                         "batched": batched["seconds"]},
+                      for k, run in (("prefetch", prefetch), ("batched", batched))},
+            peak_gib={"prefetch": prefetch["peak_gib"], "batched": batched["peak_gib"]},
+            run_seconds={"prefetch": prefetch["seconds"], "batched": batched["seconds"]},
             batched_x_dev=x_dev, batched_metric_rel=metric_rel)
         del outputs
         gc.collect()
@@ -2342,13 +2335,6 @@ def phase_svd_family(dev):
         cd = read_config("chronodepth_scannetpp.yaml")
         dav = read_config("depthanyvideo_scannetpp.yaml")
         sn = read_config("stablenormal_scannetpp.yaml")
-        ug = read_config("unigeo_synthetic.yaml")["model_params"]
-        # the unigeo config's keys at full width: its tiny widths, sizes and
-        # 2 steps dropped, no branch (the pointmap phase runs it)
-        ug_full = {k: v for k, v in ug.items()
-                   if not k.endswith("_config") and not k.startswith("init_")
-                   and k != "num_inference_steps"}
-        ug_full["geometry_branch"] = False
         sections = lambda c: {s: c[s] for s in SECTIONS if s in c}
         runs = [
             ("heun", "DepthCrafter", {**dc["model_params"], "solver": "heun"}, sections(dc),
@@ -2364,8 +2350,9 @@ def phase_svd_family(dev):
              lambda name: {"_pipeline": pipe},
              sibling_launches("depthanyvideo", SIB_CLIP,
                               keyframe_gap=dav["model_params"]["keyframe_gap"])),
-            ("unigeo", "UniGeo", ug_full, sections(dc), lambda name: {"pipeline": pipe},
-             sibling_launches("unigeo", SIB_CLIP)),
+            # (UniGeo without its branch, DepthCrafter's path under another
+            # adapter, was cut to make room for the parallel phase's
+            # training lines; the pointmap phase runs UniGeoCam with it)
         ]
         for label, name, params, secs, extra, predicted in runs:
             if predicted != SIBLING_TABLE[label]:
@@ -2494,7 +2481,8 @@ def phase_pointmap(dev):
                 or len(net.encoder.blocks.layers) != PM_ENC_DEPTH):
             raise AssertionError("Spann3R is not the default network in f32")
         del net, run
-        summary["spann3r_dtypes"] = spann3r_f32_vs_bf16(dev, root, cache, sp)
+        # (Spann3R in f32 against bf16 on one warm clip was cut to make room
+        # for the parallel phase's training lines)
         # UniGeoCam with the branch: the unigeo config's keys at full width
         ug = read_config("unigeo_synthetic.yaml")
         params = {k: v for k, v in ug["model_params"].items()
@@ -2522,48 +2510,6 @@ def phase_pointmap(dev):
         shutil.rmtree(work, ignore_errors=True)
     log("pointmap", json.dumps(summary))
     return summary
-
-
-def spann3r_f32_vs_bf16(dev, root, cache, sp):
-    """One 20-frame fixture clip through the config's Spann3R in f32 and in
-    bf16 (``compute_dtype``, the same weights): warm seconds, launches of
-    each body, the bf16 world points' deviation from the f32 ones.  (Its f32
-    clip under torch.profiler took 28-37 s of trace processing for its
-    host-paced per-frame loop; cut to keep the run inside its time, the f32
-    body's launches are held by name in Dust3R's, VDA's and Aether's
-    profiled clips and in tests/test_torch_cuda.py.)"""
-    from unigeo_tpu_torch.models.pointmap.spann3r import Spann3R
-    from unigeo_tpu_torch.registry import get_dataset_cls
-
-    ds = get_dataset_cls("sevenScenesDataset")(
-        root=root, clip_length=PM_CLIP, clip_overlap=PM_OVERLAP, input_size=(DISK_H, DISK_W),
-        target_size=(DISK_H, DISK_W), cache_dir=cache)
-    data = ds[0]
-    f32 = Spann3R(**sp["model_params"], device=dev)
-    bf16 = Spann3R(**sp["model_params"], compute_dtype="bfloat16", device=dev)
-    bf16.load_state_dict(f32.network.state_dict())
-    out, res = {}, {}
-    for label, model in (("f32", f32), ("bf16", bf16)):
-        model.forward_tensors(data)  # first call at the shapes
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        out[label] = model.forward_tensors(data)
-        torch.cuda.synchronize()
-        res[label] = {"seconds": time.perf_counter() - t0,
-                      "launches": read_counts()["flash_attention_packed"]}
-    pts32, pts16 = out["f32"]["pred_world_pts"], out["bf16"]["pred_world_pts"]
-    res["bf16_world_pts_rel_dev"] = ((pts16 - pts32).abs().max() / pts32.abs().max()).item()
-    res["bf16_world_pts_mean_rel_dev"] = ((pts16 - pts32).abs().mean()
-                                          / pts32.abs().mean()).item()
-    log("pointmap", f"Spann3R (spann3r_7scenes.yaml's network) one {PM_CLIP}-frame clip, warm: "
-        f"{json.dumps(res)}")
-    if not (res["f32"]["launches"] == res["bf16"]["launches"] == sibling_launches(
-            "spann3r", PM_CLIP) and np.isfinite(res["bf16_world_pts_rel_dev"])):
-        raise AssertionError(f"Spann3R f32 / bf16: {res}")
-    del f32, bf16, out
-    torch.cuda.empty_cache()
-    return res
 
 
 # the packed kernel's launches per clip on the Dust3R, Cut3R and
@@ -2956,17 +2902,10 @@ def phase_train_models(dev):
                     dev, out, mp, fixture_clip(root, cache, frames, 0)))
             summary[label] = row
             del out
-        # the SVD branch's direct-depth trainer at SVD-XT width, bf16
-        mp = read_config("chronodepth_scannetpp.yaml")["model_params"]
-        cfg = fixture_config(root, cache, "ChronoDepth", mp, {}, SIB_CLIP, 0)
-        unet = unet_kernel_attentions(SVD_XT_UNET, DISK_H, DISK_W)
-        per_step = {k: unet for k in kernels}
-        per_step["flash_attention_packed"] = (clip_kernel_attentions(SVD_XT_CLIP)
-                                              + 2 * vae_mid_attentions(DISK_H, DISK_W))
-        out, row = train_family(dev, "chronodepth", "ChronoDepth", cfg, 1,
-                                ["--ckpt-every", "0"], per_step)
-        summary["chronodepth"] = row
-        del out
+        # (one ChronoDepth step at SVD-XT width, the direct-depth target,
+        # was cut to make room for the parallel phase's training lines; the
+        # train phase runs the SVD-XT trainer, tests/test_torch_train_e2e.py
+        # ChronoDepth's on the CPU)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3004,6 +2943,9 @@ F32_POINTMAP_SHAPES = [("pointmap_encoder", 25, 768, 768, 12, 64),
                        # context_parallel): each rank's 1536 queries against
                        # the 3072 gathered keys
                        ("aether_dit_sp2", 1, 1536, 3072, 12, 64),
+                       # the same over 2 ranks of its heads (the flow
+                       # trainer on a tp 2 mesh): 6 of the 12 heads a rank
+                       ("aether_dit_tp2", 1, 3072, 3072, 6, 64),
                        # the DepthCrafter trainer's f32 target encode: the
                        # VAE mid block's one head over 25 frames' 48 x 64
                        # latents (the wide register-tiled body)
@@ -3074,8 +3016,10 @@ def phase_kernel_f32_pointmap(dev):
 # paths of the f32 families at 384 x 512: Aether's DiT, Spann3R's encoder
 # and decoder, Dust3R's encoder and decoder (its training clip of
 # DUST3R_TRAIN_CLIP frames), VideoDepthAnything's encoder and Cut3R's
-# frame-to-state cross-attention (64 keys: one ragged key tile)
+# frame-to-state cross-attention (64 keys: one ragged key tile); Aether's
+# DiT on a tp 2 mesh (6 of its 12 heads a rank)
 F32_BWD_SHAPES = [("aether_dit", 1, 3072, 3072, 12, 64),
+                  ("aether_dit_tp2", 1, 3072, 3072, 6, 64),
                   ("spann3r_encoder", 20, 768, 768, 12, 64),
                   ("dust3r_encoder", DUST3R_TRAIN_CLIP, 768, 768, 16, 64),
                   ("dust3r_decoder", DUST3R_TRAIN_CLIP - 1, 768, 768, 12, 64),
@@ -3628,6 +3572,170 @@ PAR_RANKS_MODULE = "chip_smoke"  # the module whose rank functions the launches 
 # off, relative to the serial output's largest magnitude: the keys and values
 # are the serial run's, the products run at half the rows
 PAR_FLOW_TOL = 1e-4
+# The training lines: DepthCrafter's DiffusionTrainer at SVD-XT width in
+# bf16 on the first PAR_TRAIN_T frames of two clips (two ranks sharing the
+# 80 GB card cannot each hold a 25-frame step's 47 GiB), on dp (one clip a
+# rank), sp (one clip, PAR_TRAIN_T / 2 frames a rank) and tp (one clip, half
+# the sharded weights a rank); Aether's FlowMatchingTrainer in f32 (TF32 off)
+# on two 16-frame clips' latents on dp and tp.  Each mesh step starts from
+# the weights, batch and draws of the one-process step this process runs
+# first, and is held to it: the loss relative, and each named leaf's
+# all-reduced gradient by its relative L2.  bf16: each version rounds its
+# activations and gradients in other places (per-clip convolutions, the
+# row-parallel partial products rounded before their f32 sum, the frames'
+# statistics merged), a few of bf16's 2^-8 a layer; f32: the sums' order.
+PAR_TRAIN_T = 8
+# the tp executor's clip and Euler steps: every row-parallel layer's partial
+# output crosses the host under gloo, the VAE's at full resolution (41.4 s a
+# rank for 8 frames and 5 steps on the H100, two ranks sharing it)
+PAR_TP_T, PAR_TP_STEPS = 2, 2
+PAR_TRAIN_MESHES = {"dp": (2, 1, 1), "sp": (1, 2, 1), "tp": (1, 1, 2)}
+PAR_TRAIN_LEAVES = (
+    "conv_in.weight",
+    "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight",
+    "down_blocks.0.attentions.0.transformer_blocks.0.ff.net.0.proj.weight",
+    "down_blocks.1.resnets.0.spatial_res_block.conv1.weight",
+    "down_blocks.1.resnets.0.spatial_res_block.conv2.weight",
+    "down_blocks.1.resnets.0.temporal_res_block.conv1.weight",
+    "conv_out.weight")
+AETHER_TRAIN_LEAVES = ("patchify.weight", "stack.blocks.0.attn.to_q.weight",
+                       "stack.blocks.0.attn.to_out.0.weight", "stack.blocks.0.mlp.fc1.weight",
+                       "stack.blocks.0.mlp.fc2.weight", "final_proj.weight")
+# (loss relative, gradient relative L2) a mesh step may differ by
+PAR_TRAIN_TOL = {"bf16": (1e-2, 5e-2), "f32": (1e-5, 1e-4)}
+
+
+def par_tp_clip():
+    """The tp executor's clip, the PAR_TP_T-frame tilted plane, and its GT
+    label."""
+    from unigeo_tpu_torch.data.sample import prepare_gt_label
+
+    clip = tilted_plane_clip(PAR_TP_T, PAR_H, PAR_W)
+    return clip, prepare_gt_label(clip)
+
+
+def par_unet(dev):
+    """The training lines' SVD-XT UNet in bf16, weights from seed 0 drawn on
+    the card (the same in every process), taking gradients."""
+    from unigeo_tpu_torch.models.depthcrafter.pipeline import init_random_
+    from unigeo_tpu_torch.models.depthcrafter.unet import UNetSpatioTemporal
+
+    with torch.device("meta"):
+        unet = UNetSpatioTemporal(**SVD_XT_UNET)
+    unet = unet.to(dtype=torch.bfloat16).to_empty(device=dev)
+    init_random_(unet, torch.Generator(device=dev).manual_seed(0))
+    return unet.train().requires_grad_(True)
+
+
+def par_train_batch(pipe):
+    """The DiffusionTrainer batch of two PAR_TRAIN_T-frame tilted-plane
+    clips (rolled by 0 and 37 columns) at PAR_H x PAR_W, as numpy."""
+    from unigeo_tpu_torch.train import build_batch_diffusion
+
+    base = tilted_plane_clip(PAR_TRAIN_T, PAR_H, PAR_W)
+    clips = [dict(base, images=np.roll(base["images"], shift, axis=3)) for shift in (0, 37)]
+    with torch.inference_mode():
+        batch = build_batch_diffusion(clips, pipe)
+    return {k: v.cpu().numpy() for k, v in batch.items()}
+
+
+def aether_train_batch(net, cond):
+    """The FlowMatchingTrainer batch: the 16-frame clip's RGB latents twice
+    with two target draws (seeded), [2, T', h, w, C], as numpy."""
+    gen = torch.Generator(device=cond.device).manual_seed(PAR_SEED + 1)
+    c = cond.permute(0, 2, 3, 1)
+    target = torch.randn((2, *c.shape[:3], net.target_channels), generator=gen,
+                         device=cond.device)
+    return {"cond_latents": torch.stack([c, c]).cpu().numpy(),
+            "target_latents": target.cpu().numpy()}
+
+
+def par_train_step(cls, module, batch, leaves, shape=None):
+    """One train_step of ``cls`` over ``module`` on ``batch`` (numpy, the
+    whole batch), on a mesh of ``shape`` over this world's 2 ranks or on
+    this process alone: the loss, the named leaves' gradients (gathered
+    over tp; on the first rank), the seconds and launches of the step, the
+    peak memory.  The module keeps its updated weights; its gradients and
+    the optimizer are dropped."""
+    from unigeo_tpu_torch.parallel.mesh import make_mesh
+    from unigeo_tpu_torch.parallel.multihost import is_primary
+    from unigeo_tpu_torch.parallel.sharding import gather_params
+
+    trainer = cls(module, mesh=None if shape is None else make_mesh(2, shape))
+    local = trainer.local_batch({k: torch.from_numpy(v) for k, v in batch.items()})
+    dev = trainer.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = float(trainer.train_step(local))
+    torch.cuda.synchronize()
+    seconds, launches = time.perf_counter() - t0, read_counts()
+    named = dict(module.named_parameters())
+    grads = gather_params(module, values={k: named[k].grad for k in leaves})
+    out = dict(loss=loss, seconds=seconds, launches=launches,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               grads={k: g.float().cpu() for k, g in grads.items()} if is_primary() else None)
+    module.zero_grad(set_to_none=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_train_reference(dev, batch):
+    """The one-process steps the mesh steps are held to: DepthCrafter on
+    both clips (dp's batch) and on the first (sp's and tp's), Aether on both
+    clips of its batch; and that batch."""
+    from unigeo_tpu_torch.device import exact_f32
+    from unigeo_tpu_torch.parallel.trainer import DiffusionTrainer, FlowMatchingTrainer
+
+    one = {k: v[:1] for k, v in batch.items()}
+    ref = {"dp": par_train_step(DiffusionTrainer, par_unet(dev), batch, PAR_TRAIN_LEAVES),
+           "sp": par_train_step(DiffusionTrainer, par_unet(dev), one, PAR_TRAIN_LEAVES)}
+    ref["tp"] = ref["sp"]
+    torch.cuda.empty_cache()
+    with exact_f32():
+        net, cond, _, _ = aether_par_net(dev)
+        aether_batch = aether_train_batch(net, cond)
+        dit = net.dit.train().requires_grad_(True)
+        ref["aether_dp"] = ref["aether_tp"] = par_train_step(
+            FlowMatchingTrainer, dit, aether_batch, AETHER_TRAIN_LEAVES)
+    del net, dit, cond
+    torch.cuda.empty_cache()
+    return ref, aether_batch
+
+
+def par_train_ranks(dev, job, net):
+    """The training lines in a rank of the 2-rank launch: DepthCrafter on
+    dp, sp and tp (the UNet drawn anew from its seed before each), then
+    Aether's DiT (``net``'s, reloaded before each) on dp and tp under exact
+    f32."""
+    from unigeo_tpu_torch.device import exact_f32
+    from unigeo_tpu_torch.models.depthcrafter.pipeline import init_random_
+    from unigeo_tpu_torch.parallel.trainer import DiffusionTrainer, FlowMatchingTrainer
+
+    out, batch = {}, job["train_batch"]
+    unet = par_unet(dev)
+    for label, shape in PAR_TRAIN_MESHES.items():
+        if label != "dp":
+            init_random_(unet, torch.Generator(device=dev).manual_seed(0))
+        b = batch if label == "dp" else {k: v[:1] for k, v in batch.items()}
+        out[label] = par_train_step(DiffusionTrainer, unet, b, PAR_TRAIN_LEAVES, shape)
+    del unet
+    torch.cuda.empty_cache()
+    with exact_f32():
+        dit = net.dit.train().requires_grad_(True)
+        start = {k: v.clone() for k, v in dit.state_dict().items()}
+        for label in ("dp", "tp"):
+            if label == "tp":
+                dit.load_state_dict(start)
+            out[f"aether_{label}"] = par_train_step(FlowMatchingTrainer, dit, job["aether_batch"],
+                                                    AETHER_TRAIN_LEAVES, PAR_TRAIN_MESHES[label])
+    return out
+
+
+def rel_l2(a, ref):
+    return float((a - ref).norm() / ref.norm().clamp_min(1e-30))
 
 
 def par_pipeline(dev):
@@ -3705,7 +3813,9 @@ def aether_par_net(dev):
 
 def parallel_ranks(job):
     """The 2-rank launch: dp, sp (DepthCrafter's denoise, Aether's flow
-    sampler) and the eval CLI; each part's seconds and flash launches."""
+    sampler), tp (the dp executor on a (1, 1, 2) mesh), the training lines
+    (``par_train_ranks``) and the eval CLI; each part's seconds and flash
+    launches."""
     import torch.distributed as dist
 
     from unigeo_tpu_torch.device import exact_f32
@@ -3713,6 +3823,7 @@ def parallel_ranks(job):
     from unigeo_tpu_torch.parallel.comm import backend_of
     from unigeo_tpu_torch.parallel.context import (denoise_context_parallel,
                                                    flow_sample_context_parallel)
+    from unigeo_tpu_torch.parallel.executor import ShardedClipExecutor
     from unigeo_tpu_torch.parallel.mesh import make_mesh
     from unigeo_tpu_torch.parallel.multihost import rank_device
 
@@ -3746,11 +3857,30 @@ def parallel_ranks(job):
         torch.cuda.synchronize()
         out["sp"] = dict(seconds=time.perf_counter() - t0, launches=read_counts(),
                          latents=x.cpu(), scores=scores)
-        del model, x
+        del x
+
+        # tp: the PAR_TP_T-frame tilted plane, PAR_TP_STEPS steps, on a (1, 1, 2) mesh, the
+        # pipeline's modules placed on tp in place (its last use here)
+        tp_clip, tp_gt = par_tp_clip()
+        tp_mesh = make_mesh(2, (1, 1, 2))
+        t0 = time.perf_counter()
+        ex = ShardedClipExecutor(model.pipeline, tp_mesh, num_inference_steps=PAR_TP_STEPS)
+        frames = model.pipeline.prepare_clip(tp_clip["images"])[None]
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        decoded = ex(frames, seed=PAR_SEED)
+        torch.cuda.synchronize()
+        out["tp_executor"] = dict(seconds=time.perf_counter() - t1, launches=read_counts(),
+                                  place_s=t1 - t0,
+                                  clip=par_summary(model._finalize(decoded[0], tp_clip), tp_gt)
+                                  if rank == 0 else None)
+        del model, ex, frames, decoded
         torch.cuda.empty_cache()
 
-        with exact_f32():
-            net, cond, noise, steps = aether_par_net(dev)
+    with exact_f32():
+        net, cond, noise, steps = aether_par_net(dev)
+        with torch.inference_mode():
             reset_counts()
             t0 = time.perf_counter()
             flow = flow_sample_context_parallel(net, cond, noise, steps, sp_mesh)
@@ -3762,8 +3892,13 @@ def parallel_ranks(job):
                 serial = net.sample(cond, noise, steps)
                 out["flow"]["rel_dev"] = float((flow - serial).abs().max()
                                                / serial.abs().max())
-            del net, cond, noise, flow
-        torch.cuda.empty_cache()
+            del cond, noise, flow
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["train"] = par_train_ranks(dev, job, net)
+    out["train_s"] = time.perf_counter() - t0
+    del net
+    torch.cuda.empty_cache()
 
     reset_counts()
     t0 = time.perf_counter()
@@ -3833,11 +3968,19 @@ def phase_parallel(dev):
     with deterministic_cudnn(), torch.inference_mode():
         model = DepthCrafter(par_pipeline(dev), num_inference_steps=PAR_STEPS, seed=PAR_SEED)
         serial = [par_summary(model.forward(c), gt) for c in clips]
+        tp_clip, tp_gt = par_tp_clip()
+        tp_serial = par_summary(DepthCrafter(model.pipeline, num_inference_steps=PAR_TP_STEPS,
+                                             seed=PAR_SEED).forward(tp_clip), tp_gt)
         x_ref = sp_latents(model, sp_clip, lambda c, ctx, n: model.pipeline._denoise_loop(
             c[None], ctx[None], n[None], PAR_STEPS)[0])
         sp_ref = sp_finish(model, sp_clip, x_ref, sp_gt)
         x_ref = x_ref.cpu()
+        train_batch = par_train_batch(model.pipeline)
         del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with deterministic_cudnn():
+        train_ref, aether_batch = par_train_reference(dev, train_batch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="unigeo_parallel_")
@@ -3848,8 +3991,9 @@ def phase_parallel(dev):
         single_dir, multi_dir = os.path.join(work, "single"), os.path.join(work, "multi")
         run_cli(["--config", cfg_path, "--output", single_dir, "--device", dev.type])
         log("parallel", f"references (two serial forwards, the unsplit 24-frame clip, the "
-            f"identity CLI) in {time.perf_counter() - t0:.2f}s")
+            f"one-process training steps, the identity CLI) in {time.perf_counter() - t0:.2f}s")
         job = {"identity_config": cfg_path, "eval_dir": multi_dir, "device": dev.type,
+               "train_batch": train_batch, "aether_batch": aether_batch,
                "t_launch": time.time()}
         t0 = time.perf_counter()
         two = run_ranks(f"{PAR_RANKS_MODULE}:parallel_ranks", 2, job, os.path.join(work, "ranks2"),
@@ -3922,6 +4066,74 @@ def phase_parallel(dev):
         f"difference {res['flow']['rel_dev']:.3e} (tol {PAR_FLOW_TOL})")
     if not (res["flow"]["rel_dev"] <= PAR_FLOW_TOL and flow_launches == [flow_pred] * 2):
         failed.append("flow")
+
+    # tp: the dp executor on a (1, 1, 2) mesh
+    tp_rel = scores_rel(two[0]["tp_executor"]["clip"]["scores"], tp_serial["scores"])
+    tp_launches = [flash(r, "tp_executor") for r in two]
+    tp_pred = enc + PAR_TP_STEPS * unet_kernel_attentions(SVD_XT_UNET, PAR_H, PAR_W) + dec
+    res["tp_executor"] = dict(backend=two[0]["backend"],
+                              seconds=[r["tp_executor"]["seconds"] for r in two],
+                              place_s=[r["tp_executor"]["place_s"] for r in two],
+                              flash_launches=tp_launches, predicted=tp_pred,
+                              scores=two[0]["tp_executor"]["clip"]["scores"],
+                              serial_scores=tp_serial["scores"], scores_rel_dev=tp_rel)
+    log("parallel", f"tp 2 ranks ({two[0]['backend']}, {note}): ShardedClipExecutor on a "
+        f"(1, 1, 2) mesh, the {PAR_TP_T}-frame tilted plane, {PAR_TP_STEPS} steps, UNet, VAE and CLIP placed on tp "
+        f"(parallelize, {[round(r['tp_executor']['place_s'], 3) for r in two]} s): seconds per "
+        f"rank {[round(r['tp_executor']['seconds'], 3) for r in two]}, flash launches per rank "
+        f"{tp_launches} (predicted {tp_pred}); scores "
+        f"{json.dumps(res['tp_executor']['scores'])} against its serial forward's "
+        f"{json.dumps(tp_serial['scores'])}, relative {json.dumps(tp_rel)} (tol "
+        f"{EVAL_METRIC_TOL_REL})")
+    if not (all(v <= EVAL_METRIC_TOL_REL for v in tp_rel.values())
+            and tp_launches == [tp_pred] * 2):
+        failed.append("tp_executor")
+
+    # training: one step on each mesh against the one-process step
+    aether_steps = read_config("aether_scannetpp.yaml")["model_params"]["num_steps"]
+    lse = unet_kernel_attentions(SVD_XT_UNET, PAR_H, PAR_W)
+    per_clip_dit = AETHER_LAUNCHES // aether_steps
+    res["train"] = {"rank_seconds": [r["train_s"] for r in two]}
+    for label in ("dp", "sp", "tp", "aether_dp", "aether_tp"):
+        aether = label.startswith("aether")
+        ref, runs = train_ref[label], [r["train"][label] for r in two]
+        loss_tol, grad_tol = PAR_TRAIN_TOL["f32" if aether else "bf16"]
+        loss_rel = abs(runs[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+        grad_rel = {k: rel_l2(runs[0]["grads"][k], g) for k, g in ref["grads"].items()}
+        # fwd_lse, dq, dk/dv a rank: one per spatial attention of a UNet
+        # evaluation (the rank's frames in one launch); the DiT's per clip
+        clips = 1 if label == "aether_dp" else 2
+        pred = per_clip_dit * clips if aether else lse
+        counts = [[r["launches"][k] for k in ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
+                                             "flash_attention_bwd_dkv")] for r in runs]
+        others = [sum(n for k, n in r["launches"].items() if k not in (
+            "flash_attention_fwd_lse", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"))
+            for r in runs]
+        shape = PAR_TRAIN_MESHES[label.replace("aether_", "")]
+        res["train"][label] = dict(
+            mesh=shape, backend=two[0]["backend"], seconds=[r["seconds"] for r in runs],
+            one_process_seconds=ref["seconds"], peak_gib=[r["peak_gib"] for r in runs],
+            one_process_peak_gib=ref["peak_gib"], loss=runs[0]["loss"],
+            losses_equal=len({r["loss"] for r in runs}) == 1, one_process_loss=ref["loss"],
+            loss_rel=loss_rel, grad_rel_l2=grad_rel, tol=[loss_tol, grad_tol],
+            fwd_lse_dq_dkv=counts, predicted=pred, other_launches=others)
+        what = (f"Aether's FlowMatchingTrainer (f32, TF32 off; {clips} of the 2 "
+                f"{AETHER_CLIP}-frame clips a rank)" if aether else
+                f"DepthCrafter's DiffusionTrainer (SVD-XT, bf16, {PAR_H}x{PAR_W}, "
+                f"{2 if label == 'dp' else 1} clip(s) of {PAR_TRAIN_T} frames)")
+        log("parallel", f"train {label.replace('aether_', '')} on {shape} ({two[0]['backend']}, "
+            f"{note}): {what}: step seconds per rank "
+            f"{[round(r['seconds'], 3) for r in runs]} (one process {ref['seconds']:.3f}), peak "
+            f"GiB per rank {[round(r['peak_gib'], 2) for r in runs]} (one process "
+            f"{ref['peak_gib']:.2f}), fwd_lse / dq / dk,dv launches per rank {counts} "
+            f"(predicted {pred} each); loss {runs[0]['loss']:.6f} against the one-process "
+            f"{ref['loss']:.6f}: relative {loss_rel:.3e} (tol {loss_tol}); the all-reduced "
+            f"gradients' relative L2 {json.dumps({k: float(f'{v:.3e}') for k, v in grad_rel.items()})} "
+            f"(tol {grad_tol})")
+        if not (loss_rel <= loss_tol and all(v <= grad_tol for v in grad_rel.values())
+                and res["train"][label]["losses_equal"] and counts == [[pred] * 3] * 2
+                and others == [0, 0]):
+            failed.append(f"train_{label}")
 
     # pp
     dec_rank = three[1]

@@ -319,7 +319,9 @@ def test_dryrun_multichip_on_three_ranks():
     assert out.returncode == 0, out.stderr[-3000:]
     text = out.stdout
     for line in ("dp ShardedClipExecutor", "pp PipelinedStageExecutor", "sp denoise",
-                 "sp flow", "SVD-XT UNet tp=2", "SVD-XT UNet tp=8"):
+                 "sp flow", "train DiffusionTrainer on dp,sp,tp (3, 1, 1)",
+                 "train FlowMatchingTrainer on dp,sp,tp (3, 1, 1)", "SVD-XT UNet tp=2",
+                 "SVD-XT UNet tp=8"):
         assert line in text, (line, text)
 
 

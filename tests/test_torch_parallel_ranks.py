@@ -14,7 +14,7 @@ rank functions), each once per module:
     the eval CLI on ``configs/identity_synthetic.yaml`` twice (resumed);
   * 4 ranks: ``PipelinedStageExecutor`` (encode, decode, the frames over
     ranks 2 and 3) on B = 2 clips of T = 4, the flow sampler over sp = 4, and
-    the dp executor's refusal of tp > 1.
+    the dp executor on a (2, 1, 2) mesh (tp 2 inside each dp rank).
 
 The JAX references run in this process on conftest's 8 virtual CPU devices.
 Tolerances (relative to the reference's largest magnitude unless said):
@@ -269,8 +269,15 @@ def test_pp_refuses_two_ranks(two):
 
 
 def test_dp_executor_refuses_tp(four):
+    """Under its earlier name (it pinned the refusal of tp > 1 before the
+    tp execution was ported): the dp executor now runs a (2, 1, 2) mesh,
+    every rank the whole batch, each clip within the dp bound against JAX
+    (1e-3) of the port's serial path; tp sums its row-parallel products in
+    another order, so not bitwise."""
     for r in four:
-        assert "queue 1 item 11" in r["tp_refusal"]
+        assert r["tp"].shape == r["tp_serial"].shape == (2, 4, H, W, 3)
+        assert rel_dev(r["tp"], r["tp_serial"]) < 1e-3
+        assert np.array_equal(r["tp"], four[0]["tp"])
 
 
 # --- processes -------------------------------------------------------------------

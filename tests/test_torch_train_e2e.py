@@ -3,9 +3,10 @@ the JAX ``train.py`` trains: ``unigeo_tpu_torch.train.main`` with the tiny
 configs, four steps, a checkpoint every step; the saver keeps the newest
 three; the family's eval adapter built with ``checkpoint_path`` at the
 latest one gives outputs equal (bitwise) to the same adapter running the
-trained module in memory.  Then the trainer's refusal of ``--mesh``, naming
-its ROADMAP item, and of an unknown model, and the loop's device barrier,
-there only for a caller that times the steps."""
+trained module in memory.  Then the trainer's refusal of a ``--mesh``
+larger than the world of processes, naming the shape (one process here),
+and of an unknown model, and the loop's device barrier, there only for a
+caller that times the steps."""
 
 import xdist_threads  # noqa: F401  (torch's CPU threads shared among xdist workers)
 
@@ -94,9 +95,12 @@ def test_final_state_is_saved_off_the_rotation(tmp_path):
 
 
 def test_train_cli_refuses_the_mesh_and_unknown_models(capsys):
+    """A mesh of two ranks over one process is refused by its shape (the
+    mesh itself is accepted since the training side of ``parallel/``; the
+    test once pinned its refusal)."""
     with pytest.raises(SystemExit) as exc:
-        train.main(["--device", "cpu", "--tiny", "--mesh", "1,1,1"], config=dict(CONFIG))
-    assert "ROADMAP.md queue 1 item 11" in capsys.readouterr().err
+        train.main(["--device", "cpu", "--tiny", "--mesh", "2,1,1"], config=dict(CONFIG))
+    assert "mesh shape (2, 1, 1) != 1 devices" in capsys.readouterr().err
     with pytest.raises(SystemExit, match="Identity"):
         train.main(["--device", "cpu", "--tiny", "--model", "Identity"], config=dict(CONFIG))
 

@@ -14,7 +14,8 @@
   through ``attention_reference``.
 * The loss falls over repeated steps on one batch.
 * ``train.main`` runs two steps of a tiny synthetic config on the CPU and
-  saves the final state.
+  saves the final state; on a one-rank ``--mesh`` its first step is the
+  same.
 
 Tolerances (f32 on both sides; only the order of sums in the convolutions,
 matmuls and reductions differs):
@@ -255,8 +256,10 @@ def test_train_main_runs_on_the_cpu(tmp_path):
     # VAE and CLIP stay frozen
     pipe = out["pipe"]
     assert not any(p.requires_grad for m in (pipe.vae, pipe.clip) for p in m.parameters())
-    # the final state is saved (fewer steps than --ckpt-every); the mesh
-    # is still refused
+    # the final state is saved (fewer steps than --ckpt-every); a one-rank
+    # mesh is accepted and its step is the one-device step
     assert out["checkpoints"] == [str(tmp_path / "ckpts" / "state-iter-000000002")]
-    with pytest.raises(SystemExit):
-        train.main(["--device", "cpu", "--steps", "1", "--mesh", "1,1,1"], config=config)
+    meshed = train.main(["--device", "cpu", "--tiny", "--steps", "1", "--mesh", "1,1,1",
+                         "--ckpt-every", "0", "--log-dir", str(tmp_path / "mesh")],
+                        config=config)
+    assert meshed["mesh"] is not None and meshed["losses"] == out["losses"][:1]

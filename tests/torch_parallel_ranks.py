@@ -145,8 +145,8 @@ def two_ranks(job):
 
 def four_ranks(job):
     """pp (encode on rank 0, decode on rank 1, the frames split over ranks 2
-    and 3), Aether's flow sampler over sp = 4 and the dp executor's refusal
-    of tp > 1."""
+    and 3), Aether's flow sampler over sp = 4, and the dp executor on a
+    (2, 1, 2) mesh (tp 2 in each dp rank) beside each clip's serial path."""
     from unigeo_tpu_torch.parallel.executor import ShardedClipExecutor
     from unigeo_tpu_torch.parallel.mesh import make_mesh
     from unigeo_tpu_torch.parallel.staged import PipelinedStageExecutor
@@ -154,14 +154,18 @@ def four_ranks(job):
     out = {"rank": dist.get_rank()}
     out.update(_sp_flow(job, make_mesh(4, shape=(1, 4, 1), device="cpu")))
     pipe = _pipeline(job)
-    try:
-        ShardedClipExecutor(pipe, make_mesh(4, shape=(2, 1, 2), device="cpu"))
-    except NotImplementedError as e:
-        out["tp_refusal"] = str(e)
     pp = job["pp"]
     with torch.no_grad():
         ex = PipelinedStageExecutor(pipe, num_frames=pp["frames"].shape[1],
                                     num_inference_steps=2)
         out["pp_denoise_ranks"] = ex.denoise_ranks
         out["pp"] = ex(pp["frames"], noise=pp["noise"], aug_noise=pp["aug"]).numpy()
+        pipe = _pipeline(job)  # the pp executor kept only its ranks' stages
+        out["tp_serial"] = np.stack([((pipe.run_window_staged(
+            t_(pp["frames"][i]), t_(pp["noise"][i]), 2, aug_noise=t_(pp["aug"][i])) + 1.0) / 2.0
+        ).numpy() for i in range(len(pp["frames"]))])
+        # parallelize places the pipeline's modules in place: last
+        tp = ShardedClipExecutor(pipe, make_mesh(4, shape=(2, 1, 2), device="cpu"),
+                                 num_inference_steps=2)
+        out["tp"] = tp(pp["frames"], noise=pp["noise"], aug_noise=pp["aug"]).numpy()
     return out

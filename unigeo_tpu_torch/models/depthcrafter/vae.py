@@ -27,6 +27,7 @@ from unigeo_tpu_torch.models.layers import (
     GroupNorm,
     TemporalConv,
     attend,
+    tp_pair,
 )
 
 SVD_VAE_SCALING = 0.18215
@@ -34,6 +35,25 @@ SVD_VAE_SCALING = 0.18215
 
 class _Block(nn.Module):
     """Bare container, so children render as ``resnets.N`` / ``attentions.N``."""
+
+
+def resnet_body(block, x, emb=None):
+    """conv1 (+ ``emb(time_emb_proj)``), norm2, silu, conv2 of a resnet
+    ``block`` on its normed, activated input x.  Tensor-parallel (conv1 and
+    time_emb_proj column-, conv2 row-parallel, tp dividing norm2's groups):
+    conv1's output stays this rank's channel block through norm2, one reduce
+    after conv2; otherwise each layer by itself."""
+    cols = [block.conv1] + ([block.time_emb_proj] if emb is not None else [])
+    spec = tp_pair(cols, block.conv2)
+    if spec is None or not block.norm2.takes_channel_block(spec):
+        h = block.conv1(x)
+        if emb is not None:
+            h = h + emb(block.time_emb_proj)
+        return block.conv2(F.silu(block.norm2(h)))
+    h = block.conv1.column_local(x)
+    if emb is not None:
+        h = h + emb(block.time_emb_proj.column_local)
+    return block.conv2.row_from_local(F.silu(block.norm2.channel_block(h, spec)))
 
 
 class ResnetBlock2D(nn.Module):
@@ -51,10 +71,8 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = Conv2d(cin, cout, kernel=1) if cin != cout else None
 
     def forward(self, x, temb=None):
-        h = self.conv1(F.silu(self.norm1(x)))
-        if temb is not None:
-            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        emb = None if temb is None else lambda proj: proj(F.silu(temb))[:, :, None, None]
+        h = resnet_body(self, F.silu(self.norm1(x)), emb)
         sc = x if self.conv_shortcut is None else self.conv_shortcut(x)
         return sc + h
 
@@ -72,11 +90,10 @@ class TemporalResnetBlock(nn.Module):
         self.conv2 = TemporalConv(ch, ch)
 
     def forward(self, x, temb=None):
-        h = self.conv1(F.silu(self.norm1(x)))
-        if temb is not None:  # [B, T, temb_ch] -> [B, C, T, 1, 1]
-            h = h + self.time_emb_proj(F.silu(temb)).permute(0, 2, 1)[..., None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
-        return x + h
+        # [B, T, temb_ch] -> [B, C, T, 1, 1]
+        emb = None if temb is None else (
+            lambda proj: proj(F.silu(temb)).permute(0, 2, 1)[..., None, None])
+        return x + resnet_body(self, F.silu(self.norm1(x)), emb)
 
 
 class SpatioTemporalResBlock(nn.Module):

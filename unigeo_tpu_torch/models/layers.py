@@ -11,7 +11,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -27,6 +28,7 @@ from unigeo_tpu_torch.ops.attention import (
 )
 from unigeo_tpu_torch.ops.geglu import GegluFFN, geglu_ffn, use_fused_geglu
 from unigeo_tpu_torch.ops.rope import apply_rope_2d, rope_2d_cos_sin
+from unigeo_tpu_torch.parallel import comm
 
 
 def sinusoidal_embedding(
@@ -60,7 +62,7 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, x):
         x = x.to(self.linear_1.weight.dtype)
-        return self.linear_2(F.silu(self.linear_1(x)))
+        return mlp_pair(self.linear_1, self.linear_2, x, F.silu)
 
 
 def group_count(channels: int, num_groups: int = 32) -> int:
@@ -87,6 +89,23 @@ class GroupNorm(nn.GroupNorm):
             return sharded_group_norm(x, self.num_groups, self.weight, self.bias, self.eps,
                                       shard)
         return super().forward(x)
+
+    def takes_channel_block(self, spec: "TPSpec") -> bool:
+        """Whether ``spec``'s equal channel blocks hold whole groups."""
+        return self.num_groups % spec.size == 0
+
+    def channel_block(self, x, spec: "TPSpec"):
+        """The norm of x, which holds this tp rank's block of the channels
+        (``takes_channel_block``): its groups, its slice of the affine (an
+        all-gather of the slices' gradients in the backward, so the
+        replicated affine gets the whole gradient on every rank)."""
+        groups = self.num_groups // spec.size
+        weight = scatter_to_group(self.weight, spec.group, 0)
+        bias = scatter_to_group(self.bias, spec.group, 0)
+        shard = _FRAMES.get()
+        if shard is not None and x.dim() == 5:
+            return sharded_group_norm(x, groups, weight, bias, self.eps, shard)
+        return F.group_norm(x, groups, weight, bias, self.eps)
 
 
 def sharded_group_norm(x, groups: int, weight, bias, eps: float, shard):
@@ -186,29 +205,53 @@ class Attention(nn.Module):
     def _rope(self, t, pos):
         b, s, inner = t.shape
         cos, sin = rope_2d_cos_sin(self.head_dim, pos, self.rope_freq, t.dtype)
-        th = t.reshape(b, s, self.num_heads, self.head_dim)
+        th = t.reshape(b, s, inner // self.head_dim, self.head_dim)
         return apply_rope_2d(th, cos, sin).reshape(b, s, inner)
 
     def forward(self, x, context=None, pos=None, ctx_pos=None, ctx_mask=None):
         b, s, c = x.shape
+        out_proj = self.to_out[0]
         if context is not None and context.shape[1] == 1:
             # single-key cross-attention: softmax over one logit is 1, so
             # every query receives v (layers.py:111-120); q and k are not
             # computed at all
-            out = self.to_out[0](self.to_v(context))
+            if tp_pair([self.to_v], out_proj) is not None:
+                out = out_proj.row_from_local(self.to_v.column_local(context))
+            else:
+                out = out_proj(self.to_v(context))
             return out.expand(b, s, out.shape[-1])
         ctx = x if context is None else context
-        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        spec = tp_pair([self.to_q, self.to_k, self.to_v], out_proj)
+        if spec is None:
+            q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+            return out_proj(self._attend(q, k, v, self.num_heads, context, pos, ctx_pos,
+                                         ctx_mask))
+        # tensor parallel: this rank's columns of q, k, v (its heads where tp
+        # divides the heads), one reduce after to_out
+        xc = copy_to_group(x, spec.group)
+        cc = xc if context is None else copy_to_group(ctx, spec.group)
+        q, k, v = (m.column_local(t, copied=True)
+                   for m, t in ((self.to_q, xc), (self.to_k, cc), (self.to_v, cc)))
+        if self.num_heads % spec.size == 0:
+            out = self._attend(q, k, v, self.num_heads // spec.size, context, pos, ctx_pos,
+                               ctx_mask)
+        else:
+            # heads cut by the shard boundary: every head here, then this
+            # rank's slice of the features for to_out
+            q, k, v = (gather_from_group(t, spec.group, -1) for t in (q, k, v))
+            out = self._attend(q, k, v, self.num_heads, context, pos, ctx_pos, ctx_mask)
+            out = scatter_to_group(out, spec.group, -1)
+        return out_proj.row_from_local(out)
+
+    def _attend(self, q, k, v, heads, context, pos, ctx_pos, ctx_mask):
         if self.rope_freq is not None and pos is not None:
             q = self._rope(q, pos)
             kpos = pos if context is None else ctx_pos
             if kpos is not None:
                 k = self._rope(k, kpos)
         if ctx_mask is not None:
-            out = masked_attention(q, k, v, ctx_mask, self.num_heads, self.head_dim)
-        else:
-            out = attend(q, k, v, self.num_heads, self.head_dim)
-        return self.to_out[0](out)
+            return masked_attention(q, k, v, ctx_mask, heads, self.head_dim)
+        return attend(q, k, v, heads, self.head_dim)
 
 
 class GEGLU(nn.Module):
@@ -217,7 +260,12 @@ class GEGLU(nn.Module):
         self.proj = nn.Linear(dim, inner * 2)
 
     def forward(self, x):
-        h, gate = self.proj(x).chunk(2, dim=-1)
+        return self.gate(self.proj(x))
+
+    @staticmethod
+    def gate(projected):
+        """[..., 2 I] (value, gate) -> [..., I]."""
+        h, gate = projected.chunk(2, dim=-1)
         # erf gelu in f32, tanh gelu in bf16 (layers.py:180)
         approx = "tanh" if gate.dtype == torch.bfloat16 else "none"
         return h * F.gelu(gate, approximate=approx)
@@ -238,18 +286,32 @@ class FeedForward(nn.Module):
         )
 
     def forward(self, x):
-        w1, b1 = self.net[0].proj.weight, self.net[0].proj.bias
+        proj, out_proj = self.net[0].proj, self.net[2]
+        w1, b1 = proj.weight, proj.bias
+        # tensor parallel: net.0's interleaved shard (this rank's value and
+        # gate blocks) makes this rank's hidden block; one reduce after net.2
+        spec = tp_pair([proj], out_proj)
+        if spec is None and is_tensor_parallel(proj, out_proj):
+            for m in self.net:  # one of the two sharded alone: each layer by itself
+                x = m(x)
+            return x
+        if spec is not None:
+            x = copy_to_group(x, spec.group)
         if use_fused_geglu(x.dtype, w1.dtype):
-            w2, b2 = self.net[2].weight, self.net[2].bias
+            w2, b2 = out_proj.weight, out_proj.bias
             x = x.contiguous()
             if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2)):
                 out = GegluFFN.apply(x, w1, b1, w2)
             else:
                 out = geglu_ffn(x, w1, b1, w2)
+            if spec is not None:
+                out = reduce_from_group(out, spec.group)
             return out + b2.to(x.dtype)
-        for m in self.net:
-            x = m(x)
-        return x
+        if spec is None:
+            for m in self.net:
+                x = m(x)
+            return x
+        return out_proj.row_from_local(self.net[0].gate(proj.column_local(x, copied=True)))
 
 
 class AlphaBlender(nn.Module):
@@ -313,6 +375,183 @@ def frames_sharded(shard):
 def frame_shard():
     """The ``FrameShard`` of the enclosing ``frames_sharded``, or None."""
     return _FRAMES.get()
+
+
+# Tensor parallelism (``parallel/sharding.py::parallelize``): a weight the
+# tp rules shard is replaced by this rank's block, and its ``nn.Linear`` /
+# ``nn.Conv*`` gets a ``TPSpec`` and the ``TensorParallel`` forward.  Inside
+# ``tensor_parallel(group)`` the generic rule runs every such layer alone:
+#
+#   column-parallel (output features / channels):  copy-to-tp, the local
+#       product with the local bias, gather-from-tp
+#   row-parallel (input features / channels):      scatter-to-tp, the local
+#       partial product, reduce-from-tp, the bias once after the sum
+#
+# and the modules that know a column layer's consumer (``tp_pair``) skip the
+# gather and the scatter between them, as Megatron does: the attention (its
+# heads a rank where tp divides them), the GEGLU feed-forward, the MLPs, the
+# resnets (their second norm on the rank's channel block where tp divides
+# its groups) and the timestep MLPs.  ``torch.distributed.tensor``'s
+# ``DTensor`` is not used: on the one-card machine the ranks talk over gloo
+# through ``parallel/comm.py``'s host staging, where a CUDA ``DTensor`` does
+# not run, and the flash and GEGLU kernels take plain local tensors.
+_TP = contextvars.ContextVar("unigeo_tensor_parallel", default=None)
+
+
+@contextlib.contextmanager
+def tensor_parallel(group):
+    """Inside the block, modules placed by ``parallelize`` over ``group``
+    (a tp process group) run tensor-parallel; outside it they raise."""
+    token = _TP.set(group)
+    try:
+        yield
+    finally:
+        _TP.reset(token)
+
+
+@dataclass(frozen=True)
+class TPSpec:
+    """A sharded layer's place: ``dim`` 0 column-parallel (its output
+    features / channels split), 1 row-parallel (its input); the tp group,
+    its size and this rank's index; ``geglu``: GEGLU's projection, whose
+    shard is value block ``index`` followed by gate block ``index``."""
+
+    dim: int
+    group: object
+    size: int
+    index: int
+    geglu: bool = False
+
+
+def _grad_path(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def copy_to_group(x, group):
+    """copy-to-tp: x; its backward sums the gradient over the group."""
+    return comm.CopyToGroup.apply(x, group) if _grad_path(x) else x
+
+
+def reduce_from_group(x, group):
+    """reduce-from-tp: the sum of every rank's x (backward: identity)."""
+    return comm.ReduceFromGroup.apply(x, group) if _grad_path(x) else comm.all_reduce(x, group)
+
+
+def gather_from_group(x, group, dim: int):
+    """gather-from-tp: every rank's x along ``dim`` (backward: this rank's
+    slice, not summed)."""
+    if _grad_path(x):
+        return comm.GatherFromGroup.apply(x, group, dim)
+    return comm.all_gather(x, group, dim)
+
+
+def scatter_to_group(x, group, dim: int):
+    """scatter-to-tp: this rank's equal slice of x along ``dim`` (backward:
+    the slices' gradients gathered)."""
+    if _grad_path(x):
+        return comm.ScatterToGroup.apply(x, group, dim)
+    return comm.group_slice(x, group, dim)
+
+
+def is_tensor_parallel(*modules) -> bool:
+    """Whether any of ``modules`` holds a tp shard."""
+    return any(getattr(m, "tp_spec", None) is not None for m in modules)
+
+
+def tp_pair(columns: Sequence[nn.Module], row: nn.Module) -> Optional[TPSpec]:
+    """The row layer's ``TPSpec`` when every layer of ``columns`` is
+    column-parallel and ``row`` row-parallel over the enclosing
+    ``tensor_parallel`` group (the paired form applies), else None."""
+    group = _TP.get()
+    if group is None:
+        return None
+    spec = getattr(row, "tp_spec", None)
+    if spec is None or spec.dim != 1 or spec.group is not group:
+        return None
+    for m in columns:
+        s = getattr(m, "tp_spec", None)
+        if s is None or s.dim != 0 or s.group is not group:
+            return None
+    return spec
+
+
+def mlp_pair(fc1: nn.Module, fc2: nn.Module, x, act):
+    """fc2(act(fc1(x))).  Tensor-parallel (fc1 column-, fc2 row-parallel):
+    the hidden stays this rank's block, one reduce after fc2."""
+    if tp_pair([fc1], fc2) is not None:
+        return fc2.row_from_local(act(fc1.column_local(x)))
+    return fc2(act(fc1(x)))
+
+
+class TensorParallel:
+    """The forward of a sharded ``nn.Linear`` / ``nn.Conv*``, put in front
+    of its class by ``parallelize`` (``tensor_parallel_class``); its
+    ``tp_spec`` says how it is split.  ``column_local`` and
+    ``row_from_local`` are the halves the paired forms call."""
+
+    tp_spec: TPSpec
+
+    def _checked_spec(self) -> TPSpec:
+        spec = self.tp_spec
+        if _TP.get() is not spec.group:
+            raise RuntimeError(f"a tensor-parallel {type(self).__name__} (weight "
+                               f"{tuple(self.weight.shape)}, a shard of {spec.size}) runs "
+                               f"inside tensor_parallel(its tp group) only")
+        return spec
+
+    @property
+    def channel_dim(self) -> int:
+        return -1 if isinstance(self, nn.Linear) else 1
+
+    def forward(self, x):
+        spec = self._checked_spec()
+        if spec.dim == 1:
+            return self.row_from_local(scatter_to_group(x, spec.group, self.channel_dim))
+        out = gather_from_group(self.column_local(x), spec.group, self.channel_dim)
+        if spec.geglu:  # [v0 g0 v1 g1 ...] -> [v0 v1 ... g0 g1 ...]
+            blocks = [b.chunk(2, self.channel_dim) for b in out.chunk(spec.size,
+                                                                       self.channel_dim)]
+            out = torch.cat([b[0] for b in blocks] + [b[1] for b in blocks], self.channel_dim)
+        return out
+
+    def column_local(self, x, copied: bool = False):
+        """This rank's output features / channels (its bias block added) of
+        the whole input x (through copy-to-tp unless ``copied``)."""
+        spec = self._checked_spec()
+        if not copied:
+            x = copy_to_group(x, spec.group)
+        return super().forward(x)
+
+    def row_from_local(self, x):
+        """The whole output from this rank's block of the input features /
+        channels: the partial product, summed over the group, the bias added
+        once after the sum."""
+        spec = self._checked_spec()
+        bias = self._parameters["bias"]
+        self._parameters["bias"] = None  # the partial product without it
+        try:
+            partial = super().forward(x)
+        finally:
+            self._parameters["bias"] = bias
+        out = reduce_from_group(partial, spec.group)
+        if bias is None:
+            return out
+        if self.channel_dim == 1:
+            return out + bias.reshape(-1, *([1] * (out.dim() - 2)))
+        return out + bias
+
+
+_TP_CLASSES = {}
+
+
+def tensor_parallel_class(cls):
+    """``cls`` with ``TensorParallel``'s forward in front (one class per
+    ``cls``; ``isinstance(m, cls)`` still holds)."""
+    if issubclass(cls, TensorParallel):
+        return cls
+    if cls not in _TP_CLASSES:
+        _TP_CLASSES[cls] = type(f"TensorParallel{cls.__name__}", (TensorParallel, cls), {})
+    return _TP_CLASSES[cls]
 
 
 def clipwise(fn, x):

@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from unigeo_tpu_torch.models.layers import mlp_pair
 from unigeo_tpu_torch.models.pointmap.network import _points_and_conf
 from unigeo_tpu_torch.models.vit import resize_bilinear
 
@@ -51,7 +52,7 @@ class ResidualConvUnit(nn.Module):
         self.conv2 = _conv(features, features, 3)
 
     def forward(self, x):
-        return x + self.conv2(F.relu(self.conv1(F.relu(x))))
+        return x + mlp_pair(self.conv1, self.conv2, F.relu(x), F.relu)
 
 
 class FeatureFusionBlock(nn.Module):

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from unigeo_tpu_torch.models.layers import mlp_pair
 from unigeo_tpu_torch.models.vit import PatchEmbed, ScannedViTBlocks, sincos_2d_pos_embed
 from unigeo_tpu_torch.ops.rope import grid_positions
 
@@ -130,7 +131,8 @@ class PoseHead(nn.Module):
     def forward(self, tokens):
         # the bias and what follows in f32, as the JAX package's f32 constant
         # promotes a bf16 encoding
-        enc = self.fc2(F.gelu(self.fc1(tokens.mean(dim=1)), approximate="tanh")).float()
+        enc = mlp_pair(self.fc1, self.fc2, tokens.mean(dim=1),
+                       lambda h: F.gelu(h, approximate="tanh")).float()
         quat = enc[..., 3:] + torch.tensor([1.0, 0.0, 0.0, 0.0], device=enc.device)
         quat = quat / torch.linalg.vector_norm(quat, dim=-1, keepdim=True).clamp_min(1e-8)
         return torch.cat([enc[..., :3], quat], dim=-1)

@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unigeo_tpu_torch.models.layers import Attention, attend
+from unigeo_tpu_torch.models.layers import Attention, attend, mlp_pair
 
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -100,8 +100,7 @@ class CLIPMLP(nn.Module):
         self.fc2 = nn.Linear(width * mult, width)
 
     def forward(self, x):
-        h = self.fc1(x)
-        return self.fc2(h * torch.sigmoid(1.702 * h))  # quick_gelu
+        return mlp_pair(self.fc1, self.fc2, x, lambda h: h * torch.sigmoid(1.702 * h))
 
 
 class CLIPEncoderLayer(nn.Module):
@@ -189,9 +188,8 @@ class MLP(nn.Module):
         self.fc2 = nn.Linear(width * mult, width)
 
     def forward(self, x):
-        h = self.fc1(x)
-        h = h * torch.sigmoid(1.702 * h) if self.act == "quick_gelu" else F.gelu(h)
-        return self.fc2(h)
+        act = (lambda h: h * torch.sigmoid(1.702 * h)) if self.act == "quick_gelu" else F.gelu
+        return mlp_pair(self.fc1, self.fc2, x, act)
 
 
 class ViTBlock(nn.Module):

@@ -12,9 +12,47 @@ that share one card talk (NCCL refuses two ranks on one device): the work
 stays on the card and only the bytes cross the host.  ``backend_of`` names
 the transport a group uses.
 
-Data moves as raw bytes (a ``uint8`` view), so every dtype crosses every
-backend; nothing here sums (the sharded group norm merges gathered moments
-itself, in f32).
+Gathers and hand-offs move raw bytes (a ``uint8`` view), so every dtype
+crosses every backend.  The sums (``all_reduce``, ``reduce_scatter``) add in
+f32 at least (f64 stays f64) and return the input's dtype.  A CUDA tensor
+under gloo crosses the host in its own dtype (one staged all-gather) and its
+ranks' copies are added on the card in rank order, so every rank gets the
+same bits and a bf16 sum moves half the bytes of an f32 one; otherwise
+(NCCL, CPU tensors) ``dist.all_reduce`` adds the f32 copies.
+
+Training needs each collective's adjoint, so every one the model layers
+call has a ``torch.autograd.Function`` here whose backward is written out:
+
+  sp (a clip's frames over the group)      forward          backward
+    ``GatherFrames``   keys / values        all-gather       reduce-scatter (sum):
+                                                             every rank's queries
+                                                             read every frame
+    ``Halo``           temporal convs       neighbours'      each halo frame's
+                                            edge frames      gradient back to the
+                                                             rank that sent it
+    ``FromFirst``      frame 0's context    broadcast        the group's sum to the
+                                                             first rank, zeros
+                                                             elsewhere
+    ``Stacked``        group-norm moments   stacked gather   reduce-scatter (sum)
+  tp (Megatron's four)
+    ``CopyToGroup``    column input         identity         all-reduce
+    ``ReduceFromGroup`` row output          all-reduce       identity
+    ``GatherFromGroup`` column output       all-gather       this rank's slice
+                                                             (every rank consumes
+                                                             the gathered tensor
+                                                             alike: no sum)
+    ``ScatterToGroup``  row input           this rank's      all-gather
+                                            slice
+  dp
+    ``AllReduceSum``   a batch-wide sum     all-reduce       all-reduce (every
+                       (the pointmap loss)                   rank's loss reads the
+                                                             sum; the trainer
+                                                             averages the ranks'
+                                                             gradients)
+
+``FrameShard``'s methods take the differentiable forms when grad mode is on
+and the input requires grad; otherwise (``torch.no_grad``,
+``inference_mode``) the plain collectives, as the inference paths use them.
 
 ``FrameShard`` is the handle the model layers read inside
 ``models/layers.py::frames_sharded``: a clip's frames split in equal
@@ -54,6 +92,12 @@ def _from_raw(raw: torch.Tensor, like_dtype: torch.dtype, shape, device) -> torc
     return raw.to(device).view(like_dtype).reshape(shape)
 
 
+# bytes a staged gather moves through the host at a time: pinned buffers
+# of this size are allocated once and reused (page-locking a multi-GB
+# buffer for each call, such as a gradient bucket, costs seconds)
+STAGE_CHUNK = 64 << 20
+
+
 def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     """Every rank's ``t`` (equal shapes) concatenated along ``dim`` in the
     group's rank order, on ``t``'s device."""
@@ -62,11 +106,87 @@ def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
         return t
     raw = _raw(t)
     if _staged(t, group):
-        raw = _host(raw)
+        parts = _staged_all_gather(raw, n, group)
+        return torch.cat([p.view(t.dtype).reshape(t.shape) for p in parts], dim=dim)
     bufs = [torch.empty_like(raw) for _ in range(n)]
     dist.all_gather(bufs, raw, group=group)
-    parts = [_from_raw(b, t.dtype, t.shape, t.device) for b in bufs]
-    return torch.cat(parts, dim=dim)
+    return torch.cat([b.view(t.dtype).reshape(t.shape) for b in bufs], dim=dim)
+
+
+def _staged_all_gather(raw: torch.Tensor, n: int, group) -> torch.Tensor:
+    """[n, bytes] on ``raw``'s card: every rank's flat CUDA bytes, moved
+    through pinned host buffers in STAGE_CHUNK pieces."""
+    size = raw.numel()
+    out = torch.empty((n, size), dtype=torch.uint8, device=raw.device)
+    chunk = min(size, STAGE_CHUNK)
+    send = torch.empty(chunk, dtype=torch.uint8, pin_memory=True)
+    recv = [torch.empty(chunk, dtype=torch.uint8, pin_memory=True) for _ in range(n)]
+    for start in range(0, size, chunk):
+        m = min(chunk, size - start)
+        send[:m].copy_(raw[start:start + m])
+        dist.all_gather([r[:m] for r in recv], send[:m], group=group)
+        for r, buf in enumerate(recv):
+            out[r, start:start + m].copy_(buf[:m])
+    return out
+
+
+def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    return dtype if dtype in (torch.float32, torch.float64) else torch.float32
+
+
+def _sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group's ranks of ``t``, in f32 at least (a new
+    tensor on ``t``'s device)."""
+    dtype = _sum_dtype(t.dtype)
+    if _staged(t, group):
+        parts = all_gather(t.detach()[None], group, 0)
+        acc = parts[0].to(dtype)
+        for part in parts[1:]:
+            acc += part.to(dtype)
+        return acc
+    acc = t.detach().to(dtype).contiguous()
+    acc = acc.clone() if acc.data_ptr() == t.data_ptr() else acc
+    dist.all_reduce(acc, group=group)
+    return acc
+
+
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every rank's ``t`` (equal shapes) on every rank, added in
+    f32 at least and returned in ``t``'s dtype on its device."""
+    if dist.get_world_size(group) == 1:
+        return t
+    return _sum(t, group).to(t.dtype)
+
+
+def reduce_scatter(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The sum over ranks of ``t`` (equal shapes), split in the group's
+    size equal blocks along ``dim``: rank i gets block i of the sum.  Added in
+    f32 at least (as ``all_reduce``, which it is followed by this rank's
+    slice: gloo has no reduce-scatter of its own)."""
+    n = dist.get_world_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} does not split over "
+                         f"{n} ranks")
+    m = t.shape[dim] // n
+    return all_reduce(t, group).narrow(dim, dist.get_rank(group) * m, m).contiguous()
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Each tensor replaced in place by its mean over the group's ranks: one
+    flattened bucket per dtype, one collective each, summed in f32 (f64
+    stays f64)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for dtype, ts in by_dtype.items():
+        flat = _sum(torch.cat([t.reshape(-1) for t in ts]), group) / n
+        start = 0
+        for t in ts:
+            t.copy_(flat[start:start + t.numel()].view_as(t))
+            start += t.numel()
 
 
 def gather_stacked(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -124,10 +244,177 @@ def all_gather_objects(obj, group=None) -> List:
     return out
 
 
+def _grad_path(x: torch.Tensor) -> bool:
+    """Whether an op on ``x`` is recorded for a backward."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class GatherFrames(torch.autograd.Function):
+    """sp: every rank's block along ``dim`` (``all_gather``); backward the
+    sum over ranks of the gathered gradient, this rank's block of it.
+
+    ``GatherFrames.apply(x, group, dim)``."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class Halo(torch.autograd.Function):
+    """sp: ``FrameShard.halo``'s forward; backward this rank's own frames'
+    gradient plus the gradients its neighbours' halos took from its edge
+    frames.  ``Halo.apply(x, shard, dim, width)``."""
+
+    @staticmethod
+    def forward(ctx, x, shard, dim, width):
+        ctx.shard, ctx.dim, ctx.width, ctx.n = shard, dim, width, x.shape[dim]
+        return shard._halo(x, dim, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        shard, dim, w, n = ctx.shard, ctx.dim, ctx.width, ctx.n
+        own = g.narrow(dim, w, n).clone()
+        # [size, ...]: every rank's (before, after) halo gradients
+        sent = gather_stacked(torch.cat([g.narrow(dim, 0, w), g.narrow(dim, w + n, w)], dim),
+                              shard.group)
+        i = shard.index
+        if i > 0:  # rank i - 1's after-halo read this rank's first frames
+            own.narrow(dim, 0, w).add_(sent[i - 1].narrow(dim, w, w))
+        if i + 1 < shard.size:  # rank i + 1's before-halo read its last frames
+            own.narrow(dim, n - w, w).add_(sent[i + 1].narrow(dim, 0, w))
+        return own, None, None, None
+
+
+class FromFirst(torch.autograd.Function):
+    """sp: the group's first rank's ``x`` on every rank (``broadcast``);
+    backward the sum over ranks to the first rank, zeros elsewhere.
+    ``FromFirst.apply(x, shard)``."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return broadcast(x, shard.first_rank, shard.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = all_reduce(g, ctx.shard.group)
+        return (total if ctx.shard.index == 0 else torch.zeros_like(total)), None
+
+
+class Stacked(torch.autograd.Function):
+    """sp: [size, *x.shape], every rank's ``x`` stacked (``gather_stacked``);
+    backward the sum over ranks of row i of the gradient, on rank i.
+    ``Stacked.apply(x, group)``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return gather_stacked(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, 0)[0], None
+
+
+class CopyToGroup(torch.autograd.Function):
+    """tp, a column-parallel layer's input: identity; backward the sum over
+    the group (each rank's weights saw the whole input).
+    ``CopyToGroup.apply(x, group)``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class ReduceFromGroup(torch.autograd.Function):
+    """tp, a row-parallel layer's partial output: the sum over the group;
+    backward identity.  ``ReduceFromGroup.apply(x, group)``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class GatherFromGroup(torch.autograd.Function):
+    """tp, a column-parallel layer's output: every rank's features
+    concatenated along ``dim``; backward this rank's slice of the gradient,
+    not summed (every rank consumes the gathered tensor alike).
+    ``GatherFromGroup.apply(x, group, dim)``."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n).contiguous(), None, None
+
+
+class ScatterToGroup(torch.autograd.Function):
+    """tp, a row-parallel layer's input: this rank's equal slice along
+    ``dim``; backward every rank's slice gathered.
+    ``ScatterToGroup.apply(x, group, dim)``."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group_slice(x, group, dim).clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class AllReduceSum(torch.autograd.Function):
+    """dp, a sum over the whole batch that every rank's loss reads: the sum
+    over the group; backward the sum over the group too (the adjoint of a
+    sum whose result every rank uses; with the trainer averaging the ranks'
+    gradients, each rank's terms then get the global loss's gradient).
+    ``AllReduceSum.apply(x, group)``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+def group_slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim``, split in the group's size
+    equal blocks (raises, naming the shape, where it does not divide)."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
+    m = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * m, m)
+
+
 class FrameShard:
     """A clip's frames split over the ranks of ``group`` in equal
     consecutive blocks: rank i of the group holds frames [i * n, (i + 1) *
-    n) of every clip.  With no group it is one rank holding every frame."""
+    n) of every clip.  With no group it is one rank holding every frame.
+
+    Each method records its backward (the ``Function``s above) when grad
+    mode is on and its input requires grad."""
 
     def __init__(self, group=None):
         self.group = group
@@ -141,15 +428,27 @@ class FrameShard:
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's block of ``x`` along ``dim``, in frame order."""
-        return x if self.size == 1 else all_gather(x, self.group, dim)
+        if self.size == 1:
+            return x
+        if _grad_path(x):
+            return GatherFrames.apply(x, self.group, dim)
+        return all_gather(x, self.group, dim)
 
     def stacked(self, x: torch.Tensor) -> torch.Tensor:
         """[size, *x.shape], the ranks' ``x`` in frame order."""
-        return x[None] if self.size == 1 else gather_stacked(x, self.group)
+        if self.size == 1:
+            return x[None]
+        if _grad_path(x):
+            return Stacked.apply(x, self.group)
+        return gather_stacked(x, self.group)
 
     def from_first(self, x: torch.Tensor) -> torch.Tensor:
         """The first rank's ``x`` (it holds frame 0) on every rank."""
-        return x if self.size == 1 else broadcast(x, self.first_rank, self.group)
+        if self.size == 1:
+            return x
+        if _grad_path(x):
+            return FromFirst.apply(x, self)
+        return broadcast(x, self.first_rank, self.group)
 
     def halo(self, x: torch.Tensor, dim: int, width: int) -> torch.Tensor:
         """``x`` with ``width`` frames of each neighbour's block around it
@@ -160,11 +459,17 @@ class FrameShard:
         if width > n:
             raise ValueError(f"a halo of {width} frames needs at least {width} frames a rank, "
                              f"not {n}")
+        if self.size > 1 and _grad_path(x):
+            return Halo.apply(x, self, dim, width)
+        return self._halo(x, dim, width)
+
+    def _halo(self, x: torch.Tensor, dim: int, width: int) -> torch.Tensor:
+        n = x.shape[dim]
         zeros = torch.zeros_like(x.narrow(dim, 0, width))
         if self.size == 1:
             return torch.cat([zeros, x, zeros], dim)
-        ends = self.stacked(torch.cat([x.narrow(dim, 0, width), x.narrow(dim, n - width, width)],
-                                      dim))
+        ends = gather_stacked(torch.cat([x.narrow(dim, 0, width),
+                                         x.narrow(dim, n - width, width)], dim), self.group)
         i = self.index
         before = ends[i - 1].narrow(dim, width, width) if i > 0 else zeros
         after = ends[i + 1].narrow(dim, 0, width) if i + 1 < self.size else zeros

@@ -9,33 +9,40 @@ rank calls it with the same arguments.  Ranks that differ only in sp (or tp)
 run the same clip.
 
 The JAX package's ``staged=False`` (one fused program a batch) has no
-meaning without a compiler: the flag is taken and the same code runs.  A
-mesh with tp > 1 raises: tp execution comes with the trainer's slice
-(ROADMAP queue 1 item 11, "Parallel, training side").
+meaning without a compiler: the flag is taken and the same code runs.  With
+tp > 1 the pipeline's UNet, VAE and CLIP are placed on the tp dim
+(``sharding.parallelize``, in place, as JAX's executor places
+``shard_params(pipeline.params)``) and every clip runs inside
+``tensor_parallel``: the ranks that differ only in tp run the same clip,
+each on its shards.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from unigeo_tpu_torch.models.layers import tensor_parallel
 from unigeo_tpu_torch.parallel.comm import all_gather
 from unigeo_tpu_torch.parallel.mesh import axis_size
-
-TP_ROADMAP = "ROADMAP.md queue 1 item 11"
 
 
 class ShardedClipExecutor:
     def __init__(self, pipeline, mesh, num_inference_steps: int = 5, staged: bool = True):
-        if axis_size(mesh, "tp") > 1:
-            raise NotImplementedError(
-                f"tensor-parallel execution is not ported yet ({TP_ROADMAP}, the training "
-                f"side of parallel/); use a mesh with tp = 1")
         self.pipeline = pipeline
         self.mesh = mesh
         self.num_inference_steps = num_inference_steps
         self.staged = staged
         dp = mesh["dp"]
         self.group, self.index = dp.get_group(), dp.get_local_rank()
+        self.tp_group = None
+        if axis_size(mesh, "tp") > 1:
+            from unigeo_tpu_torch.parallel.sharding import parallelize
+
+            for module in (pipeline.unet, pipeline.vae, pipeline.clip):
+                parallelize(module, mesh)
+            self.tp_group = mesh.get_group("tp")
 
     @property
     def batch_size(self) -> int:
@@ -65,9 +72,11 @@ class ShardedClipExecutor:
         step, outs = self.batch_size, []
         for start in range(0, b, step):
             i = min(start + self.index, b - 1)  # past the end: the last clip again
-            out = pipe.run_clips_staged(
-                frames_batch[i:i + 1], noise[i:i + 1], self.num_inference_steps,
-                aug_noise=None if aug_noise is None else aug_noise[i:i + 1])
+            with (contextlib.nullcontext() if self.tp_group is None
+                  else tensor_parallel(self.tp_group)):
+                out = pipe.run_clips_staged(
+                    frames_batch[i:i + 1], noise[i:i + 1], self.num_inference_steps,
+                    aug_noise=None if aug_noise is None else aug_noise[i:i + 1])
             gathered = all_gather(out.contiguous(), self.group, dim=0)
             outs.append(gathered[:min(step, b - start)])
         return (torch.cat(outs) + 1.0) / 2.0

@@ -24,13 +24,22 @@ shards PyTorch dim 0 and row-parallel dim 1.  A dim that does not divide
 the tp size replicates (never an uneven layout).
 
 A spec here is the dim a weight is split on over tp, or None (replicated).
-``shard_params`` returns each rank's tp shard; nothing executes tp in the
-port yet (the trainer's slice, ROADMAP queue 1 item 11).
+``shard_params`` returns each rank's tp shard; ``parallelize`` puts the
+shards in the module and makes it execute tp (``models/layers.py``'s
+``TensorParallel`` forward, inside ``tensor_parallel(group)``);
+``gather_params`` gives back the whole state dict in the one-device layout.
+
+GEGLU's projection (``ff.net.0.proj``, [2 I, dim]) holds the value rows
+first and the gate rows second, and the layer splits its output in two
+(``chunk(2, -1)``).  Its equal blocks along dim 0 would give rank 0 value
+rows only; rank i holds value block i followed by gate block i instead
+(its bias likewise), so the local ``chunk(2)`` pairs each value with its
+gate.  The JAX package never sees this: XLA keeps the ``chunk`` global.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Set, Tuple
 
 import torch
 import torch.nn as nn
@@ -101,13 +110,104 @@ def sharded_bytes_fraction(module: nn.Module, tp_size: int = 2) -> Tuple[int, in
     return sharded, total
 
 
-def shard_params(module: nn.Module, mesh, tp_axis: str = "tp") -> Mapping[str, torch.Tensor]:
-    """This rank's tp shard of ``module``'s parameters: each sharded weight's
-    ``tp_rank``-th equal block along its spec's dim, the rest whole."""
+def _geglu_projections(module: nn.Module) -> Set[str]:
+    """The module paths of ``module``'s GEGLU projections."""
+    from unigeo_tpu_torch.models.layers import GEGLU
+
+    return {f"{name}.proj" if name else "proj" for name, m in module.named_modules()
+            if isinstance(m, GEGLU)}
+
+
+def _block(p: torch.Tensor, dim: int, tp: int, index: int, geglu: bool) -> torch.Tensor:
+    """Block ``index`` of ``tp`` of p along ``dim``; GEGLU's projection (and
+    its bias): value block ``index`` followed by gate block ``index``."""
+    if not geglu:
+        return p.chunk(tp, dim=dim)[index]
+    value, gate = p.chunk(2, dim=0)
+    if value.shape[0] % tp:
+        raise ValueError(f"GEGLU's projection {tuple(p.shape)}: its {value.shape[0]} value "
+                         f"rows do not split over {tp} ranks")
+    return torch.cat([value.chunk(tp, dim=0)[index], gate.chunk(tp, dim=0)[index]])
+
+
+def _tp_place(mesh, tp_axis: str):
     from unigeo_tpu_torch.parallel.mesh import axis_size
 
     tp = axis_size(mesh, tp_axis)
-    index = mesh[tp_axis].get_local_rank() if tp > 1 else 0
+    return tp, (mesh[tp_axis].get_local_rank() if tp > 1 else 0)
+
+
+def shard_params(module: nn.Module, mesh, tp_axis: str = "tp") -> Mapping[str, torch.Tensor]:
+    """This rank's tp shard of ``module``'s parameters: each sharded weight's
+    ``tp_rank``-th equal block along its spec's dim (GEGLU's projection
+    interleaved, see the module doc), the rest whole."""
+    tp, index = _tp_place(mesh, tp_axis)
     specs = param_specs(module, tp)
-    return {key: p if specs[key] is None or tp == 1 else p.chunk(tp, dim=specs[key])[index]
+    geglu = _geglu_projections(module)
+    return {key: p if specs[key] is None or tp == 1
+            else _block(p, specs[key], tp, index, key.rsplit(".", 1)[0] in geglu)
             for key, p in module.named_parameters()}
+
+
+def parallelize(module: nn.Module, mesh, tp_axis: str = "tp") -> nn.Module:
+    """Place ``module`` on ``mesh``'s tp dim, in place: every weight whose
+    spec is not None becomes this rank's shard (a column-parallel layer's
+    bias too), and its layer gets a ``TPSpec`` (the dim, the tp group, this
+    rank's place) and the ``TensorParallel`` forward.  Returns ``module``;
+    tp = 1 leaves it as it is.  The layers then run tp inside
+    ``layers.tensor_parallel(mesh.get_group(tp_axis))``."""
+    from unigeo_tpu_torch.models.layers import TPSpec, tensor_parallel_class
+
+    tp, index = _tp_place(mesh, tp_axis)
+    if tp == 1:
+        return module
+    if any(getattr(m, "tp_spec", None) is not None for m in module.modules()):
+        raise ValueError(f"{type(module).__name__} is placed on tp already: parallelize it once")
+    group = mesh.get_group(tp_axis)
+    owners = dict(module.named_modules())
+    geglu = _geglu_projections(module)
+    for key, dim in param_specs(module, tp).items():
+        if dim is None:
+            continue
+        path = key.rsplit(".", 1)[0]
+        owner = owners[path]
+        spec = TPSpec(dim, group, tp, index, geglu=path in geglu)
+        leaves = ["weight"] + (["bias"] if dim == 0 and owner.bias is not None else [])
+        for leaf in leaves:
+            p = getattr(owner, leaf)
+            block = _block(p.detach(), dim if leaf == "weight" else 0, tp, index, spec.geglu)
+            setattr(owner, leaf, nn.Parameter(block.contiguous().clone(),
+                                              requires_grad=p.requires_grad))
+        owner.tp_spec = spec
+        owner.__class__ = tensor_parallel_class(type(owner))
+    return module
+
+
+def gather_params(module: nn.Module,
+                  values: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """The whole state dict of a module placed by ``parallelize``, in the
+    one-device layout (GEGLU's projection un-interleaved), on every rank of
+    the tp group: each shard gathered over its layer's group, the rest as
+    it is (a module never placed: its state dict).
+
+    values: {state-dict key: this rank's tensor of that key's local shape}
+    to gather instead of the module's own (the gradients, say); only those
+    keys come back."""
+    from unigeo_tpu_torch.parallel.comm import all_gather
+
+    owners = dict(module.named_modules())
+    local = module.state_dict() if values is None else values
+    out = {}
+    for key, t in local.items():
+        path, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+        spec = getattr(owners.get(path), "tp_spec", None)
+        if spec is None or not (leaf == "weight" or (leaf == "bias" and spec.dim == 0)):
+            out[key] = t
+            continue
+        dim = spec.dim if leaf == "weight" else 0
+        whole = all_gather(t.detach().contiguous(), spec.group, dim)
+        if spec.geglu:  # [v0 g0 v1 g1 ...] -> [v0 v1 ... g0 g1 ...]
+            pairs = [b.chunk(2, dim=0) for b in whole.chunk(spec.size, dim=0)]
+            whole = torch.cat([v for v, _ in pairs] + [g for _, g in pairs])
+        out[key] = whole
+    return out

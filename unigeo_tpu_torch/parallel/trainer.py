@@ -1,7 +1,7 @@
-"""The trainers of the port, on one device: counterparts of
-``unigeo_tpu/parallel/trainer.py``'s five (the mesh and its sharding are not
-ported yet).  Each ``train_step`` is the family's loss, its backward and one
-AdamW update (``Trainer``, shared by all five):
+"""The trainers of the port, counterparts of ``unigeo_tpu/parallel/trainer.py``'s
+five, on one device or on a dp / sp / tp mesh.  Each ``train_step`` is the
+family's loss, its backward and one AdamW update (``Trainer``, shared by all
+five):
 
   DiffusionTrainer     EDM v-prediction of the SVD UNet on VAE latents
                        (DepthCrafter and its siblings)
@@ -27,16 +27,45 @@ optax decays every parameter, also one the loss does not reach (its
 gradient is zero there); torch skips a parameter whose ``.grad`` is None, so
 such gradients are set to zeros before the step.  The moments are kept in
 the parameter dtype, as optax keeps them.
+
+On a mesh (``mesh=``, ``parallel/mesh.py::make_mesh``; one process a rank):
+
+  * the module is placed through ``sharding.parallelize``: tp shards the
+    weights the rules name, and AdamW holds this rank's shards and their
+    moments;
+  * dp splits the clips (B) and, in ``DiffusionTrainer``, sp the frames (T)
+    in equal consecutive blocks (``local_batch``; B must divide by dp and
+    T by sp, as JAX's ``P("dp", "sp")`` requires); the other families keep
+    each clip whole, their sp ranks replicas;
+  * every rank draws the whole batch's draws from its generator (seed 1 on
+    every rank) and takes its block, so a mesh step computes the
+    one-device step of the same seed; passed-in draws are the whole batch's
+    too;
+  * ``train_step`` averages the gradients over the dp x sp ranks that hold
+    the same tp shard, one flattened bucket per dtype, summed in f32 (the
+    JAX package's psum may add bf16 gradients in bf16; the port does not);
+    over tp the sharded leaves need nothing and the replicated ones are
+    equal on every rank by the collectives' backwards (``comm.py``);
+  * the losses are means of equal per-rank shares, so the mean of the
+    ranks' losses is the global one, except ``PointmapTrainer``'s
+    regression, whose normalisation and masked mean run over the whole
+    batch: their sums are all-reduced over dp (``comm.AllReduceSum``).
+
+JAX gets the collectives from one jitted SPMD program; here each forward
+collective has its backward written out (``comm.py``) and the gradient
+mean is explicit.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Mapping
 
 import torch
 import torch.nn as nn
 
 from unigeo_tpu_torch.metrics.alignment import lstsq_scale_shift
+from unigeo_tpu_torch.models.layers import frames_sharded, tensor_parallel
 from unigeo_tpu_torch.models.depthcrafter.scheduler import EulerDiscreteScheduler
 from unigeo_tpu_torch.models.pointmap.losses import (
     normalize_by_avg_dis,
@@ -47,11 +76,53 @@ from unigeo_tpu_torch.models.pointmap.losses import (
 ADDED_TIME_IDS = (6.0, 127.0, 0.02)  # fps - 1, motion bucket, noise aug (trainer.py:105)
 
 
+class MeshPlace:
+    """This rank's place on a trainer's mesh: each dim's size, this rank's
+    index and group, and the group over which the gradients are averaged
+    (the dp x sp ranks that hold this rank's tp shard; None when that is
+    this rank alone).  ``MeshPlace(None)`` is one device."""
+
+    def __init__(self, mesh=None):
+        from unigeo_tpu_torch.parallel.comm import FrameShard, new_groups
+        from unigeo_tpu_torch.parallel.mesh import axis_size
+
+        self.mesh = mesh
+        self.sizes = {a: 1 if mesh is None else axis_size(mesh, a) for a in ("dp", "sp", "tp")}
+        self.index = {a: 0 if self.sizes[a] == 1 else mesh[a].get_local_rank()
+                      for a in self.sizes}
+        self.group = {a: None if self.sizes[a] == 1 else mesh.get_group(a) for a in self.sizes}
+        self.shard = FrameShard(self.group["sp"]) if self.sizes["sp"] > 1 else None
+        self.grad_group = None
+        if self.sizes["dp"] * self.sizes["sp"] > 1:
+            ranks = mesh.mesh.reshape(-1, self.sizes["tp"])
+            self.grad_group = new_groups([ranks[:, t].tolist() for t in range(ranks.shape[1])])
+
+    def block(self, x, axis: str, dim: int):
+        """This rank's block of x along ``dim`` (x's whole length split over
+        ``axis``); raises, naming the sizes, where it does not divide."""
+        n, size = x.shape[dim], self.sizes[axis]
+        if n % size:
+            what = {"dp": "clips (B)", "sp": "frames (T)"}[axis]
+            raise ValueError(f"{n} {what} do not split over {axis} = {size}")
+        m = n // size
+        return x.narrow(dim, self.index[axis] * m, m)
+
+
 class Trainer:
     """A module's trainable parameters, their AdamW state and the train
-    step; a family defines ``loss(batch, *draws)``."""
+    step; a family defines ``loss(batch, *draws)`` on this rank's block of
+    the batch (``local_batch``)."""
 
-    def __init__(self, module: nn.Module, learning_rate: float, weight_decay: float):
+    # whether ``local_batch`` also splits each clip's frames (dim 1) over sp
+    frame_split = False
+
+    def __init__(self, module: nn.Module, learning_rate: float, weight_decay: float,
+                 mesh=None):
+        self.place = MeshPlace(mesh)
+        if mesh is not None:
+            from unigeo_tpu_torch.parallel.sharding import parallelize
+
+            parallelize(module, mesh)
         self.module = module
         self.params = [p for p in module.parameters() if p.requires_grad]
         if not self.params:
@@ -67,6 +138,22 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(1)
         self.step = 0
 
+    def local_batch(self, batch: Mapping) -> Dict:
+        """This rank's block of a whole batch: its dp block of the clips
+        and, where the family splits frames (``frame_split``), its sp block
+        of each clip's frames."""
+        out = {}
+        for key, value in batch.items():
+            x = self.place.block(torch.as_tensor(value), "dp", 0)
+            out[key] = self.place.block(x, "sp", 1) if self.frame_split else x
+        return out
+
+    def draw_block(self, x, frames: bool = False):
+        """This rank's block of a whole batch's draw: the dp block of dim 0
+        (and with ``frames`` the sp block of dim 1)."""
+        x = self.place.block(torch.as_tensor(x, device=self.device).float(), "dp", 0)
+        return self.place.block(x, "sp", 1) if frames else x
+
     def tensor(self, batch: Mapping, key: str) -> torch.Tensor:
         """``batch[key]`` (numpy or torch) as f32 on the trainer's device."""
         return torch.as_tensor(batch[key], device=self.device).float()
@@ -74,21 +161,54 @@ class Trainer:
     def loss(self, batch: Mapping, *draws) -> torch.Tensor:
         raise NotImplementedError
 
-    def train_step(self, batch: Mapping, *draws):
-        """Loss, backward, one AdamW update; returns the loss (detached)."""
+    def parallel_context(self):
+        """The contexts the loss's forward and backward run in: tp over the
+        mesh's tp group."""
+        stack = contextlib.ExitStack()
+        if self.place.sizes["tp"] > 1:
+            stack.enter_context(tensor_parallel(self.place.group["tp"]))
+        return stack
+
+    def backward(self, batch: Mapping, *draws) -> torch.Tensor:
+        """The loss of this rank's ``batch`` and its backward; on a mesh each
+        gradient and the loss end as their means over the dp x sp ranks.
+        Returns the loss (detached)."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(batch, *draws)
-        loss.backward()
+        with self.parallel_context():
+            loss = self.loss(batch, *draws)
+            loss.backward()
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        loss = loss.detach().float().clone()
+        if self.place.grad_group is not None:
+            from unigeo_tpu_torch.parallel.comm import all_reduce_mean_
+
+            all_reduce_mean_([p.grad for p in self.params] + [loss], self.place.grad_group)
+        return loss
+
+    def train_step(self, batch: Mapping, *draws):
+        """Loss, backward, one AdamW update; returns the loss (detached).
+        ``batch`` is this rank's block (``local_batch``)."""
+        loss = self.backward(batch, *draws)
         self.optimizer.step()
         self.step += 1
-        return loss.detach()
+        return loss
 
 
 class DiffusionTrainer(Trainer):
-    """EDM denoising of the UNet (``trainer.py:75-114``)."""
+    """EDM denoising of the UNet (``trainer.py:75-114``).  Under sp each rank
+    holds T / sp consecutive frames of every clip, and the loss's forward
+    and backward run inside ``frames_sharded``: the UNet's temporal layers
+    reach the other frames through the sp group."""
+
+    frame_split = True
+
+    def parallel_context(self):
+        stack = super().parallel_context()
+        if self.place.shard is not None:
+            stack.enter_context(frames_sharded(self.place.shard))
+        return stack
 
     def __init__(
         self,
@@ -97,25 +217,31 @@ class DiffusionTrainer(Trainer):
         weight_decay: float = 1e-2,
         sigma_p_mean: float = 0.7,
         sigma_p_std: float = 1.6,
+        mesh=None,
     ):
-        super().__init__(unet, learning_rate, weight_decay)
+        super().__init__(unet, learning_rate, weight_decay, mesh)
         self.unet = unet
         self.scheduler = EulerDiscreteScheduler()
         self.p_mean = sigma_p_mean
         self.p_std = sigma_p_std
 
     def loss(self, batch: Dict[str, torch.Tensor], log_sigma_normal=None, noise=None):
-        """The EDM loss of ``trainer.py:75-114``; f32 scalar."""
+        """The EDM loss of ``trainer.py:75-114`` over this rank's clips and
+        frames; f32 scalar.  The draws are the whole batch's ([B, 1, 1, 1,
+        1], [B, T, h, w, 4]), passed in or drawn here."""
         dev = self.device
         latents, cond = self.tensor(batch, "latents"), self.tensor(batch, "cond_latents")
         ctx = torch.as_tensor(batch["context"], device=dev)
         b, t = latents.shape[:2]
+        whole = (b * self.place.sizes["dp"], t * self.place.sizes["sp"])
         if log_sigma_normal is None:
-            log_sigma_normal = torch.randn((b, 1, 1, 1, 1), generator=self.generator, device=dev)
+            log_sigma_normal = torch.randn((whole[0], 1, 1, 1, 1), generator=self.generator,
+                                           device=dev)
         if noise is None:
-            noise = torch.randn(latents.shape, generator=self.generator, device=dev)
-        n = torch.as_tensor(log_sigma_normal, device=dev).float().reshape(b, 1, 1, 1, 1)
-        noise = torch.as_tensor(noise, device=dev).float()
+            noise = torch.randn((*whole, *latents.shape[2:]), generator=self.generator,
+                                device=dev)
+        n = self.draw_block(torch.as_tensor(log_sigma_normal).reshape(whole[0], 1, 1, 1, 1))
+        noise = self.draw_block(noise, frames=True)
 
         sigma = torch.exp(self.p_mean + self.p_std * n)
         sched = self.scheduler
@@ -141,20 +267,24 @@ class FlowMatchingTrainer(Trainer):
     w, Ct], cond_latents [B, T', h, w, Cc]."""
 
     def __init__(self, dit: nn.Module, learning_rate: float = 1e-4,
-                 weight_decay: float = 1e-2):
-        super().__init__(dit, learning_rate, weight_decay)
+                 weight_decay: float = 1e-2, mesh=None):
+        super().__init__(dit, learning_rate, weight_decay, mesh)
         self.dit = dit
 
     def loss(self, batch, t_normal=None, eps=None):
+        """Over this rank's clips; the draws are the whole batch's ([B], [B,
+        T', h, w, Ct])."""
         x0 = self.tensor(batch, "target_latents")
         cond = self.tensor(batch, "cond_latents")
         b = x0.shape[0]
+        whole = b * self.place.sizes["dp"]
         if t_normal is None:
-            t_normal = torch.randn((b,), generator=self.generator, device=self.device)
+            t_normal = torch.randn((whole,), generator=self.generator, device=self.device)
         if eps is None:
-            eps = torch.randn(x0.shape, generator=self.generator, device=self.device)
-        t = torch.sigmoid(torch.as_tensor(t_normal, device=self.device).float().reshape(b))
-        eps = torch.as_tensor(eps, device=self.device).float()
+            eps = torch.randn((whole, *x0.shape[1:]), generator=self.generator,
+                              device=self.device)
+        t = torch.sigmoid(self.draw_block(torch.as_tensor(t_normal).reshape(whole)))
+        eps = self.draw_block(eps)
         tb = t[:, None, None, None, None]
         x_t = (1.0 - tb) * x0 + tb * eps
         v_tgt = eps - x0
@@ -174,8 +304,9 @@ class PointmapTrainer(Trainer):
     sequential in T)."""
 
     def __init__(self, network: nn.Module, learning_rate: float = 1e-4,
-                 weight_decay: float = 5e-2, conf_alpha: float = 0.2, pose_weight: float = 1.0):
-        super().__init__(network, learning_rate, weight_decay)
+                 weight_decay: float = 5e-2, conf_alpha: float = 0.2, pose_weight: float = 1.0,
+                 mesh=None):
+        super().__init__(network, learning_rate, weight_decay, mesh)
         self.network = network
         self.conf_alpha = conf_alpha
         self.pose_weight = pose_weight
@@ -191,9 +322,12 @@ class PointmapTrainer(Trainer):
     def loss(self, batch):
         frames = self.tensor(batch, "frames")
         pts, conf, pose_enc = zip(*(self.clip_outputs(f) for f in frames))
+        # over dp the normalisation and the masked mean take the whole
+        # batch's sums, as the one-device loss does
         loss = pointmap_regression_loss(
             torch.stack(pts).float(), self.tensor(batch, "gt_world_pts"),
-            self.tensor(batch, "mask"), torch.stack(conf).float(), self.conf_alpha)
+            self.tensor(batch, "mask"), torch.stack(conf).float(), self.conf_alpha,
+            group=self.place.group["dp"])
         if pose_enc[0] is not None and "gt_poses" in batch:
             loss = loss + self.pose_weight * pose_loss(torch.stack(pose_enc).float(),
                                                        self.tensor(batch, "gt_poses"))
@@ -236,8 +370,8 @@ class DisparityTrainer(Trainer):
     the clips."""
 
     def __init__(self, network: nn.Module, learning_rate: float = 1e-4,
-                 weight_decay: float = 1e-2, temporal_weight: float = 1.0):
-        super().__init__(network, learning_rate, weight_decay)
+                 weight_decay: float = 1e-2, temporal_weight: float = 1.0, mesh=None):
+        super().__init__(network, learning_rate, weight_decay, mesh)
         self.network = network
         self.temporal_weight = temporal_weight
 

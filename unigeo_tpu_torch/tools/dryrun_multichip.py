@@ -12,7 +12,15 @@ each against the serial path in the same rank, printing each max |delta|:
   * sp: ``denoise_context_parallel`` over a (1, N, 1) mesh on 2N frames
     against the unsplit denoise loop, and ``flow_sample_context_parallel``
     over N latent frames against ``AetherNetwork.sample``;
-  * pp (N >= 3): ``PipelinedStageExecutor`` on two clips of 4 frames.
+  * pp (N >= 3): ``PipelinedStageExecutor`` on two clips of 4 frames;
+  * training, on ``mesh.py::_factor(N)``'s mesh (dp 2 x sp 2 x tp 2 at N =
+    8, the JAX dry run's): one ``DiffusionTrainer`` step (the tiny UNet, B =
+    dp clips of 2 sp frames) and one ``FlowMatchingTrainer`` step (the tiny
+    DiT, B = dp clips), each against the one-process step on the same batch
+    and draws in the same rank: each loss, its relative difference and the
+    largest gradient difference relative to the largest gradient (the
+    counterpart of ``__graft_entry__.py::dryrun_multichip``'s training and
+    ``_dryrun_flow_matching``).
 
 Then, in this process, the SVD-XT tp accounting of ``__graft_entry__.py::
 _check_svdxt_tp_divisibility``: the full UNet built on the meta device,
@@ -36,6 +44,9 @@ STEPS = 2
 # computation; sp and pp reorder the temporal statistics' f32 sums; the flow
 # sampler absolute, as tests/test_aether.py holds JAX's
 BOUNDS = {"dp": 1e-6, "sp": 4e-4, "pp": 2e-3, "flow": 2e-4}
+# the training steps against the one-process step (f32 sums in another
+# order): the loss relative, the gradients relative to the largest one
+TRAIN_BOUNDS = {"loss": 1e-5, "grad": 1e-4}
 SVD_XT_UNET = dict(block_out_channels=(320, 640, 1280, 1280), layers_per_block=2,
                    num_attention_heads=(5, 10, 20, 20), cross_attention_dim=1024,
                    addition_time_embed_dim=256, head_dim=64)
@@ -99,6 +110,56 @@ def rank_main(job):
             got = pp(clips, noise=noise, aug_noise=aug)
             out[f"pp PipelinedStageExecutor (denoise ranks {pp.denoise_ranks})"] = (
                 _rel(got, serial), BOUNDS["pp"])
+    out.update(train_steps(job["seed"]))
+    return out
+
+
+def train_steps(seed: int):
+    """One DiffusionTrainer and one FlowMatchingTrainer step on _factor(N)'s
+    mesh against the one-process step -> {name: (difference, bound)}."""
+    import copy
+
+    import torch.distributed as dist
+
+    from unigeo_tpu_torch.models.aether import AetherDiT, tiny_aether_configs
+    from unigeo_tpu_torch.models.depthcrafter.pipeline import init_random_
+    from unigeo_tpu_torch.models.depthcrafter.unet import UNetSpatioTemporal, tiny_unet_config
+    from unigeo_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+    from unigeo_tpu_torch.parallel.sharding import gather_params
+    from unigeo_tpu_torch.parallel.trainer import DiffusionTrainer, FlowMatchingTrainer
+
+    n = dist.get_world_size()
+    shape = mesh_shape(n)
+    dp, sp, _ = shape
+    g = torch.Generator().manual_seed(seed + 2)
+    rnd = lambda *s: torch.randn(s, generator=g)
+    unet_cfg = tiny_unet_config()
+    b, t = dp, 2 * sp
+    diffusion = ({"latents": rnd(b, t, 16, 16, 4), "cond_latents": rnd(b, t, 16, 16, 4),
+                  "context": rnd(b, t, 1, unet_cfg["cross_attention_dim"])},
+                 (rnd(b, 1, 1, 1, 1), rnd(b, t, 16, 16, 4)))
+    net_cfg, _ = tiny_aether_configs()
+    flow = ({"target_latents": rnd(b, 2, 8, 8, 10), "cond_latents": rnd(b, 2, 8, 8, 4)},
+            (rnd(b), rnd(b, 2, 8, 8, 10)))
+    runs = (("DiffusionTrainer", DiffusionTrainer,
+             init_random_(UNetSpatioTemporal(**unet_cfg), g), diffusion),
+            ("FlowMatchingTrainer", FlowMatchingTrainer,
+             init_random_(AetherDiT(14, 10, **net_cfg), g), flow))
+    out = {}
+    for name, cls, module, (batch, draws) in runs:
+        ref = cls(copy.deepcopy(module), learning_rate=1e-4)
+        ref_loss = float(ref.backward(batch, *draws))
+        ref_grads = {k: p.grad for k, p in ref.module.named_parameters()}
+        trainer = cls(module, learning_rate=1e-4, mesh=make_mesh(n, shape, device="cpu"))
+        loss = float(trainer.backward(trainer.local_batch(batch), *draws))
+        grads = gather_params(module, values={k: p.grad for k, p in module.named_parameters()})
+        g_all = max(float(v.abs().max()) for v in ref_grads.values())
+        grad_dev = max(float((grads[k] - v).abs().max()) for k, v in ref_grads.items()) / g_all
+        label = f"train {name} on dp,sp,tp {shape}: loss {loss:.6f} (one process {ref_loss:.6f})"
+        out[f"{label}, relative loss difference"] = (abs(loss - ref_loss) / abs(ref_loss),
+                                                     TRAIN_BOUNDS["loss"])
+        out[f"{label}, largest gradient difference over the largest gradient"] = (
+            grad_dev, TRAIN_BOUNDS["grad"])
     return out
 
 
@@ -156,7 +217,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         same = all(r[name] == results[0][name] for r in results)
         good = err <= bound and same
         ok &= good
-        print(f"{name}: max |delta| {err:.3e} (bound {bound:.0e}; every rank the same "
+        what = "" if name.startswith("train ") else " max |delta|"
+        print(f"{name}:{what} {err:.3e} (bound {bound:.0e}; every rank the same "
               f"{same}) {'ok' if good else 'FAILED'}")
     for line in svdxt_tp_accounting():
         print(line)

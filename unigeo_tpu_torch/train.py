@@ -3,9 +3,11 @@
     python -m unigeo_tpu_torch.train --config configs/<experiment>.yaml \
         [--model NAME] [--steps 100] [--batch-size 1] [--lr 1e-4] \
         [--ckpt-dir ./ckpts] [--ckpt-every 50] [--tiny] [--device cuda]
+    torchrun --nproc-per-node N -m unigeo_tpu_torch.train --config ... \
+        [--mesh dp,sp,tp]
 
 Every family of the JAX trainer, selected by the config's model (or
-``--model``), each on one device (``parallel/trainer.py``):
+``--model``), on one device or on a device mesh (``parallel/trainer.py``):
 
   * DepthCrafter, UniGeoCam / UniGeo, StableNormal, ChronoDepth,
     DepthAnyVideo: EDM fine-tuning of the SVD UNet on VAE-encoded clips
@@ -29,8 +31,19 @@ under ``--ckpt-dir`` (``utils/checkpoint.py::TrainStateSaver``, the newest 3
 kept) every ``--ckpt-every`` steps, and the final state is saved; each is
 the layout the family's eval adapter loads through ``checkpoint_path``.
 ``--ckpt-every 0`` saves nothing.  It runs on the card unless ``--device
-cpu`` is given.  The device mesh (``--mesh``) waits for ROADMAP queue 1
-item 11 and is refused.
+cpu`` is given.
+
+Over several processes (torchrun's environment, ``parallel/multihost.py``)
+each rank runs on ``cuda:{LOCAL_RANK % device_count}`` (or the CPU under
+``--device cpu``) on a mesh of the world's size: ``--mesh dp,sp,tp``, or
+``mesh.py::_factor``'s shape without it.  ``--batch-size`` is the whole
+batch and must divide by dp; each rank builds only its dp block of the
+clips and, in the diffusion family under sp, encodes only its block of
+each clip's frames (T must divide by sp; the depth target's clip-wide
+min-max is still taken over the whole clip).  Only rank 0 logs and writes
+checkpoints, each the whole state (``sharding.gather_params``) in the
+layout the one-device eval adapter loads.  One process with no ``--mesh``
+is the one-device path.
 
 ``main(argv, config=dict)`` takes the experiment config as a dict instead of
 ``--config``, so a caller needs neither a YAML file nor the ``yaml`` package.
@@ -39,12 +52,11 @@ item 11 and is refused.
 from __future__ import annotations
 
 import argparse
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-PARALLEL_ROADMAP = "ROADMAP.md queue 1 item 11"
 DIFFUSION_MODELS = ("DepthCrafter", "UniGeoCam", "UniGeo", "StableNormal", "ChronoDepth",
                     "DepthAnyVideo")
 # ChronoDepth and DepthAnyVideo decode depth itself ((x + 1) / 2)
@@ -118,20 +130,29 @@ def _target_frames(data, direct_depth: bool) -> np.ndarray:
 
 
 @torch.no_grad()
-def build_batch_diffusion(samples, pipe, direct_depth: bool = False) -> Dict[str, torch.Tensor]:
+def build_batch_diffusion(samples, pipe, direct_depth: bool = False,
+                          frame_block: Tuple[int, int] = (0, 1)) -> Dict[str, torch.Tensor]:
     """Clips -> an EDM training batch on the pipeline's device, f32, in the
     JAX package's layout: latents and cond_latents [B, T, h, w, 4], context
     [B, T, 1, C].  Target latents encode the GT depth target into the
     scaled (0.18215) latent space in f32 (``pipe.encode_target``: the JAX
     trainer encodes its f32 target through the bf16 VAE, which flax computes
     in f32); the conditioning is the unscaled RGB latent and the CLIP
-    context of ``_encode_stage``, in the pipeline dtype."""
+    context of ``_encode_stage``, in the pipeline dtype.  ``frame_block``
+    (index, count): encode only block ``index`` of ``count`` equal blocks of
+    each clip's frames (an sp rank's; every encode is per frame), the
+    target normalised over the whole clip first."""
     dev = pipe.device
     lats, conds, ctxs = [], [], []
     for data in samples:
-        frames = np.asarray(data["images"], np.float32) / np.float32(255.0)  # [T,3,H,W]
-        cond, ctx = pipe._encode_stage(torch.from_numpy(frames).to(dev), None)
-        lat = pipe.encode_target(torch.from_numpy(_target_frames(data, direct_depth)).to(dev))
+        t, (i, n) = data["images"].shape[0], frame_block
+        if t % n:
+            raise ValueError(f"a clip's {t} frames (T) do not split over sp = {n}")
+        frames = slice(i * t // n, (i + 1) * t // n)
+        rgb = np.asarray(data["images"], np.float32)[frames] / np.float32(255.0)  # [T,3,H,W]
+        cond, ctx = pipe._encode_stage(torch.from_numpy(rgb).to(dev), None)
+        target = _target_frames(data, direct_depth)[frames]
+        lat = pipe.encode_target(torch.from_numpy(np.ascontiguousarray(target)).to(dev))
         lats.append(lat.permute(0, 2, 3, 1).float())
         conds.append(cond.permute(0, 2, 3, 1).float())
         ctxs.append(ctx.float())
@@ -182,17 +203,24 @@ def build_batch_aether(samples, model) -> Dict[str, torch.Tensor]:
 
 def run_training_loop(trainer, make_batch, dataset, args, writer, saver=None,
                       export_params: Optional[Callable[[], Any]] = None,
-                      on_step: Optional[Callable[[int, float, float], None]] = None):
+                      on_step: Optional[Callable[[int, float, float], None]] = None,
+                      clips: Optional[range] = None):
     """The one driver every family shares: streams batches, runs and times
     the steps, logs the loss, saves ``export_params()`` through ``saver``
-    every ``args.ckpt_every`` steps and after the last.  A step's time ends
-    when its loss is read back, so when the device has finished the update.
+    every ``args.ckpt_every`` steps and after the last.  ``clips``: the
+    positions of the batch's ``args.batch_size`` clips this rank builds (its
+    dp block; all by default).  On a rank without a ``saver``,
+    ``export_params`` is still called at each save (its gathers are
+    collective) and nothing is written; only the primary rank prints.  A
+    step's time ends when its loss is read back, so when the device has
+    finished the update.
     ``on_step(step, loss, seconds)`` is called after each step; with it the
     loop also waits for each batch's device work (such as the VAE encodes)
     before it starts the step's clock, so that a caller who reads the times
     gets the batch's and the step's apart.  Without it nothing waits, and a
     batch's time is the host's.  Returns the losses, the step and batch
     seconds and the checkpoints written."""
+    from unigeo_tpu_torch.parallel.multihost import is_primary
     from unigeo_tpu_torch.utils.writers import TimeWriter
 
     timer = TimeWriter(writer, "step_time")
@@ -200,11 +228,12 @@ def run_training_loop(trainer, make_batch, dataset, args, writer, saver=None,
     timed = on_step is not None and trainer.device.type == "cuda"
     sync = torch.cuda.synchronize if timed else (lambda: None)
     losses, seconds, batch_seconds, saved = [], [], [], []
-    every = args.ckpt_every if saver is not None else 0
+    every = args.ckpt_every if export_params is not None else 0
+    clips = range(args.batch_size) if clips is None else clips
     idx = 0
     for step in range(args.steps):
         with batch_timer:
-            samples = [dataset[(idx + i) % len(dataset)] for i in range(args.batch_size)]
+            samples = [dataset[(idx + i) % len(dataset)] for i in clips]
             batch = make_batch(samples)
             sync()
         idx += args.batch_size
@@ -214,14 +243,18 @@ def run_training_loop(trainer, make_batch, dataset, args, writer, saver=None,
         losses.append(loss)
         seconds.append(timer.last)
         writer.put_scalar("loss", loss, step)
-        if step % 10 == 0:
+        if step % 10 == 0 and is_primary():
             print(f"step {step}: loss {loss:.4f} ({timer.avg:.2f}s/step)", flush=True)
         if on_step is not None:
             on_step(step, loss, timer.last)
         if every and (step + 1) % every == 0:
-            saved.append(saver.save(export_params(), step + 1))
+            state = export_params()
+            if saver is not None:
+                saved.append(saver.save(state, step + 1))
     if every and args.steps % every != 0:  # the final state, not saved yet
-        saved.append(saver.save(export_params(), args.steps))
+        state = export_params()
+        if saver is not None:
+            saved.append(saver.save(state, args.steps))
     return {"losses": losses, "step_seconds": seconds, "batch_seconds": batch_seconds,
             "checkpoints": saved}
 
@@ -229,7 +262,7 @@ def run_training_loop(trainer, make_batch, dataset, args, writer, saver=None,
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Train a model of the PyTorch port (every family of train.py), "
-        "from random weights, on one device.")
+        "from random weights, on one device or (under torchrun) on a dp/sp/tp mesh.")
     parser.add_argument("--config", default=None, help="experiment YAML")
     parser.add_argument("--model", default=None, help="override the config's model")
     parser.add_argument("--steps", type=int, default=100)
@@ -243,16 +276,28 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument(
         "--mesh", default=None,
-        help=f"not available yet: the trainer runs on one device; the mesh and its "
-        f"sharding wait for {PARALLEL_ROADMAP}")
+        help="dp,sp,tp: the mesh's shape over the processes (its product the world "
+        "size; default: mesh.py's _factor of the world size)")
     return parser
 
 
-def _pointmap_family(name, cfg_net, tiny: bool, device, lr):
+def parse_mesh(text: str):
+    """"dp,sp,tp" -> (dp, sp, tp), each a positive integer."""
+    parts = text.split(",")
+    try:
+        shape = tuple(int(p) for p in parts)
+    except ValueError:
+        shape = ()
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"--mesh {text!r}: expected dp,sp,tp, three positive integers")
+    return shape
+
+
+def _pointmap_family(name, cfg_net, tiny: bool, device, lr, mesh=None):
     """(trainer, batch builder, export, the trained network) of a pointmap
     model or VideoDepthAnything: the network from ``cfg_net`` (or the tiny
     config) in f32 with random weights from seed 0."""
-    from unigeo_tpu_torch.models.pointmap.adapter import RandomInitAdapter, build_network
+    from unigeo_tpu_torch.models.pointmap.adapter import build_network
     from unigeo_tpu_torch.parallel.trainer import (
         DisparityTrainer,
         Dust3RTrainer,
@@ -274,10 +319,13 @@ def _pointmap_family(name, cfg_net, tiny: bool, device, lr):
     else:
         from unigeo_tpu_torch.models.vda import VDANetwork as cls, tiny_vda_config
         tiny_cfg, trainer_cls = tiny_vda_config, DisparityTrainer
+    from unigeo_tpu_torch.parallel.sharding import gather_params
+
     net = build_network(cls, tiny_cfg() if tiny else cfg_net, device, seed=0)
-    trainer = trainer_cls(net.requires_grad_(True), learning_rate=lr)
+    trainer = trainer_cls(net.requires_grad_(True), learning_rate=lr, mesh=mesh)
     make_batch = build_batch_disparity if trainer_cls is DisparityTrainer else build_batch_pointmap
-    return trainer, make_batch, lambda: RandomInitAdapter.checkpoint_of(net), dict(network=net)
+    # the whole network in RandomInitAdapter.checkpoint_of's layout
+    return trainer, make_batch, lambda: gather_params(net), dict(network=net)
 
 
 def main(argv=None, config: Optional[Dict[str, Any]] = None,
@@ -292,12 +340,24 @@ def main(argv=None, config: Optional[Dict[str, Any]] = None,
 
     from unigeo_tpu_torch.config import EvalConfig
     from unigeo_tpu_torch.device import resolve_device
+    from unigeo_tpu_torch.parallel.mesh import axis_size, make_mesh, mesh_shape
+    from unigeo_tpu_torch.parallel.multihost import (
+        initialize_distributed,
+        is_primary,
+        rank_device,
+    )
+    from unigeo_tpu_torch.parallel.multihost import world as world_of
+    from unigeo_tpu_torch.parallel.sharding import gather_params
     from unigeo_tpu_torch.registry import get_dataset_cls
     from unigeo_tpu_torch.utils.checkpoint import TrainStateSaver
     from unigeo_tpu_torch.utils.writers import EventWriter
 
+    shape = None
     if args.mesh is not None:
-        parser.error(f"--mesh: the trainer runs on one device ({PARALLEL_ROADMAP})")
+        try:
+            shape = parse_mesh(args.mesh)
+        except ValueError as e:
+            parser.error(str(e))
     if args.ckpt_every < 0:
         parser.error("--ckpt-every must be >= 0")
     if config is None:
@@ -316,6 +376,22 @@ def main(argv=None, config: Optional[Dict[str, Any]] = None,
             f"the feed-forward VideoDepthAnything; got model {name!r}")
 
     device = resolve_device(args.device)
+    mesh, sizes, index = None, {"dp": 1, "sp": 1}, {"dp": 0, "sp": 0}
+    if shape is not None or (initialize_distributed(device=device.type)
+                             and world_of()[0] > 1):
+        world = world_of()[0]
+        try:
+            mesh = make_mesh(world, mesh_shape(world, shape), device=device.type)
+        except ValueError as e:
+            parser.error(f"--mesh: {e}")
+        device = rank_device(device)
+        for axis in sizes:
+            sizes[axis] = axis_size(mesh, axis)
+            index[axis] = mesh[axis].get_local_rank() if sizes[axis] > 1 else 0
+    if args.batch_size % sizes["dp"]:
+        parser.error(f"--batch-size {args.batch_size} does not split over dp = {sizes['dp']}")
+    per_rank = args.batch_size // sizes["dp"]
+    clips = range(index["dp"] * per_rank, (index["dp"] + 1) * per_rank)
     dataset = get_dataset_cls(cfg.dataset)(**cfg.dataset_kwargs)
     mp = dict(cfg.model_params or {})
     if name in DIFFUSION_MODELS:
@@ -335,32 +411,54 @@ def main(argv=None, config: Optional[Dict[str, Any]] = None,
                                         clip_config=mp.get("clip_config"), device=device)
         pipe.init_random(torch.Generator(device=device).manual_seed(0))
         # the UNet takes gradients; the VAE and CLIP stay frozen
-        trainer = DiffusionTrainer(pipe.unet.requires_grad_(True), learning_rate=args.lr)
+        trainer = DiffusionTrainer(pipe.unet.requires_grad_(True), learning_rate=args.lr,
+                                   mesh=mesh)
         direct = name in DIRECT_DEPTH_MODELS
-        make_batch = lambda samples: build_batch_diffusion(samples, pipe, direct_depth=direct)
-        export, extra = pipe.checkpoint, dict(pipe=pipe)
+        t = cfg.dataset_kwargs["clip_length"]
+        if t % sizes["sp"]:
+            parser.error(f"the clips' {t} frames (T) do not split over sp = {sizes['sp']}")
+        block = (index["sp"], sizes["sp"])
+        make_batch = lambda samples: build_batch_diffusion(samples, pipe, direct_depth=direct,
+                                                           frame_block=block)
+        export = lambda: dict(pipe.checkpoint(), unet=gather_params(pipe.unet))
+        extra = dict(pipe=pipe)
     elif name == "Aether":
         from unigeo_tpu_torch.models.aether import Aether, tiny_aether
         from unigeo_tpu_torch.parallel.trainer import FlowMatchingTrainer
 
         model = tiny_aether(device=device) if args.tiny else Aether(**dict(mp, device=device))
         trainer = FlowMatchingTrainer(model.network.dit.requires_grad_(True),
-                                      learning_rate=args.lr)
+                                      learning_rate=args.lr, mesh=mesh)
         make_batch = lambda samples: build_batch_aether(samples, model)
         # the trained DiT beside the frozen VAE that made its targets
-        export, extra = (lambda: Aether.checkpoint_of(model.network)), dict(model=model)
+        export = lambda: dict(Aether.checkpoint_of(model.network),
+                              dit=gather_params(model.network.dit))
+        extra = dict(model=model)
     else:
         trainer, make_batch, export, extra = _pointmap_family(
-            name, mp.get("network_config") or {}, args.tiny, device, args.lr)
+            name, mp.get("network_config") or {}, args.tiny, device, args.lr, mesh)
 
-    writer = EventWriter(args.log_dir)
-    saver = TrainStateSaver(args.ckpt_dir) if args.ckpt_every else None
-    result = run_training_loop(trainer, make_batch, dataset, args, writer, saver, export,
-                               on_step=on_step)
-    where = f"checkpoints in {args.ckpt_dir}" if saver else "no checkpoint (--ckpt-every 0)"
-    print(f"done: {name}, {args.steps} steps, final loss {result['losses'][-1]:.4f}; {where}",
-          flush=True)
-    return dict(result, trainer=trainer, dataset=dataset, **extra)
+    primary = is_primary()
+    writer = EventWriter(args.log_dir) if primary else None
+    saver = TrainStateSaver(args.ckpt_dir) if args.ckpt_every and primary else None
+    result = run_training_loop(trainer, make_batch, dataset, args,
+                               writer if primary else _NoWriter(), saver,
+                               export if args.ckpt_every else None, on_step=on_step,
+                               clips=clips)
+    if primary:
+        where = (f"checkpoints in {args.ckpt_dir}" if saver
+                 else "no checkpoint (--ckpt-every 0)")
+        grid = "" if mesh is None else f" on a dp,sp,tp mesh of {tuple(mesh.mesh.shape)}"
+        print(f"done: {name}{grid}, {args.steps} steps, final loss "
+              f"{result['losses'][-1]:.4f}; {where}", flush=True)
+    return dict(result, trainer=trainer, dataset=dataset, mesh=mesh, **extra)
+
+
+class _NoWriter:
+    """The event writer of a rank that logs nothing (all but rank 0)."""
+
+    def put_scalar(self, name, value, step) -> None:
+        pass
 
 
 if __name__ == "__main__":
