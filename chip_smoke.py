@@ -104,8 +104,9 @@ Phases, each printed on its own flushed line with the seconds since start:
              unigeo_tpu_torch/tools/disk_fixture.py (480 x 640 when PIL is
              there, else 384 x 512): --validate-root passes every check; a
              run with --num-workers 2 writes 3 rows and the Average, finite;
-             clips_per_step 2 (clips 0 and 1 in one batched denoise)
-             against that run; one 45-frame clip in two windows of 25 (overlap 5) held
+             its resume runs nothing; clips_per_step 2 (clips 0 and 1 in
+             one batched denoise, read on the serial loader) against that
+             run; one 45-frame clip in two windows of 25 (overlap 5) held
              exactly against the two windows run alone and their blend
              (under cuDNN's deterministic algorithms); the reader that
              decoded, per-clip seconds and frames/s, peak memory, and the
@@ -114,8 +115,8 @@ Phases, each printed on its own flushed line with the seconds since start:
              the known-frame denoise (its clamped frames exact on the card),
              StableNormal and ChronoDepth; then the eval CLI over the
              7-Scenes fixture (384 x 512, one clip of 25 frames) with Heun
-             (DepthCrafter, solver heun), StableNormal, ChronoDepth and
-             DepthAnyVideo, each on a copy of its
+             (DepthCrafter, solver heun), StableNormal, ChronoDepth,
+             DepthAnyVideo and UniGeo (no branch, 1 step), each on a copy of its
              configs/ file's model_params at SVD-XT width, all sharing one
              bf16 pipeline made on the card: per-clip seconds, peak memory,
              stage ms, and the packed kernel's launches held to the count
@@ -124,7 +125,8 @@ Phases, each printed on its own flushed line with the seconds since start:
              CPU, the camera recovery card against CPU and with TF32 on in
              the process (the same result: it turns TF32 off inside); then
              the CLI on a copy of configs/spann3r_7scenes.yaml (one clip of
-             20, the default Spann3R in f32) and
+             20, the default Spann3R in f32; then in bf16 on 8 frames, warm,
+             against one f32 call) and
              UniGeoCam with its
              geometry branch at full width on all four metric families
              (one clip of 25), the same numbers as svd_family
@@ -160,7 +162,9 @@ Phases, each printed on its own flushed line with the seconds since start:
              dq / dk-dv launches of every step held to the count the
              configuration predicts; Aether saves its full-width
              checkpoint, which Aether(checkpoint_path=...) loads with every
-             output of a clip bitwise equal to the trained module's
+             output of a clip bitwise equal to the trained module's; then
+             one step of ChronoDepth's branch (direct-depth targets) at
+             SVD-XT width in bf16 on an 8-frame clip
   train      the port's trainer (unigeo_tpu_torch.train.main) at SVD-XT
              width on synthetic 384 x 512 clips, bf16: one warm-up step and
              two measured steps, no checkpoint saved; losses, step
@@ -410,13 +414,21 @@ def phase_kernel_headsplit(dev):
     return rows
 
 
-# main-path shapes of the fused GEGLU feed-forward: (name, M, C), M = 25
-# frames x tokens at 384 x 512, hidden 4C, C_out = C
+# main-path shapes of the fused GEGLU feed-forward: (name, M, C, hidden), M =
+# 25 frames x tokens at 384 x 512, C_out = C; hidden 4C on one device, and a
+# tp rank's 4C / tp under tensor parallelism (its value and gate blocks; the
+# partial output is then summed over the tp group)
 GEGLU_SHAPES = [
-    ("unet_stage0", 76800, 320),
-    ("unet_stage1", 19200, 640),
-    ("unet_stage2", 4800, 1280),
-    ("unet_mid", 1200, 1280),
+    ("unet_stage0", 76800, 320, 1280),
+    ("unet_stage1", 19200, 640, 2560),
+    ("unet_stage2", 4800, 1280, 5120),
+    ("unet_mid", 1200, 1280, 5120),
+    ("unet_stage0_tp2", 76800, 320, 640),
+    ("unet_stage1_tp2", 19200, 640, 1280),
+    ("unet_stage2_tp2", 4800, 1280, 2560),
+    ("unet_stage0_tp4", 76800, 320, 320),
+    ("unet_stage1_tp4", 19200, 640, 640),
+    ("unet_stage2_tp4", 4800, 1280, 1280),
 ]
 
 
@@ -474,8 +486,7 @@ def phase_kernel_geglu(dev):
     lib = _build.load_library()
     gen = torch.Generator(device=dev).manual_seed(9)
     rows = []
-    for name, m, c in GEGLU_SHAPES:
-        hidden = 4 * c
+    for name, m, c, hidden in GEGLU_SHAPES:
         mk = lambda shape, std: (torch.randn(shape, generator=gen, device=dev) * std).to(
             torch.bfloat16)
         x, w1, b1, w2 = (mk((m, c), 1.0), mk((2 * hidden, c), c**-0.5), mk((2 * hidden,), 0.05),
@@ -1657,12 +1668,18 @@ def phase_disk_eval(dev):
         for i in range(DISK_CLIPS):
             check_prediction(f"disk clip {i}", outputs["prefetch"][i], DISK_CLIP, DISK_H, DISK_W)
 
-        # (the CLI's resumed run over this output and the run with
-        # --num-workers 0, its CSV byte-identical to this one's, were cut to
-        # make room for the parallel phase's training lines: the eval phase
-        # resumes run_evaluation on the card, tests/test_torch_parallel_
-        # ranks.py the CLI on the CPU, and tests/test_torch_preflight_
-        # prefetch.py holds prefetch to the serial loader)
+        # resumed: every clip skipped, nothing launched, the CSV unchanged
+        resumed = cli_run("resumed", serial_cfg, 2, out_dir=os.path.join(work, "prefetch"))
+        with open(prefetch["csv"], "rb") as f:
+            unchanged = f.read() == csv_bytes
+        log("disk_eval", f"resumed: {len(resumed['clips'])} clips run, CSV unchanged {unchanged}")
+        if resumed["clips"] or outputs["resumed"] or not unchanged:
+            raise AssertionError("the resumed run ran a clip or changed the CSV")
+        expect_launches("resumed", resumed, 0)
+        # (the run with --num-workers 0, its CSV byte-identical to this one's,
+        # was cut to make room for the parallel phase's training lines: the
+        # batched run below reads on the serial loader, and
+        # tests/test_torch_preflight_prefetch.py holds prefetch to it)
 
         # clips_per_step 2: clips 0 and 1 in one batched denoise, clip 2 alone
         batched = cli_run("batched", config_file("batched", clips_per_step=2), 0)
@@ -2037,13 +2054,17 @@ def phase_metrics(dev):
 # configuration predicts them (sibling_launches); the same numbers worked out
 # by hand from the code, which the phases also hold
 SIBLING_TABLE = {"heun": 169, "stablenormal": 94, "chronodepth": 433, "depthanyvideo": 217,
-                 "unigeo": 109, "unigeo_branch": 267, "spann3r": 128}
+                 "unigeo": 49, "unigeo_branch": 267, "spann3r": 128}
+# UniGeo without its branch, DepthCrafter's path under another adapter, at
+# one Euler step (its 5 steps' clip is the main phase's)
+UNIGEO_STEPS = 1
 # the scannetpp configs' clips, over 45 frames; one clip a model, which
 # leaves the smoke's time for the training phase of the f32 families
 SIB_CLIP, SIB_OVERLAP, SIB_CLIPS = 25, 5, 1
 PM_CLIP, PM_OVERLAP, PM_CLIPS = 20, 5, 1  # spann3r_7scenes.yaml's clips, one scored
 # the default Spann3R network (Spann3RNetwork's defaults)
 PM_ENC_DEPTH, PM_DEC_DEPTH = 8, 6
+SPANN3R_BF16_CLIP = 8  # the bf16 Spann3R clip's frames
 
 
 def sibling_launches(kind, frames, steps=5, window=10, overlap=5, keyframe_gap=4):
@@ -2335,6 +2356,12 @@ def phase_svd_family(dev):
         cd = read_config("chronodepth_scannetpp.yaml")
         dav = read_config("depthanyvideo_scannetpp.yaml")
         sn = read_config("stablenormal_scannetpp.yaml")
+        ug = read_config("unigeo_synthetic.yaml")["model_params"]
+        # the unigeo config's keys at full width: its tiny widths and sizes
+        # dropped, no branch (the pointmap phase runs it), UNIGEO_STEPS steps
+        ug_full = {k: v for k, v in ug.items()
+                   if not k.endswith("_config") and not k.startswith("init_")}
+        ug_full.update(geometry_branch=False, num_inference_steps=UNIGEO_STEPS)
         sections = lambda c: {s: c[s] for s in SECTIONS if s in c}
         runs = [
             ("heun", "DepthCrafter", {**dc["model_params"], "solver": "heun"}, sections(dc),
@@ -2350,9 +2377,8 @@ def phase_svd_family(dev):
              lambda name: {"_pipeline": pipe},
              sibling_launches("depthanyvideo", SIB_CLIP,
                               keyframe_gap=dav["model_params"]["keyframe_gap"])),
-            # (UniGeo without its branch, DepthCrafter's path under another
-            # adapter, was cut to make room for the parallel phase's
-            # training lines; the pointmap phase runs UniGeoCam with it)
+            ("unigeo", "UniGeo", ug_full, sections(dc), lambda name: {"pipeline": pipe},
+             sibling_launches("unigeo", SIB_CLIP, UNIGEO_STEPS)),
         ]
         for label, name, params, secs, extra, predicted in runs:
             if predicted != SIBLING_TABLE[label]:
@@ -2481,8 +2507,7 @@ def phase_pointmap(dev):
                 or len(net.encoder.blocks.layers) != PM_ENC_DEPTH):
             raise AssertionError("Spann3R is not the default network in f32")
         del net, run
-        # (Spann3R in f32 against bf16 on one warm clip was cut to make room
-        # for the parallel phase's training lines)
+        summary["spann3r_bf16"] = spann3r_bf16(dev, root, cache, sp)
         # UniGeoCam with the branch: the unigeo config's keys at full width
         ug = read_config("unigeo_synthetic.yaml")
         params = {k: v for k, v in ug["model_params"].items()
@@ -2510,6 +2535,45 @@ def phase_pointmap(dev):
         shutil.rmtree(work, ignore_errors=True)
     log("pointmap", json.dumps(summary))
     return summary
+
+
+def spann3r_bf16(dev, root, cache, sp):
+    """The config's Spann3R with ``compute_dtype`` bf16 on one
+    SPANN3R_BF16_CLIP-frame fixture clip: warm seconds and launches, and
+    its world points' deviation from one call of the same weights in f32.
+    (Cut from the 20-frame clip, each dtype warm, to make room for the
+    parallel phase's training lines.)"""
+    from unigeo_tpu_torch.models.pointmap.spann3r import Spann3R
+    from unigeo_tpu_torch.registry import get_dataset_cls
+
+    ds = get_dataset_cls("sevenScenesDataset")(
+        root=root, clip_length=SPANN3R_BF16_CLIP, clip_overlap=0, input_size=(DISK_H, DISK_W),
+        target_size=(DISK_H, DISK_W), cache_dir=cache)
+    data = ds[0]
+    f32 = Spann3R(**sp["model_params"], device=dev)
+    bf16 = Spann3R(**sp["model_params"], compute_dtype="bfloat16", device=dev)
+    bf16.load_state_dict(f32.network.state_dict())
+    pts32 = f32.forward_tensors(data)["pred_world_pts"]
+    del f32
+    bf16.forward_tensors(data)  # first call at the shapes
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    pts16 = bf16.forward_tensors(data)["pred_world_pts"]
+    torch.cuda.synchronize()
+    res = {"frames": SPANN3R_BF16_CLIP, "seconds": time.perf_counter() - t0,
+           "launches": read_counts()["flash_attention_packed"],
+           "predicted": sibling_launches("spann3r", SPANN3R_BF16_CLIP),
+           "world_pts_rel_dev": ((pts16 - pts32).abs().max() / pts32.abs().max()).item(),
+           "world_pts_mean_rel_dev": ((pts16 - pts32).abs().mean()
+                                      / pts32.abs().mean()).item()}
+    log("pointmap", f"Spann3R (spann3r_7scenes.yaml's network) in bf16, one "
+        f"{SPANN3R_BF16_CLIP}-frame clip, warm, against one f32 call: {json.dumps(res)}")
+    if not (res["launches"] == res["predicted"] and np.isfinite(res["world_pts_rel_dev"])):
+        raise AssertionError(f"Spann3R bf16: {res}")
+    del bf16, pts16, pts32
+    torch.cuda.empty_cache()
+    return res
 
 
 # the packed kernel's launches per clip on the Dust3R, Cut3R and
@@ -2878,7 +2942,7 @@ def phase_train_models(dev):
     but Dust3R's, DUST3R_TRAIN_CLIP); Aether saves its checkpoint at full
     width, which its eval adapter reloads (bitwise-equal outputs);
     then one step of the ChronoDepth branch (direct-depth targets, the bf16
-    SVD-XT pipeline) on a 25-frame clip."""
+    SVD-XT pipeline) on a PAR_TRAIN_T-frame clip."""
     from unigeo_tpu_torch.device import set_exact_f32
 
     set_exact_f32()
@@ -2902,10 +2966,19 @@ def phase_train_models(dev):
                     dev, out, mp, fixture_clip(root, cache, frames, 0)))
             summary[label] = row
             del out
-        # (one ChronoDepth step at SVD-XT width, the direct-depth target,
-        # was cut to make room for the parallel phase's training lines; the
-        # train phase runs the SVD-XT trainer, tests/test_torch_train_e2e.py
-        # ChronoDepth's on the CPU)
+        # the SVD branch's direct-depth trainer at SVD-XT width, bf16, on
+        # PAR_TRAIN_T frames (cut from 25 to make room for the parallel
+        # phase's training lines)
+        mp = read_config("chronodepth_scannetpp.yaml")["model_params"]
+        cfg = fixture_config(root, cache, "ChronoDepth", mp, {}, PAR_TRAIN_T, 0)
+        unet = unet_kernel_attentions(SVD_XT_UNET, DISK_H, DISK_W)
+        per_step = {k: unet for k in kernels}
+        per_step["flash_attention_packed"] = (clip_kernel_attentions(SVD_XT_CLIP)
+                                              + 2 * vae_mid_attentions(DISK_H, DISK_W))
+        out, row = train_family(dev, "chronodepth", "ChronoDepth", cfg, 1,
+                                ["--ckpt-every", "0"], per_step)
+        summary["chronodepth"] = row
+        del out
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -22,7 +22,8 @@ Tolerances (relative to the reference's largest magnitude unless said):
   * dp: each clip bitwise the port's serial ``run_window_staged`` (the
     executor runs one clip a rank through ``run_clips_staged``, whose B = 1
     clip is the serial one's computation); against JAX's executor on a
-    2-device mesh 1e-3 (``tests/test_torch_windows.py``'s bound for a
+    2-device mesh, and on (2, 1, 2) with tp 2 against JAX's on the same
+    mesh over ``shard_params``, 1e-3 (``tests/test_torch_windows.py``'s bound for a
     window: five steps from sigma_max = 700 carry the f32 differences);
   * StableNormal over dp against its one-device path: 2e-4 (the encoder
     and the denoise run one frame a call instead of N, which reorders f32
@@ -278,6 +279,20 @@ def test_dp_executor_refuses_tp(four):
         assert r["tp"].shape == r["tp_serial"].shape == (2, 4, H, W, 3)
         assert rel_dev(r["tp"], r["tp_serial"]) < 1e-3
         assert np.array_equal(r["tp"], four[0]["tp"])
+
+
+def test_tp_executor_matches_jax(four, job, shared_tiny_pipeline):
+    """The dp executor on a (2, 1, 2) mesh against JAX's executor on the same
+    mesh, its parameters placed by ``shard_params`` (tp 2 over conftest's
+    virtual devices), within the dp bound against JAX."""
+    from unigeo_tpu.parallel.executor import ShardedClipExecutor
+    from unigeo_tpu.parallel.mesh import make_mesh
+
+    pp = job["pp"]
+    ex = ShardedClipExecutor(shared_tiny_pipeline, make_mesh(4, shape=(2, 1, 2)),
+                             num_inference_steps=2)
+    ref = ex(pp["frames"], noise=pp["noise"], aug_noise=pp["aug"])
+    assert rel_dev(four[0]["tp"], ref) < 1e-3
 
 
 # --- processes -------------------------------------------------------------------

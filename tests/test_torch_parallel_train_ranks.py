@@ -14,7 +14,8 @@ holds the rank functions), each once per module:
   * 2 ranks: every differentiable collective's forward and backward against
     its formula; ``gather_params(parallelize(m))`` bitwise ``m.state_dict()``
     at tp 2 (UNet, DiT, Cut3R, VDA); one step of every family on dp 2 (the
-    diffusion family also on sp 2 and tp 2) against the one-process step;
+    diffusion family also on sp 2; it, the flow, Dust3R and disparity
+    families on tp 2) against the one-process step;
     four planted faults; ``train.main --mesh`` for one name of each family,
     a tp 2 checkpoint, and its refusals; ``ShardedClipExecutor`` on (1, 1, 2)
     (the tiny pipeline's weights from the port's seeded init: the executor
@@ -100,11 +101,12 @@ CLI_REFUSALS = {"frames": ("1,2,1", {"clip_length": 3}, []),
                 "batch": ("2,1,1", {}, ["--batch-size", "3"]),
                 "mesh": ("2,2,1", {}, [])}
 CLI_REFUSED = {"frames": "3 frames (T) do not split over sp = 2",
-               "batch": "--batch-size 3 does not split over dp = 2",
+               "batch": "--batch-size: 3 clips (B) do not split over dp = 2",
                "mesh": "mesh shape (2, 2, 1) != 2 devices"}
 DP, SP, TP, SPTP = (2, 1, 1), (1, 2, 1), (1, 1, 2), (1, 2, 2)
 TWO_STEPS = [(f, DP, None) for f in ("diffusion", "flow", "pointmap", "dust3r", "disparity")] + [
-    ("diffusion", SP, None), ("diffusion", TP, None),
+    ("diffusion", SP, None)] + [(f, TP, None) for f in ("diffusion", "flow", "dust3r",
+                                                         "disparity")] + [
     ("diffusion", SP, "sp_gather_sliced"), ("diffusion", TP, "tp_gather_summed"),
     ("diffusion", TP, "bias_before_reduce"), ("pointmap", DP, "pointmap_local_losses")]
 FOUR_STEPS = [("diffusion", SPTP, None)]

@@ -423,34 +423,26 @@ class TPSpec:
     geglu: bool = False
 
 
-def _grad_path(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
 def copy_to_group(x, group):
     """copy-to-tp: x; its backward sums the gradient over the group."""
-    return comm.CopyToGroup.apply(x, group) if _grad_path(x) else x
+    return comm.CopyToGroup.apply(x, group)
 
 
 def reduce_from_group(x, group):
     """reduce-from-tp: the sum of every rank's x (backward: identity)."""
-    return comm.ReduceFromGroup.apply(x, group) if _grad_path(x) else comm.all_reduce(x, group)
+    return comm.ReduceFromGroup.apply(x, group)
 
 
 def gather_from_group(x, group, dim: int):
     """gather-from-tp: every rank's x along ``dim`` (backward: this rank's
     slice, not summed)."""
-    if _grad_path(x):
-        return comm.GatherFromGroup.apply(x, group, dim)
-    return comm.all_gather(x, group, dim)
+    return comm.GatherFromGroup.apply(x, group, dim)
 
 
 def scatter_to_group(x, group, dim: int):
     """scatter-to-tp: this rank's equal slice of x along ``dim`` (backward:
     the slices' gradients gathered)."""
-    if _grad_path(x):
-        return comm.ScatterToGroup.apply(x, group, dim)
-    return comm.group_slice(x, group, dim)
+    return comm.ScatterToGroup.apply(x, group, dim)
 
 
 def is_tensor_parallel(*modules) -> bool:

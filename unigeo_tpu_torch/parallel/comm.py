@@ -13,12 +13,11 @@ stays on the card and only the bytes cross the host.  ``backend_of`` names
 the transport a group uses.
 
 Gathers and hand-offs move raw bytes (a ``uint8`` view), so every dtype
-crosses every backend.  The sums (``all_reduce``, ``reduce_scatter``) add in
-f32 at least (f64 stays f64) and return the input's dtype.  A CUDA tensor
-under gloo crosses the host in its own dtype (one staged all-gather) and its
-ranks' copies are added on the card in rank order, so every rank gets the
-same bits and a bf16 sum moves half the bytes of an f32 one; otherwise
-(NCCL, CPU tensors) ``dist.all_reduce`` adds the f32 copies.
+crosses every backend.  The sums (``all_reduce``, ``reduce_scatter``,
+``all_reduce_mean_``) are one ``dist.all_reduce`` of an f32 copy (f64 stays
+f64), rounded once into the input's dtype.  A CUDA tensor under gloo is
+cast to f32 and summed on the host in ``STAGE_CHUNK`` pieces through reused
+pinned buffers, so the card holds one piece beyond the tensor itself.
 
 Training needs each collective's adjoint, so every one the model layers
 call has a ``torch.autograd.Function`` here whose backward is written out:
@@ -50,9 +49,9 @@ call has a ``torch.autograd.Function`` here whose backward is written out:
                                                              averages the ranks'
                                                              gradients)
 
-``FrameShard``'s methods take the differentiable forms when grad mode is on
-and the input requires grad; otherwise (``torch.no_grad``,
-``inference_mode``) the plain collectives, as the inference paths use them.
+``FrameShard``'s methods and the layers' tp helpers always call these
+``Function``s: under ``torch.no_grad`` or ``inference_mode`` a ``Function``
+runs only its forward, the plain collective, and records nothing.
 
 ``FrameShard`` is the handle the model layers read inside
 ``models/layers.py::frames_sharded``: a clip's frames split in equal
@@ -134,28 +133,44 @@ def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
     return dtype if dtype in (torch.float32, torch.float64) else torch.float32
 
 
-def _sum(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum over the group's ranks of ``t``, in f32 at least (a new
-    tensor on ``t``'s device)."""
+def _reduce_(t: torch.Tensor, group, divisor: int = 1) -> None:
+    """A contiguous ``t`` replaced in place by the sum over the group's
+    ranks of ``t``, divided by ``divisor``: added in f32 at least and
+    rounded once into ``t``'s dtype."""
     dtype = _sum_dtype(t.dtype)
-    if _staged(t, group):
-        parts = all_gather(t.detach()[None], group, 0)
-        acc = parts[0].to(dtype)
-        for part in parts[1:]:
-            acc += part.to(dtype)
-        return acc
-    acc = t.detach().to(dtype).contiguous()
-    acc = acc.clone() if acc.data_ptr() == t.data_ptr() else acc
-    dist.all_reduce(acc, group=group)
-    return acc
+    flat = t.view(-1)
+    if not _staged(t, group):
+        acc = flat.to(dtype)
+        dist.all_reduce(acc, group=group)
+        if divisor != 1:
+            acc.div_(divisor)
+        if acc.data_ptr() != flat.data_ptr():
+            flat.copy_(acc)
+        return
+    size = flat.numel()
+    chunk = min(size, STAGE_CHUNK // torch.empty((), dtype=dtype).element_size())
+    host = torch.empty(chunk, dtype=dtype, pin_memory=True)
+    card = torch.empty(chunk, dtype=dtype, device=t.device)
+    for start in range(0, size, chunk):
+        m = min(chunk, size - start)
+        card[:m].copy_(flat[start:start + m])
+        host[:m].copy_(card[:m])
+        dist.all_reduce(host[:m], group=group)
+        card[:m].copy_(host[:m])
+        if divisor != 1:
+            card[:m].div_(divisor)
+        flat[start:start + m].copy_(card[:m])
 
 
 def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     """The sum of every rank's ``t`` (equal shapes) on every rank, added in
-    f32 at least and returned in ``t``'s dtype on its device."""
+    f32 at least and returned in ``t``'s dtype on its device (a new
+    tensor)."""
     if dist.get_world_size(group) == 1:
         return t
-    return _sum(t, group).to(t.dtype)
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    _reduce_(out, group)
+    return out
 
 
 def reduce_scatter(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
@@ -173,16 +188,16 @@ def reduce_scatter(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
     """Each tensor replaced in place by its mean over the group's ranks: one
-    flattened bucket per dtype, one collective each, summed in f32 (f64
-    stays f64)."""
+    flattened bucket per dtype, one sum each (``_reduce_``)."""
     n = dist.get_world_size(group)
     if n == 1:
         return
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for dtype, ts in by_dtype.items():
-        flat = _sum(torch.cat([t.reshape(-1) for t in ts]), group) / n
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        _reduce_(flat, group, divisor=n)
         start = 0
         for t in ts:
             t.copy_(flat[start:start + t.numel()].view_as(t))
@@ -242,11 +257,6 @@ def all_gather_objects(obj, group=None) -> List:
     out = [None] * dist.get_world_size(group)
     dist.all_gather_object(out, obj, group=group)
     return out
-
-
-def _grad_path(x: torch.Tensor) -> bool:
-    """Whether an op on ``x`` is recorded for a backward."""
-    return torch.is_grad_enabled() and x.requires_grad
 
 
 class GatherFrames(torch.autograd.Function):
@@ -374,7 +384,7 @@ class ScatterToGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
-        return group_slice(x, group, dim).clone(memory_format=torch.contiguous_format)
+        return group_slice(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -413,8 +423,8 @@ class FrameShard:
     consecutive blocks: rank i of the group holds frames [i * n, (i + 1) *
     n) of every clip.  With no group it is one rank holding every frame.
 
-    Each method records its backward (the ``Function``s above) when grad
-    mode is on and its input requires grad."""
+    Each method past one rank is its ``Function`` above (its backward
+    recorded where autograd records)."""
 
     def __init__(self, group=None):
         self.group = group
@@ -430,25 +440,19 @@ class FrameShard:
         """Every rank's block of ``x`` along ``dim``, in frame order."""
         if self.size == 1:
             return x
-        if _grad_path(x):
-            return GatherFrames.apply(x, self.group, dim)
-        return all_gather(x, self.group, dim)
+        return GatherFrames.apply(x, self.group, dim)
 
     def stacked(self, x: torch.Tensor) -> torch.Tensor:
         """[size, *x.shape], the ranks' ``x`` in frame order."""
         if self.size == 1:
             return x[None]
-        if _grad_path(x):
-            return Stacked.apply(x, self.group)
-        return gather_stacked(x, self.group)
+        return Stacked.apply(x, self.group)
 
     def from_first(self, x: torch.Tensor) -> torch.Tensor:
         """The first rank's ``x`` (it holds frame 0) on every rank."""
         if self.size == 1:
             return x
-        if _grad_path(x):
-            return FromFirst.apply(x, self)
-        return broadcast(x, self.first_rank, self.group)
+        return FromFirst.apply(x, self)
 
     def halo(self, x: torch.Tensor, dim: int, width: int) -> torch.Tensor:
         """``x`` with ``width`` frames of each neighbour's block around it
@@ -459,9 +463,9 @@ class FrameShard:
         if width > n:
             raise ValueError(f"a halo of {width} frames needs at least {width} frames a rank, "
                              f"not {n}")
-        if self.size > 1 and _grad_path(x):
-            return Halo.apply(x, self, dim, width)
-        return self._halo(x, dim, width)
+        if self.size == 1:
+            return self._halo(x, dim, width)
+        return Halo.apply(x, self, dim, width)
 
     def _halo(self, x: torch.Tensor, dim: int, width: int) -> torch.Tensor:
         n = x.shape[dim]

@@ -97,15 +97,21 @@ class MeshPlace:
             ranks = mesh.mesh.reshape(-1, self.sizes["tp"])
             self.grad_group = new_groups([ranks[:, t].tolist() for t in range(ranks.shape[1])])
 
-    def block(self, x, axis: str, dim: int):
-        """This rank's block of x along ``dim`` (x's whole length split over
-        ``axis``); raises, naming the sizes, where it does not divide."""
-        n, size = x.shape[dim], self.sizes[axis]
+    def span(self, n: int, axis: str) -> range:
+        """This rank's block of ``range(n)`` split over ``axis``; raises,
+        naming the sizes, where it does not divide."""
+        size = self.sizes[axis]
         if n % size:
             what = {"dp": "clips (B)", "sp": "frames (T)"}[axis]
             raise ValueError(f"{n} {what} do not split over {axis} = {size}")
         m = n // size
-        return x.narrow(dim, self.index[axis] * m, m)
+        return range(self.index[axis] * m, (self.index[axis] + 1) * m)
+
+    def block(self, x, axis: str, dim: int):
+        """This rank's block of x along ``dim`` (x's whole length split over
+        ``axis``; ``span``)."""
+        r = self.span(x.shape[dim], axis)
+        return x.narrow(dim, r.start, len(r))
 
 
 class Trainer:

@@ -52,7 +52,7 @@ is the one-device path.
 from __future__ import annotations
 
 import argparse
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -131,28 +131,25 @@ def _target_frames(data, direct_depth: bool) -> np.ndarray:
 
 @torch.no_grad()
 def build_batch_diffusion(samples, pipe, direct_depth: bool = False,
-                          frame_block: Tuple[int, int] = (0, 1)) -> Dict[str, torch.Tensor]:
+                          place=None) -> Dict[str, torch.Tensor]:
     """Clips -> an EDM training batch on the pipeline's device, f32, in the
     JAX package's layout: latents and cond_latents [B, T, h, w, 4], context
     [B, T, 1, C].  Target latents encode the GT depth target into the
     scaled (0.18215) latent space in f32 (``pipe.encode_target``: the JAX
     trainer encodes its f32 target through the bf16 VAE, which flax computes
     in f32); the conditioning is the unscaled RGB latent and the CLIP
-    context of ``_encode_stage``, in the pipeline dtype.  ``frame_block``
-    (index, count): encode only block ``index`` of ``count`` equal blocks of
-    each clip's frames (an sp rank's; every encode is per frame), the
-    target normalised over the whole clip first."""
+    context of ``_encode_stage``, in the pipeline dtype.  With a trainer's
+    ``place`` (``parallel/trainer.py::MeshPlace``) only its sp block of each
+    clip's frames is encoded (every encode is per frame), the target
+    normalised over the whole clip first."""
     dev = pipe.device
+    block = (lambda x: x) if place is None else (lambda x: place.block(x, "sp", 0))
     lats, conds, ctxs = [], [], []
     for data in samples:
-        t, (i, n) = data["images"].shape[0], frame_block
-        if t % n:
-            raise ValueError(f"a clip's {t} frames (T) do not split over sp = {n}")
-        frames = slice(i * t // n, (i + 1) * t // n)
-        rgb = np.asarray(data["images"], np.float32)[frames] / np.float32(255.0)  # [T,3,H,W]
-        cond, ctx = pipe._encode_stage(torch.from_numpy(rgb).to(dev), None)
-        target = _target_frames(data, direct_depth)[frames]
-        lat = pipe.encode_target(torch.from_numpy(np.ascontiguousarray(target)).to(dev))
+        rgb = block(torch.from_numpy(np.asarray(data["images"], np.float32)))  # [T,3,H,W]
+        cond, ctx = pipe._encode_stage((rgb / 255.0).to(dev), None)
+        target = block(torch.from_numpy(_target_frames(data, direct_depth)))
+        lat = pipe.encode_target(target.contiguous().to(dev))
         lats.append(lat.permute(0, 2, 3, 1).float())
         conds.append(cond.permute(0, 2, 3, 1).float())
         ctxs.append(ctx.float())
@@ -340,7 +337,7 @@ def main(argv=None, config: Optional[Dict[str, Any]] = None,
 
     from unigeo_tpu_torch.config import EvalConfig
     from unigeo_tpu_torch.device import resolve_device
-    from unigeo_tpu_torch.parallel.mesh import axis_size, make_mesh, mesh_shape
+    from unigeo_tpu_torch.parallel.mesh import make_mesh, mesh_shape
     from unigeo_tpu_torch.parallel.multihost import (
         initialize_distributed,
         is_primary,
@@ -376,7 +373,7 @@ def main(argv=None, config: Optional[Dict[str, Any]] = None,
             f"the feed-forward VideoDepthAnything; got model {name!r}")
 
     device = resolve_device(args.device)
-    mesh, sizes, index = None, {"dp": 1, "sp": 1}, {"dp": 0, "sp": 0}
+    mesh = None
     if shape is not None or (initialize_distributed(device=device.type)
                              and world_of()[0] > 1):
         world = world_of()[0]
@@ -385,13 +382,6 @@ def main(argv=None, config: Optional[Dict[str, Any]] = None,
         except ValueError as e:
             parser.error(f"--mesh: {e}")
         device = rank_device(device)
-        for axis in sizes:
-            sizes[axis] = axis_size(mesh, axis)
-            index[axis] = mesh[axis].get_local_rank() if sizes[axis] > 1 else 0
-    if args.batch_size % sizes["dp"]:
-        parser.error(f"--batch-size {args.batch_size} does not split over dp = {sizes['dp']}")
-    per_rank = args.batch_size // sizes["dp"]
-    clips = range(index["dp"] * per_rank, (index["dp"] + 1) * per_rank)
     dataset = get_dataset_cls(cfg.dataset)(**cfg.dataset_kwargs)
     mp = dict(cfg.model_params or {})
     if name in DIFFUSION_MODELS:
@@ -414,12 +404,12 @@ def main(argv=None, config: Optional[Dict[str, Any]] = None,
         trainer = DiffusionTrainer(pipe.unet.requires_grad_(True), learning_rate=args.lr,
                                    mesh=mesh)
         direct = name in DIRECT_DEPTH_MODELS
-        t = cfg.dataset_kwargs["clip_length"]
-        if t % sizes["sp"]:
-            parser.error(f"the clips' {t} frames (T) do not split over sp = {sizes['sp']}")
-        block = (index["sp"], sizes["sp"])
+        try:
+            trainer.place.span(cfg.dataset_kwargs["clip_length"], "sp")
+        except ValueError as e:
+            parser.error(f"the clips: {e}")
         make_batch = lambda samples: build_batch_diffusion(samples, pipe, direct_depth=direct,
-                                                           frame_block=block)
+                                                           place=trainer.place)
         export = lambda: dict(pipe.checkpoint(), unet=gather_params(pipe.unet))
         extra = dict(pipe=pipe)
     elif name == "Aether":
@@ -438,6 +428,10 @@ def main(argv=None, config: Optional[Dict[str, Any]] = None,
         trainer, make_batch, export, extra = _pointmap_family(
             name, mp.get("network_config") or {}, args.tiny, device, args.lr, mesh)
 
+    try:
+        clips = trainer.place.span(args.batch_size, "dp")
+    except ValueError as e:
+        parser.error(f"--batch-size: {e}")
     primary = is_primary()
     writer = EventWriter(args.log_dir) if primary else None
     saver = TrainStateSaver(args.ckpt_dir) if args.ckpt_every and primary else None
