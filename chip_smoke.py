@@ -41,7 +41,9 @@ Phases, each printed on its own flushed line with the seconds since start:
              DiT [1, 3072, 12, 64]) and its f32 body at d = 512 (the
              register-tiled flash_packed_f32w512_kernel, asserted by name)
              at the DepthCrafter trainer's VAE mid attention [25, 3072, 1,
-             512] against its plain version, with its events and device ms,
+             512], and its CUDA-core f32 body at CLIP's [25, 257, 16, 80]
+             (DepthCrafter's f32 forward in the bf16_drift phase), each
+             against its plain version, with its events and device ms,
              the plain version's and SDPA's f32 times and the bound at the
              f32 rate; the f32 backward pair (dq,
              dk/dv on the CUDA-core body, by kernel name) at the f32
@@ -73,6 +75,18 @@ Phases, each printed on its own flushed line with the seconds since start:
              steps, bf16, random weights made on the card; the kernel's
              launch count against the count the configuration predicts;
              depth and normal metrics against an analytic tilted plane
+  bf16_drift unigeo_tpu_torch.tools.measure_bf16_drift's two models at full
+             width on random f32 master weights made on the card: DepthCrafter
+             (SVD-XT, one 25 x 384 x 512 clip, 5 Euler steps) through
+             run_window_staged in f32 (TF32 off), in f32 on inputs rounded to
+             bf16 (the yardstick) and in bf16 (the weights cast in place);
+             Aether (aether_scannetpp.yaml, 16 x 384 x 512, 4 steps, its
+             all-equal leaves redrawn) through forward_tensors the same way;
+             each bf16 leg's shifts in Abs Rel, delta < 1.25 and normal mean
+             on one synthetic GT within 0.5% of the f32 leg's, its mean pixel
+             AbsRel from the f32 leg under 0.5%, every figure finite, the
+             packed launches of every leg at the configuration's count (109,
+             64); one JSON line a model with its seconds
   serving    the same configuration with clips_per_step 2 behind
              unigeo_tpu_torch.serving.HTTPInferenceServer on 127.0.0.1 in
              this process (max_batch 2, a 2 s window), under deterministic
@@ -114,7 +128,7 @@ Phases, each printed on its own flushed line with the seconds since start:
   svd_family the tiny f32 pipeline on the card against the CPU for Heun,
              the known-frame denoise (its clamped frames exact on the card),
              StableNormal and ChronoDepth; then the eval CLI over the
-             7-Scenes fixture (384 x 512, one clip of 25 frames) with Heun
+             7-Scenes fixture (384 x 512, one clip of 15 frames) with Heun
              (DepthCrafter, solver heun), StableNormal, ChronoDepth,
              DepthAnyVideo and UniGeo (no branch, 1 step), each on a copy of its
              configs/ file's model_params at SVD-XT width, all sharing one
@@ -129,7 +143,7 @@ Phases, each printed on its own flushed line with the seconds since start:
              against one f32 call) and
              UniGeoCam with its
              geometry branch at full width on all four metric families
-             (one clip of 25), the same numbers as svd_family
+             (one clip of 15), the same numbers as svd_family
   pointmap_models
              Dust3R, Cut3R (RoPE100 + DPT) and VideoDepthAnything at tiny
              widths in f32 on the card against the CPU; then the CLI over
@@ -156,7 +170,7 @@ Phases, each printed on its own flushed line with the seconds since start:
              the port's trainer (unigeo_tpu_torch.train.main) at the full
              width of spann3r_7scenes.yaml, dust3r_7scenes.yaml,
              cut3r_7scenes.yaml, vda_scannetpp.yaml and aether_scannetpp.yaml
-             in f32 with TF32 off over the 7-Scenes fixture, two steps of
+             in f32 with TF32 off over the 7-Scenes fixture, one step of
              one clip each (Dust3R's cut to 16 frames): losses finite, step
              seconds, peak memory held under 90% of the card, the fwd_lse /
              dq / dk-dv launches of every step held to the count the
@@ -198,8 +212,8 @@ Phases, each printed on its own flushed line with the seconds since start:
              steps, under deterministic cuDNN: dp over 2 ranks
              (DepthCrafter.forward_batch on a mesh, ShardedClipExecutor), two
              25-frame clips, each bitwise its serial forward; sp over 2 ranks
-             (denoise_context_parallel) on 24 frames (25 has no divisor but 5
-             and 25), the scores within EVAL_METRIC_TOL_REL of the unsplit
+             (denoise_context_parallel) on 12 frames (25 has no divisor but 5
+             and 25; cut from 24 for time), the scores within EVAL_METRIC_TOL_REL of the unsplit
              denoise's and the latents' largest relative difference;
              Aether's flow sampler over 2 ranks (flow_sample_context_parallel,
              the 16-frame f32 clip of aether_scannetpp.yaml's network with
@@ -1205,6 +1219,65 @@ def phase_main(dev):
     return launches, stage_ms
 
 
+DRIFT_DEPTHCRAFTER = (25, 384, 512, 5)  # frames, h, w, Euler steps
+DRIFT_AETHER = (16, 384, 512)  # frames, h, w; its steps are the config's
+
+
+def finite_figures(tree):
+    """Every number in a result line's nested dicts and lists is finite."""
+    if isinstance(tree, dict):
+        return all(finite_figures(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(finite_figures(v) for v in tree)
+    return not isinstance(tree, float) or bool(np.isfinite(tree))
+
+
+def phase_bf16_drift(dev):
+    """The bf16-vs-f32 numerics tool on both models at full width (ROADMAP
+    queue 3 item 2): each result line printed with its seconds, then held:
+    every bf16 shift within the 0.5% (``held_within_tolerance``), the mean
+    pixel AbsRel of the bf16 depths from the f32 ones under 0.5%
+    (``within_tolerance``), every figure finite, every leg's packed launches
+    at the configuration's count and no other kernel launched."""
+    from unigeo_tpu_torch.tools import measure_bf16_drift as drift
+
+    t, h, w, steps = DRIFT_DEPTHCRAFTER
+    at, ah, aw = DRIFT_AETHER
+    aether_params = drift.aether_params(tiny=False)
+    predicted = {"depthcrafter": predicted_launches(SVD_XT_UNET, SVD_XT_CLIP, h, w, steps),
+                 "aether": aether_launches(aether_params, at, ah, aw)}
+    results = {}
+    for name, run in (("depthcrafter", lambda: drift.depthcrafter_drift(dev, t, h, w, steps)),
+                      ("aether", lambda: drift.aether_drift(dev, at, ah, aw))):
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            res = run()
+        torch.cuda.synchronize()
+        res["phase_s"] = time.perf_counter() - t0
+        counts = read_counts()
+        res["predicted_launches"] = predicted[name]
+        res["counts"] = counts
+        log("bf16_drift", json.dumps(res))
+        held = {k: round(c["rel_shift"], 8) for k, c in res["held"].items()}
+        log("bf16_drift", f"{name}: shifts over the f32 values {json.dumps(held)} (limit "
+            f"{res['north_star_tolerance']}), yardstick's "
+            f"{json.dumps(res['yardstick']['metric_shift_vs_fixed_gt'])}, pixel AbsRel "
+            f"{res['absrel']:.6f} (yardstick {res['yardstick']['absrel']:.6f}), JAX gate "
+            f"{json.dumps(res['jax_gate'])}, launches {json.dumps(res['launches'])} "
+            f"(predicted {predicted[name]}), legs s {json.dumps(res['seconds'])}, peak GiB "
+            f"{json.dumps(res['peak_gib'])}, {res['phase_s']:.2f}s in all")
+        torch.cuda.empty_cache()
+        want = {k: 0 for k in counts}
+        want["flash_attention_packed"] = len(res["launches"]) * predicted[name]
+        if not (res["held_within_tolerance"] and res["within_tolerance"]
+                and finite_figures(res) and counts == want
+                and all(n == predicted[name] for n in res["launches"].values())):
+            raise AssertionError(f"bf16_drift {name}: {json.dumps(res)}")
+        results[name] = res
+    return results
+
+
 def check_prediction(what, out, t, h, w):
     """Depths [t,h,w] and normals [t,h,w,3], finite, the normals unit length."""
     depths, normals = out["pred_depths"], out["pred_normals"]
@@ -2050,17 +2123,20 @@ def phase_metrics(dev):
 
 # --- the SVD-family siblings and the pointmap family ---------------------------
 
-# the launches of the packed kernel each new path makes per clip, as the
-# configuration predicts them (sibling_launches); the same numbers worked out
-# by hand from the code, which the phases also hold
-SIBLING_TABLE = {"heun": 169, "stablenormal": 94, "chronodepth": 433, "depthanyvideo": 217,
-                 "unigeo": 49, "unigeo_branch": 267, "spann3r": 128}
+# the launches of the packed kernel each new path makes per clip (SIB_CLIP
+# frames; Spann3R's PM_CLIP), as the configuration predicts them
+# (sibling_launches); the same numbers worked out by hand from the code, which
+# the phases also hold
+SIBLING_TABLE = {"heun": 169, "stablenormal": 94, "chronodepth": 217, "depthanyvideo": 217,
+                 "unigeo": 49, "unigeo_branch": 207, "spann3r": 128}
 # UniGeo without its branch, DepthCrafter's path under another adapter, at
 # one Euler step (its 5 steps' clip is the main phase's)
 UNIGEO_STEPS = 1
-# the scannetpp configs' clips, over 45 frames; one clip a model, which
-# leaves the smoke's time for the training phase of the f32 families
-SIB_CLIP, SIB_OVERLAP, SIB_CLIPS = 25, 5, 1
+# one clip a model over the 45-frame fixture, of 15 frames (cut from the
+# scannetpp configs' 25 to make room for the bf16_drift phase; ChronoDepth
+# still crossfades two windows of 10, DepthAnyVideo still runs its keyframes
+# and then the rest)
+SIB_CLIP, SIB_OVERLAP, SIB_CLIPS = 15, 5, 1
 PM_CLIP, PM_OVERLAP, PM_CLIPS = 20, 5, 1  # spann3r_7scenes.yaml's clips, one scored
 # the default Spann3R network (Spann3RNetwork's defaults)
 PM_ENC_DEPTH, PM_DEC_DEPTH = 8, 6
@@ -2831,7 +2907,9 @@ TRAIN_MODELS = (("spann3r", "Spann3R", "spann3r_7scenes.yaml", PM_CLIP),
                 ("vda", "VideoDepthAnything", "vda_scannetpp.yaml", VDA_CLIP),
                 ("aether", "Aether", "aether_scannetpp.yaml", AETHER_CLIP))
 TRAIN_MODELS_TABLE = {"spann3r": 128, "dust3r": 72, "cut3r": 248, "vda": 24, "aether": 16}
-TRAIN_MODELS_STEPS = 2
+# one step each (cut from two to make room for the bf16_drift phase: the
+# second step's batch and step took 2.7-6.0 s a family)
+TRAIN_MODELS_STEPS = 1
 
 
 def train_launches(label, model_params, frames):
@@ -3022,15 +3100,21 @@ F32_POINTMAP_SHAPES = [("pointmap_encoder", 25, 768, 768, 12, 64),
                        # the DepthCrafter trainer's f32 target encode: the
                        # VAE mid block's one head over 25 frames' 48 x 64
                        # latents (the wide register-tiled body)
-                       ("depthcrafter_vae_mid", 25, 3072, 3072, 1, 512)]
+                       ("depthcrafter_vae_mid", 25, 3072, 3072, 1, 512),
+                       # DepthCrafter's f32 forward (the bf16_drift phase's f32
+                       # legs): CLIP ViT-H/14's 257 tokens over 16 heads of 80
+                       # per frame, on the CUDA-core body
+                       ("depthcrafter_clip", 25, 257, 257, 16, 80)]
 # the f32 forward's body by head width (kernel names of the packed entry)
-F32_BODIES = {64: "flash_packed_f32reg_kernel", 512: "flash_packed_f32w512_kernel"}
+F32_BODIES = {64: "flash_packed_f32reg_kernel", 512: "flash_packed_f32w512_kernel",
+              80: "flash_packed_kernel<float"}
 F32_WIDE_ITERS = 10  # the d 512 row's calls a timing (about 12 ms each)
 
 
 def phase_kernel_f32_pointmap(dev):
     """The packed kernel's f32 bodies (by kernel name: F32_BODIES, the
-    register-tiled bodies at d = 64 and 512) at the f32 paths' shapes
+    register-tiled bodies at d = 64 and 512, the CUDA-core body at CLIP's
+    d = 80) at the f32 paths' shapes
     against the plain version (F32_OUT_TOL), their events and device ms
     (torch.profiler), the plain version's, SDPA's in f32 (TF32 off; events
     and device ms) and the bound.  The earlier CUDA-core body at d = 64 and
@@ -3636,9 +3720,10 @@ def phase_serving(dev):
 
 # --- parallel/ on ranks of this machine that share the card -------------------------
 
-# the phase's clips: PAR_T frames for dp and pp, PAR_SP_T for sp (24: 25 has
-# no divisor but 5 and 25 for 2 ranks), at 384 x 512, 5 Euler steps
-PAR_T, PAR_SP_T, PAR_H, PAR_W, PAR_STEPS, PAR_SEED = 25, 24, 384, 512, 5, 42
+# the phase's clips: PAR_T frames for dp and pp, PAR_SP_T for sp (25 has no
+# divisor but 5 and 25 for 2 ranks; 12, cut from 24 to make room for the
+# bf16_drift phase), at 384 x 512, 5 Euler steps
+PAR_T, PAR_SP_T, PAR_H, PAR_W, PAR_STEPS, PAR_SEED = 25, 12, 384, 512, 5, 42
 PAR_TIMEOUT = 420  # seconds one launch of ranks may take
 PAR_RANKS_MODULE = "chip_smoke"  # the module whose rank functions the launches run
 # Aether's flow sampler over 2 ranks against its serial run, f32 with TF32
@@ -4025,7 +4110,7 @@ def scores_rel(ours, ref):
 
 def phase_parallel(dev):
     """See the module docstring ("parallel").  The references (each clip's
-    serial forward, the unsplit denoise of the 24 frames, one process's eval
+    serial forward, the unsplit denoise of the PAR_SP_T frames, one process's eval
     CLI) are run here first, then the ranks (run_ranks) with this process's
     cache of the card emptied."""
     from unigeo_tpu_torch.models.depthcrafter.model import DepthCrafter
@@ -4063,7 +4148,7 @@ def phase_parallel(dev):
             json.dump(identity_config(), f)
         single_dir, multi_dir = os.path.join(work, "single"), os.path.join(work, "multi")
         run_cli(["--config", cfg_path, "--output", single_dir, "--device", dev.type])
-        log("parallel", f"references (two serial forwards, the unsplit 24-frame clip, the "
+        log("parallel", f"references (two serial forwards, the unsplit {PAR_SP_T}-frame clip, the "
             f"one-process training steps, the identity CLI) in {time.perf_counter() - t0:.2f}s")
         job = {"identity_config": cfg_path, "eval_dir": multi_dir, "device": dev.type,
                "train_batch": train_batch, "aether_batch": aether_batch,
@@ -4112,7 +4197,7 @@ def phase_parallel(dev):
                      unsplit_scores=sp_ref, scores_rel_dev=sp_rel,
                      same_on_both=bool(torch.equal(x_sp, two[1]["sp"]["latents"])))
     log("parallel", f"sp 2 ranks ({two[0]['backend']}, {note}): DepthCrafter's denoise over "
-        f"{PAR_SP_T} frames (cut from {PAR_T}: 25 has no divisor but 5 and 25), "
+        f"{PAR_SP_T} frames (cut from {PAR_T}: 25 has no divisor but 5 and 25 for 2 ranks), "
         f"{PAR_SP_T // 2} a rank: "
         f"seconds per rank (encode, denoise, rank 0 decodes) "
         f"{[round(s, 3) for s in res['sp']['seconds']]}, flash launches per rank "
@@ -4590,6 +4675,8 @@ def main():
     launches, _ = phase_main(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    drifted = phase_bf16_drift(dev)
+    torch.cuda.empty_cache()
     served = phase_serving(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4663,6 +4750,13 @@ def main():
                    "launches_serving": {"pair_in_one_batch": served["launches_pair"],
                                         "single_clip": served["launches_single"]},
                    "serving": served,
+                   "launches_bf16_drift": {name: {"per_leg": r["launches"],
+                                                  "predicted": r["predicted_launches"]}
+                                           for name, r in drifted.items()},
+                   "bf16_drift": {name: {k: r[k] for k in (
+                       "held", "absrel", "absrel_aligned_lstsq", "delta_1p25",
+                       "normal_mean_angle_shift_deg", "yardstick", "seconds", "peak_gib")}
+                                  for name, r in drifted.items()},
                    "launches_parallel": {part: {"flash_launches_per_rank": v["flash_launches"],
                                                 "backend": v["backend"]}
                                          for part, v in parallel.items()
